@@ -1,0 +1,79 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+_ROOT = pathlib.Path(__file__).resolve().parent.parent
+_FORBIDDEN = re.compile(r"import jax|from jax|vizier_tpu(?!_torch)")
+
+
+def _port_sources():
+    files = sorted((_ROOT / "vizier_tpu_torch").rglob("*.py"))
+    files += sorted((_ROOT / "vizier_tpu_torch" / "csrc").glob("*"))
+    return files + [_ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax_module():
+    """Every port module (and chip_smoke) imported in a fresh interpreter adds
+    neither ``jax`` nor any module of the JAX package to ``sys.modules``."""
+    code = """
+import importlib, json, pkgutil, sys
+before = set(sys.modules)
+import vizier_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vizier_tpu_torch.__path__, "vizier_tpu_torch.")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+added = set(sys.modules) - before
+print(json.dumps(sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vizier_tpu"))))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=300,
+        check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(_ROOT)))
+def test_sources_do_not_name_the_jax_package(path):
+    for number, line in enumerate(path.read_text().splitlines(), 1):
+        assert not _FORBIDDEN.search(line), f"{path.name}:{number}: {line}"
+
+
+def _entry_points():
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
+    from vizier_tpu_torch.models import gp
+    from vizier_tpu_torch.optimizers import eagle, lbfgs, vectorized
+
+    problem = vz.ProblemStatement()
+    problem.search_space.root.add_float_param("x", 0.0, 1.0)
+    problem.metric_information.append(vz.MetricInformation(name="y"))
+    strategy = eagle.VectorizedEagleStrategy(1, ())
+    return {
+        "VizierGPUCBPEBandit": lambda **kw: gp_ucb_pe.VizierGPUCBPEBandit(problem, **kw),
+        "VizierGPBandit": lambda **kw: gp_bandit.VizierGPBandit(problem, **kw),
+        "VizierGaussianProcess": lambda **kw: gp.VizierGaussianProcess(1, 0, **kw),
+        "LbfgsOptimizer": lambda **kw: lbfgs.LbfgsOptimizer(**kw),
+        "VectorizedOptimizer": lambda **kw: vectorized.VectorizedOptimizer(strategy, **kw),
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["VizierGPUCBPEBandit", "VizierGPBandit", "VizierGaussianProcess", "LbfgsOptimizer",
+     "VectorizedOptimizer"],
+)
+def test_entry_point_without_device_raises_when_no_gpu(monkeypatch, name):
+    make = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")

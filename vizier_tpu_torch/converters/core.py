@@ -1,0 +1,465 @@
+"""Trial ⇄ array converters (copy of the JAX package's ``converters/core.py``).
+
+Parity with the upstream converter stack
+(``vizier/pyvizier/converters/core.py:36,539,1217`` and
+``jnp_converters.py:147``). Responsibilities:
+
+- scale continuous/integer/discrete parameters into ``[0, 1]`` model space
+  (LINEAR / LOG / REVERSE_LOG / index-based for discrete);
+- map categorical parameters to integer category indices (the GP's
+  categorical kernel consumes indices; one-hot is available for flat-vector
+  consumers);
+- map metrics to a ``[N, M]`` label matrix, sign-flipped so every objective
+  is MAXIMIZE, with NaN for infeasible/missing values;
+- invert all of the above (decode model-space points back to parameter
+  dicts, snapping integers/discretes to feasible values);
+- assemble padded ``ModelData`` (``types.PaddedArray``) under a
+  ``PaddingSchedule``.
+
+Conversion is host-side numpy; ``types.PaddedArray.to`` moves the result
+onto a torch device. Conditional search spaces are rejected here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from vizier_tpu_torch import types
+from vizier_tpu_torch.converters import padding as padding_lib
+from vizier_tpu_torch.pyvizier import base_study_config
+from vizier_tpu_torch.pyvizier import parameter_config as pc
+from vizier_tpu_torch.pyvizier import trial as trial_
+
+
+class SpecType(enum.Enum):
+    """How one parameter is represented in model space."""
+
+    CONTINUOUS = "CONTINUOUS"  # one float column in [0, 1]
+    CATEGORICAL = "CATEGORICAL"  # one integer column in [0, K)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParameterSpec:
+    """Model-space description of a single parameter."""
+
+    name: str
+    type: SpecType
+    num_categories: int = 0  # CATEGORICAL only
+
+
+class _ContinuousCodec:
+    """Scales one numeric parameter to/from [0, 1]."""
+
+    def __init__(self, config: pc.ParameterConfig):
+        self._config = config
+        self._scale = config.scale_type or pc.ScaleType.LINEAR
+        if config.type == pc.ParameterType.DISCRETE:
+            self._values = np.asarray([float(v) for v in config.feasible_values])
+        else:
+            self._values = None
+        lo, hi = config.bounds
+        self._lo, self._hi = float(lo), float(hi)
+        if self._scale.is_nonlinear() and self._lo <= 0:
+            raise ValueError(f"{config.name}: log scaling needs positive bounds.")
+
+    def encode(self, raw: np.ndarray) -> np.ndarray:
+        lo, hi = self._lo, self._hi
+        if self._scale == pc.ScaleType.UNIFORM_DISCRETE and self._values is not None:
+            idx = np.abs(raw[:, None] - self._values[None, :]).argmin(axis=1)
+            denom = max(len(self._values) - 1, 1)
+            return idx / denom
+        if hi == lo:
+            return np.full_like(raw, 0.5, dtype=np.float64)
+        if self._scale == pc.ScaleType.LOG:
+            return (np.log(raw) - np.log(lo)) / (np.log(hi) - np.log(lo))
+        if self._scale == pc.ScaleType.REVERSE_LOG:
+            return 1.0 - (np.log(hi + lo - raw) - np.log(lo)) / (np.log(hi) - np.log(lo))
+        return (raw - lo) / (hi - lo)
+
+    def decode(self, scaled: np.ndarray) -> np.ndarray:
+        scaled = np.clip(scaled, 0.0, 1.0)
+        lo, hi = self._lo, self._hi
+        if self._scale == pc.ScaleType.UNIFORM_DISCRETE and self._values is not None:
+            denom = max(len(self._values) - 1, 1)
+            idx = np.clip(np.round(scaled * denom), 0, len(self._values) - 1).astype(int)
+            return self._values[idx]
+        if hi == lo:
+            raw = np.full_like(scaled, lo, dtype=np.float64)
+        elif self._scale == pc.ScaleType.LOG:
+            raw = np.exp(np.log(lo) + scaled * (np.log(hi) - np.log(lo)))
+        elif self._scale == pc.ScaleType.REVERSE_LOG:
+            raw = hi + lo - np.exp(np.log(lo) + (1.0 - scaled) * (np.log(hi) - np.log(lo)))
+        else:
+            raw = lo + scaled * (hi - lo)
+        raw = np.clip(raw, lo, hi)
+        if self._config.type == pc.ParameterType.INTEGER:
+            return np.round(raw)
+        if self._values is not None:  # DISCRETE: snap to nearest feasible.
+            idx = np.abs(raw[:, None] - self._values[None, :]).argmin(axis=1)
+            return self._values[idx]
+        return raw
+
+    def to_value(self, raw: float) -> pc.ParameterValueTypes:
+        return self._config.cast_value(raw)
+
+
+class SearchSpaceEncoder:
+    """Encodes a flat search space into continuous + categorical columns."""
+
+    def __init__(
+        self,
+        search_space: pc.SearchSpace,
+        *,
+        max_discrete_indices: int = 0,
+    ):
+        """Args:
+
+        search_space: a *flat* (non-conditional) search space.
+        max_discrete_indices: if > 0, DISCRETE/INTEGER parameters with at
+          most this many feasible values are encoded as CATEGORICAL indices
+          instead of scaled floats (mirrors the reference's
+          ``max_discrete_indices`` behavior, ``converters/core.py:367``).
+        """
+        if search_space.is_conditional:
+            raise ValueError(
+                "SearchSpaceEncoder requires a flat search space; conditional "
+                "spaces are served by tree-aware designers."
+            )
+        self._space = search_space
+        self._continuous: List[pc.ParameterConfig] = []
+        self._categorical: List[pc.ParameterConfig] = []
+        for config in search_space.parameters:
+            if config.type == pc.ParameterType.CATEGORICAL:
+                self._categorical.append(config)
+            elif config.type == pc.ParameterType.CUSTOM:
+                raise ValueError(f"Cannot encode CUSTOM parameter {config.name!r}.")
+            elif (
+                max_discrete_indices
+                and config.type in (pc.ParameterType.DISCRETE, pc.ParameterType.INTEGER)
+                and config.num_feasible_values <= max_discrete_indices
+            ):
+                self._categorical.append(config)
+            else:
+                self._continuous.append(config)
+        self._codecs = {c.name: _ContinuousCodec(c) for c in self._continuous}
+        self._categories: Dict[str, List[pc.ParameterValueTypes]] = {}
+        for c in self._categorical:
+            if c.type == pc.ParameterType.CATEGORICAL:
+                self._categories[c.name] = list(c.feasible_values)
+            else:
+                self._categories[c.name] = [float(v) for v in c.feasible_values]
+
+    # -- specs -------------------------------------------------------------
+
+    @property
+    def continuous_specs(self) -> List[ParameterSpec]:
+        return [ParameterSpec(c.name, SpecType.CONTINUOUS) for c in self._continuous]
+
+    @property
+    def categorical_specs(self) -> List[ParameterSpec]:
+        return [
+            ParameterSpec(c.name, SpecType.CATEGORICAL, len(self._categories[c.name]))
+            for c in self._categorical
+        ]
+
+    @property
+    def num_continuous(self) -> int:
+        return len(self._continuous)
+
+    @property
+    def num_categorical(self) -> int:
+        return len(self._categorical)
+
+    @property
+    def category_sizes(self) -> List[int]:
+        return [len(self._categories[c.name]) for c in self._categorical]
+
+    @property
+    def onehot_dim(self) -> int:
+        return self.num_continuous + sum(self.category_sizes)
+
+    # -- encoding ----------------------------------------------------------
+
+    def encode(
+        self, trials: Sequence[trial_.Trial]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (continuous [N, Dc] float64, categorical [N, Ds] int32)."""
+        n = len(trials)
+        cont = np.zeros((n, self.num_continuous), dtype=np.float64)
+        for j, config in enumerate(self._continuous):
+            raw = np.asarray(
+                [
+                    float(
+                        t.parameters.get_value(config.name)
+                        if config.name in t.parameters
+                        else config.first_feasible_value()
+                    )
+                    for t in trials
+                ]
+            )
+            cont[:, j] = self._codecs[config.name].encode(raw)
+        cat = np.zeros((n, self.num_categorical), dtype=np.int32)
+        for j, config in enumerate(self._categorical):
+            cats = self._categories[config.name]
+            lookup = {v: i for i, v in enumerate(cats)}
+            for i, t in enumerate(trials):
+                v = t.parameters.get_value(config.name, cats[0])
+                if isinstance(cats[0], float):
+                    idx = int(np.abs(np.asarray(cats) - float(v)).argmin())
+                else:
+                    if isinstance(v, bool):
+                        v = "True" if v else "False"
+                    if str(v) not in lookup:
+                        raise ValueError(
+                            f"Trial {t.id}: value {v!r} is not a known category of "
+                            f"{config.name!r} (categories: {cats})."
+                        )
+                    idx = lookup[str(v)]
+                cat[i, j] = idx
+        return cont, cat
+
+    def decode(
+        self, continuous: np.ndarray, categorical: np.ndarray
+    ) -> List[trial_.ParameterDict]:
+        """Inverse of ``encode``: model-space rows → parameter dicts.
+
+        Accepts [N, Dc]/[N, Ds] matrices (1-D inputs are treated as a single
+        row only when their length matches the feature count).
+        """
+        continuous = np.asarray(continuous, dtype=np.float64)
+        categorical = np.asarray(categorical)
+        if continuous.ndim == 1:
+            continuous = (
+                continuous.reshape(-1, self.num_continuous)
+                if self.num_continuous
+                else np.zeros((0, 0))
+            )
+        if categorical.ndim == 1:
+            categorical = (
+                categorical.reshape(-1, self.num_categorical)
+                if self.num_categorical
+                else np.zeros((0, 0), dtype=np.int32)
+            )
+        if continuous.shape[1] != self.num_continuous:
+            raise ValueError(
+                f"continuous has {continuous.shape[1]} columns, expected {self.num_continuous}."
+            )
+        if categorical.shape[1] != self.num_categorical:
+            raise ValueError(
+                f"categorical has {categorical.shape[1]} columns, expected {self.num_categorical}."
+            )
+        if self.num_continuous and self.num_categorical:
+            if continuous.shape[0] != categorical.shape[0]:
+                raise ValueError(
+                    f"Row mismatch: continuous {continuous.shape[0]} vs "
+                    f"categorical {categorical.shape[0]}."
+                )
+        n = continuous.shape[0] if self.num_continuous else (
+            categorical.shape[0] if self.num_categorical else 0
+        )
+        out: List[trial_.ParameterDict] = []
+        decoded_cont: Dict[str, np.ndarray] = {}
+        for j, config in enumerate(self._continuous):
+            decoded_cont[config.name] = self._codecs[config.name].decode(continuous[:, j])
+        for i in range(n):
+            params = trial_.ParameterDict()
+            for config in self._continuous:
+                params[config.name] = config.cast_value(float(decoded_cont[config.name][i]))
+            for j, config in enumerate(self._categorical):
+                cats = self._categories[config.name]
+                idx = int(np.clip(categorical[i, j], 0, len(cats) - 1))
+                params[config.name] = config.cast_value(cats[idx])
+            out.append(params)
+        return out
+
+    # -- one-hot view (flat continuous vector consumers) -------------------
+
+    def onehot_encode(self, trials: Sequence[trial_.Trial]) -> np.ndarray:
+        cont, cat = self.encode(trials)
+        return self.onehot_from_split(cont, cat)
+
+    def onehot_from_split(self, continuous: np.ndarray, categorical: np.ndarray) -> np.ndarray:
+        n = continuous.shape[0] if self.num_continuous else np.atleast_2d(categorical).shape[0]
+        blocks = [np.atleast_2d(continuous)] if self.num_continuous else []
+        categorical = np.atleast_2d(categorical)
+        for j, size in enumerate(self.category_sizes):
+            onehot = np.zeros((n, size))
+            onehot[np.arange(n), np.clip(categorical[:, j], 0, size - 1)] = 1.0
+            blocks.append(onehot)
+        if not blocks:
+            return np.zeros((n, 0))
+        return np.concatenate(blocks, axis=1)
+
+    def onehot_to_split(self, flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Splits a flat [N, onehot_dim] matrix back to (continuous, indices)."""
+        flat = np.atleast_2d(flat)
+        cont = flat[:, : self.num_continuous]
+        cat = np.zeros((flat.shape[0], self.num_categorical), dtype=np.int32)
+        offset = self.num_continuous
+        for j, size in enumerate(self.category_sizes):
+            cat[:, j] = flat[:, offset : offset + size].argmax(axis=1)
+            offset += size
+        return cont, cat
+
+
+class MetricsEncoder:
+    """Maps trial measurements to a [N, M] label matrix (all-MAXIMIZE)."""
+
+    def __init__(self, metrics: base_study_config.MetricsConfig, *, flip_signs_for_min: bool = True):
+        self._metrics = list(metrics)
+        self._flip = flip_signs_for_min
+
+    @property
+    def metric_names(self) -> List[str]:
+        return [m.name for m in self._metrics]
+
+    @property
+    def num_metrics(self) -> int:
+        return len(self._metrics)
+
+    def encode(self, trials: Sequence[trial_.Trial]) -> np.ndarray:
+        out = np.full((len(trials), len(self._metrics)), np.nan, dtype=np.float64)
+        for i, t in enumerate(trials):
+            # Infeasible trials contribute NaN even if they carry a
+            # measurement (e.g. safety-warped trials keep their data).
+            if t.final_measurement is None or t.infeasible:
+                continue
+            for j, info in enumerate(self._metrics):
+                metric = t.final_measurement.metrics.get(info.name)
+                if metric is None:
+                    continue
+                value = metric.value
+                if self._flip and info.goal == base_study_config.ObjectiveMetricGoal.MINIMIZE:
+                    value = -value
+                out[i, j] = value
+        return out
+
+    def decode(self, labels: np.ndarray) -> np.ndarray:
+        """Undoes the sign flip (model space → user space)."""
+        labels = np.array(labels, copy=True)
+        for j, info in enumerate(self._metrics):
+            if self._flip and info.goal == base_study_config.ObjectiveMetricGoal.MINIMIZE:
+                labels[:, j] = -labels[:, j]
+        return labels
+
+    def decode_column(self, values: np.ndarray, index: int) -> np.ndarray:
+        """model space → user space for ONE metric column (any shape).
+
+        The single owner of the flip rule — designers' ``sample``/``predict``
+        route through this so a converter built with
+        ``flip_signs_for_min=False`` never gets double-(un)flipped.
+        """
+        info = self._metrics[index]
+        if self._flip and info.goal == base_study_config.ObjectiveMetricGoal.MINIMIZE:
+            return -np.asarray(values)
+        return np.asarray(values)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialToModelInputConverter:
+    """Trials → padded ``ModelData`` (the GP input path).
+
+    Parity with the reference ``TrialToModelInputConverter``
+    (``jnp_converters.py:147``), built on ``SearchSpaceEncoder`` +
+    ``MetricsEncoder`` + a ``PaddingSchedule``.
+    """
+
+    encoder: SearchSpaceEncoder
+    metrics: MetricsEncoder
+    padding: padding_lib.PaddingSchedule
+
+    @classmethod
+    def from_problem(
+        cls,
+        problem: base_study_config.ProblemStatement,
+        *,
+        padding: Optional[padding_lib.PaddingSchedule] = None,
+        max_discrete_indices: int = 0,
+    ) -> "TrialToModelInputConverter":
+        return cls(
+            encoder=SearchSpaceEncoder(
+                problem.search_space, max_discrete_indices=max_discrete_indices
+            ),
+            metrics=MetricsEncoder(problem.metric_information),
+            padding=padding if padding is not None else padding_lib.DEFAULT_PADDING,
+        )
+
+    def _pad_rows(self, n: int) -> int:
+        return self.padding.pad_trials(n)
+
+    def to_features(self, trials: Sequence[trial_.Trial]) -> types.ModelInput:
+        cont, cat = self.encoder.encode(trials)
+        n_pad = self._pad_rows(len(trials))
+        dc_pad = self.padding.pad_features(self.encoder.num_continuous)
+        ds_pad = self.padding.pad_features(self.encoder.num_categorical)
+        cont_pa = types.PaddedArray.from_array(
+            cont.astype(np.float32), (n_pad, dc_pad), fill_value=0.0
+        )
+        cat_pa = types.PaddedArray.from_array(
+            cat.astype(np.int32), (n_pad, ds_pad), fill_value=0
+        )
+        return types.ContinuousAndCategorical(continuous=cont_pa, categorical=cat_pa)
+
+    def to_labels(self, trials: Sequence[trial_.Trial]) -> types.PaddedArray:
+        labels = self.metrics.encode(trials)
+        n_pad = self._pad_rows(len(trials))
+        m_pad = self.padding.pad_metrics(self.metrics.num_metrics)
+        return types.PaddedArray.from_array(
+            labels.astype(np.float32), (n_pad, m_pad), fill_value=np.nan
+        )
+
+    def to_xy(self, trials: Sequence[trial_.Trial]) -> types.ModelData:
+        return types.ModelData(
+            features=self.to_features(trials), labels=self.to_labels(trials)
+        )
+
+    def to_parameters(
+        self, continuous: np.ndarray, categorical: np.ndarray
+    ) -> List[trial_.ParameterDict]:
+        return self.encoder.decode(continuous, categorical)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialToArrayConverter:
+    """Trials → flat [N, D] one-hot matrix (evolution / benchmark path).
+
+    Parity with the reference ``TrialToArrayConverter`` (``core.py:1217``).
+    """
+
+    encoder: SearchSpaceEncoder
+    metrics: MetricsEncoder
+
+    @classmethod
+    def from_study_config(
+        cls,
+        problem: base_study_config.ProblemStatement,
+        *,
+        max_discrete_indices: int = 0,
+    ) -> "TrialToArrayConverter":
+        return cls(
+            encoder=SearchSpaceEncoder(
+                problem.search_space, max_discrete_indices=max_discrete_indices
+            ),
+            metrics=MetricsEncoder(problem.metric_information),
+        )
+
+    @property
+    def output_dim(self) -> int:
+        return self.encoder.onehot_dim
+
+    def to_features(self, trials: Sequence[trial_.Trial]) -> np.ndarray:
+        return self.encoder.onehot_encode(trials)
+
+    def to_labels(self, trials: Sequence[trial_.Trial]) -> np.ndarray:
+        return self.metrics.encode(trials)
+
+    def to_xy(self, trials: Sequence[trial_.Trial]) -> Tuple[np.ndarray, np.ndarray]:
+        return self.to_features(trials), self.to_labels(trials)
+
+    def to_parameters(self, flat: np.ndarray) -> List[trial_.ParameterDict]:
+        cont, cat = self.encoder.onehot_to_split(flat)
+        return self.encoder.decode(cont, cat)

@@ -1,0 +1,375 @@
+"""VizierGPUCBPEBandit: the DEFAULT algorithm (GP-UCB with Pure Exploration).
+
+Counterpart of the JAX package's ``designers/gp_ucb_pe.py:858``, single-objective
+exact-GP path (algorithm from Contal et al., "Parallel Gaussian Process
+Optimization with UCB and Pure Exploration"):
+
+- Two conditioned posteriors: ``completed`` (observed labels) and ``all``
+  (completed + pending/active + already-picked batch points; only the
+  stddev matters, and GP posterior stddev is label-free).
+- **UCB score** = mean(completed) + c·stddev(all): pending points deflate
+  the stddev so concurrent workers do not duplicate suggestions.
+- **PE score** = stddev(all) + penalty·min(explore_ucb − threshold, 0) where
+  the threshold is the completed-posterior mean at the argmax-UCB point
+  over observed+pending features.
+- **UCB/PE choice** per pick: fresh completed trials → UCB except w.p.
+  ``pe_overwrite_probability`` (raised in the high-noise regime);
+  otherwise PE except w.p. ``ucb_overwrite_probability``.
+
+Picks are written into spare padded rows, and each pick re-conditions the
+all-points posterior (one batched Cholesky over the ensemble) before its
+eagle sweep.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vizier_tpu_torch import types
+from vizier_tpu_torch.algorithms import core as core_lib
+from vizier_tpu_torch.designers import gp_bandit
+from vizier_tpu_torch.designers.gp import acquisitions
+from vizier_tpu_torch.models import gp as gp_lib
+from vizier_tpu_torch.models import kernels
+from vizier_tpu_torch.models import output_warpers
+from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
+from vizier_tpu_torch.pyvizier import trial as trial_
+
+Tensor = torch.Tensor
+
+_PE_NOISE_STDDEV = 1e-5  # noise floor for the all-predictive in high noise
+_MIN_PICK_EVALUATIONS = 500  # ≥10 eagle generations at the default pool of 50
+
+
+@dataclasses.dataclass(frozen=True)
+class UCBPEConfig:
+    """UCB-PE config (reference ``UCBPEConfig``), single-objective fields."""
+
+    ucb_coefficient: float = 1.8
+    # A separate (smaller) coefficient defining the region worth exploring.
+    explore_region_ucb_coefficient: float = 0.5
+    # Slope of the linear penalty for violating UCB(x) >= threshold.
+    cb_violation_penalty_coefficient: float = 10.0
+    # P(UCB) when there are NO new completed trials.
+    ucb_overwrite_probability: float = 0.25
+    # P(PE) when there ARE new completed trials.
+    pe_overwrite_probability: float = 0.1
+    # Same, in the detected-high-noise regime.
+    pe_overwrite_probability_in_high_noise: float = 0.7
+    # signal/noise variance ratio below which noise is considered high
+    # (0 disables the high-noise behaviors).
+    signal_to_noise_threshold: float = 0.7
+
+
+def _mixture_predict(states: gp_lib.GPState, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+    """Moment-matched mixture over the ensemble axis: ([Q] mean, [Q] stddev)."""
+    return gp_lib.EnsemblePredictive(states).predict(query)
+
+
+def _pe_conditioning(
+    states_completed: gp_lib.GPState, all_data: gp_lib.GPData, config: UCBPEConfig
+) -> Tuple[Dict[str, Tensor], Tensor, Tensor]:
+    """(pe_params, noise_is_high, threshold): shared UCB-PE conditioning.
+
+    - High-noise detection: all ensemble members' signal/noise variance
+      ratios below the config threshold → the all-points predictive gets a
+      near-zero noise floor so pending points fully deflate local stddev.
+    - Promising-region threshold: completed-posterior mean at the
+      argmax-UCB point among observed + pending features.
+    """
+    params = states_completed.params
+    snr = (params["amplitude"] / params["noise_stddev"]) ** 2
+    noise_is_high = torch.all(snr < config.signal_to_noise_threshold) & (
+        config.signal_to_noise_threshold > 0.0
+    )
+    pe_params = dict(params)
+    pe_params["noise_stddev"] = torch.where(
+        noise_is_high, torch.full_like(params["noise_stddev"], _PE_NOISE_STDDEV),
+        params["noise_stddev"],
+    )
+    mean_at, std_at = _mixture_predict(states_completed, all_data.features())
+    ucb_at = torch.where(
+        all_data.row_mask,
+        mean_at + config.ucb_coefficient * std_at,
+        torch.full_like(mean_at, float("-inf")),
+    )
+    threshold = mean_at[torch.argmax(ucb_at)]
+    return pe_params, noise_is_high, threshold
+
+
+def _append_row(data: gp_lib.GPData, x: kernels.MixedFeatures) -> gp_lib.GPData:
+    """Writes x into the first free padded row (labels stay 0: stddev-only)."""
+    idx = torch.sum(data.row_mask.to(torch.int64))  # first free slot
+    at = torch.arange(data.num_rows, device=idx.device) == idx
+    return dataclasses.replace(
+        data,
+        continuous=torch.where(at[:, None], x.continuous[:1], data.continuous),
+        categorical=torch.where(at[:, None], x.categorical[:1], data.categorical),
+        row_mask=data.row_mask | at,
+    )
+
+
+def _suggest_batch(
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    states_completed: gp_lib.GPState,
+    all_data: gp_lib.GPData,
+    prior_features: kernels.MixedFeatures,
+    generator: torch.Generator,
+    first_has_new: bool,
+    has_completed: bool,
+    count: int,
+    config: UCBPEConfig,
+    use_trust_region: bool = True,
+) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
+    """The greedy batch: per pick, UCB-or-PE with pending-point conditioning."""
+    model = states_completed.model
+    trust = acquisitions.TrustRegion.from_data(all_data) if use_trust_region else None
+    picks, scores = [], []
+    aux: Dict[str, list] = {"mean": [], "stddev": [], "stddev_from_all": [], "use_ucb": []}
+    for b in range(count):
+        # Shared conditioning, recomputed on the grown pending set.
+        pe_params, noise_is_high, threshold = _pe_conditioning(
+            states_completed, all_data, config
+        )
+        states_all = model.precompute_constrained(pe_params, all_data)
+
+        # Pick-level UCB/PE decision (reference `_suggest_one` logic).
+        u = torch.rand((), generator=generator, device=generator.device)
+        if b == 0 and first_has_new:
+            pe_p = torch.where(
+                noise_is_high,
+                torch.tensor(config.pe_overwrite_probability_in_high_noise, device=u.device),
+                torch.tensor(config.pe_overwrite_probability, device=u.device),
+            )
+            use_ucb = ~(u < pe_p)
+        else:
+            use_ucb = (u < config.ucb_overwrite_probability) & has_completed
+
+        def score_fn(query: kernels.MixedFeatures) -> Tensor:
+            mean_c, std_c = _mixture_predict(states_completed, query)
+            _, std_all = _mixture_predict(states_all, query)
+            ucb_score = mean_c + config.ucb_coefficient * std_all
+            explore_ucb = mean_c + config.explore_region_ucb_coefficient * std_c
+            penalty = config.cb_violation_penalty_coefficient * torch.clamp(
+                explore_ucb - threshold, max=0.0
+            )
+            value = torch.where(use_ucb, ucb_score, std_all + penalty)
+            if trust is not None:
+                value = value - trust.penalty(query)
+            return value
+
+        result = vec_opt(score_fn, generator, count=1, prior_features=prior_features)
+        x = kernels.MixedFeatures(
+            result.features.continuous[:1], result.features.categorical[:1]
+        )
+        mean_x, std_x = _mixture_predict(states_completed, x)
+        _, std_all_x = _mixture_predict(states_all, x)
+        all_data = _append_row(all_data, x)
+        picks.append(x)
+        scores.append(result.scores[:1])
+        aux["mean"].append(mean_x)
+        aux["stddev"].append(std_x)
+        aux["stddev_from_all"].append(std_all_x)
+        aux["use_ucb"].append(use_ucb.reshape(1))
+    out = {k: torch.cat(v) for k, v in aux.items()}
+    out["trust_radius"] = (
+        trust.trust_radius() if trust is not None else torch.tensor(float("inf"))
+    )
+    features = kernels.MixedFeatures(
+        torch.cat([p.continuous for p in picks]), torch.cat([p.categorical for p in picks])
+    )
+    return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores)), out
+
+
+@dataclasses.dataclass
+class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
+    """GP-UCB-PE batch designer (service DEFAULT)."""
+
+    config: UCBPEConfig = UCBPEConfig()
+    num_seed_trials: int = 1  # reference default: center point first
+    # Acquisition evaluation budget for batch suggests:
+    # - "first_pick_full" (default): the first (exploitation) pick runs the
+    #   full ``max_acquisition_evaluations``; the remaining picks split one
+    #   further full budget between them.
+    # - "per_batch": one full budget split across all picks (floored at
+    #   _MIN_PICK_EVALUATIONS).
+    # - "per_pick": every pick runs the full budget.
+    acquisition_budget_policy: str = "first_pick_full"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.acquisition_budget_policy not in ("first_pick_full", "per_batch", "per_pick"):
+            raise ValueError(
+                "acquisition_budget_policy must be 'first_pick_full' | "
+                f"'per_batch' | 'per_pick', got {self.acquisition_budget_policy!r}."
+            )
+        self._active_trials: List[trial_.Trial] = []
+        self._metric_warper = output_warpers.create_default_warper()
+        # The trained state, reused until new data arrives.
+        self._cached_states: Optional[Tuple[gp_lib.GPState, gp_lib.GPData]] = None
+        self._pick_opt_cache: Dict[int, vectorized_lib.VectorizedOptimizer] = {}
+        # Per-objective warm-start seeds (one: single objective), random until
+        # a train has run.
+        coll = self._model.param_collection()
+        self._warm_params_me = [
+            coll.random_init_unconstrained(gp_bandit._generator(self.device, self.rng_seed + 2))
+        ]
+
+    def _split_vec_opt(self, num_picks: int) -> vectorized_lib.VectorizedOptimizer:
+        """One full budget split evenly across ``num_picks`` picks."""
+        if num_picks <= 1:
+            return self._vec_opt
+        per_pick = max(self.max_acquisition_evaluations // num_picks, _MIN_PICK_EVALUATIONS)
+        opt = self._pick_opt_cache.get(per_pick)
+        if opt is None:
+            opt = vectorized_lib.VectorizedOptimizer(
+                self._vec_opt.strategy, max_evaluations=per_pick, device=self.device
+            )
+            self._pick_opt_cache[per_pick] = opt
+        return opt
+
+    def _pick_vec_opt(self, count: int) -> vectorized_lib.VectorizedOptimizer:
+        """The acquisition optimizer the batch loop's picks run with."""
+        if self.acquisition_budget_policy == "per_pick" or count <= 1:
+            return self._vec_opt
+        if self.acquisition_budget_policy == "first_pick_full":
+            return self._split_vec_opt(count - 1)
+        return self._split_vec_opt(count)
+
+    # -- Designer ----------------------------------------------------------
+
+    def update(
+        self,
+        completed: core_lib.CompletedTrials,
+        all_active: core_lib.ActiveTrials = core_lib.ActiveTrials(),
+    ) -> None:
+        if completed.trials:
+            self._cached_states = None  # new labels invalidate the GP fit
+        self._trials.extend(completed.trials)
+        self._active_trials = list(all_active.trials)
+
+    def _has_new_completed_trials(self) -> bool:
+        """True iff a completed trial postdates every active trial's creation."""
+        if not self._trials:
+            return False
+        if not self._active_trials:
+            return True
+        completion = [t.completion_time for t in self._trials if t.completion_time]
+        creation = [t.creation_time for t in self._active_trials if t.creation_time]
+        if not completion or not creation:
+            return True
+        return max(completion) > max(creation)
+
+    def _train_states(self) -> Tuple[gp_lib.GPState, gp_lib.GPData]:
+        """ARD train of the single objective; cached until update() adds labels."""
+        if self._cached_states is not None:
+            return self._cached_states
+        self._require_single_objective()
+        (index,) = [
+            j for j, m in enumerate(self.problem.metric_information) if not m.is_safety_metric
+        ]
+        raw = self._converter.metrics.encode(self._trials)  # [N, M_all], all-MAXIMIZE
+        features, n_pad = self._padded_features(self._trials)
+        warped = self._metric_warper(raw[:, index]) if raw.shape[0] else raw[:, index]
+        data = gp_lib.GPData.from_model_data(
+            types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
+        )
+        states = self._train(data, max(self.ensemble_size, 1), self._warm_params_me[0])
+        if self._warm_update_allowed():
+            self._warm_params_me = [self._unconstrained_best(states)]
+            self._warm_is_trained = True
+        self._cached_states = (states, data)
+        return self._cached_states
+
+    # -- warm-start surface ------------------------------------------------
+
+    def warm_start_state(self) -> Optional[List[gp_lib.Params]]:
+        """Per-objective trained unconstrained params."""
+        return list(self._warm_params_me) if self._warm_is_trained else None
+
+    def set_warm_start_state(self, params: List[gp_lib.Params]) -> None:
+        if len(params) != len(self._warm_params_me):
+            raise ValueError(
+                f"Expected {len(self._warm_params_me)} per-metric param dicts, "
+                f"got {len(params)}."
+            )
+        self._warm_params_me = [
+            {k: v.to(self.device) for k, v in p.items()} for p in params
+        ]
+        self._warm_is_trained = True
+
+    def _all_points_data(self, count: int) -> gp_lib.GPData:
+        """GPData over completed+active rows with capacity for the picks."""
+        all_trials = list(self._trials) + list(self._active_trials)
+        features, n_pad = self._padded_features(all_trials, extra_rows=count)
+        spare = n_pad - len(all_trials)
+        if spare < count:  # capacity guard: _append_row must never no-op
+            raise RuntimeError(
+                f"Padded capacity {n_pad} leaves {spare} spare rows for a batch of {count}."
+            )
+        zero_labels = types.PaddedArray.from_array(
+            np.zeros((len(all_trials), 1), np.float32), (n_pad, 1), fill_value=np.nan
+        )
+        return gp_lib.GPData.from_model_data(types.ModelData(features, zero_labels), self.device)
+
+    def suggest(self, count: Optional[int] = None) -> List[trial_.TrialSuggestion]:
+        count = count or 1
+        if len(self._trials) + len(self._active_trials) < self.num_seed_trials:
+            return self._seed_suggestions(count)
+        states, data = self._train_states()
+        all_data = self._all_points_data(count)
+        first_has_new = self._has_new_completed_trials()
+        has_completed = bool(self._trials)
+        prior = gp_bandit._prior_features_from_data(data)
+        args = (self.config, self.use_trust_region)
+        if self.acquisition_budget_policy == "first_pick_full" and count > 1:
+            # Full budget on the exploitation-critical first pick; one
+            # further full budget split across the remaining picks.
+            first, aux1 = _suggest_batch(
+                self._vec_opt, states, all_data, prior, self._generator,
+                first_has_new, has_completed, 1, *args,
+            )
+            all_data = _append_row(all_data, first.features)
+            rest, aux2 = _suggest_batch(
+                self._pick_vec_opt(count), states, all_data, prior, self._generator,
+                False, has_completed, count - 1, *args,
+            )
+            results = [(first, aux1, 1), (rest, aux2, count - 1)]
+        else:
+            batch, aux = _suggest_batch(
+                self._pick_vec_opt(count), states, all_data, prior, self._generator,
+                first_has_new, has_completed, count, *args,
+            )
+            results = [(batch, aux, count)]
+        out: List[trial_.TrialSuggestion] = []
+        for result, aux, rows in results:
+            out.extend(self._decode_ucb_pe(result, aux, rows))
+        return out
+
+    def _decode_ucb_pe(
+        self, result: vectorized_lib.VectorizedOptimizerResult, aux: dict, count: int
+    ) -> List[trial_.TrialSuggestion]:
+        enc = self._converter.encoder
+        cont = result.features.continuous[:count].cpu().numpy()
+        cat = result.features.categorical[:count].cpu().numpy()
+        scores = result.scores[:count].cpu().numpy()
+        host = {k: v.cpu().numpy() for k, v in aux.items()}
+        suggestions = []
+        for i in range(count):
+            params = self._converter.to_parameters(
+                cont[i : i + 1, : enc.num_continuous], cat[i : i + 1, : enc.num_categorical]
+            )[0]
+            s = trial_.TrialSuggestion(parameters=params)
+            ns = s.metadata.ns("gp_ucb_pe")
+            ns["acquisition"] = float(scores[i])
+            ns["use_ucb"] = str(bool(host["use_ucb"][i]))
+            ns["trust_radius"] = float(host["trust_radius"])
+            pred = ns.ns("prediction_in_warped_y_space")
+            for key in ("mean", "stddev", "stddev_from_all"):
+                pred[key] = np.array2string(host[key][i : i + 1], separator=",")
+            suggestions.append(s)
+        return suggestions

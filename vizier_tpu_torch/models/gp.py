@@ -1,0 +1,244 @@
+"""The Vizier Gaussian process: masked training, prediction, ensembles.
+
+Counterpart of the JAX package's ``models/gp.py``: an ARD Matern-5/2 GP over mixed
+continuous/categorical features, float32 throughout with a noise floor and
+jitter. Padded rows are decoupled (off-diagonal zeroed, unit diagonal, zero
+residual), so fill values never reach the factorization.
+
+Where the JAX package ``vmap``s over restarts and ensemble members, every
+function here takes parameters with a leading batch axis ``B`` and shares
+one ``GPData`` across it; the Gram comes from the batched kernel
+(``kernels.matern52_ard``) and the factorizations from batched
+``torch.linalg`` calls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from vizier_tpu_torch import device as device_lib
+from vizier_tpu_torch import types
+from vizier_tpu_torch.models import kernels
+from vizier_tpu_torch.models import params as params_lib
+
+Tensor = torch.Tensor
+Params = params_lib.Params
+
+_LOG_2PI = 1.8378770664093453
+_JITTER = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class GPData:
+    """Training data as tensors, with validity masks."""
+
+    continuous: Tensor  # [N, Dc] float32 in [0, 1]
+    categorical: Tensor  # [N, Ds] int32
+    labels: Tensor  # [N] float32 (warped; zero on invalid rows)
+    row_mask: Tensor  # [N] bool, True = real data
+    cont_dim_mask: Tensor  # [Dc] bool
+    cat_dim_mask: Tensor  # [Ds] bool
+
+    @classmethod
+    def from_model_data(
+        cls, data: types.ModelData, device: torch.device, metric_index: int = 0
+    ) -> "GPData":
+        data = data.to(device)
+        cont = data.features.continuous
+        cat = data.features.categorical
+        labels = data.labels.padded_array[:, metric_index]
+        row_mask = cont.valid_mask(0) & data.labels.valid_mask(0) & ~torch.isnan(labels)
+        return cls(
+            continuous=cont.padded_array.to(torch.float32),
+            categorical=cat.padded_array.to(torch.int32),
+            labels=torch.where(
+                row_mask, torch.nan_to_num(labels), torch.zeros_like(labels)
+            ).to(torch.float32),
+            row_mask=row_mask,
+            cont_dim_mask=cont.valid_mask(1),
+            cat_dim_mask=cat.valid_mask(1),
+        )
+
+    @property
+    def num_rows(self) -> int:
+        return self.continuous.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.continuous.device
+
+    def features(self) -> kernels.MixedFeatures:
+        return kernels.MixedFeatures(self.continuous, self.categorical)
+
+
+@dataclasses.dataclass(frozen=True)
+class VizierGaussianProcess:
+    """Static model config + pure functions over (batched params, data)."""
+
+    num_continuous: int
+    num_categorical: int
+    # HEBO-style learnable Kumaraswamy input warping of the [0,1] continuous
+    # features: u -> 1-(1-u^a)^b with per-dimension a, b.
+    use_input_warping: bool = False
+    # "cuda" (the default) or "cpu"; CUDA raises when no GPU is present.
+    device: device_lib.DeviceLike = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", device_lib.resolve(self.device))
+
+    # -- hyperparameter declaration ---------------------------------------
+
+    def param_collection(self) -> params_lib.ParameterCollection:
+        sc = params_lib.SoftClip
+        spec = params_lib.ParameterSpec
+        specs = [
+            spec("amplitude", (), sc(0.01, 100.0), 0.1, 10.0, prior_mu=0.0, prior_sigma=1.0),
+            spec(
+                "noise_stddev", (), sc(1e-3, 1.0), 5e-3, 0.3,
+                prior_mu=float(np.log(1e-2)), prior_sigma=1.0,
+            ),
+        ]
+        if self.num_continuous:
+            specs.append(
+                spec(
+                    "continuous_length_scales", (self.num_continuous,), sc(0.005, 100.0),
+                    0.05, 2.0, prior_mu=float(np.log(0.3)), prior_sigma=1.0,
+                )
+            )
+        if self.num_categorical:
+            # Weak prior centered at ls ~ 0.71 (the reference's categorical
+            # regularizer); a tight one zeroes all cross-category correlation.
+            specs.append(
+                spec(
+                    "categorical_length_scales", (self.num_categorical,), sc(0.05, 100.0),
+                    0.1, 10.0, prior_mu=float(np.log(np.sqrt(0.5))), prior_sigma=3.5,
+                )
+            )
+        if self.use_input_warping and self.num_continuous:
+            for name in ("warp_a", "warp_b"):
+                specs.append(
+                    spec(
+                        name, (self.num_continuous,), sc(0.25, 4.0), 0.8, 1.25,
+                        prior_mu=0.0, prior_sigma=0.5,
+                    )
+                )
+        return params_lib.ParameterCollection(tuple(specs))
+
+    # -- kernel ------------------------------------------------------------
+
+    def _warp_features(self, p: Params, f: kernels.MixedFeatures) -> kernels.MixedFeatures:
+        if not (self.use_input_warping and self.num_continuous):
+            return f
+        u = torch.clamp(f.continuous, 1e-6, 1.0 - 1e-6)
+        a, b = p["warp_a"][:, None, :], p["warp_b"][:, None, :]
+        return kernels.MixedFeatures(1.0 - (1.0 - u ** a) ** b, f.categorical)
+
+    def _kernel(
+        self, p: Params, f1: kernels.MixedFeatures, f2: kernels.MixedFeatures, data: GPData
+    ) -> Tensor:
+        batch = p["amplitude"].shape[0]
+        ones = lambda n: torch.ones((batch, n), device=data.device)  # noqa: E731
+        cont_ls = p.get("continuous_length_scales", ones(self.num_continuous))
+        cat_ls = p.get("categorical_length_scales", ones(self.num_categorical))
+        return kernels.matern52_ard(
+            self._warp_features(p, f1),
+            self._warp_features(p, f2),
+            amplitude=p["amplitude"],
+            continuous_length_scales=cont_ls,
+            categorical_length_scales=cat_ls,
+            continuous_dim_mask=data.cont_dim_mask,
+            categorical_dim_mask=data.cat_dim_mask,
+        )
+
+    # -- likelihood --------------------------------------------------------
+
+    def _masked_gram(self, p: Params, data: GPData) -> Tensor:
+        """[B, N, N]: K + (noise²+jitter)·I on valid rows; identity on padded rows."""
+        k = self._kernel(p, data.features(), data.features(), data)
+        m = data.row_mask
+        pair = m[:, None] & m[None, :]
+        k = torch.where(pair, k, torch.zeros_like(k))  # also zeroes padded diagonal
+        noise = p["noise_stddev"] * p["noise_stddev"] + _JITTER  # [B]
+        diag = torch.where(m[None, :], noise[:, None], torch.ones_like(noise)[:, None])
+        return k + torch.diag_embed(diag)
+
+    def neg_log_likelihood(self, unconstrained: Params, data: GPData) -> Tensor:
+        """[B] ARD losses: -log p(y | X, θ) + log-normal regularization."""
+        device_lib.check(data.continuous, self.device, "GP data")
+        coll = self.param_collection()
+        p = coll.constrain(unconstrained)
+        gram = self._masked_gram(p, data)
+        chol, info = torch.linalg.cholesky_ex(gram)
+        y = data.labels
+        alpha = torch.cholesky_solve(
+            y.expand(gram.shape[0], -1)[..., None], chol
+        )[..., 0]
+        n_valid = torch.sum(data.row_mask.to(torch.float32))
+        # Padded rows: y = 0 and unit diag ⇒ zero contribution to each term.
+        data_fit = 0.5 * torch.sum(y * alpha, dim=-1)
+        log_diag = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1))
+        log_det = torch.sum(torch.where(data.row_mask, log_diag, torch.zeros_like(log_diag)), -1)
+        loss = data_fit + log_det + 0.5 * n_valid * _LOG_2PI + coll.regularization(p)
+        # Guard non-finite losses and failed factorizations (the reference's
+        # Cholesky returns NaN where torch reports info > 0).
+        ok = torch.isfinite(loss) & (info == 0)
+        return torch.where(ok, loss, torch.full_like(loss, 1e10))
+
+    # -- predictive --------------------------------------------------------
+
+    def precompute(self, unconstrained: Params, data: GPData) -> "GPState":
+        return self.precompute_constrained(self.param_collection().constrain(unconstrained), data)
+
+    def precompute_constrained(self, p: Params, data: GPData) -> "GPState":
+        """Cholesky, alpha and the explicit L⁻¹ for matmul-only predicts."""
+        device_lib.check(data.continuous, self.device, "GP data")
+        gram = self._masked_gram(p, data)
+        chol = torch.linalg.cholesky_ex(gram)[0]
+        alpha = torch.cholesky_solve(data.labels.expand(gram.shape[0], -1)[..., None], chol)[..., 0]
+        eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+        linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
+        return GPState(model=self, params=p, data=data, chol=chol, alpha=alpha, linv=linv)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPState:
+    """Cholesky-precomputed posteriors of B parameter sets over one dataset."""
+
+    model: VizierGaussianProcess
+    params: Params  # constrained, leading axis B
+    data: GPData
+    chol: Tensor  # [B, N, N]
+    alpha: Tensor  # [B, N]
+    linv: Tensor  # [B, N, N] = chol⁻¹
+
+    def predict(
+        self, query: kernels.MixedFeatures, *, include_noise: bool = False
+    ) -> Tuple[Tensor, Tensor]:
+        """Posterior mean and stddev at query points ([B, Q], [B, Q])."""
+        model, p, data = self.model, self.params, self.data
+        k_star = model._kernel(p, query, data.features(), data)  # [B, Q, N]
+        k_star = torch.where(data.row_mask[None, None, :], k_star, torch.zeros_like(k_star))
+        mean = (k_star @ self.alpha[..., None])[..., 0]
+        v = self.linv @ k_star.transpose(-1, -2)  # [B, N, Q]
+        var = (p["amplitude"] * p["amplitude"])[:, None] - torch.sum(v * v, dim=-2)
+        if include_noise:
+            var = var + (p["noise_stddev"] * p["noise_stddev"])[:, None]
+        return mean, torch.sqrt(torch.clamp(var, min=1e-12))
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsemblePredictive:
+    """Uniform, moment-matched Gaussian mixture over a GPState's batch axis."""
+
+    states: GPState
+
+    def predict(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+        means, stddevs = self.states.predict(query)
+        mean = torch.mean(means, dim=0)
+        second = torch.mean(stddevs**2 + means**2, dim=0)
+        var = torch.clamp(second - mean**2, min=1e-12)
+        return mean, torch.sqrt(var)

@@ -1,0 +1,90 @@
+"""Builds the CUDA sources under ``csrc/`` and binds them with ctypes.
+
+The kernels have a plain C interface, so ``nvcc`` compiles them in seconds
+into a shared library with no PyTorch headers; PyTorch's own extension
+builder would compile a binding file against its headers for minutes on
+every fresh machine. The library is built at first use into
+``build/vizier_tpu_torch_kernels/`` beside the package (git-ignored), named by
+a hash of the source and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.
+
+Nothing here runs at import time: the CPU path never needs ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+_SOURCE = _PACKAGE / "csrc" / "matern52.cu"
+BUILD_DIR = _PACKAGE.parent / "build" / "vizier_tpu_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+
+def _nvcc() -> str:
+    from torch.utils import cpp_extension
+
+    candidates = []
+    if cpp_extension.CUDA_HOME:
+        candidates.append(os.path.join(cpp_extension.CUDA_HOME, "bin", "nvcc"))
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit.")
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built and loaded kernel library (built on first call)."""
+    source = _SOURCE.read_bytes()
+    digest = hashlib.sha256(source + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"libvizier_matern52_{digest}.so"
+    log = ""
+    start = time.perf_counter()
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        partial = target.with_name(f"{target.name}.{os.getpid()}.part")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(_SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(partial, target)
+        log = proc.stderr
+    lib = ctypes.CDLL(str(target))
+    lib.matern52_bwd_num_blocks.argtypes = [_I, _I]
+    lib.matern52_bwd_num_blocks.restype = _I
+    lib.matern52_ard_fwd.argtypes = [_P] * 7 + [_L, _L] + [_I] * 5 + [_P, _P]
+    lib.matern52_ard_fwd.restype = _I
+    lib.matern52_ard_bwd.argtypes = [_P] * 8 + [_L, _L] + [_I] * 5 + [_P] * 6
+    lib.matern52_ard_bwd.restype = _I
+    lib.build_seconds = time.perf_counter() - start
+    lib.build_log = log
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raises when a launch returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch.")
