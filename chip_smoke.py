@@ -1,23 +1,36 @@
 """Drives the PyTorch/CUDA port on one GPU and checks it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-source FILE]
 
 Phases (any failure raises and exits non-zero):
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``vizier_tpu_torch/csrc`` (timed, with ptxas' register report).
 2. Holds K1 (``matern52_ard_fwd``) and K2 (``matern52_ard_bwd``) against their
-   plain PyTorch versions on the card at the main path's shapes, a mixed
-   masked shape and a >64-D shape; times each kernel, its plain version and
-   the nearest PyTorch call.
-3. Runs the main path through the designer entry points: a
+   plain PyTorch versions on the card: the main path's masked Gram (1000 valid
+   rows padded to 1024, noise diagonal) and masked sweep cross kernel, ragged
+   shapes, masked dims with batched x1, Dc=0 with Ds>0, and Dc=80. K2 must
+   give bit-identical gradients on repeated calls and the Gram's two
+   triangles must be bit-identical.
+3. Times each kernel at the Gram and the cross shape by device time (CUDA
+   events around the replay of a CUDA graph of back-to-back launches, so the
+   host's enqueue rate drops out), beside the wrapper's host time per call,
+   its plain version, the nearest PyTorch call (``torch.cdist`` with exact
+   differences + elementwise Matern + masks) and its bound. With
+   ``--baseline-source`` (a copy of an earlier ``matern52.cu`` with the
+   unmasked interface, e.g. ``git show a3a3a6f:vizier_tpu_torch/csrc/matern52.cu``)
+   it builds that file into a temporary directory and times its kernels the
+   same way in the same run.
+4. Runs the main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
    synthetic completed trials and serves three ``suggest(count=5)`` requests,
    completing the five suggestions between requests. Launch counts are reset
-   just before and read just after; both kernels must have run.
-4. Checks the outputs: suggestions finite and in bounds, every trained
+   just before and read just after; both kernels, K1's Gram and cross modes
+   and K2's Gram mode must have run.
+5. Checks the outputs: suggestions finite and in bounds, every trained
    Cholesky finite, and the trained posterior's predictions on the card
-   against the port's plain CPU path at the same parameters.
-5. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
+   against the port's plain CPU path at the same parameters. Then profiles
+   one more request.
+6. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no GPU is visible or when run outside a
@@ -26,12 +39,16 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,10 +60,13 @@ _HBM_BYTES_PER_S = 3.35e12
 _FP32_FLOPS = 67e12
 
 # Tolerances of the kernel checks, as max |kernel - plain| over
-# max |plain| of each output. Float32 sums in another order differ by a few
-# ulps of the largest partial sum; the >64-D plain forward uses the
-# ||a||^2 - 2ab + ||b||^2 expansion, whose float32 cancellation the kernel's
-# exact differences do not have.
+# max |plain| of each output; K2's parameter gradients (amplitude, inverse
+# length scales) count as one output, the vector L-BFGS steps along. Float32
+# sums in another order differ by a few ulps of the largest partial sum, so
+# one parameter's gradient that cancels to far below its terms (a 37-term
+# sum at N=1, M=37) is held to the vector's scale, not its own; the >64-D
+# plain forward uses the ||a||^2 - 2ab + ||b||^2 expansion, whose float32
+# cancellation the kernel's exact differences do not have.
 _FWD_TOL = 1e-5
 _FWD_WIDE_TOL = 1e-3
 _BWD_TOL = 1e-4
@@ -57,13 +77,29 @@ _BWD_TOL = 1e-4
 _PREDICT_TOL = 5e-3
 
 # The main path's shapes at 1000 trials x 20-D (padded to 1024 rows): the
-# ARD Gram over 4 restarts + the warm row, and the sweep's pool of 50.
-_GRAM = "gram B=5 N=M=1024 Dc=20 Ds=0"
-_CROSS = "cross B=1 N=50 M=1024 Dc=20"
+# masked ARD Gram over 4 restarts + the warm row, and the sweep's pool of 50
+# queries against the masked data rows.
+_GRAM = "gram B=5 N=M=1024 (1000 valid) Dc=20 Ds=0"
+_CROSS = "cross B=1 N=50 M=1024 (1000 valid) Dc=20 Ds=0"
+_CASES = [
+    (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
+    (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
+    ("gram B=1 N=M=1024 (1000 valid) Dc=20", dict(b=1, n=1024, m=1024, dc=20, ds=0, same=True,
+                                                   valid=1000)),
+    ("ragged B=1 N=1 M=37 Dc=20", dict(b=1, n=1, m=37, dc=20, ds=0)),
+    ("ragged B=5 N=300 M=1000 Dc=20 Ds=2", dict(b=5, n=300, m=1000, dc=20, ds=2)),
+    ("mixed B=2 N=M=300 Dc=8 Ds=4 masked dims, batched x1",
+     dict(b=2, n=300, m=300, dc=8, ds=4, masked_dims=True, batched_x1=True)),
+    ("categorical B=2 N=M=200 Dc=0 Ds=5 gram (190 valid)",
+     dict(b=2, n=200, m=200, dc=0, ds=5, same=True, valid=190)),
+    ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
+    ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
+     dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
+]
 
 _REPLACES = (
     "JAX package models/kernels.py:85 matern52_ard (an XLA fusion on the TPU; its Pallas "
-    "kernel ops/matern_pallas.py was removed in d3abbcb)"
+    "kernel ops/matern_pallas.py was removed in d3abbcb) with models/gp.py:189 _masked_gram"
 )
 
 
@@ -75,17 +111,43 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up call."""
-    fn()
+def _device_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in a CUDA
+    graph, replayed ``replays`` times between CUDA events. The replay issues
+    the kernels without the host, so short launches are not timed by the
+    host's enqueue rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / (launches * replays)
+    del graph
+    return ms
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn`` (its enqueue, no synchronisation)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return host / calls * 1e6
 
 
 def _rel_err(got, want) -> float:
@@ -94,8 +156,10 @@ def _rel_err(got, want) -> float:
     return err / max(scale, 1e-30), err
 
 
-def _case(gen, b, n, m, dc, ds, *, same=False, masked=False, batched_x1=False):
-    """Random kernel inputs on the card."""
+def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=False, valid=None):
+    """Random kernel inputs on the card: (args, masks). A Gram (``same``) with
+    ``valid`` rows gets one row mask on both sides and a noise diagonal; a
+    cross case with ``valid`` masks its data side, as predict does."""
     dev = "cuda"
     x1 = torch.rand((b, n, dc) if batched_x1 else (n, dc), generator=gen, device=dev)
     x2 = x1 if same else torch.rand((m, dc), generator=gen, device=dev)
@@ -104,99 +168,226 @@ def _case(gen, b, n, m, dc, ds, *, same=False, masked=False, batched_x1=False):
     amp = 0.5 + torch.rand((b,), generator=gen, device=dev)
     inv = 1.0 / (0.3 + 1.7 * torch.rand((b, dc), generator=gen, device=dev))
     inv_sq = 1.0 / (0.3 + 1.7 * torch.rand((b, ds), generator=gen, device=dev)) ** 2
-    if masked:
+    if masked_dims:
         inv[:, dc // 2:] = 0.0
         inv_sq[:, ds // 2:] = 0.0
-    return x1, z1, x2, z2, amp, inv.contiguous(), inv_sq.contiguous()
+    args = (x1, z1, x2, z2, amp, inv.contiguous(), inv_sq.contiguous())
+    masks = (None, None, None)
+    if valid is not None and same:
+        mask = torch.arange(n, device=dev) < valid
+        noise = 0.05 + 0.1 * torch.rand((b,), generator=gen, device=dev)
+        masks = (mask, mask, noise * noise + 1e-5)
+    elif valid is not None:
+        masks = (None, torch.arange(m, device=dev) < valid, None)
+    return args, masks
 
 
-def _bytes_fwd(args, out_elems) -> int:
+def _nbytes(tensors) -> int:
     seen, total = set(), 0
-    for t in args:
-        if t.data_ptr() not in seen:
+    for t in tensors:
+        if t is not None and t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             total += t.numel() * t.element_size()
-    return total + 4 * out_elems
+    return total
 
 
 def check_kernels(kernels):
-    """Phase 2: K1/K2 against their plain versions; returns the timing rows."""
+    """Phase 2: K1/K2 against their plain versions; returns the inputs of the
+    shapes that phase 3 times."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True)),
-        (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0)),
-        ("mixed B=2 N=M=300 Dc=8 Ds=4 masked",
-         dict(b=2, n=300, m=300, dc=8, ds=4, masked=True, batched_x1=True)),
-        ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
-    ]
-    timing = {}
-    for name, spec in cases:
-        args = _case(gen, **spec)
-        x1, z1, x2, z2, amp, inv, inv_sq = args
-        got = kernels.matern52_ard_fwd_cuda(*args)
-        want = kernels.matern52_ard_fwd_plain(*args)
+    timed = {}
+    for name, spec in _CASES:
+        args, masks = _case(gen, **spec)
+        got = kernels.matern52_ard_fwd_cuda(*args, *masks)
+        want = kernels.matern52_ard_fwd_plain(*args, *masks)
         torch.cuda.synchronize()
-        rel, err = _rel_err(got, want)
+        rel, fwd_err = _rel_err(got, want)
         tol = _FWD_WIDE_TOL if spec["dc"] > 64 else _FWD_TOL
-        print(f"K1 {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol})")
+        print(f"K1 {name}: max_abs_err={fwd_err:.3e} max_rel_err={rel:.3e} (tol {tol})")
         if not rel <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at {name}")
+        same = spec.get("same", False)
+        if same and not torch.equal(got, got.transpose(-1, -2)):
+            raise AssertionError(f"K1's Gram triangles differ at {name}")
         grad = torch.randn(got.shape, generator=gen, device="cuda")
-        need_x = not spec.get("same", False)
-        g_cuda = kernels.matern52_ard_bwd_cuda(grad, *args, need_x1=need_x, need_x2=need_x)
-        g_plain = kernels.matern52_ard_bwd_plain(grad, *args)
-        torch.cuda.synchronize()
-        worst_rel = worst_abs = 0.0
-        for label, a, b in zip(("amp", "inv_cont", "inv_sq_cat", "x1", "x2"), g_cuda, g_plain):
-            if a is None or b.numel() == 0:
-                continue
-            r, e = _rel_err(a, b)
-            worst_rel, worst_abs = max(worst_rel, r), max(worst_abs, e)
-            print(f"K2 {name} d/{label}: max_abs_err={e:.3e} max_rel_err={r:.3e} (tol {_BWD_TOL})")
-        if not worst_rel <= _BWD_TOL:
-            raise AssertionError(f"K2 disagrees with its plain version at {name}")
+        want_g = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
+        # Feature gradients take the all-pairs path; without them a Gram
+        # takes the symmetric one. Both are held to the plain version.
+        runs = [dict(need_x1=True, need_x2=True)] + ([dict()] if same else [])
+        bwd_err = 0.0
+        param_scale = max(float(torch.max(torch.abs(g))) for g in want_g[:3] if g.numel())
+        for run in runs:
+            got_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)
+            torch.cuda.synchronize()
+            worst_rel = 0.0
+            for label, a, b in zip(("amp", "inv_cont", "inv_sq_cat", "x1", "x2"), got_g, want_g):
+                if a is None or b.numel() == 0:
+                    continue
+                r, e = _rel_err(a, b)
+                if label in ("amp", "inv_cont", "inv_sq_cat"):
+                    r = e / max(param_scale, 1e-30)
+                worst_rel, bwd_err = max(worst_rel, r), max(bwd_err, e)
+                print(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
+                      f"max_abs_err={e:.3e} max_rel_err={r:.3e} (tol {_BWD_TOL})")
+            if not worst_rel <= _BWD_TOL:
+                raise AssertionError(f"K2 disagrees with its plain version at {name}")
+        again = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **runs[-1])
+        if not all(torch.equal(a, b) for a, b in zip(got_g[:3], again[:3])):
+            raise AssertionError(f"K2 is not deterministic at {name}")
         if name in (_GRAM, _CROSS):
-            timing[name] = _time_case(kernels, args, grad, err, worst_abs)
-    return timing
-
-
-def _time_case(kernels, args, grad, fwd_err, bwd_err):
-    x1, z1, x2, z2, amp, inv, inv_sq = args
-    b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
-    elems = b * n * m
-
-    def library():
-        # Nearest PyTorch calls: cdist of the scaled points + elementwise Matern.
-        d = torch.cdist(x1[None] * inv[:, None, :], x2[None] * inv[:, None, :])
-        return (amp * amp)[:, None, None] * kernels.matern52(d * d)
-
-    fwd_ms = _time_ms(lambda: kernels.matern52_ard_fwd_cuda(*args))
-    fwd_plain_ms = _time_ms(lambda: kernels.matern52_ard_fwd_plain(*args), reps=5)
-    lib_ms = _time_ms(library)
-    bwd_ms = _time_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args))
-    bwd_plain_ms = _time_ms(lambda: kernels.matern52_ard_bwd_plain(grad, *args), reps=5)
-    # Operations the function needs, not what the kernels happen to do: the
-    # rows are scaled by the inverse length scales once (one multiply per
-    # row and dim); then each (pair, dim) is a subtract and an FMA forward,
-    # and a subtract, a square, an add and an FMA backward; each categorical
-    # dim is a compare and a select-add (x2 backward); the Matern and the
-    # amplitude cost ~10 per pair forward, ~15 backward.
-    rows = b * (x1.shape[-2] + (0 if x2 is x1 else x2.shape[-2]))
-    prescale = rows * dc
-    fwd_bytes = _bytes_fwd(args, elems)
-    fwd_ops = elems * (3 * dc + 2 * ds + 10) + prescale
-    bwd_bytes = _bytes_fwd(args + (grad,), b * (1 + dc + ds))
-    bwd_ops = elems * (5 * dc + 4 * ds + 15) + prescale
-    return {
-        "fwd": (fwd_ms, fwd_plain_ms, lib_ms, fwd_bytes, fwd_ops, fwd_err),
-        "bwd": (bwd_ms, bwd_plain_ms, None, bwd_bytes, bwd_ops, bwd_err),
-    }
+            timed[name] = (args, masks, grad, fwd_err, bwd_err)
+    print("K2 repeated calls bit-identical at every shape; Gram triangles bit-identical")
+    return timed
 
 
 def _bound(nbytes: int, ops: int):
     t_bytes = nbytes / _HBM_BYTES_PER_S * 1e3
     t_ops = ops / _FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _work(args, masks, grad):
+    """(bytes, operations) that K1 and K2 need at these inputs: each input
+    read once, each output written once; operations on the distinct pairs
+    (N(N+1)/2 per batch member for a Gram). The rows are scaled by the
+    inverse length scales once (one multiply per row and dim); then each
+    (pair, dim) is a subtract and an FMA forward (3 operations), and a
+    subtract, a square, an add and an FMA backward (5); each categorical dim
+    is a compare and a select-add forward (2), 4 backward; the Matern, the
+    amplitude and the masks cost ~12 per pair forward, ~17 backward."""
+    x1, z1, x2, z2, amp, inv, inv_sq = args
+    b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
+    same = x2 is x1
+    pairs = b * (n * (n + 1) // 2 if same else n * m)
+    prescale = b * (n + (0 if same else m)) * dc
+    fwd_bytes = _nbytes(args + masks) + 4 * b * n * m
+    fwd_ops = pairs * (3 * dc + 2 * ds + 12) + prescale
+    bwd_bytes = _nbytes(args + masks[:2] + (grad,)) + 4 * b * (1 + dc + ds)
+    bwd_ops = pairs * (5 * dc + 4 * ds + 17) + prescale
+    return (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops)
+
+
+def _library_fn(kernels, args, masks):
+    """One PyTorch call for the distance with exact differences (torch.cdist
+    without the matmul expansion), then the elementwise Matern and masks."""
+    x1, z1, x2, z2, amp, inv, inv_sq = args
+
+    def library():
+        a = x1 * inv[:, None, :]
+        b = a if x2 is x1 else x2 * inv[:, None, :]
+        d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist")
+        return kernels.apply_masks((amp * amp)[:, None, None] * kernels.matern52(d * d), *masks)
+
+    return library
+
+
+def _occupancy(lib, kernel: int, args) -> str:
+    """The tile shape these inputs get and its resident blocks per SM."""
+    x1, z1, x2, z2, amp = args[:5]
+    sym = int(x2 is x1 and z2 is z1)
+    tn, tm, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks = lib.matern52_occupancy(kernel, amp.shape[0], x1.shape[-2], x2.shape[-2], sym,
+                                    ctypes.byref(tn), ctypes.byref(tm), ctypes.byref(threads))
+    if blocks <= 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return (f"{tn.value}x{tm.value} tile, {threads.value} threads, {blocks} blocks/SM "
+            f"({blocks * threads.value // 32} warps)")
+
+
+def time_kernels(kernels, timed):
+    """Phase 3: device ms, host us, plain ms, library ms and bound per shape."""
+    from vizier_tpu_torch.ops import native
+
+    rows = {}
+    for shape, (args, masks, grad, fwd_err, bwd_err) in timed.items():
+        (fb, fo), (bb, bo) = _work(args, masks, grad)
+        fwd = lambda: kernels.matern52_ard_fwd_cuda(*args, *masks)  # noqa: E731
+        bwd = lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2])  # noqa: E731
+        rows[shape] = {
+            "fwd": dict(
+                ms=_device_ms(fwd), host_us=_host_us(fwd),
+                plain_ms=_device_ms(lambda: kernels.matern52_ard_fwd_plain(*args, *masks), 3, 2),
+                library_ms=_device_ms(_library_fn(kernels, args, masks)),
+                bound=_bound(fb, fo), max_abs_err=fwd_err),
+            "bwd": dict(
+                ms=_device_ms(bwd), host_us=_host_us(bwd),
+                plain_ms=_device_ms(
+                    lambda: kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2]), 3, 2),
+                library_ms=None, bound=_bound(bb, bo), max_abs_err=bwd_err),
+        }
+        for kernel, key in enumerate(("fwd", "bwd")):
+            r = rows[shape][key]
+            r["occupancy"] = _occupancy(native.library(), kernel, args)
+            print(f"matern52_ard_{key} [{shape}]: {r['occupancy']}")
+            print(f"matern52_ard_{key} [{shape}]: device {r['ms']:.5f} ms/launch, host "
+                  f"{r['host_us']:.1f} us/call, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 5)}"
+                  f" ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]} "
+                  f"({r['ms'] / r['bound'][0]:.1f}x)")
+    return rows
+
+
+def _load_baseline(path: str):
+    """An earlier matern52.cu with the unmasked interface (no masks, diagonal
+    or symmetric flag), built into a temporary directory."""
+    from vizier_tpu_torch.ops import native
+
+    build_dir = pathlib.Path(tempfile.mkdtemp(prefix="matern52_baseline_"))
+    lib = native.build(pathlib.Path(path).resolve(), build_dir)
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.matern52_bwd_num_blocks.argtypes = [i, i]
+    lib.matern52_bwd_num_blocks.restype = i
+    lib.matern52_ard_fwd.argtypes = [p] * 7 + [l, l] + [i] * 5 + [p, p]
+    lib.matern52_ard_fwd.restype = i
+    lib.matern52_ard_bwd.argtypes = [p] * 8 + [l, l] + [i] * 5 + [p] * 6
+    lib.matern52_ard_bwd.restype = i
+    print(f"baseline {path}: built in {lib.build_seconds:.1f} s")
+    return lib
+
+
+def time_baseline(kernels, lib, timed):
+    """The earlier kernels at the timed shapes, by the same method: the kernel
+    alone, and (forward) with the masking passes the earlier callers ran
+    around it (torch.where, diag_embed and add)."""
+    rows = {}
+    for shape, (args, masks, grad, _, _) in timed.items():
+        x1, z1, x2, z2, amp, inv, inv_sq = args
+        b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
+        s1 = n * dc if x1.dim() == 3 else 0
+        s2 = m * dc if x2.dim() == 3 else 0
+        ptrs = [t.data_ptr() for t in args]
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+        def fwd():
+            out = torch.empty((b, n, m), device="cuda")
+            status = lib.matern52_ard_fwd(*ptrs, s1, s2, b, n, m, dc, ds, out.data_ptr(), stream())
+            if status:
+                raise RuntimeError(f"baseline fwd: CUDA error {status}")
+            return out
+
+        def bwd():
+            g = lib.matern52_bwd_num_blocks(n, m)
+            grads = torch.empty((b, 1 + dc + ds), device="cuda")
+            partials = torch.empty((b, max(g, 1), 1 + dc + ds), device="cuda")
+            status = lib.matern52_ard_bwd(grad.data_ptr(), *ptrs, s1, s2, b, n, m, dc, ds,
+                                          grads.data_ptr(), partials.data_ptr(), None, None,
+                                          None, stream())
+            if status:
+                raise RuntimeError(f"baseline bwd: CUDA error {status}")
+            return grads
+
+        rel, err = _rel_err(fwd(), kernels.matern52_ard_fwd_plain(*args))
+        if not rel <= _FWD_TOL:
+            raise AssertionError(f"baseline K1 disagrees with the plain version at {shape}")
+        rows[shape] = dict(
+            fwd_ms=_device_ms(fwd),
+            fwd_masked_ms=_device_ms(lambda: kernels.apply_masks(fwd(), *masks)),
+            bwd_ms=_device_ms(bwd),
+        )
+        print(f"baseline [{shape}]: K1 {rows[shape]['fwd_ms']:.5f} ms/launch, K1 + masking "
+              f"{rows[shape]['fwd_masked_ms']:.5f} ms, K2 {rows[shape]['bwd_ms']:.5f} ms/launch "
+              f"(device time; K1 max_abs_err {err:.2e} vs plain)")
+    return rows
 
 
 def _bench_trials(vz, num_trials: int, dim: int):
@@ -253,14 +444,21 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
         designer.update(vz.CompletedTrials(completed), vz.ActiveTrials())
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
-          f"peak_memory_bytes={peak} launches={launches}")
+          f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
     for name, count_ in launches.items():
         if count_ <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    # _masked_gram goes through K1's Gram mode (and K2's), predict through
+    # K1's masked cross mode.
+    for name, mode in (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                       ("matern52_ard_bwd", "gram")):
+        if by_mode[name][mode] <= 0:
+            raise AssertionError(f"{name} was not launched in its {mode} mode on the main path")
     _check_against_cpu(states[-1], kernels, gp_lib)
-    return designer, launches
+    return designer, launches, by_mode
 
 
 def _check_against_cpu(state, kernels, gp_lib):
@@ -321,6 +519,10 @@ def profile_request(designer, count: int = 5):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline-source", default=None,
+                        help="an earlier matern52.cu to time beside the current kernels")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -341,31 +543,45 @@ def main() -> int:
     print(lib.build_log.strip())
 
     start = time.perf_counter()
-    timing = check_kernels(kernels)
+    timed = check_kernels(kernels)
     print(f"[{time.perf_counter() - start:.1f} s] kernel checks done")
-    designer, launches = run_main_path(vz, gp_ucb_pe, kernels, gp_lib)
+    timing = time_kernels(kernels, timed)
+    baseline = None
+    if opts.baseline_source:
+        baseline = time_baseline(kernels, _load_baseline(opts.baseline_source), timed)
+    print(f"[{time.perf_counter() - start:.1f} s] kernel timing done")
+    designer, launches, by_mode = run_main_path(vz, gp_ucb_pe, kernels, gp_lib)
     print(f"[{time.perf_counter() - start:.1f} s] main path done")
     profile_request(designer)
     print(f"[{time.perf_counter() - start:.1f} s] profiled request done")
 
     # One JSON row per kernel, at the shape that carries most of its
-    # main-path launches: K1 at the sweep's cross shape, K2 at the ARD Gram.
+    # main-path launches (K1: the sweep's cross kernel; K2: the ARD Gram),
+    # with every timed shape under "by_shape".
     headline = {"fwd": _CROSS, "bwd": _GRAM}
     rows = []
     for key, name in (("fwd", "matern52_ard_fwd"), ("bwd", "matern52_ard_bwd")):
+        by_shape = {}
         for shape, t in timing.items():
-            ms, plain_ms, lib_ms, nbytes, ops, err = t[key]
-            bound_ms, bound_by = _bound(nbytes, ops)
-            print(f"{name} [{shape}]: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
-                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {bound_ms:.4f} ms "
-                  f"by {bound_by})")
-            if shape == headline[key]:
-                rows.append({
-                    "name": name, "route": "cuda", "source": "vizier_tpu_torch/csrc/matern52.cu",
-                    "replaces": _REPLACES, "launches": launches[name], "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "shape": shape,
-                })
+            by_shape[shape] = {
+                "ms": t[key]["ms"], "host_us": t[key]["host_us"], "plain_ms": t[key]["plain_ms"],
+                "library_ms": t[key]["library_ms"], "bound_ms": t[key]["bound"][0],
+                "bound_by": t[key]["bound"][1], "max_abs_err": t[key]["max_abs_err"],
+                "occupancy": t[key]["occupancy"],
+            }
+            if baseline is not None:
+                by_shape[shape]["baseline_ms"] = baseline[shape][f"{key}_ms"]
+                if key == "fwd":
+                    by_shape[shape]["baseline_with_masking_ms"] = baseline[shape]["fwd_masked_ms"]
+        head = by_shape[headline[key]]
+        rows.append({
+            "name": name, "route": "cuda", "source": "vizier_tpu_torch/csrc/matern52.cu",
+            "replaces": _REPLACES, "launches": launches[name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
+            "launches_by_mode": by_mode[name], "by_shape": by_shape,
+        })
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

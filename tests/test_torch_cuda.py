@@ -39,6 +39,30 @@ def _args(device, b, n, m, dc, ds, same=False, batched=False, seed=0):
     return x1, z1, x2, z2, amp, inv, inv_sq
 
 
+def _masks(device, b, n, m, valid1=None, valid2=None, same=False, diag=False):
+    """Row masks with the first ``valid`` rows real (None: no mask), and the
+    Gram's diagonal value (noise² + jitter) when asked for."""
+    mask = lambda rows, valid: None if valid is None else torch.arange(rows, device=device) < valid  # noqa: E731
+    mask1 = mask(n, valid1)
+    mask2 = mask1 if same else mask(m, valid2)
+    d = 0.01 + 0.1 * torch.arange(1, b + 1, device=device, dtype=torch.float32) if diag else None
+    return mask1, mask2, d
+
+
+def _fwd_tol(dc):
+    # The plain >64-D forward uses the matmul expansion (float32 cancellation).
+    return 1e-3 if dc > 64 else 1e-5
+
+
+def _assert_grads_close(got_g, want_g):
+    for g, w in zip(got_g, want_g):
+        if g is None:
+            continue
+        # Sums over N·M pairs in another order: relative to the largest entry.
+        scale = float(torch.max(torch.abs(w))) if w.numel() else 1.0
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+
+
 @pytest.mark.parametrize(
     "shape",
     [
@@ -47,24 +71,111 @@ def _args(device, b, n, m, dc, ds, same=False, batched=False, seed=0):
         dict(b=2, n=40, m=33, dc=8, ds=4, batched=True),
         dict(b=2, n=31, m=29, dc=80, ds=0),
         dict(b=1, n=7, m=5, dc=0, ds=3),
+        dict(b=1, n=1, m=37, dc=20, ds=0),
+        dict(b=5, n=300, m=1000, dc=20, ds=2),
+        dict(b=5, n=131, m=131, dc=20, ds=0, same=True),
+        dict(b=1, n=67, m=67, dc=80, ds=3, same=True, batched=True),
     ],
-    ids=["gram", "cross", "mixed_batched", "wide", "categorical_only"],
+    ids=["gram", "cross", "mixed_batched", "wide", "categorical_only", "one_row_ragged",
+         "big_tiles_ragged", "gram_ragged", "gram_wide_batched"],
 )
 def test_cuda_kernels_match_plain(cuda_device, shape):
     args = _args(cuda_device, **shape)
     want = tk.matern52_ard_fwd_plain(*args)
     got = tk.matern52_ard_fwd_cuda(*args)
-    # The plain >64-D forward uses the matmul expansion (float32 cancellation).
-    tol = 1e-3 if shape["dc"] > 64 else 1e-5
+    tol = _fwd_tol(shape["dc"])
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     grad = torch.randn(want.shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
                        device=cuda_device)
     got_g = tk.matern52_ard_bwd_cuda(grad, *args, need_x1=True, need_x2=True)
     want_g = tk.matern52_ard_bwd_plain(grad, *args)
-    for g, w in zip(got_g, want_g):
-        # Sums over N·M pairs in another order: relative to the largest entry.
-        scale = float(torch.max(torch.abs(w))) if w.numel() else 1.0
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+    _assert_grads_close(got_g, want_g)
+    if shape.get("same"):
+        # Without feature gradients K2 takes the symmetric path.
+        _assert_grads_close(tk.matern52_ard_bwd_cuda(grad, *args)[:3], want_g[:3])
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        dict(b=5, n=1024, dc=20, ds=0, valid=1000),
+        dict(b=1, n=1024, dc=20, ds=0, valid=1000),
+        dict(b=2, n=77, dc=0, ds=3, valid=70),
+        dict(b=2, n=100, dc=80, ds=0, valid=97),
+        dict(b=3, n=90, dc=6, ds=2, valid=85, batched=True),
+    ],
+    ids=["gram_1000_of_1024_b5", "gram_1000_of_1024_b1", "categorical_only", "wide",
+         "batched"],
+)
+def test_masked_gram_matches_plain(cuda_device, case):
+    b, n, dc, ds = case["b"], case["n"], case["dc"], case["ds"]
+    args = _args(cuda_device, b, n, n, dc, ds, same=True, batched=case.get("batched", False))
+    mask1, mask2, diag = _masks(cuda_device, b, n, n, case["valid"], same=True, diag=True)
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, diag)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+    tol = _fwd_tol(dc)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # The padded block is exactly the identity, the cross terms exactly zero,
+    # and the two triangles hold the same floats.
+    pad = ~mask1
+    assert torch.equal(got[:, pad][:, :, pad], torch.eye(int(pad.sum()), device=cuda_device).expand(b, -1, -1))
+    assert torch.all(got[:, pad][:, :, ~pad] == 0) and torch.all(got[:, ~pad][:, :, pad] == 0)
+    assert torch.equal(got, got.transpose(-1, -2))
+    grad = torch.randn(want.shape, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                       device=cuda_device)
+    want_g = tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)
+    first = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    _assert_grads_close(first[:3], want_g[:3])
+    # Fixed-order reductions: the same inputs give the same bits.
+    second = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    for a, c in zip(first[:3], second[:3]):
+        assert torch.equal(a, c)
+
+
+def test_masked_cross_matches_plain(cuda_device):
+    """The sweep's shape: 50 queries against 1024 data rows, 1000 of them real."""
+    args = _args(cuda_device, 1, 50, 1024, 20, 0)
+    _, mask2, _ = _masks(cuda_device, 1, 50, 1024, valid2=1000)
+    want = tk.matern52_ard_fwd_plain(*args, None, mask2)
+    got = tk.matern52_ard_fwd_cuda(*args, None, mask2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[..., 1000:] == 0)
+    grad = torch.randn(want.shape, device=cuda_device)
+    _assert_grads_close(
+        tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True, need_x2=True),
+        tk.matern52_ard_bwd_plain(grad, *args, None, mask2),
+    )
+
+
+def test_gram_gradient_reaches_the_noise_through_the_diagonal(cuda_device):
+    """_masked_gram on the card against the CPU plain path, noise included."""
+    b, n, valid = 2, 40, 33
+    args = _args(cuda_device, b, n, n, 4, 2, same=True)
+    x, z, _, _, amp, inv, inv_sq = args
+    mask = torch.arange(n, device=cuda_device) < valid
+    noise = torch.tensor([0.1, 0.3], device=cuda_device)
+    weights = torch.randn((b, n, n), device=cuda_device)
+
+    def loss(device):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (amp, 1.0 / inv, noise)]
+        f = tk.MixedFeatures(x.to(device), z.to(device))
+        m = mask.to(device)
+        out = tk.matern52_ard(
+            f, f, amplitude=leaves[0], continuous_length_scales=leaves[1],
+            categorical_length_scales=(1.0 / inv_sq.sqrt()).to(device),
+            row_mask1=m, row_mask2=m, diag=leaves[2] * leaves[2] + 1e-5,
+        )
+        value = torch.sum(weights.to(device) * out)
+        return value, torch.autograd.grad(value, leaves)
+
+    tk.reset_launch_counts()
+    got, got_grads = loss(cuda_device)
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["gram"] == 1
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] == 1
+    want, want_grads = loss("cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    for g, w in zip(got_grads, want_grads):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
 
 
 def test_autograd_through_the_kernels_matches_the_cpu_plain_path(cuda_device):

@@ -88,6 +88,18 @@ def test_nll_and_gradient_match(shape):
         np.testing.assert_allclose(g[0].numpy(), np.asarray(want_grad[name]), rtol=1e-4, atol=_ATOL)
 
 
+@pytest.mark.parametrize("shape", [dict(n=21, n_pad=32, dc=3, ds=2, dc_pad=5), dict(n=30, n_pad=32, dc=4, ds=0)])
+def test_nll_gradient_reaches_the_noise_through_the_gram_diagonal(shape):
+    """d NLL / d noise_stddev flows only through the Gram's diagonal value
+    (the kernel's epilogue): held against jax.grad with padded rows and dims."""
+    jmodel, jdata, tmodel, tdata, params = _setup(**shape)
+    want = jax.grad(jmodel.neg_log_likelihood)({k: jnp.asarray(v) for k, v in params.items()}, jdata)
+    tparams = {k: v.requires_grad_(True) for k, v in _batched(params).items()}
+    (got,) = torch.autograd.grad(tmodel.neg_log_likelihood(tparams, tdata).sum(), [tparams["noise_stddev"]])
+    assert abs(float(want["noise_stddev"])) > 1e-3
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want["noise_stddev"]), rtol=1e-4, atol=_ATOL)
+
+
 def test_precompute_and_predict_match_with_padded_rows():
     jmodel, jdata, tmodel, tdata, params = _setup(n=23, n_pad=64, dc=3, ds=2)
     jstate = jax.jit(jmodel.precompute)({k: jnp.asarray(v) for k, v in params.items()}, jdata)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from vizier_tpu import types as jtypes
+from vizier_tpu.models import gp as jgp
 from vizier_tpu.models import kernels as jk
 from vizier_tpu_torch.models import kernels as tk
 
@@ -161,3 +163,122 @@ def test_cpu_tensors_never_build_the_cuda_library(monkeypatch):
     out.sum().backward()
     assert out.shape == (1, 5, 6)
     assert tk.LAUNCHES == before
+
+
+def _padded_gp_data(seed, n, n_pad, dc, dc_pad, ds):
+    """The JAX package's GPData with padded rows and padded continuous dims."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, dc)).astype(np.float32)
+    z = rng.integers(0, 3, size=(n, ds)).astype(np.int32)
+    y = rng.normal(size=(n, 1)).astype(np.float32)
+    features = jtypes.ContinuousAndCategorical(
+        continuous=jtypes.PaddedArray.from_array(x, (n_pad, dc_pad)),
+        categorical=jtypes.PaddedArray.from_array(z, (n_pad, ds), fill_value=0),
+    )
+    labels = jtypes.PaddedArray.from_array(y, (n_pad, 1), fill_value=np.nan)
+    return jgp.GPData.from_model_data(jtypes.ModelData(features, labels))
+
+
+def _gp_params(seed, dc_pad, ds, ls_range=(0.2, 2.0)):
+    rng = np.random.default_rng(seed)
+    return {
+        "amplitude": np.float32(rng.uniform(0.5, 2.0)),
+        "noise_stddev": np.float32(rng.uniform(0.01, 0.3)),
+        "continuous_length_scales": rng.uniform(*ls_range, dc_pad).astype(np.float32),
+        "categorical_length_scales": rng.uniform(0.5, 2.0, ds).astype(np.float32),
+    }
+
+
+def _torch_kernel_args(jdata, params):
+    t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
+    return dict(
+        amplitude=t([params["amplitude"]]),
+        continuous_length_scales=t(params["continuous_length_scales"][None]),
+        categorical_length_scales=t(params["categorical_length_scales"][None]),
+        continuous_dim_mask=t(jdata.cont_dim_mask),
+        categorical_dim_mask=t(jdata.cat_dim_mask),
+    )
+
+
+# Padded rows and padded continuous dims. The wide case takes both packages'
+# >64-D expansion, whose float32 cancellation at short scaled distances
+# differs between the two matmuls: longer length scales keep it within the
+# tolerance, as in _CASES["wide_expansion"].
+_GRAM_CASES = {
+    "padded_rows_and_dims": dict(n=21, n_pad=32, dc=3, dc_pad=5, ds=2),
+    "continuous_only": dict(n=30, n_pad=30, dc=4, dc_pad=4, ds=0),
+    "wide": dict(n=9, n_pad=16, dc=70, dc_pad=72, ds=1, ls_range=(2.0, 6.0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GRAM_CASES))
+def test_masked_gram_mode_matches_the_jax_masked_gram(case):
+    """The kernel's Gram mode (row masks + noise diagonal) against the JAX
+    package's ``VizierGaussianProcess._masked_gram``, float32 tolerance."""
+    shape = dict(_GRAM_CASES[case])
+    ls_range = shape.pop("ls_range", (0.2, 2.0))
+    jdata = _padded_gp_data(0, **shape)
+    params = _gp_params(1, shape["dc_pad"], shape["ds"], ls_range)
+    jmodel = jgp.VizierGaussianProcess(num_continuous=shape["dc_pad"], num_categorical=shape["ds"])
+    want = np.asarray(jmodel._masked_gram({k: jnp.asarray(v) for k, v in params.items()}, jdata))
+    f = tk.MixedFeatures(torch.tensor(np.asarray(jdata.continuous)),
+                         torch.tensor(np.asarray(jdata.categorical)))
+    mask = torch.tensor(np.asarray(jdata.row_mask))
+    noise = torch.tensor([params["noise_stddev"] ** 2 + 1e-5], dtype=torch.float32)
+    got = tk.matern52_ard(f, f, row_mask1=mask, row_mask2=mask, diag=noise,
+                          **_torch_kernel_args(jdata, params))[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=_RTOL, atol=_ATOL)
+    pad = ~np.asarray(jdata.row_mask)
+    np.testing.assert_array_equal(got[pad][:, pad], np.eye(int(pad.sum()), dtype=np.float32))
+    assert np.all(got[pad][:, ~pad] == 0) and np.all(got[~pad][:, pad] == 0)
+
+
+def test_masked_cross_mode_matches_the_jax_predict_k_star():
+    """The kernel's cross mode (data-side row mask) against the masked k* that
+    the JAX package's ``GPState.predict`` forms."""
+    jdata = _padded_gp_data(2, n=23, n_pad=32, dc=3, dc_pad=5, ds=2)
+    params = _gp_params(3, 5, 2)
+    jmodel = jgp.VizierGaussianProcess(num_continuous=5, num_categorical=2)
+    rng = np.random.default_rng(4)
+    q = rng.uniform(size=(15, 5)).astype(np.float32)
+    zq = rng.integers(0, 3, size=(15, 2)).astype(np.int32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    k_star = jmodel._kernel(jp, jk.MixedFeatures(jnp.asarray(q), jnp.asarray(zq)), jdata.features(), jdata)
+    want = np.asarray(jnp.where(jdata.row_mask[None, :], k_star, 0.0))
+    got = tk.matern52_ard(
+        tk.MixedFeatures(torch.tensor(q), torch.tensor(zq)),
+        tk.MixedFeatures(torch.tensor(np.asarray(jdata.continuous)),
+                         torch.tensor(np.asarray(jdata.categorical))),
+        row_mask2=torch.tensor(np.asarray(jdata.row_mask)),
+        **_torch_kernel_args(jdata, params),
+    )[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=_RTOL, atol=_ATOL)
+    assert np.all(got[:, ~np.asarray(jdata.row_mask)] == 0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gram_diag_grad_matches_autograd(masked):
+    """The CUDA path's diagonal gradient (a sum of the incoming gradient's
+    valid diagonal) against autograd of the plain masking."""
+    rng = np.random.default_rng(5)
+    k = torch.tensor(rng.normal(size=(3, 6, 6)).astype(np.float32))
+    grad = torch.tensor(rng.normal(size=(3, 6, 6)).astype(np.float32))
+    mask = torch.tensor([True, True, False, True, False, True]) if masked else None
+    diag = torch.tensor([0.1, 0.2, 0.3], requires_grad=True)
+    (want,) = torch.autograd.grad(tk.apply_masks(k, mask, mask, diag), diag, grad)
+    torch.testing.assert_close(tk.gram_diag_grad(grad, mask), want, rtol=0, atol=1e-6)
+
+
+def test_masked_backward_matches_autograd_of_the_masked_forward():
+    """K2's plain version with row masks: pairs outside the masks contribute
+    nothing, as the reference's ``where`` blocks their gradient."""
+    a = _inputs(6, n=10, m=12, dc=4, ds=2)
+    args = [x.clone().requires_grad_(x.is_floating_point()) for x in _plain_args(a)]
+    mask1 = torch.arange(10) < 8
+    mask2 = torch.arange(12) < 9
+    out = tk.matern52_ard_fwd_plain(*args, mask1, mask2)
+    grad = torch.tensor(np.random.default_rng(7).normal(size=out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, [args[4], args[5], args[6], args[0], args[2]], grad)
+    got = tk.matern52_ard_bwd_plain(grad, *[x.detach() for x in args], mask1, mask2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=_GRAD_RTOL, atol=1e-5)

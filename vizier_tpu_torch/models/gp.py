@@ -138,33 +138,42 @@ class VizierGaussianProcess:
         return kernels.MixedFeatures(1.0 - (1.0 - u ** a) ** b, f.categorical)
 
     def _kernel(
-        self, p: Params, f1: kernels.MixedFeatures, f2: kernels.MixedFeatures, data: GPData
+        self, p: Params, f1: kernels.MixedFeatures, f2: kernels.MixedFeatures, data: GPData,
+        **masks: Tensor,
     ) -> Tensor:
+        """[B, N, M] kernel; ``masks`` are ``matern52_ard``'s row masks and diagonal."""
         batch = p["amplitude"].shape[0]
         ones = lambda n: torch.ones((batch, n), device=data.device)  # noqa: E731
         cont_ls = p.get("continuous_length_scales", ones(self.num_continuous))
         cat_ls = p.get("categorical_length_scales", ones(self.num_categorical))
+        w1 = self._warp_features(p, f1)
+        # The Gram passes one feature set twice: keep it one tensor, so the
+        # kernels see the symmetric case.
+        w2 = w1 if f2 is f1 else self._warp_features(p, f2)
         return kernels.matern52_ard(
-            self._warp_features(p, f1),
-            self._warp_features(p, f2),
+            w1,
+            w2,
             amplitude=p["amplitude"],
             continuous_length_scales=cont_ls,
             categorical_length_scales=cat_ls,
             continuous_dim_mask=data.cont_dim_mask,
             categorical_dim_mask=data.cat_dim_mask,
+            **masks,
         )
 
     # -- likelihood --------------------------------------------------------
 
     def _masked_gram(self, p: Params, data: GPData) -> Tensor:
-        """[B, N, N]: K + (noise²+jitter)·I on valid rows; identity on padded rows."""
-        k = self._kernel(p, data.features(), data.features(), data)
-        m = data.row_mask
-        pair = m[:, None] & m[None, :]
-        k = torch.where(pair, k, torch.zeros_like(k))  # also zeroes padded diagonal
+        """[B, N, N]: K + (noise²+jitter)·I on valid rows; identity on padded rows.
+
+        The masks and the diagonal are the kernel's epilogue (K1's Gram mode
+        on the card, ``kernels.apply_masks`` in the plain version).
+        """
         noise = p["noise_stddev"] * p["noise_stddev"] + _JITTER  # [B]
-        diag = torch.where(m[None, :], noise[:, None], torch.ones_like(noise)[:, None])
-        return k + torch.diag_embed(diag)
+        f = data.features()
+        return self._kernel(
+            p, f, f, data, row_mask1=data.row_mask, row_mask2=data.row_mask, diag=noise
+        )
 
     def neg_log_likelihood(self, unconstrained: Params, data: GPData) -> Tensor:
         """[B] ARD losses: -log p(y | X, θ) + log-normal regularization."""
@@ -220,8 +229,8 @@ class GPState:
     ) -> Tuple[Tensor, Tensor]:
         """Posterior mean and stddev at query points ([B, Q], [B, Q])."""
         model, p, data = self.model, self.params, self.data
-        k_star = model._kernel(p, query, data.features(), data)  # [B, Q, N]
-        k_star = torch.where(data.row_mask[None, None, :], k_star, torch.zeros_like(k_star))
+        # [B, Q, N], zero on padded data rows.
+        k_star = model._kernel(p, query, data.features(), data, row_mask2=data.row_mask)
         mean = (k_star @ self.alpha[..., None])[..., 0]
         v = self.linv @ k_star.transpose(-1, -2)  # [B, N, Q]
         var = (p["amplitude"] * p["amplitude"])[:, None] - torch.sum(v * v, dim=-2)

@@ -11,6 +11,13 @@ backward, joined by an ``autograd.Function``); a CPU tensor goes to the plain
 version, which mirrors the JAX function line for line, including its switch
 to the ``||a||² − 2a·b + ||b||²`` expansion above 64 dims. The CUDA kernel
 keeps exact differences at every width.
+
+Two optional modes fold the JAX package's ``models/gp.py`` masking into the
+kernel: row masks zero every pair with a padded row (``GPState.predict``'s
+``k*``), and a per-batch diagonal value gives ``_masked_gram``'s
+``K + (noise² + jitter)·I`` on valid rows and identity on padded rows. When
+both sides are the same tensors (the Gram) the CUDA kernels compute each
+distinct pair once.
 """
 
 from __future__ import annotations
@@ -26,13 +33,25 @@ Tensor = torch.Tensor
 _SQRT5 = 2.2360679774997896
 _DIRECT_DIST_MAX_DIM = 64
 
-# Launches of each CUDA wrapper, one per call that launched its kernels.
+# Launches of each CUDA wrapper, one per call that launched its kernels, and
+# the same split by mode: "gram" (both sides the same tensors: _masked_gram),
+# "cross" (row-masked cross kernel: predict) and "other" (neither).
 LAUNCHES: Dict[str, int] = {"matern52_ard_fwd": 0, "matern52_ard_bwd": 0}
+LAUNCHES_BY_MODE: Dict[str, Dict[str, int]] = {
+    name: {"gram": 0, "cross": 0, "other": 0} for name in LAUNCHES
+}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        for mode in LAUNCHES_BY_MODE[name]:
+            LAUNCHES_BY_MODE[name][mode] = 0
+
+
+def _count_launch(name: str, symmetric: int, masked: bool) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_MODE[name]["gram" if symmetric else "cross" if masked else "other"] += 1
 
 
 def matern52(sq_dist: Tensor) -> Tensor:
@@ -80,26 +99,71 @@ class MixedFeatures(NamedTuple):
     categorical: Tensor  # [N, Ds] int32
 
 
+def pair_mask(mask1: Optional[Tensor], mask2: Optional[Tensor]) -> Optional[Tensor]:
+    """[N, M] (or [1, M] / [N, 1]) validity of each pair, None when unmasked."""
+    if mask1 is None and mask2 is None:
+        return None
+    if mask1 is None:
+        return mask2[None, :]
+    if mask2 is None:
+        return mask1[:, None]
+    return mask1[:, None] & mask2[None, :]
+
+
+def apply_masks(
+    k: Tensor, mask1: Optional[Tensor], mask2: Optional[Tensor], diag: Optional[Tensor]
+) -> Tensor:
+    """The JAX package's masking around the kernel matrix [B, N, M]: zero where
+    either row is padded; with ``diag`` [B] (square Gram, ``mask1`` the row
+    mask) add ``diag`` on the valid diagonal and 1 on the padded one."""
+    pair = pair_mask(mask1, mask2)
+    if pair is not None:
+        k = torch.where(pair, k, torch.zeros_like(k))
+    if diag is not None:
+        d = diag[:, None].expand(-1, k.shape[-1])
+        if mask1 is not None:
+            d = torch.where(mask1[None, :], d, torch.ones_like(d))
+        k = k + torch.diag_embed(d)
+    return k
+
+
+def gram_diag_grad(grad: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """[B] gradient of the diagonal value: grad's valid diagonal, summed."""
+    d = torch.diagonal(grad, dim1=-2, dim2=-1)
+    if mask is not None:
+        d = torch.where(mask[None, :], d, torch.zeros_like(d))
+    return torch.sum(d, dim=-1)
+
+
 def matern52_ard_fwd_plain(
     x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
+    mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
+    diag: Optional[Tensor] = None,
 ) -> Tensor:
-    """Plain PyTorch version of K1: the kernel matrix [B, N, M]."""
+    """Plain PyTorch version of K1: the (masked) kernel matrix [B, N, M]."""
     sq = scaled_sq_distance_continuous(x1, x2, inv_cont)
     sq = sq + categorical_sq_distance(z1, z2, inv_sq_cat)
-    return (amplitude * amplitude)[:, None, None] * matern52(sq)
+    k = (amplitude * amplitude)[:, None, None] * matern52(sq)
+    return apply_masks(k, mask1, mask2, diag)
 
 
 def matern52_ard_bwd_plain(
     grad: Tensor, x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
+    mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of K2, in the kernel's closed form.
 
     Returns the gradients with respect to (amplitude [B], inv_cont [B, Dc],
     inv_sq_cat [B, Ds], x1, x2) given ``grad`` [B, N, M], using
     dk/d(r²) = −(5/6)·amp²·(1 + √5 r)·exp(−√5 r) on exact differences.
+    Pairs outside the row masks contribute nothing; the diagonal value's
+    gradient is ``gram_diag_grad``.
     """
+    pair = pair_mask(mask1, mask2)
+    if pair is not None:
+        grad = torch.where(pair, grad, torch.zeros_like(grad))
     batch = amplitude.shape[0]
     diff = _batched(x1, batch)[:, :, None, :] - _batched(x2, batch)[:, None, :, :]
     scaled = diff * inv_cont[:, None, None, :]
@@ -130,15 +194,20 @@ def _ptr(t: Optional[Tensor]) -> Optional[int]:
 def _check_cuda(
     x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
-) -> Tuple[int, int, int, int, int, int, int]:
-    """Validates the kernels' inputs; returns (B, N, M, Dc, Ds, stride1, stride2)."""
+    mask1: Optional[Tensor], mask2: Optional[Tensor], diag: Optional[Tensor],
+) -> Tuple[int, int, int, int, int, int, int, int]:
+    """Validates the kernels' inputs; returns
+    (B, N, M, Dc, Ds, stride1, stride2, symmetric)."""
     device = x1.device
     for name, t, dtype in (
         ("x1", x1, torch.float32), ("z1", z1, torch.int32),
         ("x2", x2, torch.float32), ("z2", z2, torch.int32),
         ("amplitude", amplitude, torch.float32), ("inv_cont", inv_cont, torch.float32),
-        ("inv_sq_cat", inv_sq_cat, torch.float32),
+        ("inv_sq_cat", inv_sq_cat, torch.float32), ("mask1", mask1, torch.bool),
+        ("mask2", mask2, torch.bool), ("diag", diag, torch.float32),
     ):
+        if t is None:
+            continue
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}.")
         if t.dtype != dtype:
@@ -157,19 +226,32 @@ def _check_cuda(
     for x in (x1, x2):
         if x.dim() == 3 and x.shape[0] != batch:
             raise ValueError(f"Batched features {x.shape} must have batch {batch}.")
-    if batch < 1 or batch > 65535 or (n + 7) // 8 > 65535:
-        raise ValueError(f"Unsupported launch shape B={batch}, N={n}.")
+    if (mask1 is not None and mask1.shape != (n,)) or (mask2 is not None and mask2.shape != (m,)):
+        raise ValueError(f"Row masks must be [{n}] and [{m}].")
+    if diag is not None and (diag.shape != (batch,) or n != m):
+        raise ValueError(f"diag must be [{batch}] on a square kernel matrix, got N={n}, M={m}.")
+    if batch < 1 or batch > 65535 or n * m > 2**31 - 1:
+        raise ValueError(f"Unsupported launch shape B={batch}, N={n}, M={m}.")
     stride1 = n * dc if x1.dim() == 3 else 0
     stride2 = m * dc if x2.dim() == 3 else 0
-    return batch, n, m, dc, ds, stride1, stride2
+    # The Gram: both sides are the same storage, batching and mask.
+    symmetric = (
+        x1.data_ptr() == x2.data_ptr() and x1.shape == x2.shape
+        and z1.data_ptr() == z2.data_ptr() and z1.shape == z2.shape
+        and _ptr(mask1) == _ptr(mask2)
+    )
+    return batch, n, m, dc, ds, stride1, stride2, int(symmetric)
 
 
 def matern52_ard_fwd_cuda(
     x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
+    mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
+    diag: Optional[Tensor] = None,
 ) -> Tensor:
     """K1: launches the forward kernel; returns [B, N, M]."""
-    batch, n, m, dc, ds, s1, s2 = _check_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat)
+    batch, n, m, dc, ds, s1, s2, sym = _check_cuda(
+        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, diag)
     out = torch.empty((batch, n, m), dtype=torch.float32, device=x1.device)
     if n == 0 or m == 0:
         return out
@@ -178,17 +260,19 @@ def matern52_ard_fwd_cuda(
     with torch.cuda.device(x1.device):
         status = lib.matern52_ard_fwd(
             _ptr(x1), _ptr(z1), _ptr(x2), _ptr(z2), _ptr(amplitude), _ptr(inv_cont),
-            _ptr(inv_sq_cat), s1, s2, batch, n, m, dc, ds, _ptr(out),
+            _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), _ptr(diag), s1, s2,
+            batch, n, m, dc, ds, sym, _ptr(out),
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
         native.check(status, "matern52_ard_fwd")
-    LAUNCHES["matern52_ard_fwd"] += 1
+    _count_launch("matern52_ard_fwd", sym, mask1 is not None or mask2 is not None)
     return out
 
 
 def matern52_ard_bwd_cuda(
     grad: Tensor, x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
+    mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
     *, need_x1: bool = False, need_x2: bool = False,
 ) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
     """K2: launches the backward kernels.
@@ -196,17 +280,20 @@ def matern52_ard_bwd_cuda(
     Returns the gradients with respect to (amplitude, inv_cont, inv_sq_cat,
     x1, x2); the feature gradients are None unless asked for.
     """
-    batch, n, m, dc, ds, s1, s2 = _check_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat)
+    batch, n, m, dc, ds, s1, s2, sym = _check_cuda(
+        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, None)
     grad = grad.contiguous()
-    if grad.shape != (batch, n, m) or grad.dtype != torch.float32:
-        raise ValueError(f"grad must be float32 [{batch}, {n}, {m}], got {grad.shape}.")
+    if grad.shape != (batch, n, m) or grad.dtype != torch.float32 or grad.device != x1.device:
+        raise ValueError(f"grad must be float32 [{batch}, {n}, {m}] on {x1.device}.")
     lib = native.library()
     device = x1.device
     p = 1 + dc + ds
-    blocks = lib.matern52_bwd_num_blocks(n, m)
+    need_w = (need_x1 or need_x2) and dc > 0
+    # The feature gradients need dL/d(r²) of every ordered pair.
+    upper_tiles = int(sym and not need_w)
+    blocks = lib.matern52_bwd_num_blocks(batch, n, m, upper_tiles)
     grads = torch.empty((batch, p), dtype=torch.float32, device=device)
     partials = torch.empty((batch, max(blocks, 1), p), dtype=torch.float32, device=device)
-    need_w = (need_x1 or need_x2) and dc > 0
     w = torch.empty((batch, n, m), dtype=torch.float32, device=device) if need_w else None
     gx1 = torch.empty_like(x1) if need_x1 else None
     gx2 = torch.empty_like(x2) if need_x2 else None
@@ -217,12 +304,13 @@ def matern52_ard_bwd_cuda(
     with torch.cuda.device(device):
         status = lib.matern52_ard_bwd(
             _ptr(grad), _ptr(x1), _ptr(z1), _ptr(x2), _ptr(z2), _ptr(amplitude),
-            _ptr(inv_cont), _ptr(inv_sq_cat), s1, s2, batch, n, m, dc, ds,
+            _ptr(inv_cont), _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), s1, s2,
+            batch, n, m, dc, ds, upper_tiles,
             _ptr(grads), _ptr(partials), _ptr(w), _ptr(gx1), _ptr(gx2),
             torch.cuda.current_stream(device).cuda_stream,
         )
         native.check(status, "matern52_ard_bwd")
-    LAUNCHES["matern52_ard_bwd"] += 1
+    _count_launch("matern52_ard_bwd", sym, mask1 is not None or mask2 is not None)
     return grads[:, 0], grads[:, 1 : 1 + dc], grads[:, 1 + dc :], gx1, gx2
 
 
@@ -230,18 +318,20 @@ class _Matern52ArdCuda(torch.autograd.Function):
     """K1 forward with K2 as its backward."""
 
     @staticmethod
-    def forward(ctx, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat):
-        ctx.save_for_backward(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat)
-        return matern52_ard_fwd_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat)
+    def forward(ctx, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, diag):
+        ctx.save_for_backward(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2)
+        return matern52_ard_fwd_cuda(
+            x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, diag)
 
     @staticmethod
     def backward(ctx, grad):
-        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat = ctx.saved_tensors
+        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2 = ctx.saved_tensors
         g_amp, g_inv, g_inv_sq, gx1, gx2 = matern52_ard_bwd_cuda(
-            grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat,
+            grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2,
             need_x1=ctx.needs_input_grad[0], need_x2=ctx.needs_input_grad[2],
         )
-        return gx1, None, gx2, None, g_amp, g_inv, g_inv_sq
+        g_diag = gram_diag_grad(grad, mask1) if ctx.needs_input_grad[9] else None
+        return gx1, None, gx2, None, g_amp, g_inv, g_inv_sq, None, None, g_diag
 
 
 def matern52_ard(
@@ -253,12 +343,18 @@ def matern52_ard(
     categorical_length_scales: Tensor,
     continuous_dim_mask: Optional[Tensor] = None,
     categorical_dim_mask: Optional[Tensor] = None,
+    row_mask1: Optional[Tensor] = None,
+    row_mask2: Optional[Tensor] = None,
+    diag: Optional[Tensor] = None,
 ) -> Tensor:
     """Batched mixed-feature ARD Matern-5/2 kernel matrix [B, N, M].
 
     ``amplitude`` [B], ``continuous_length_scales`` [B, Dc] and
     ``categorical_length_scales`` [B, Ds]; masked dims drop out of the
-    distance. CUDA features go to K1/K2, CPU features to the plain version.
+    distance. ``row_mask1`` [N] / ``row_mask2`` [M] zero the pairs with a
+    padded row; ``diag`` [B] (square matrix, ``row_mask1`` the row mask) is
+    added on the valid diagonal, and the padded diagonal is 1. CUDA features
+    go to K1/K2, CPU features to the plain version.
     """
     inv = 1.0 / continuous_length_scales
     if continuous_dim_mask is not None:
@@ -268,8 +364,8 @@ def matern52_ard(
         inv_sq = torch.where(categorical_dim_mask, inv_sq, torch.zeros_like(inv_sq))
     args = (
         f1.continuous, f1.categorical, f2.continuous, f2.categorical,
-        amplitude, inv, inv_sq,
+        amplitude, inv, inv_sq, row_mask1, row_mask2, diag,
     )
     if f1.continuous.is_cuda:
-        return _Matern52ArdCuda.apply(*(a.contiguous() for a in args))
+        return _Matern52ArdCuda.apply(*(None if a is None else a.contiguous() for a in args))
     return matern52_ard_fwd_plain(*args)

@@ -53,18 +53,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit.")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The built and loaded kernel library (built on first call)."""
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    target = BUILD_DIR / f"libvizier_matern52_{digest}.so"
+def build(source: pathlib.Path, build_dir: pathlib.Path) -> ctypes.CDLL:
+    """Builds ``source`` with ``NVCC_FLAGS`` into ``build_dir`` (unless a
+    library of the same source and flags is there) and loads it. The result
+    carries ``build_seconds`` and ``build_log`` (ptxas' register report)."""
+    text = source.read_bytes()
+    digest = hashlib.sha256(text + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    target = build_dir / f"lib{source.stem}_{digest}.so"
     log = ""
     start = time.perf_counter()
     if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         partial = target.with_name(f"{target.name}.{os.getpid()}.part")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(_SOURCE)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -73,14 +74,28 @@ def library() -> ctypes.CDLL:
         os.replace(partial, target)
         log = proc.stderr
     lib = ctypes.CDLL(str(target))
-    lib.matern52_bwd_num_blocks.argtypes = [_I, _I]
-    lib.matern52_bwd_num_blocks.restype = _I
-    lib.matern52_ard_fwd.argtypes = [_P] * 7 + [_L, _L] + [_I] * 5 + [_P, _P]
-    lib.matern52_ard_fwd.restype = _I
-    lib.matern52_ard_bwd.argtypes = [_P] * 8 + [_L, _L] + [_I] * 5 + [_P] * 6
-    lib.matern52_ard_bwd.restype = _I
     lib.build_seconds = time.perf_counter() - start
     lib.build_log = log
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built and loaded kernel library (built on first call)."""
+    lib = build(_SOURCE, BUILD_DIR)
+    lib.matern52_bwd_num_blocks.argtypes = [_I] * 4
+    lib.matern52_bwd_num_blocks.restype = _I
+    # kernel (0 K1, 1 K2), B, N, M, symmetric; out: tile rows, cols, threads.
+    lib.matern52_occupancy.argtypes = [_I] * 5 + [_P] * 3
+    lib.matern52_occupancy.restype = _I
+    # x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, diag; strides; B, N,
+    # M, Dc, Ds, symmetric; out, stream.
+    lib.matern52_ard_fwd.argtypes = [_P] * 10 + [_L, _L] + [_I] * 6 + [_P, _P]
+    lib.matern52_ard_fwd.restype = _I
+    # gk, x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2; strides; B, N, M,
+    # Dc, Ds, symmetric; grads, partials, w, gx1, gx2, stream.
+    lib.matern52_ard_bwd.argtypes = [_P] * 10 + [_L, _L] + [_I] * 6 + [_P] * 6
+    lib.matern52_ard_bwd.restype = _I
     return lib
 
 
