@@ -6,20 +6,24 @@ Phases (any failure raises and exits non-zero):
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
    kernels from ``vizier_tpu_torch/csrc`` (timed, with ptxas' register report).
 2. Holds K1 (``matern52_ard_fwd``) and K2 (``matern52_ard_bwd``) against their
-   plain PyTorch versions on the card: the main path's masked Gram (1000 valid
-   rows padded to 1024, noise diagonal) and masked sweep cross kernel, ragged
-   shapes, masked dims with batched x1, Dc=0 with Ds>0, and Dc=80. K2 must
-   give bit-identical gradients on repeated calls and the Gram's two
-   triangles must be bit-identical.
-3. Times each kernel at the Gram and the cross shape by device time (CUDA
+   plain PyTorch versions on the card, printing the tile each case gets: the
+   main path's masked Gram (1000 valid rows padded to 1024, noise diagonal)
+   and its masked cross kernels (the sweep's 50 queries and the PE
+   conditioning's 1024 rows against the data), ragged shapes, masked dims
+   with batched x1, Dc=0 with Ds>0, and Dc=80. K2 must give bit-identical
+   gradients on repeated calls and the Gram's two triangles must be
+   bit-identical. Then every tile shape is forced in turn at each cross
+   shape of the main path (1, 50 and 1024 queries), checked the same way and
+   timed, so no tile that the main path can take goes unchecked.
+3. Times each kernel at the Gram and the cross shapes by device time (CUDA
    events around the replay of a CUDA graph of back-to-back launches, so the
    host's enqueue rate drops out), beside the wrapper's host time per call,
    its plain version, the nearest PyTorch call (``torch.cdist`` with exact
    differences + elementwise Matern + masks) and its bound. With
-   ``--baseline-source`` (a copy of an earlier ``matern52.cu`` with the
-   unmasked interface, e.g. ``git show a3a3a6f:vizier_tpu_torch/csrc/matern52.cu``)
-   it builds that file into a temporary directory and times its kernels the
-   same way in the same run.
+   ``--baseline-source`` (a copy of commit a3a3a6f's kernels,
+   ``git show a3a3a6f:vizier_tpu_torch/csrc/matern52.cu``, whose unmasked
+   interface is the one it binds) it builds that file into a temporary
+   directory and times its kernels the same way in the same run.
 4. Runs the main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
    synthetic completed trials and serves three ``suggest(count=5)`` requests,
@@ -59,14 +63,16 @@ import torch
 _HBM_BYTES_PER_S = 3.35e12
 _FP32_FLOPS = 67e12
 
-# Tolerances of the kernel checks, as max |kernel - plain| over
-# max |plain| of each output; K2's parameter gradients (amplitude, inverse
-# length scales) count as one output, the vector L-BFGS steps along. Float32
-# sums in another order differ by a few ulps of the largest partial sum, so
-# one parameter's gradient that cancels to far below its terms (a 37-term
-# sum at N=1, M=37) is held to the vector's scale, not its own; the >64-D
-# plain forward uses the ||a||^2 - 2ab + ||b||^2 expansion, whose float32
-# cancellation the kernel's exact differences do not have.
+# Tolerances of the kernel checks. K1 and K2's feature gradients: max
+# |kernel - plain| over max |plain| of each output; the >64-D plain forward
+# uses the ||a||^2 - 2ab + ||b||^2 expansion, whose float32 cancellation the
+# kernel's exact differences do not have. K2's parameter gradients
+# (amplitude, inverse length scales), each part and each entry on its own:
+# |kernel - plain| over the sum of the magnitudes of that entry's terms,
+# which bounds what float32 sums in another order can differ by. A gradient
+# that cancels to far below its terms (a 37-term sum at N=1, M=37) is then
+# not held to its own small value, and one that does not cancel is held to
+# 1e-4 of itself.
 _FWD_TOL = 1e-5
 _FWD_WIDE_TOL = 1e-3
 _BWD_TOL = 1e-4
@@ -81,9 +87,14 @@ _PREDICT_TOL = 5e-3
 # queries against the masked data rows.
 _GRAM = "gram B=5 N=M=1024 (1000 valid) Dc=20 Ds=0"
 _CROSS = "cross B=1 N=50 M=1024 (1000 valid) Dc=20 Ds=0"
+# _pe_conditioning's predict at every row of the data and pending points:
+# separate tensors, so not the symmetric Gram.
+_PE_CROSS = "cross B=1 N=M=1024 (1000 valid) Dc=20 Ds=0"
+_TIMED = (_GRAM, _CROSS, _PE_CROSS)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
+    (_PE_CROSS, dict(b=1, n=1024, m=1024, dc=20, ds=0, valid=1000)),
     ("gram B=1 N=M=1024 (1000 valid) Dc=20", dict(b=1, n=1024, m=1024, dc=20, ds=0, same=True,
                                                    valid=1000)),
     ("ragged B=1 N=1 M=37 Dc=20", dict(b=1, n=1, m=37, dc=20, ds=0)),
@@ -96,6 +107,11 @@ _CASES = [
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
 ]
+# The main path's cross kernels, B=1 against the 1024 data rows (1000 real):
+# one pick's predict, the sweep's pool and the PE conditioning. Every tile
+# shape is checked and timed at each (matern52_force_tile).
+_MAIN_CROSS_QUERIES = (1, 50, 1024)
+_TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
     "JAX package models/kernels.py:85 matern52_ard (an XLA fusion on the TPU; its Pallas "
@@ -191,53 +207,112 @@ def _nbytes(tensors) -> int:
     return total
 
 
-def check_kernels(kernels):
+def _param_term_sums(kernels, grad, args, masks):
+    """Per entry of K2's parameter gradients, the sum of its terms'
+    magnitudes: the plain version at |grad|. Each term is grad times a factor
+    of one sign (amplitude > 0, Matern > 0, inverse scales >= 0), so at |grad|
+    the terms add up without cancelling."""
+    return [torch.abs(g) for g in
+            kernels.matern52_ard_bwd_plain(torch.abs(grad), *args, *masks[:2])[:3]]
+
+
+def _check_case(kernels, gen, name, args, masks, *, same, dc):
+    """K1 and K2 against their plain versions at one input; raises on a
+    disagreement. Returns (incoming gradient, K1 max abs err, K2 max abs err)."""
+    got = kernels.matern52_ard_fwd_cuda(*args, *masks)
+    want = kernels.matern52_ard_fwd_plain(*args, *masks)
+    torch.cuda.synchronize()
+    rel, fwd_err = _rel_err(got, want)
+    tol = _FWD_WIDE_TOL if dc > 64 else _FWD_TOL
+    print(f"K1 {name}: max_abs_err={fwd_err:.3e} max_rel_err={rel:.3e} (tol {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"K1 disagrees with its plain version at {name}")
+    if same and not torch.equal(got, got.transpose(-1, -2)):
+        raise AssertionError(f"K1's Gram triangles differ at {name}")
+    grad = torch.randn(got.shape, generator=gen, device="cuda")
+    want_g = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
+    term_sums = _param_term_sums(kernels, grad, args, masks)
+    # Feature gradients take the all-pairs path; without them a Gram takes
+    # the symmetric one. Both are held to the plain version.
+    runs = [dict(need_x1=True, need_x2=True)] + ([dict()] if same else [])
+    bwd_err = 0.0
+    for run in runs:
+        got_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)
+        torch.cuda.synchronize()
+        worst_rel = 0.0
+        for i, (label, a, b) in enumerate(
+                zip(("amp", "inv_cont", "inv_sq_cat", "x1", "x2"), got_g, want_g)):
+            if a is None or b.numel() == 0:
+                continue
+            if i < 3:
+                e = float(torch.max(torch.abs(a - b)))
+                r = float(torch.max(torch.abs(a - b) / torch.clamp(term_sums[i], min=1e-30)))
+                measure = "rel to sum|terms|"
+            else:
+                r, e = _rel_err(a, b)
+                measure = "rel"
+            worst_rel, bwd_err = max(worst_rel, r), max(bwd_err, e)
+            print(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
+                  f"max_abs_err={e:.3e} max_{measure}_err={r:.3e} (tol {_BWD_TOL})")
+        if not worst_rel <= _BWD_TOL:
+            raise AssertionError(f"K2 disagrees with its plain version at {name}")
+    again = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **runs[-1])
+    if not all(torch.equal(a, b) for a, b in zip(got_g[:3], again[:3])):
+        raise AssertionError(f"K2 is not deterministic at {name}")
+    return grad, fwd_err, bwd_err
+
+
+def check_kernels(kernels, lib):
     """Phase 2: K1/K2 against their plain versions; returns the inputs of the
     shapes that phase 3 times."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed = {}
     for name, spec in _CASES:
         args, masks = _case(gen, **spec)
-        got = kernels.matern52_ard_fwd_cuda(*args, *masks)
-        want = kernels.matern52_ard_fwd_plain(*args, *masks)
-        torch.cuda.synchronize()
-        rel, fwd_err = _rel_err(got, want)
-        tol = _FWD_WIDE_TOL if spec["dc"] > 64 else _FWD_TOL
-        print(f"K1 {name}: max_abs_err={fwd_err:.3e} max_rel_err={rel:.3e} (tol {tol})")
-        if not rel <= tol:
-            raise AssertionError(f"K1 disagrees with its plain version at {name}")
         same = spec.get("same", False)
-        if same and not torch.equal(got, got.transpose(-1, -2)):
-            raise AssertionError(f"K1's Gram triangles differ at {name}")
-        grad = torch.randn(got.shape, generator=gen, device="cuda")
-        want_g = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
-        # Feature gradients take the all-pairs path; without them a Gram
-        # takes the symmetric one. Both are held to the plain version.
-        runs = [dict(need_x1=True, need_x2=True)] + ([dict()] if same else [])
-        bwd_err = 0.0
-        param_scale = max(float(torch.max(torch.abs(g))) for g in want_g[:3] if g.numel())
-        for run in runs:
-            got_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)
-            torch.cuda.synchronize()
-            worst_rel = 0.0
-            for label, a, b in zip(("amp", "inv_cont", "inv_sq_cat", "x1", "x2"), got_g, want_g):
-                if a is None or b.numel() == 0:
-                    continue
-                r, e = _rel_err(a, b)
-                if label in ("amp", "inv_cont", "inv_sq_cat"):
-                    r = e / max(param_scale, 1e-30)
-                worst_rel, bwd_err = max(worst_rel, r), max(bwd_err, e)
-                print(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
-                      f"max_abs_err={e:.3e} max_rel_err={r:.3e} (tol {_BWD_TOL})")
-            if not worst_rel <= _BWD_TOL:
-                raise AssertionError(f"K2 disagrees with its plain version at {name}")
-        again = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **runs[-1])
-        if not all(torch.equal(a, b) for a, b in zip(got_g[:3], again[:3])):
-            raise AssertionError(f"K2 is not deterministic at {name}")
-        if name in (_GRAM, _CROSS):
+        tiles = [f"K1 {_occupancy(lib, 0, args, int(same))}",
+                 f"K2 with feature gradients {_occupancy(lib, 1, args, 0)}"]
+        if same:
+            tiles.append(f"K2 symmetric {_occupancy(lib, 1, args, 1)}")
+        print(f"tiles {name}: " + "; ".join(tiles))
+        grad, fwd_err, bwd_err = _check_case(kernels, gen, name, args, masks, same=same,
+                                             dc=spec["dc"])
+        if name in _TIMED:
             timed[name] = (args, masks, grad, fwd_err, bwd_err)
     print("K2 repeated calls bit-identical at every shape; Gram triangles bit-identical")
     return timed
+
+
+def compare_tiles(kernels, lib):
+    """Phase 2, last part: each tile shape forced in turn at each cross shape
+    of the main path, held to the plain version and timed by device time.
+    Returns {shape: {"chosen": tile, tile: {"fwd_ms", "bwd_ms"}}}."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for q in _MAIN_CROSS_QUERIES:
+        shape = f"cross B=1 N={q} M=1024 (1000 valid) Dc=20"
+        args, masks = _case(gen, b=1, n=q, m=1024, dc=20, ds=0, valid=1000)
+        row = {"chosen": _occupancy(lib, 0, args, 0)}
+        for kind, tile in _TILE_KINDS.items():
+            status = lib.matern52_force_tile(kind)
+            if status:
+                raise RuntimeError(f"matern52_force_tile({kind}): CUDA error {status}")
+            try:
+                grad, _, _ = _check_case(kernels, gen, f"{shape} [{tile} tile forced]", args,
+                                         masks, same=False, dc=20)
+                row[tile] = dict(
+                    occupancy=_occupancy(lib, 0, args, 0),
+                    fwd_ms=_device_ms(lambda: kernels.matern52_ard_fwd_cuda(*args, *masks)),
+                    bwd_ms=_device_ms(
+                        lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2])),
+                )
+            finally:
+                lib.matern52_force_tile(-1)
+            print(f"tile {tile} at {shape}: {row[tile]['occupancy']}; device K1 "
+                  f"{row[tile]['fwd_ms']:.5f} ms/launch, K2 {row[tile]['bwd_ms']:.5f} ms/launch")
+        print(f"tile chosen at {shape}: {row['chosen']}")
+        rows[shape] = row
+    return rows
 
 
 def _bound(nbytes: int, ops: int):
@@ -281,10 +356,10 @@ def _library_fn(kernels, args, masks):
     return library
 
 
-def _occupancy(lib, kernel: int, args) -> str:
-    """The tile shape these inputs get and its resident blocks per SM."""
+def _occupancy(lib, kernel: int, args, sym: int) -> str:
+    """The tile shape these inputs get (``sym``: the symmetric Gram path) and
+    its resident blocks per SM."""
     x1, z1, x2, z2, amp = args[:5]
-    sym = int(x2 is x1 and z2 is z1)
     tn, tm, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     blocks = lib.matern52_occupancy(kernel, amp.shape[0], x1.shape[-2], x2.shape[-2], sym,
                                     ctypes.byref(tn), ctypes.byref(tm), ctypes.byref(threads))
@@ -317,7 +392,7 @@ def time_kernels(kernels, timed):
         }
         for kernel, key in enumerate(("fwd", "bwd")):
             r = rows[shape][key]
-            r["occupancy"] = _occupancy(native.library(), kernel, args)
+            r["occupancy"] = _occupancy(native.library(), kernel, args, int(args[2] is args[0]))
             print(f"matern52_ard_{key} [{shape}]: {r['occupancy']}")
             print(f"matern52_ard_{key} [{shape}]: device {r['ms']:.5f} ms/launch, host "
                   f"{r['host_us']:.1f} us/call, plain {r['plain_ms']:.4f} ms, library "
@@ -328,8 +403,9 @@ def time_kernels(kernels, timed):
 
 
 def _load_baseline(path: str):
-    """An earlier matern52.cu with the unmasked interface (no masks, diagonal
-    or symmetric flag), built into a temporary directory."""
+    """Commit a3a3a6f's matern52.cu, built into a temporary directory. The
+    binding below is that source's interface (no masks, diagonal or symmetric
+    flag); a source with another interface needs its own."""
     from vizier_tpu_torch.ops import native
 
     build_dir = pathlib.Path(tempfile.mkdtemp(prefix="matern52_baseline_"))
@@ -443,8 +519,8 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
               f"first acquisition {suggestions[0].metadata.ns('gp_ucb_pe')['acquisition']}")
         designer.update(vz.CompletedTrials(completed), vz.ActiveTrials())
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
     by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
@@ -521,7 +597,7 @@ def profile_request(designer, count: int = 5):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
-                        help="an earlier matern52.cu to time beside the current kernels")
+                        help="commit a3a3a6f's matern52.cu, to time beside the current kernels")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -543,7 +619,8 @@ def main() -> int:
     print(lib.build_log.strip())
 
     start = time.perf_counter()
-    timed = check_kernels(kernels)
+    timed = check_kernels(kernels, lib)
+    tiles = compare_tiles(kernels, lib)
     print(f"[{time.perf_counter() - start:.1f} s] kernel checks done")
     timing = time_kernels(kernels, timed)
     baseline = None
@@ -581,6 +658,10 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
             "launches_by_mode": by_mode[name], "by_shape": by_shape,
+            "tiles_at_main_path_cross_shapes": {
+                shape: {"chosen": row["chosen"], **{
+                    tile: row[tile][f"{key}_ms"] for tile in _TILE_KINDS.values()}}
+                for shape, row in tiles.items()},
         })
     print(json.dumps({"kernels": rows}))
     print(card)

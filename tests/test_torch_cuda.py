@@ -63,6 +63,16 @@ def _assert_grads_close(got_g, want_g):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
 
 
+def _assert_params_within_rounding(got_g, grad, args, mask1=None, mask2=None):
+    """Each entry of the parameter gradients within 1e-4 of the sum of its
+    terms' magnitudes (the plain version at |grad|: every term is grad times
+    a factor of one sign), the bound on float32 sums in another order."""
+    want = tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)[:3]
+    sums = tk.matern52_ard_bwd_plain(torch.abs(grad), *args, mask1, mask2)[:3]
+    for g, w, t in zip(got_g[:3], want, sums):
+        assert torch.all(torch.abs(g - w) <= 1e-4 * torch.abs(t))
+
+
 @pytest.mark.parametrize(
     "shape",
     [
@@ -75,9 +85,10 @@ def _assert_grads_close(got_g, want_g):
         dict(b=5, n=300, m=1000, dc=20, ds=2),
         dict(b=5, n=131, m=131, dc=20, ds=0, same=True),
         dict(b=1, n=67, m=67, dc=80, ds=3, same=True, batched=True),
+        dict(b=1, n=1024, m=1024, dc=20, ds=0),
     ],
     ids=["gram", "cross", "mixed_batched", "wide", "categorical_only", "one_row_ragged",
-         "big_tiles_ragged", "gram_ragged", "gram_wide_batched"],
+         "big_tiles_ragged", "gram_ragged", "gram_wide_batched", "square_cross_b1"],
 )
 def test_cuda_kernels_match_plain(cuda_device, shape):
     args = _args(cuda_device, **shape)
@@ -90,9 +101,12 @@ def test_cuda_kernels_match_plain(cuda_device, shape):
     got_g = tk.matern52_ard_bwd_cuda(grad, *args, need_x1=True, need_x2=True)
     want_g = tk.matern52_ard_bwd_plain(grad, *args)
     _assert_grads_close(got_g, want_g)
+    _assert_params_within_rounding(got_g, grad, args)
     if shape.get("same"):
         # Without feature gradients K2 takes the symmetric path.
-        _assert_grads_close(tk.matern52_ard_bwd_cuda(grad, *args)[:3], want_g[:3])
+        sym_g = tk.matern52_ard_bwd_cuda(grad, *args)
+        _assert_grads_close(sym_g[:3], want_g[:3])
+        _assert_params_within_rounding(sym_g, grad, args)
 
 
 @pytest.mark.parametrize(
@@ -126,25 +140,50 @@ def test_masked_gram_matches_plain(cuda_device, case):
     want_g = tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)
     first = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
     _assert_grads_close(first[:3], want_g[:3])
+    _assert_params_within_rounding(first, grad, args, mask1, mask2)
     # Fixed-order reductions: the same inputs give the same bits.
     second = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
     for a, c in zip(first[:3], second[:3]):
         assert torch.equal(a, c)
 
 
-def test_masked_cross_matches_plain(cuda_device):
-    """The sweep's shape: 50 queries against 1024 data rows, 1000 of them real."""
-    args = _args(cuda_device, 1, 50, 1024, 20, 0)
-    _, mask2, _ = _masks(cuda_device, 1, 50, 1024, valid2=1000)
+# The main path's cross kernels against 1024 data rows, 1000 of them real:
+# one pick's predict, the sweep's 50 queries, and the PE conditioning's
+# predict at every row of the data and pending points (separate tensors, so
+# not the symmetric Gram).
+_MAIN_CROSS_QUERIES = [1, 50, 1024]
+
+
+def _check_masked_cross(device, queries):
+    args = _args(device, 1, queries, 1024, 20, 0)
+    _, mask2, _ = _masks(device, 1, queries, 1024, valid2=1000)
     want = tk.matern52_ard_fwd_plain(*args, None, mask2)
     got = tk.matern52_ard_fwd_cuda(*args, None, mask2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.all(got[..., 1000:] == 0)
-    grad = torch.randn(want.shape, device=cuda_device)
-    _assert_grads_close(
-        tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True, need_x2=True),
-        tk.matern52_ard_bwd_plain(grad, *args, None, mask2),
-    )
+    grad = torch.randn(want.shape, device=device)
+    got_g = tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True, need_x2=True)
+    _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, None, mask2))
+    _assert_params_within_rounding(got_g, grad, args, None, mask2)
+
+
+@pytest.mark.parametrize("queries", _MAIN_CROSS_QUERIES)
+def test_masked_cross_matches_plain(cuda_device, queries):
+    _check_masked_cross(cuda_device, queries)
+
+
+@pytest.mark.parametrize("tile", [0, 1], ids=["big", "tiny"])
+@pytest.mark.parametrize("queries", _MAIN_CROSS_QUERIES)
+def test_every_tile_matches_plain_at_the_main_path_cross_shapes(cuda_device, queries, tile):
+    """Whichever tile the shape chooses, each one the library has is right."""
+    from vizier_tpu_torch.ops import native
+
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        _check_masked_cross(cuda_device, queries)
+    finally:
+        lib.matern52_force_tile(-1)
 
 
 def test_gram_gradient_reaches_the_noise_through_the_diagonal(cuda_device):
@@ -198,10 +237,10 @@ def test_autograd_through_the_kernels_matches_the_cpu_plain_path(cuda_device):
         value = torch.sum(weights.to(device) * out)
         return value, torch.autograd.grad(value, leaves)
 
-    before = dict(tk.LAUNCHES)
+    tk.reset_launch_counts()
     got, got_grads = loss(cuda_device)
-    assert tk.LAUNCHES["matern52_ard_fwd"] == before["matern52_ard_fwd"] + 1
-    assert tk.LAUNCHES["matern52_ard_bwd"] == before["matern52_ard_bwd"] + 1
+    assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_fwd"].values()) == 1
+    assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_bwd"].values()) == 1
     want, want_grads = loss("cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
     for g, w in zip(got_grads, want_grads):
@@ -229,7 +268,8 @@ def test_designer_suggests_through_the_kernels(cuda_device):
     suggestions = designer.suggest(3)
     torch.cuda.synchronize()
     assert len(suggestions) == 3
-    assert tk.LAUNCHES["matern52_ard_fwd"] > 0 and tk.LAUNCHES["matern52_ard_bwd"] > 0
+    for name in ("matern52_ard_fwd", "matern52_ard_bwd"):
+        assert sum(tk.LAUNCHES_BY_MODE[name].values()) > 0
     for s in suggestions:
         assert 0.0 <= s.parameters.get_value("x") <= 1.0
         assert s.parameters.get_value("c") in ("a", "b", "c")

@@ -157,12 +157,12 @@ def test_cpu_tensors_never_build_the_cuda_library(monkeypatch):
         raise AssertionError("CPU tensors must take the plain version")
 
     monkeypatch.setattr(native, "library", refuse)
-    before = dict(tk.LAUNCHES)
+    before = {name: dict(modes) for name, modes in tk.LAUNCHES_BY_MODE.items()}
     a = _inputs(7, n=5, m=6, dc=3, ds=1)
     out, params = _torch_kernel(a, requires_grad=True)
     out.sum().backward()
     assert out.shape == (1, 5, 6)
-    assert tk.LAUNCHES == before
+    assert tk.LAUNCHES_BY_MODE == before
 
 
 def _padded_gp_data(seed, n, n_pad, dc, dc_pad, ds):

@@ -35,12 +35,14 @@
 //   applies amp^2 * Matern-5/2, the row masks and the diagonal, and stores
 //   along M with float4 writes (scalar at a ragged edge).
 // - Tile shapes: 64 x 64 outputs by 128 threads (8 x 4 each, two passes of
-//   4 x 4) for the Gram and every shape with at least two such tiles per SM;
-//   16 x 64 or 16 x 16 by 256 threads below that (the sweep's 50-query cross
-//   kernel takes 16 x 16: more blocks in flight for a launch that is mostly
-//   latency). The register budget holds the 64 x 64 kernels to 80 registers,
-//   six blocks (24 warps) per SM, so the Gram's 5 x 136 upper tiles run in
-//   one wave; ptxas' report and chip_smoke.py's occupancy line show it.
+//   4 x 4) for the Gram and every shape with at least one such tile per SM;
+//   16 x 16 by 256 threads, one output each, below that (the sweep's 50-query
+//   cross kernel: more blocks in flight for a launch that is mostly latency).
+//   chip_smoke.py times both at the main path's cross shapes, which sit on
+//   either side of the line. The register budget holds the 64 x 64 kernels
+//   to 80 registers, six blocks (24 warps) per SM, so the Gram's 5 x 136
+//   upper tiles run in one wave; ptxas' report and chip_smoke.py's
+//   occupancy line show it.
 // - Symmetric Gram (x2 is x1, z2 is z1): only tiles on or above the diagonal
 //   run. Each off-diagonal tile also writes its mirror, transposed through
 //   shared memory so that store is coalesced too; the two triangles hold the
@@ -95,9 +97,7 @@ struct Tile {
 // 64 x 64 outputs, 128 threads of 8 x 4 in two passes of 4 x 4: the Gram and
 // every shape that fills the card. Square, as the symmetric Gram needs.
 using BigTile = Tile<8, 8, 4, 2>;
-// 16 x 64 outputs, 256 threads of 1 x 4: shapes with few big tiles.
-using SmallTile = Tile<16, 1, 4>;
-// 16 x 16 outputs, 256 threads of one output each: shapes with few small
+// 16 x 16 outputs, 256 threads of one output each: shapes with few big
 // tiles, such as the acquisition sweep's 50-query cross kernel, where one
 // launch's latency is most of the time and more blocks in flight shorten it.
 using TinyTile = Tile<16, 1, 1>;
@@ -629,17 +629,24 @@ __global__ void matern52_bwd_features_kernel(Inputs in, const float* __restrict_
   gx[idx] = acc;
 }
 
-enum class TileKind { kBig, kSmall, kTiny };
+enum class TileKind { kBig, kTiny };
+constexpr int kTileKinds = 2;
 
-// The largest tile that still gives the card at least two blocks per SM
-// (132 SMs), big tiles for the symmetric Gram (which needs square tiles).
+// -1: the shape chooses the tile (choose_tile). Otherwise the TileKind that
+// every non-symmetric launch takes: set by matern52_force_tile, which
+// chip_smoke.py uses to check and time each tile at the main path's shapes.
+int forced_tile = -1;
+
+// Big tiles when they give the card at least one block per SM (132 SMs),
+// and always for the symmetric Gram (which needs square tiles); tiny tiles
+// below that. On the H100 big tiles were 2.5x faster at B=1, 1024 x 1024
+// (256 big tiles) and 2.7x slower at B=1, 50 x 1024 (16).
 TileKind choose_tile(int B, int N, int M, int symmetric) {
-  auto blocks = [&](int tn, int tm) {
-    return (int64_t)B * ((N + tn - 1) / tn) * ((M + tm - 1) / tm);
-  };
-  if (symmetric || blocks(BigTile::TN, BigTile::TM) >= 2 * 132) return TileKind::kBig;
-  if (blocks(SmallTile::TN, SmallTile::TM) >= 2 * 132) return TileKind::kSmall;
-  return TileKind::kTiny;
+  if (symmetric) return TileKind::kBig;
+  if (forced_tile >= 0) return static_cast<TileKind>(forced_tile);
+  const int64_t big_tiles = (int64_t)B * ((N + BigTile::TN - 1) / BigTile::TN) *
+                            ((M + BigTile::TM - 1) / BigTile::TM);
+  return big_tiles >= 132 ? TileKind::kBig : TileKind::kTiny;
 }
 
 template <class T>
@@ -654,8 +661,6 @@ auto with_tile(int B, int N, int M, int symmetric, F f) {
   switch (choose_tile(B, N, M, symmetric)) {
     case TileKind::kBig:
       return f(BigTile{});
-    case TileKind::kSmall:
-      return f(SmallTile{});
     default:
       return f(TinyTile{});
   }
@@ -701,6 +706,16 @@ extern "C" {
 int matern52_bwd_num_blocks(int B, int N, int M, int symmetric) {
   return (int)with_tile(B, N, M, symmetric,
                         [&](auto t) { return tiles_per_member<decltype(t)>(N, M, symmetric); });
+}
+
+// Makes every non-symmetric launch take tile `kind` (0 big, 1 tiny),
+// or with -1 lets the shape choose again. For measurement: it changes which
+// kernels run, never what they compute. Returns cudaErrorInvalidValue for
+// another kind.
+int matern52_force_tile(int kind) {
+  if (kind < -1 || kind >= kTileKinds) return (int)cudaErrorInvalidValue;
+  forced_tile = kind;
+  return (int)cudaSuccess;
 }
 
 // Resident blocks per SM of K1 (kernel 0) or K2's parameter kernel

@@ -33,24 +33,23 @@ Tensor = torch.Tensor
 _SQRT5 = 2.2360679774997896
 _DIRECT_DIST_MAX_DIM = 64
 
-# Launches of each CUDA wrapper, one per call that launched its kernels, and
-# the same split by mode: "gram" (both sides the same tensors: _masked_gram),
-# "cross" (row-masked cross kernel: predict) and "other" (neither).
-LAUNCHES: Dict[str, int] = {"matern52_ard_fwd": 0, "matern52_ard_bwd": 0}
+# Launches of each CUDA wrapper, one per call that launched its kernels, by
+# mode: "gram" (both sides the same tensors: _masked_gram), "cross"
+# (row-masked cross kernel: predict) and "other" (neither). A wrapper's total
+# is the sum over its modes.
 LAUNCHES_BY_MODE: Dict[str, Dict[str, int]] = {
-    name: {"gram": 0, "cross": 0, "other": 0} for name in LAUNCHES
+    name: {"gram": 0, "cross": 0, "other": 0}
+    for name in ("matern52_ard_fwd", "matern52_ard_bwd")
 }
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        for mode in LAUNCHES_BY_MODE[name]:
-            LAUNCHES_BY_MODE[name][mode] = 0
+    for modes in LAUNCHES_BY_MODE.values():
+        for mode in modes:
+            modes[mode] = 0
 
 
 def _count_launch(name: str, symmetric: int, masked: bool) -> None:
-    LAUNCHES[name] += 1
     LAUNCHES_BY_MODE[name]["gram" if symmetric else "cross" if masked else "other"] += 1
 
 

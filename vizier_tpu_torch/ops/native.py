@@ -88,6 +88,9 @@ def library() -> ctypes.CDLL:
     # kernel (0 K1, 1 K2), B, N, M, symmetric; out: tile rows, cols, threads.
     lib.matern52_occupancy.argtypes = [_I] * 5 + [_P] * 3
     lib.matern52_occupancy.restype = _I
+    # tile kind (0 big, 1 tiny; -1 chosen by shape).
+    lib.matern52_force_tile.argtypes = [_I]
+    lib.matern52_force_tile.restype = _I
     # x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, diag; strides; B, N,
     # M, Dc, Ds, symmetric; out, stream.
     lib.matern52_ard_fwd.argtypes = [_P] * 10 + [_L, _L] + [_I] * 6 + [_P, _P]
