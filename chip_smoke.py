@@ -7,33 +7,42 @@ Phases (any failure raises and exits non-zero):
    kernels from ``vizier_tpu_torch/csrc`` (timed, with ptxas' register report).
 2. Holds K1 (``matern52_ard_fwd``) and K2 (``matern52_ard_bwd``) against their
    plain PyTorch versions on the card, printing the tile each case gets: the
-   main path's masked Gram (1000 valid rows padded to 1024, noise diagonal)
+   exact path's masked Gram (1000 valid rows padded to 1024, noise diagonal)
    and its masked cross kernels (the sweep's 50 queries and the PE
-   conditioning's 1024 rows against the data), ragged shapes, masked dims
-   with batched x1, Dc=0 with Ds>0, and Dc=80. K2 must give bit-identical
-   gradients on repeated calls and the Gram's two triangles must be
-   bit-identical. Then every tile shape is forced in turn at each cross
-   shape of the main path (1, 50 and 1024 queries), checked the same way and
-   timed, so no tile that the main path can take goes unchecked.
-3. Times each kernel at the Gram and the cross shapes by device time (CUDA
-   events around the replay of a CUDA graph of back-to-back launches, so the
-   host's enqueue rate drops out), beside the wrapper's host time per call,
-   its plain version, the nearest PyTorch call (``torch.cdist`` with exact
-   differences + elementwise Matern + masks) and its bound. With
-   ``--baseline-source`` (a copy of commit a3a3a6f's kernels,
-   ``git show a3a3a6f:vizier_tpu_torch/csrc/matern52.cu``, whose unmasked
-   interface is the one it binds) it builds that file into a temporary
-   directory and times its kernels the same way in the same run.
-4. Runs the main path through the designer entry points: a
+   conditioning's 1024 rows against the data), the sparse path's Knm (both
+   row masks; 6 and 3 restarts), Kmm (diagonal value 1e-4, which must give
+   amp^2 + 1e-4 bit for bit), per-pick Knm and Kmm over 133 ragged slots and
+   its predict shapes, ragged shapes, masked dims with batched x1, Dc=0 with
+   Ds>0, and Dc=80. K2 must give bit-identical gradients on repeated calls
+   and the Gram's two triangles must be bit-identical. Then every tile shape
+   is forced in turn at each cross shape of both paths, checked the same way
+   and timed, so no tile that either path can take goes unchecked.
+3. Times each kernel at the Gram and the cross shapes of both paths by device
+   time (CUDA events around the replay of a CUDA graph of back-to-back
+   launches, so the host's enqueue rate drops out), beside the wrapper's host
+   time per call, its plain version, the nearest PyTorch call
+   (``torch.cdist`` with exact differences + elementwise Matern + masks) and
+   its bound. With ``--baseline-source`` (a copy of commit a3a3a6f's
+   kernels, ``git show a3a3a6f:vizier_tpu_torch/csrc/matern52.cu``, whose
+   unmasked interface is the one it binds) it builds that file into a
+   temporary directory and times its kernels the same way in the same run.
+4. The exact main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
    synthetic completed trials and serves three ``suggest(count=5)`` requests,
    completing the five suggestions between requests. Launch counts are reset
    just before and read just after; both kernels, K1's Gram and cross modes
-   and K2's Gram mode must have run.
-5. Checks the outputs: suggestions finite and in bounds, every trained
-   Cholesky finite, and the trained posterior's predictions on the card
+   and K2's Gram mode must have run. Suggestions finite and in bounds, every
+   trained Cholesky finite, the trained posterior's predictions on the card
    against the port's plain CPU path at the same parameters. Then profiles
    one more request.
+5. The service-configured DEFAULT: the same designer with
+   ``surrogate=SurrogateConfig()``, ``warm_ard_restarts=1`` on the same study
+   serves three ``suggest(count=5)`` through the sparse SGPR surrogate (one
+   cold train, then two warm ones), with its own launch counts (K1 and K2 in
+   both their Gram and cross modes), the same output checks, k-center picks
+   and predictions against the CPU plain path, the k-center loop's launches
+   and time, and one more profiled request. Then one sparse
+   ``suggest(count=1)`` of ``VizierGPBandit`` (GAUSSIAN_PROCESS_BANDIT).
 6. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -90,7 +99,43 @@ _CROSS = "cross B=1 N=50 M=1024 (1000 valid) Dc=20 Ds=0"
 # _pe_conditioning's predict at every row of the data and pending points:
 # separate tensors, so not the symmetric Gram.
 _PE_CROSS = "cross B=1 N=M=1024 (1000 valid) Dc=20 Ds=0"
-_TIMED = (_GRAM, _CROSS, _PE_CROSS)
+# The sparse surrogate's shapes at the same study (SurrogateConfig's 128
+# inducing points, 5 picks per request): its collapsed-bound train builds Knm
+# (both row masks) and Kmm (Gram, diagonal value 1e-4) for 6 restarts when
+# cold (4 random + heuristic + warm row) and 3 when warm (1 + heuristic +
+# warm); each pick re-conditions over the all-points rows (1000 + pending)
+# and 128 + 5 inducing slots (the trained ones + one Nyström spare per
+# pick); the PE conditioning predicts the trained posterior at every
+# all-points row; the sweep scores 50 queries against 128 and 133 slots.
+_SPARSE_KNM_COLD = "sparse Knm B=6 N=1024 (1000 valid) M=128 Dc=20"
+_SPARSE_KNM_WARM = "sparse Knm B=3 N=1024 (1000 valid) M=128 Dc=20"
+_SPARSE_KMM_COLD = "sparse Kmm gram B=6 N=M=128 diag 1e-4 Dc=20"
+_SPARSE_KMM_WARM = "sparse Kmm gram B=3 N=M=128 diag 1e-4 Dc=20"
+_SPARSE_KNM_PICK = "sparse per-pick Knm B=1 N=1024 (1003 valid) M=133 (130 valid) Dc=20"
+_SPARSE_KMM_PICK = "sparse per-pick Kmm gram B=1 N=M=133 (130 valid) diag 1e-4 Dc=20"
+_SPARSE_PE = "sparse PE conditioning cross B=1 N=1024 M=128 Dc=20"
+_SPARSE_SWEEP = "sparse sweep cross B=1 N=50 M=128 Dc=20"
+_SPARSE_SWEEP_AUG = "sparse sweep cross B=1 N=50 M=133 (130 valid) Dc=20"
+_SPARSE_ONE = "sparse one-query cross B=1 N=1 M=128 Dc=20"
+_SPARSE_CROSS_CASES = [
+    (_SPARSE_KNM_COLD, dict(b=6, n=1024, m=128, dc=20, ds=0, valid1=1000, valid=128)),
+    (_SPARSE_KNM_WARM, dict(b=3, n=1024, m=128, dc=20, ds=0, valid1=1000, valid=128)),
+    (_SPARSE_KNM_PICK, dict(b=1, n=1024, m=133, dc=20, ds=0, valid1=1003, valid=130)),
+    (_SPARSE_PE, dict(b=1, n=1024, m=128, dc=20, ds=0, valid=128)),
+    (_SPARSE_SWEEP, dict(b=1, n=50, m=128, dc=20, ds=0, valid=128)),
+    (_SPARSE_SWEEP_AUG, dict(b=1, n=50, m=133, dc=20, ds=0, valid=130)),
+    (_SPARSE_ONE, dict(b=1, n=1, m=128, dc=20, ds=0, valid=128)),
+]
+_SPARSE_CASES = _SPARSE_CROSS_CASES + [
+    (_SPARSE_KMM_COLD, dict(b=6, n=128, m=128, dc=20, ds=0, same=True, valid=128, jitter=1e-4)),
+    (_SPARSE_KMM_WARM, dict(b=3, n=128, m=128, dc=20, ds=0, same=True, valid=128, jitter=1e-4)),
+    ("sparse Kmm gram B=1 N=M=128 diag 1e-4 Dc=20",
+     dict(b=1, n=128, m=128, dc=20, ds=0, same=True, valid=128, jitter=1e-4)),
+    (_SPARSE_KMM_PICK, dict(b=1, n=133, m=133, dc=20, ds=0, same=True, valid=130, jitter=1e-4)),
+]
+_TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_KMM_COLD,
+          _SPARSE_KMM_WARM, _SPARSE_KNM_PICK, _SPARSE_KMM_PICK, _SPARSE_PE, _SPARSE_SWEEP,
+          _SPARSE_SWEEP_AUG)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
@@ -106,11 +151,15 @@ _CASES = [
     ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
-]
-# The main path's cross kernels, B=1 against the 1024 data rows (1000 real):
-# one pick's predict, the sweep's pool and the PE conditioning. Every tile
-# shape is checked and timed at each (matern52_force_tile).
-_MAIN_CROSS_QUERIES = (1, 50, 1024)
+] + _SPARSE_CASES
+# The cross kernels of both paths: the exact path's, B=1 against the 1024
+# data rows (1000 real): one pick's predict, the sweep's pool and the PE
+# conditioning; and the sparse path's. Every tile shape is checked and timed
+# at each (matern52_force_tile).
+_TILE_CASES = [
+    (f"cross B=1 N={q} M=1024 (1000 valid) Dc=20", dict(b=1, n=q, m=1024, dc=20, ds=0, valid=1000))
+    for q in (1, 50, 1024)
+] + _SPARSE_CROSS_CASES
 _TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
@@ -172,10 +221,13 @@ def _rel_err(got, want) -> float:
     return err / max(scale, 1e-30), err
 
 
-def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=False, valid=None):
+def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=False, valid=None,
+          valid1=None, jitter=None):
     """Random kernel inputs on the card: (args, masks). A Gram (``same``) with
-    ``valid`` rows gets one row mask on both sides and a noise diagonal; a
-    cross case with ``valid`` masks its data side, as predict does."""
+    ``valid`` rows gets one row mask on both sides and a noise diagonal (the
+    constant ``jitter`` where given, as Kmm); a cross case with ``valid``
+    masks its second side, as predict does, and with ``valid1`` its first
+    side too, as Knm does."""
     dev = "cuda"
     x1 = torch.rand((b, n, dc) if batched_x1 else (n, dc), generator=gen, device=dev)
     x2 = x1 if same else torch.rand((m, dc), generator=gen, device=dev)
@@ -191,10 +243,15 @@ def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=Fal
     masks = (None, None, None)
     if valid is not None and same:
         mask = torch.arange(n, device=dev) < valid
-        noise = 0.05 + 0.1 * torch.rand((b,), generator=gen, device=dev)
-        masks = (mask, mask, noise * noise + 1e-5)
+        if jitter is not None:
+            diag = torch.full((b,), jitter, device=dev)
+        else:
+            noise = 0.05 + 0.1 * torch.rand((b,), generator=gen, device=dev)
+            diag = noise * noise + 1e-5
+        masks = (mask, mask, diag)
     elif valid is not None:
-        masks = (None, torch.arange(m, device=dev) < valid, None)
+        mask1 = None if valid1 is None else torch.arange(n, device=dev) < valid1
+        masks = (mask1, torch.arange(m, device=dev) < valid, None)
     return args, masks
 
 
@@ -262,6 +319,20 @@ def _check_case(kernels, gen, name, args, masks, *, same, dc):
     return grad, fwd_err, bwd_err
 
 
+def _check_kmm_diagonal(kernels, name, args, masks, valid):
+    """Kmm's valid diagonal is bitwise amp² + jitter (the reference replaces
+    the diagonal with it), as on the CPU; its padded diagonal is 1."""
+    amp, jitter = args[4], masks[2]
+    diag = torch.diagonal(kernels.matern52_ard_fwd_cuda(*args, *masks), dim1=-2, dim2=-1)
+    cpu = kernels.matern52_ard_fwd_plain(*(a.cpu() for a in args), *(m.cpu() for m in masks))
+    want = (amp * amp + jitter)[:, None].expand(-1, valid)
+    if not (torch.equal(diag[:, :valid], want) and bool(torch.all(diag[:, valid:] == 1.0))
+            and torch.equal(diag.cpu(), torch.diagonal(cpu, dim1=-2, dim2=-1))):
+        raise AssertionError(f"K1's Kmm diagonal is not amp^2 + jitter bit for bit at {name}")
+    print(f"K1 {name}: diagonal bitwise amp^2 + {float(jitter[0]):g} on {valid} valid slots, "
+          f"1 on the padded ones, equal to the CPU's")
+
+
 def check_kernels(kernels, lib):
     """Phase 2: K1/K2 against their plain versions; returns the inputs of the
     shapes that phase 3 times."""
@@ -277,6 +348,8 @@ def check_kernels(kernels, lib):
         print(f"tiles {name}: " + "; ".join(tiles))
         grad, fwd_err, bwd_err = _check_case(kernels, gen, name, args, masks, same=same,
                                              dc=spec["dc"])
+        if spec.get("jitter") is not None:
+            _check_kmm_diagonal(kernels, name, args, masks, spec["valid"])
         if name in _TIMED:
             timed[name] = (args, masks, grad, fwd_err, bwd_err)
     print("K2 repeated calls bit-identical at every shape; Gram triangles bit-identical")
@@ -289,9 +362,8 @@ def compare_tiles(kernels, lib):
     Returns {shape: {"chosen": tile, tile: {"fwd_ms", "bwd_ms"}}}."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    for q in _MAIN_CROSS_QUERIES:
-        shape = f"cross B=1 N={q} M=1024 (1000 valid) Dc=20"
-        args, masks = _case(gen, b=1, n=q, m=1024, dc=20, ds=0, valid=1000)
+    for shape, spec in _TILE_CASES:
+        args, masks = _case(gen, **spec)
         row = {"chosen": _occupancy(lib, 0, args, 0)}
         for kind, tile in _TILE_KINDS.items():
             status = lib.matern52_force_tile(kind)
@@ -479,49 +551,82 @@ def _bench_trials(vz, num_trials: int, dim: int):
     return trials
 
 
-def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
-    """Phase 3 + 4: three suggest(count=5) requests at 1000 trials x 20-D."""
-    dim, num_trials, count = 20, 1000, 5
+_DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
+
+
+def _bench_problem(vz):
     problem = vz.ProblemStatement()
-    for j in range(dim):
+    for j in range(_DIM):
         problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
     problem.metric_information.append(
         vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE)
     )
-    trials = _bench_trials(vz, num_trials, dim)
+    return problem
+
+
+def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3):
+    """``requests`` suggest(count=5) requests on bench.py's study, the picks
+    completed between requests; ``check_state(request)`` checks the trained
+    state after each. Returns (latencies in s, that path's launches by mode,
+    peak device memory above what was allocated before the path), with the
+    launch counts and the peak reset just before the first request. Each
+    request's ARD train runs first (``_train_states``, which the suggest then
+    reuses) so its share is printed."""
+    trials = _bench_trials(vz, _NUM_TRIALS, _DIM)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
-    designer = gp_ucb_pe.VizierGPUCBPEBandit(problem, rng_seed=0)
     designer.update(vz.CompletedTrials(trials), vz.ActiveTrials())
-    latencies, next_id, states = [], num_trials + 1, []
-    for request in range(3):
+    latencies, next_id = [], _NUM_TRIALS + 1
+    for request in range(requests):
         start = time.perf_counter()
-        suggestions = designer.suggest(count=count)
+        designer._train_states()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+        suggestions = designer.suggest(count=_COUNT)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - start)
-        state = designer._cached_states[0]
-        states.append(state)
-        if len(suggestions) != count:
-            raise AssertionError(f"request {request}: {len(suggestions)} suggestions")
-        if not bool(torch.isfinite(state.chol).all()):
-            raise AssertionError(f"request {request}: non-finite Cholesky factor")
+        if len(suggestions) != _COUNT:
+            raise AssertionError(f"{kind} request {request}: {len(suggestions)} suggestions")
+        check_state(request)
         completed = []
         for s in suggestions:
-            values = np.array([s.parameters.get_value(f"x{j}") for j in range(dim)], float)
+            values = np.array([s.parameters.get_value(f"x{j}") for j in range(_DIM)], float)
             if not (np.all(np.isfinite(values)) and np.all((values >= 0.0) & (values <= 1.0))):
-                raise AssertionError(f"request {request}: suggestion out of bounds {values}")
+                raise AssertionError(f"{kind} request {request}: suggestion out of bounds {values}")
             t = s.to_trial(next_id)
             next_id += 1
             t.complete(vz.Measurement(metrics={"obj": float(-np.sum((values - 0.5) ** 2))}))
             completed.append(t)
-        print(f"request {request}: suggest(count={count}) {latencies[-1] * 1e3:.1f} ms, "
-              f"first acquisition {suggestions[0].metadata.ns('gp_ucb_pe')['acquisition']}")
+        print(f"{kind} request {request}: suggest(count={_COUNT}) {latencies[-1] * 1e3:.1f} ms "
+              f"(ARD train {train_s * 1e3:.1f} ms), first acquisition "
+              f"{suggestions[0].metadata.ns('gp_ucb_pe')['acquisition']}")
         designer.update(vz.CompletedTrials(completed), vz.ActiveTrials())
     torch.cuda.synchronize()
     by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    return latencies, by_mode, torch.cuda.max_memory_allocated() - before
+
+
+def _require_modes(by_mode, required, path: str):
+    for name, mode in required:
+        if by_mode[name][mode] <= 0:
+            raise AssertionError(f"{name} was not launched in its {mode} mode on the {path}")
+
+
+def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
+    """Phase 4: three suggest(count=5) requests at 1000 trials x 20-D."""
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
+    states = []
+
+    def check_state(request):
+        state = designer._cached_states[0]
+        states.append(state)
+        if not bool(torch.isfinite(state.chol).all()):
+            raise AssertionError(f"request {request}: non-finite Cholesky factor")
+
+    latencies, by_mode, peak = _serve(vz, kernels, designer, check_state, "exact")
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
-    peak = torch.cuda.max_memory_allocated()
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
     for name, count_ in launches.items():
@@ -529,11 +634,69 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
             raise AssertionError(f"{name} was not launched on the main path")
     # _masked_gram goes through K1's Gram mode (and K2's), predict through
     # K1's masked cross mode.
-    for name, mode in (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
-                       ("matern52_ard_bwd", "gram")):
-        if by_mode[name][mode] <= 0:
-            raise AssertionError(f"{name} was not launched in its {mode} mode on the main path")
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), "main path")
     _check_against_cpu(states[-1], kernels, gp_lib)
+    return designer, launches, by_mode
+
+
+def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
+    """Phase 5: the service-configured DEFAULT (``SurrogateConfig()``, warm
+    ARD with one warm restart) serves three suggest(count=5) requests on the
+    same study, which is past the 512-trial threshold: one cold sparse train,
+    then two warm ones. Then GAUSSIAN_PROCESS_BANDIT's sparse suggest."""
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(
+        _bench_problem(vz), rng_seed=0, surrogate=surrogates.SurrogateConfig(),
+        use_warm_start_ard=True, warm_ard_restarts=1,
+    )
+    states = []
+
+    def check_state(request):
+        state = designer.sparse_inducing_state()
+        states.append(state)
+        chol, chol_b, _, _, _, info = state.model._factorize(state.params, state.sdata)
+        finite = all(bool(torch.isfinite(t).all()) for t in (chol, chol_b, state.w, state.linv,
+                                                             state.lb_linv))
+        if not finite or bool(torch.any(info != 0)):
+            raise AssertionError(f"sparse request {request}: failed or non-finite Cholesky")
+
+    latencies, by_mode, peak = _serve(vz, kernels, designer, check_state, "sparse")
+    launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
+    print(f"sparse path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
+          f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
+          f"surrogate_mode={designer.surrogate_mode} surrogate_counts={designer.surrogate_counts} "
+          f"ard_train_counts={designer.ard_train_counts}")
+    if designer.surrogate_mode != "sparse" or designer.surrogate_counts["sparse_suggests"] != 3:
+        raise AssertionError(f"the sparse path did not serve three sparse suggests: "
+                             f"{designer.surrogate_mode} {designer.surrogate_counts}")
+    if designer.ard_train_counts != {"cold": 1, "warm": 2}:
+        raise AssertionError(f"sparse path trains {designer.ard_train_counts}, "
+                             f"expected one cold and two warm")
+    # Kmm through K1's and K2's Gram modes, Knm through their cross modes,
+    # k* through K1's cross mode.
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram"), ("matern52_ard_bwd", "cross")),
+                   "sparse path")
+    _check_sparse_against_cpu(states[-1], kernels, sparse_gp)
+    _profile_kcenter(sparse_gp, states[-1])
+
+    bandit = gp_bandit.VizierGPBandit(
+        _bench_problem(vz), rng_seed=0, surrogate=surrogates.SurrogateConfig(),
+        use_warm_start_ard=True, warm_ard_restarts=1,
+    )
+    bandit.update(vz.CompletedTrials(_bench_trials(vz, _NUM_TRIALS, _DIM)))
+    start = time.perf_counter()
+    (suggestion,) = bandit.suggest(count=1)
+    torch.cuda.synchronize()
+    bandit_s = time.perf_counter() - start
+    values = np.array([suggestion.parameters.get_value(f"x{j}") for j in range(_DIM)], float)
+    if (bandit.surrogate_mode != "sparse" or bandit.surrogate_counts["sparse_suggests"] != 1
+            or not np.all((values >= 0.0) & (values <= 1.0))):
+        raise AssertionError(f"GAUSSIAN_PROCESS_BANDIT's sparse suggest failed: "
+                             f"{bandit.surrogate_mode} {bandit.surrogate_counts} {values}")
+    print(f"GAUSSIAN_PROCESS_BANDIT sparse suggest(count=1): {bandit_s * 1e3:.1f} ms, "
+          f"kind {suggestion.metadata.ns('gp_bandit')['acquisition_kind']}, "
+          f"ard_train_counts={bandit.ard_train_counts}")
     return designer, launches, by_mode
 
 
@@ -559,6 +722,65 @@ def _check_against_cpu(state, kernels, gp_lib):
         raise AssertionError("predict on the card disagrees with the CPU plain path")
 
 
+def _check_sparse_against_cpu(state, kernels, sparse_gp):
+    """The k-center inducing set and the sparse posterior on the card against
+    the port's plain CPU path on the same data and parameters."""
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    data = dataclasses.replace(state.sdata.data, **{f: cpu(getattr(state.sdata.data, f)) for f in (
+        "continuous", "categorical", "labels", "row_mask", "cont_dim_mask", "cat_dim_mask")})
+    cpu_sdata = sparse_gp.select_inducing_kcenter(data, state.model.num_inducing)
+    same = torch.equal(cpu_sdata.inducing_indices, cpu(state.sdata.inducing_indices))
+    print(f"k-center on the card vs CPU plain path: {state.model.num_inducing} indices "
+          f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("k-center picks on the card differ from the CPU plain path")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    query = torch.rand((64, data.continuous.shape[1]), generator=gen, device="cuda")
+    feats = kernels.MixedFeatures(query, torch.zeros((64, 0), dtype=torch.int32, device="cuda"))
+    cpu_model = dataclasses.replace(
+        state.model, base=dataclasses.replace(state.model.base, device="cpu"))
+    # The trained parameters, and unit scales (amplitude 1, length scales 1,
+    # noise 0.1): the trained amplitude can sit near its lower clip, where
+    # every prediction is small.
+    unit = {k: torch.full_like(v, 0.1 if k == "noise_stddev" else 1.0)
+            for k, v in state.params.items()}
+    for label, params in (("trained", state.params), ("unit-scale", unit)):
+        card_state = state.model.precompute_constrained(params, state.sdata)
+        mean, std = sparse_gp.SparseEnsemblePredictive(card_state).predict(feats)
+        cpu_state = cpu_model.precompute_constrained({k: cpu(v) for k, v in params.items()},
+                                                     cpu_sdata)
+        mean_c, std_c = sparse_gp.SparseEnsemblePredictive(cpu_state).predict(
+            kernels.MixedFeatures(cpu(query), cpu(feats.categorical)))
+        err_mean = float(torch.max(torch.abs(cpu(mean) - mean_c)))
+        err_std = float(torch.max(torch.abs(cpu(std) - std_c)))
+        print(f"sparse predict on the card vs CPU plain path, {label} parameters "
+              f"(amplitude {float(params['amplitude'][0]):.4g}): max_abs_err mean={err_mean:.3e} "
+              f"stddev={err_std:.3e} (tol {_PREDICT_TOL})")
+        if not (max(err_mean, err_std) <= _PREDICT_TOL and math.isfinite(err_mean + err_std)):
+            raise AssertionError("sparse predict on the card disagrees with the CPU plain path")
+
+
+def _profile_kcenter(sparse_gp, state):
+    """Prints one k-center selection's (the sparse train's first step, a
+    plain PyTorch loop) device launches, device time and wall time at the
+    trained state's data."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, m = state.sdata.data, state.model.num_inducing
+    sparse_gp.select_inducing_kcenter(data, m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        sparse_gp.select_inducing_kcenter(data, m)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels_ = [e for e in prof.key_averages() if _is_cuda_kernel(e) and _device_us(e) > 0]
+    print(f"k-center selection of {m} of {data.num_rows} rows (once per sparse train): "
+          f"{sum(e.count for e in kernels_)} device launches, device "
+          f"{sum(_device_us(e) for e in kernels_) / 1e3:.3f} ms, wall {wall_ms:.1f} ms "
+          f"(profiler on)")
+
+
 def _is_cuda_kernel(evt) -> bool:
     return str(getattr(evt, "device_type", "")).endswith("CUDA")
 
@@ -568,8 +790,8 @@ def _device_us(evt) -> float:
     return float(value if value is not None else evt.self_cuda_time_total)
 
 
-def profile_request(designer, count: int = 5):
-    """One more request after the main path, split into ARD training and the
+def profile_request(designer, kind: str, count: int = 5):
+    """One more request after a path's three, split into ARD training and the
     rest (pick loop, sweeps, decode), under torch.profiler: device busy time
     by kernel and the device's idle share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -586,9 +808,9 @@ def profile_request(designer, count: int = 5):
         wall_s = time.perf_counter() - start
     kernels = [e for e in prof.key_averages() if _is_cuda_kernel(e) and _device_us(e) > 0]
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"profiled request: wall {wall_s * 1e3:.1f} ms = ARD train {train_s * 1e3:.1f} ms "
+    print(f"profiled {kind} request: wall {wall_s * 1e3:.1f} ms = ARD train {train_s * 1e3:.1f} ms "
           f"+ picks/sweeps/decode {(wall_s - train_s) * 1e3:.1f} ms (profiler on)")
-    print(f"profiled request: device busy {busy_us / 1e3:.1f} ms, idle share "
+    print(f"profiled {kind} request: device busy {busy_us / 1e3:.1f} ms, idle share "
           f"{1.0 - busy_us / 1e6 / wall_s:.3f}, {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         print(f"  {_device_us(e) / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
@@ -605,10 +827,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vizier_tpu_torch import device as device_lib
     from vizier_tpu_torch import pyvizier as vz
-    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch import surrogates
+    from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
     from vizier_tpu_torch.models import gp as gp_lib
     from vizier_tpu_torch.models import kernels
     from vizier_tpu_torch.ops import native
+    from vizier_tpu_torch.surrogates import sparse_gp
 
     card = _card_line()
     print(card)
@@ -629,8 +853,13 @@ def main() -> int:
     print(f"[{time.perf_counter() - start:.1f} s] kernel timing done")
     designer, launches, by_mode = run_main_path(vz, gp_ucb_pe, kernels, gp_lib)
     print(f"[{time.perf_counter() - start:.1f} s] main path done")
-    profile_request(designer)
+    profile_request(designer, "exact")
     print(f"[{time.perf_counter() - start:.1f} s] profiled request done")
+    sparse_designer, sparse_launches, sparse_by_mode = run_sparse_path(
+        vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates)
+    print(f"[{time.perf_counter() - start:.1f} s] sparse path done")
+    profile_request(sparse_designer, "sparse")
+    print(f"[{time.perf_counter() - start:.1f} s] profiled sparse request done")
 
     # One JSON row per kernel, at the shape that carries most of its
     # main-path launches (K1: the sweep's cross kernel; K2: the ARD Gram),
@@ -657,8 +886,9 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
-            "launches_by_mode": by_mode[name], "by_shape": by_shape,
-            "tiles_at_main_path_cross_shapes": {
+            "launches_by_mode": by_mode[name], "launches_sparse_path": sparse_launches[name],
+            "launches_by_mode_sparse_path": sparse_by_mode[name], "by_shape": by_shape,
+            "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{
                     tile: row[tile][f"{key}_ms"] for tile in _TILE_KINDS.values()}}
                 for shape, row in tiles.items()},

@@ -154,17 +154,29 @@ def test_masked_gram_matches_plain(cuda_device, case):
 _MAIN_CROSS_QUERIES = [1, 50, 1024]
 
 
-def _check_masked_cross(device, queries):
-    args = _args(device, 1, queries, 1024, 20, 0)
-    _, mask2, _ = _masks(device, 1, queries, 1024, valid2=1000)
-    want = tk.matern52_ard_fwd_plain(*args, None, mask2)
-    got = tk.matern52_ard_fwd_cuda(*args, None, mask2)
+def _check_cross(device, b, n, m, valid1, valid2):
+    """K1 and K2 (feature gradients included, parameter gradients
+    deterministic) against their plain versions at a masked cross shape:
+    ``valid1`` / ``valid2`` real rows on each side (None: no mask)."""
+    args = _args(device, b, n, m, 20, 0)
+    mask1, mask2, _ = _masks(device, b, n, m, valid1, valid2)
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert torch.all(got[..., 1000:] == 0)
+    assert torch.all(got[..., valid2:] == 0)
+    if valid1 is not None:
+        assert torch.all(got[:, valid1:] == 0)
     grad = torch.randn(want.shape, device=device)
-    got_g = tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True, need_x2=True)
-    _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, None, mask2))
-    _assert_params_within_rounding(got_g, grad, args, None, mask2)
+    got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, need_x1=True, need_x2=True)
+    _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2))
+    _assert_params_within_rounding(got_g, grad, args, mask1, mask2)
+    again = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, need_x1=True, need_x2=True)
+    for a, c in zip(got_g[:3], again[:3]):
+        assert torch.equal(a, c)
+
+
+def _check_masked_cross(device, queries):
+    _check_cross(device, 1, queries, 1024, None, 1000)
 
 
 @pytest.mark.parametrize("queries", _MAIN_CROSS_QUERIES)
@@ -273,3 +285,152 @@ def test_designer_suggests_through_the_kernels(cuda_device):
     for s in suggestions:
         assert 0.0 <= s.parameters.get_value("x") <= 1.0
         assert s.parameters.get_value("c") in ("a", "b", "c")
+
+
+# The sparse surrogate's shapes at 1000 trials x 20-D (SurrogateConfig's
+# defaults: 128 inducing points, 5 picks per request): Knm in the cold (6
+# restarts) and warm (3) trains, the per-pick re-conditioning's Knm over
+# 1000 rows + pending picks and 128 slots + augments of 133, the PE
+# conditioning's predict at every all-points row, the sweep's 50 queries and
+# one pick's query against the trained (128) and augmented (133) slots.
+_SPARSE_CROSS = {
+    "knm_cold": dict(b=6, n=1024, m=128, valid1=1000, valid2=128),
+    "knm_warm": dict(b=3, n=1024, m=128, valid1=1000, valid2=128),
+    "knm_per_pick": dict(b=1, n=1024, m=133, valid1=1003, valid2=130),
+    "pe_conditioning": dict(b=1, n=1024, m=128, valid1=None, valid2=128),
+    "sweep": dict(b=1, n=50, m=128, valid1=None, valid2=128),
+    "sweep_augmented": dict(b=1, n=50, m=133, valid1=None, valid2=130),
+    "one_query": dict(b=1, n=1, m=128, valid1=None, valid2=128),
+}
+
+
+
+
+@pytest.mark.parametrize("tile", [-1, 0, 1], ids=["chosen", "big", "tiny"])
+@pytest.mark.parametrize("shape", list(_SPARSE_CROSS), ids=list(_SPARSE_CROSS))
+def test_sparse_cross_shapes_match_plain_at_every_tile(cuda_device, shape, tile):
+    """K1 and K2 (deterministic) with both row masks, each tile forced in turn."""
+    from vizier_tpu_torch.ops import native
+
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        _check_cross(cuda_device, **_SPARSE_CROSS[shape])
+    finally:
+        lib.matern52_force_tile(-1)
+
+
+@pytest.mark.parametrize(
+    "b,m,valid", [(6, 128, 128), (3, 128, 128), (1, 128, 128), (1, 133, 130)],
+    ids=["cold_train", "warm_train", "precompute", "per_pick_ragged"],
+)
+def test_kmm_matches_plain_with_the_reference_diagonal(cuda_device, b, m, valid):
+    """Kmm: K1's Gram mode with diagonal value 1e-4. The valid diagonal is
+    bitwise amp² + 1e-4 (the reference's replaced diagonal) and the CPU's."""
+    args = _args(cuda_device, b, m, m, 20, 0, same=True)
+    amp = args[4]
+    mask1, mask2, _ = _masks(cuda_device, b, m, m, valid, same=True)
+    jitter = torch.full((b,), 1e-4, device=cuda_device)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, jitter)
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, jitter)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)
+    assert torch.equal(diag[:, :valid], (amp * amp + 1e-4)[:, None].expand(-1, valid))
+    assert torch.all(diag[:, valid:] == 1.0)
+    cpu = tk.matern52_ard_fwd_plain(*(a.cpu() for a in args), mask1.cpu(), mask2.cpu(), jitter.cpu())
+    assert torch.equal(diag.cpu(), torch.diagonal(cpu, dim1=-2, dim2=-1))
+    grad = torch.randn(want.shape, device=cuda_device)
+    first = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    _assert_grads_close(first[:3], tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)[:3])
+    _assert_params_within_rounding(first, grad, args, mask1, mask2)
+    second = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    for a, c in zip(first[:3], second[:3]):
+        assert torch.equal(a, c)
+
+
+def _gp_data(device, n, valid, dc, ds, duplicates=0, seed=0):
+    from vizier_tpu_torch.models import gp as tgp
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, dc), generator=gen)
+    z = torch.randint(0, 3, (n, ds), generator=gen, dtype=torch.int32)
+    if duplicates:
+        x[valid - duplicates:valid] = x[:duplicates]
+        z[valid - duplicates:valid] = z[:duplicates]
+    row_mask = torch.arange(n) < valid
+    labels = torch.where(row_mask, torch.randn(n, generator=gen), torch.zeros(n))
+    return tgp.GPData(
+        continuous=x.to(device), categorical=z.to(device), labels=labels.to(device),
+        row_mask=row_mask.to(device), cont_dim_mask=torch.ones(dc, dtype=torch.bool, device=device),
+        cat_dim_mask=torch.ones(ds, dtype=torch.bool, device=device),
+    )
+
+
+@pytest.mark.parametrize(
+    "case",
+    [dict(n=1024, valid=1000, dc=20, ds=0), dict(n=1024, valid=1000, dc=20, ds=2, duplicates=300),
+     dict(n=128, valid=90, dc=20, ds=0)],
+    ids=["main_path", "duplicates", "fewer_valid_than_m"],
+)
+def test_kcenter_picks_the_same_rows_on_the_card(cuda_device, case):
+    from vizier_tpu_torch.surrogates import sparse_gp as tsg
+
+    got = tsg.select_inducing_kcenter(_gp_data(cuda_device, **case), 128)
+    want = tsg.select_inducing_kcenter(_gp_data("cpu", **case), 128)
+    assert torch.equal(got.inducing_indices.cpu(), want.inducing_indices)
+    assert torch.equal(got.inducing_mask.cpu(), want.inducing_mask)
+
+
+def test_sparse_posterior_on_the_card_matches_the_cpu(cuda_device):
+    """Predictions within 1e-3 (unit-variance labels): both sides factor the
+    same float32 matrices in different orders."""
+    from vizier_tpu_torch.models import gp as tgp
+    from vizier_tpu_torch.surrogates import sparse_gp as tsg
+
+    def posterior(device):
+        data = _gp_data(device, 512, 500, 20, 0)
+        base = tgp.VizierGaussianProcess(num_continuous=20, num_categorical=0, device=device)
+        model = tsg.SparseGaussianProcess(base=base, num_inducing=64)
+        params = {
+            "amplitude": torch.tensor([1.2], device=device),
+            "noise_stddev": torch.tensor([0.1], device=device),
+            "continuous_length_scales": torch.full((1, 20), 0.8, device=device),
+        }
+        state = model.precompute_constrained(params, tsg.select_inducing_kcenter(data, 64))
+        query = torch.rand((64, 20), generator=torch.Generator().manual_seed(3)).to(device)
+        return state.predict(tk.MixedFeatures(query, torch.zeros((64, 0), dtype=torch.int32,
+                                                                 device=device)))
+
+    for got, want in zip(posterior(cuda_device), posterior("cpu")):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+def test_sparse_designer_suggests_through_the_kernels(cuda_device):
+    """The sparse DEFAULT path on the card: K2 runs in cross mode (Knm)."""
+    from vizier_tpu_torch.surrogates import SurrogateConfig
+
+    problem = vz.ProblemStatement()
+    for name in ("x", "y"):
+        problem.search_space.root.add_float_param(name, 0.0, 1.0)
+    problem.metric_information.append(vz.MetricInformation(name="obj"))
+    rng = np.random.default_rng(0)
+    trials = []
+    for i in range(40):
+        t = vz.Trial(id=i + 1, parameters={"x": float(rng.uniform()), "y": float(rng.uniform())})
+        t.complete(vz.Measurement(metrics={"obj": float(rng.normal())}))
+        trials.append(t)
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(
+        problem, ard_restarts=2, max_acquisition_evaluations=2000, warm_ard_restarts=1,
+        surrogate=SurrogateConfig(sparse_threshold_trials=32, hysteresis_trials=8, num_inducing=16),
+    )
+    designer.update(vz.CompletedTrials(trials), vz.ActiveTrials())
+    tk.reset_launch_counts()
+    suggestions = designer.suggest(3)
+    torch.cuda.synchronize()
+    assert designer.surrogate_mode == "sparse" and len(suggestions) == 3
+    for name, mode in (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                       ("matern52_ard_bwd", "gram"), ("matern52_ard_bwd", "cross")):
+        assert tk.LAUNCHES_BY_MODE[name][mode] > 0, (name, mode)
+    for s in suggestions:
+        assert 0.0 <= s.parameters.get_value("x") <= 1.0

@@ -1,0 +1,490 @@
+"""The port's sparse surrogate against the JAX package's.
+
+The same numpy-seeded inputs (n = 40 rows padded to 64, 3 continuous dims
+padded to 4, 1 categorical dim, m = 16 inducing points) go through the JAX
+package's ``surrogates`` and the port's; the port runs on CPU tensors (the
+plain kernel path). Tolerances: the loss within rtol 1e-5, its gradient
+within rtol 1e-4 of ``jax.grad`` (atol 1e-4 of the largest entry of that
+parameter, for entries that cancel to near zero), mean and stddev within
+atol 1e-5 — looser only where a test says why.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vizier_tpu import pyvizier as jvz
+from vizier_tpu import types as jtypes
+from vizier_tpu.designers import gp_bandit as jbandit
+from vizier_tpu.designers import gp_ucb_pe as jucb
+from vizier_tpu.models import gp as jgp
+from vizier_tpu.models import kernels as jk
+from vizier_tpu.surrogates import config as jconfig
+from vizier_tpu.surrogates import sparse_bandit as jsb
+from vizier_tpu.surrogates import sparse_gp as jsg
+from vizier_tpu_torch import interop
+from vizier_tpu_torch import pyvizier as tvz
+from vizier_tpu_torch.designers import gp_bandit as tbandit
+from vizier_tpu_torch.designers import gp_ucb_pe as tucb
+from vizier_tpu_torch.models import gp as tgp
+from vizier_tpu_torch.models import kernels as tk
+from vizier_tpu_torch.surrogates import config as tconfig
+from vizier_tpu_torch.surrogates import sparse_bandit as tsb
+from vizier_tpu_torch.surrogates import sparse_gp as tsg
+
+_N, _N_PAD, _DC, _DC_PAD, _DS, _M = 40, 64, 3, 4, 1, 16
+
+
+def _model_data(n=_N, n_pad=_N_PAD, seed=0, duplicates=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, _DC)).astype(np.float32)
+    z = rng.integers(0, 3, size=(n, _DS)).astype(np.int32)
+    if duplicates:
+        x[n - duplicates:] = x[:duplicates]
+        z[n - duplicates:] = z[:duplicates]
+    y = (np.sin(3 * x).sum(-1) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    y = (y - y.mean()) / y.std()
+    features = jtypes.ContinuousAndCategorical(
+        continuous=jtypes.PaddedArray.from_array(x, (n_pad, _DC_PAD)),
+        categorical=jtypes.PaddedArray.from_array(z, (n_pad, _DS), fill_value=0),
+    )
+    labels = jtypes.PaddedArray.from_array(y[:, None], (n_pad, 1), fill_value=np.nan)
+    return jtypes.ModelData(features, labels)
+
+
+def _data(**kw):
+    jdata = jgp.GPData.from_model_data(_model_data(**kw))
+    return jdata, interop.gp_data_from_numpy(jdata, "cpu")
+
+
+def _models(m=_M):
+    jbase = jgp.VizierGaussianProcess(num_continuous=_DC_PAD, num_categorical=_DS)
+    tbase = tgp.VizierGaussianProcess(num_continuous=_DC_PAD, num_categorical=_DS, device="cpu")
+    return jsg.SparseGaussianProcess(base=jbase, num_inducing=m), tsg.SparseGaussianProcess(
+        base=tbase, num_inducing=m
+    )
+
+
+def _constrained(noise, seed=100):
+    rng = np.random.default_rng(seed)
+    return {
+        "amplitude": np.float32(1.3),
+        "noise_stddev": np.float32(noise),
+        "continuous_length_scales": rng.uniform(0.3, 1.0, _DC_PAD).astype(np.float32),
+        "categorical_length_scales": rng.uniform(0.5, 1.5, _DS).astype(np.float32),
+    }
+
+
+def _unconstrained(jmodel, noise):
+    coll = jmodel.param_collection()
+    return {k: np.asarray(v) for k, v in coll.unconstrain(_constrained(noise)).items()}
+
+
+def _j(params):
+    return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def _t(params):
+    """One parameter set as the port's batch of one."""
+    return {k: v[None] for k, v in interop.gp_params_from_numpy(params, "cpu").items()}
+
+
+def _sdata(m=_M, **kw):
+    """The JAX package's k-center inducing set and the same one in the port."""
+    jdata, _ = _data(**kw)
+    jsdata = jsg.select_inducing_kcenter(jdata, m)
+    return jsdata, interop.sparse_gp_data_from_numpy(jsdata, "cpu")
+
+
+def _queries(q=15, seed=9):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(q, _DC_PAD)).astype(np.float32)
+    z = rng.integers(0, 3, size=(q, _DS)).astype(np.int32)
+    return jk.MixedFeatures(jnp.asarray(x), jnp.asarray(z)), tk.MixedFeatures(
+        torch.tensor(x), torch.tensor(z)
+    )
+
+
+# -- k-center selection ------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "case",
+    [dict(), dict(duplicates=12), dict(n=10, n_pad=16), dict(n=16, n_pad=16, duplicates=8)],
+    ids=["padded_rows", "duplicate_rows", "fewer_valid_than_m", "duplicates_fill_m"],
+)
+def test_kcenter_picks_the_same_rows(case):
+    jdata, tdata = _data(**case)
+    want = jsg.select_inducing_kcenter(jdata, _M)
+    got = tsg.select_inducing_kcenter(tdata, _M)
+    np.testing.assert_array_equal(got.inducing_indices.numpy(), np.asarray(want.inducing_indices))
+    np.testing.assert_array_equal(got.inducing_mask.numpy(), np.asarray(want.inducing_mask))
+    np.testing.assert_array_equal(got.z_continuous.numpy(), np.asarray(want.z_continuous))
+    np.testing.assert_array_equal(got.z_categorical.numpy(), np.asarray(want.z_categorical))
+
+
+def test_kcenter_starts_at_the_incumbent_and_breaks_ties_low():
+    _, tdata = _data(duplicates=12)
+    got = tsg.select_inducing_kcenter(tdata, _M)
+    labels = torch.where(tdata.row_mask, tdata.labels, torch.tensor(float("-inf")))
+    assert int(got.inducing_indices[0]) == int(torch.argmax(labels))
+    # Duplicated rows come later in the data: k-center never takes them while
+    # their first copy is chosen (their distance is 0).
+    assert len(set(got.inducing_indices.tolist())) == _M
+
+
+# -- the collapsed bound -------------------------------------------------------
+
+
+# Noise ≈ 0.1 and noise near its floor of 1e-3: B = I + AAᵀ is stiff there.
+@pytest.mark.parametrize("noise", [0.1, 1.5e-3], ids=["noise_0.1", "noise_near_floor"])
+def test_nll_and_gradient_match(noise):
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    params = _unconstrained(jsparse, noise)
+    want, want_grad = jax.jit(jax.value_and_grad(jsparse.neg_log_likelihood))(_j(params), jsdata)
+    tparams = {k: v.requires_grad_(True) for k, v in _t(params).items()}
+    got = tsparse.neg_log_likelihood(tparams, tsdata)
+    got_grad = torch.autograd.grad(got.sum(), list(tparams.values()))
+    np.testing.assert_allclose(got.detach().numpy()[0], np.asarray(want), rtol=1e-5)
+    for name, g in zip(tparams, got_grad):
+        w = np.asarray(want_grad[name])
+        np.testing.assert_allclose(
+            g[0].numpy(), w, rtol=1e-4, atol=1e-4 * float(np.max(np.abs(w))), err_msg=name
+        )
+
+
+def test_non_finite_loss_is_guarded():
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    bad = dict(_unconstrained(jsparse, 0.1), amplitude=np.float32(np.nan))
+    assert float(jsparse.neg_log_likelihood(_j(bad), jsdata)) == 1e10
+    assert float(tsparse.neg_log_likelihood(_t(bad), tsdata)[0]) == 1e10
+
+
+def test_kmm_diagonal_is_bitwise_the_references():
+    """The reference replaces Kmm's diagonal with amp² + 1e-4; the kernel adds
+    1e-4 to its own diagonal, which is exactly amp²."""
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    jgrown = jsg.with_pending_capacity(jsdata, jsdata.data, 3)
+    tgrown = tsg.with_pending_capacity(tsdata, tsdata.data, 3)
+    p = _constrained(0.1)
+    want = np.asarray(jsparse._masked_kmm(_j(p), jgrown))
+    got = tsparse._masked_kmm(_t(p), tgrown)[0].numpy()
+    np.testing.assert_array_equal(np.diagonal(got), np.diagonal(want))
+    assert np.all(np.diagonal(got)[-3:] == 1.0)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_kmm_amplitude_and_length_scale_gradients_match():
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    p = _constrained(0.1)
+    weights = np.random.default_rng(3).normal(size=(_M, _M)).astype(np.float32)
+    want = jax.grad(lambda q: jnp.sum(weights * jsparse._masked_kmm(q, jsdata)))(_j(p))
+    tp = {k: v.requires_grad_(True) for k, v in _t(p).items()}
+    got = torch.autograd.grad(
+        torch.sum(torch.tensor(weights) * tsparse._masked_kmm(tp, tsdata)[0]),
+        [tp["amplitude"], tp["continuous_length_scales"]],
+    )
+    for g, name in zip(got, ("amplitude", "continuous_length_scales")):
+        w = np.asarray(want[name])
+        np.testing.assert_allclose(g[0].numpy(), w, rtol=1e-4, atol=1e-4 * float(np.max(np.abs(w))))
+
+
+# -- the posterior -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("include_noise", [False, True], ids=["no_noise", "with_noise"])
+@pytest.mark.parametrize("noise", [0.1, 1.5e-3], ids=["noise_0.1", "noise_near_floor"])
+def test_precompute_and_predict_match(noise, include_noise):
+    jsparse, tsparse = _models(_M + 3)
+    jsdata, tsdata = _sdata()
+    # Three padded inducing slots.
+    jsdata = jsg.with_pending_capacity(jsdata, jsdata.data, 3)
+    tsdata = tsg.with_pending_capacity(tsdata, tsdata.data, 3)
+    p = _constrained(noise)
+    jstate = jax.jit(jsparse.precompute_constrained)(_j(p), jsdata)
+    tstate = tsparse.precompute_constrained(_t(p), tsdata)
+    jq, tq = _queries()
+    jmean, jstd = jstate.predict(jq, include_noise=include_noise)
+    tmean, tstd = tstate.predict(tq, include_noise=include_noise)
+    np.testing.assert_allclose(tmean[0].numpy(), np.asarray(jmean), atol=1e-5)
+    np.testing.assert_allclose(tstd[0].numpy(), np.asarray(jstd), atol=1e-5)
+
+
+def test_precompute_from_unconstrained_matches_the_weights():
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    u = _unconstrained(jsparse, 0.1)
+    jstate = jax.jit(jsparse.precompute)(_j(u), jsdata)
+    tstate = tsparse.precompute(_t(u), tsdata)
+    for name in ("w", "linv", "lb_linv"):
+        np.testing.assert_allclose(
+            getattr(tstate, name)[0].numpy(), np.asarray(getattr(jstate, name)), atol=1e-4,
+            err_msg=name,
+        )
+
+
+def test_ensemble_predictive_matches():
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    inits = jsparse.param_collection().batch_random_init_unconstrained(jax.random.PRNGKey(3), 3)
+    jstates = jax.jit(jax.vmap(lambda q: jsparse.precompute(q, jsdata)))(inits)
+    tstates = tsparse.precompute(
+        interop.gp_params_from_numpy({k: np.asarray(v) for k, v in inits.items()}, "cpu"), tsdata
+    )
+    jq, tq = _queries()
+    want = jsg.SparseEnsemblePredictive(jstates).predict(jq)
+    for g, w in zip(tsg.SparseEnsemblePredictive(tstates).predict(tq), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+def test_sample_draws_around_the_posterior():
+    _, tsparse = _models()
+    _, tsdata = _sdata()
+    state = tsparse.precompute_constrained(_t(_constrained(0.1)), tsdata)
+    _, tq = _queries()
+    draws = state.sample(tq, torch.Generator().manual_seed(0), 4)
+    mean, std = state.predict(tq)
+    eps = torch.randn((1, 4, 15), generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(draws, mean[:, None] + std[:, None] * eps)
+
+
+def test_full_inducing_set_recovers_the_exact_posterior():
+    """SGPR with Z = X is the exact GP (the JAX package's test, same tolerance)."""
+    _, tsparse = _models(_N_PAD)
+    _, tdata = _data()
+    sdata = tsg.SparseGPData(
+        data=tdata, z_continuous=tdata.continuous, z_categorical=tdata.categorical,
+        inducing_mask=tdata.row_mask, inducing_indices=torch.arange(_N_PAD),
+    )
+    p = _t(_constrained(0.1))
+    _, tq = _queries(32)
+    exact = tsparse.base.precompute_constrained(p, tdata).predict(tq)
+    sparse = tsparse.precompute_constrained(p, sdata).predict(tq)
+    for e, s in zip(exact, sparse):
+        torch.testing.assert_close(s, e, atol=2e-3, rtol=0)
+
+
+def test_collapsed_bound_lower_bounds_the_exact_likelihood():
+    """Titsias: -bound >= exact NLL, tight at Z = X (the JAX package's test)."""
+    _, tsparse = _models(_N_PAD)
+    _, tdata = _data()
+    u = {k: v[None] for k, v in tsparse.param_collection().unconstrain(
+        {k: v[0] for k, v in _t(_constrained(0.1)).items()}).items()}
+    exact = float(tsparse.base.neg_log_likelihood(u, tdata)[0])
+    full = tsg.SparseGPData(
+        data=tdata, z_continuous=tdata.continuous, z_categorical=tdata.categorical,
+        inducing_mask=tdata.row_mask, inducing_indices=torch.arange(_N_PAD),
+    )
+    tight = float(tsparse.neg_log_likelihood(u, full)[0])
+    assert abs(tight - exact) < 0.5, (tight, exact)
+    small = tsg.SparseGaussianProcess(base=tsparse.base, num_inducing=6)
+    loose = float(small.neg_log_likelihood(u, tsg.select_inducing_kcenter(tdata, 6))[0])
+    assert loose >= exact - 0.5, (loose, exact)
+
+
+# -- training --------------------------------------------------------------------
+
+
+def test_heuristic_init_matches():
+    jsparse, tsparse = _models()
+    want = jsb._heuristic_init(jsparse.param_collection())
+    got = tsb._heuristic_init(tsparse.param_collection(), torch.device("cpu"))
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(want[k]), rtol=1e-6)
+
+
+def test_train_restart_rows_are_warm_then_heuristic_then_random():
+    _, tsparse = _models()
+    _, tdata = _data()
+    seen = {}
+
+    class Spy:
+        def __call__(self, loss_fn, init_batch, *, best_n=None):
+            seen.update(init_batch)
+            from vizier_tpu_torch.optimizers import lbfgs
+
+            return lbfgs._select_best(init_batch, loss_fn(init_batch), best_n)
+
+    coll = tsparse.param_collection()
+    warm = {k: v + 0.5 for k, v in coll.random_init_unconstrained(
+        torch.Generator().manual_seed(1)).items()}
+    state = tsb._train_sparse_gp(tsparse, Spy(), tdata, torch.Generator().manual_seed(0), 4, 1, warm)
+    heuristic = tsb._heuristic_init(coll, torch.device("cpu"))
+    for k, v in seen.items():
+        assert v.shape[0] == 6
+        torch.testing.assert_close(v[0], warm[k])
+        torch.testing.assert_close(v[1], heuristic[k])
+    assert state.w.shape == (1, _M)
+
+
+# -- pending-pick conditioning -----------------------------------------------------
+
+
+def test_with_pending_capacity_matches():
+    jsdata, tsdata = _sdata()
+    jall, tall = _data(n=30, seed=4)
+    want = jsg.with_pending_capacity(jsdata, jall, 5)
+    got = tsg.with_pending_capacity(tsdata, tall, 5)
+    for name in ("z_continuous", "z_categorical", "inducing_mask", "inducing_indices"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    np.testing.assert_array_equal(got.data.row_mask.numpy(), np.asarray(jall.row_mask))
+
+
+@pytest.mark.parametrize("where", ["near", "far"])
+def test_append_row_sparse_matches(where):
+    """A pick on an inducing row has zero Nyström residual (no augment); one
+    far outside the data joins the inducing set at the next spare slot."""
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    p = _constrained(0.1)
+    jmember = jsparse.precompute_constrained(_j(p), jsdata)
+    tmember = tsparse.precompute_constrained(_t(p), tsdata)
+    jall = jsg.with_pending_capacity(jsdata, jsdata.data, 2)
+    tall = tsg.with_pending_capacity(tsdata, tsdata.data, 2)
+    if where == "near":
+        x, z = np.asarray(jsdata.z_continuous[3:4]), np.asarray(jsdata.z_categorical[3:4])
+    else:
+        x, z = np.full((1, _DC_PAD), 4.0, np.float32), np.zeros((1, _DS), np.int32)
+    want = jucb._append_row_sparse(jall, jk.MixedFeatures(jnp.asarray(x), jnp.asarray(z)), jmember)
+    got = tucb._append_row_sparse(tall, tk.MixedFeatures(torch.tensor(x), torch.tensor(z)), tmember)
+    for name in ("z_continuous", "z_categorical", "inducing_mask", "inducing_indices"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    for name in ("continuous", "categorical", "row_mask"):
+        np.testing.assert_array_equal(getattr(got.data, name).numpy(), np.asarray(getattr(want.data, name)))
+    grew = int(got.inducing_mask.sum()) - int(tall.inducing_mask.sum())
+    assert grew == (1 if where == "far" else 0)
+
+
+# -- the auto-switch -----------------------------------------------------------------
+
+
+_GROW_AND_SHRINK = [0, 100, 400, 511, 512, 600, 480, 449, 448, 447, 500, 511, 512, 448, 447]
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(), dict(hysteresis_trials=0), dict(sparse=False), dict(sparse_threshold_trials=24,
+                                                                 hysteresis_trials=8)],
+    ids=["default", "no_hysteresis", "disabled", "small"],
+)
+def test_mode_for_matches_over_a_growing_and_shrinking_study(kwargs):
+    jcfg, tcfg = jconfig.SurrogateConfig(**kwargs), tconfig.SurrogateConfig(**kwargs)
+    assert tcfg.as_dict() == jcfg.as_dict()
+    jmode = tmode = tconfig.MODE_EXACT
+    for n in _GROW_AND_SHRINK + [n // 20 for n in _GROW_AND_SHRINK]:
+        jmode, tmode = jcfg.mode_for(n, jmode), tcfg.mode_for(n, tmode)
+        assert tmode == jmode, n
+
+
+@pytest.mark.parametrize(
+    "kwargs", [dict(sparse_threshold_trials=0), dict(hysteresis_trials=-1), dict(num_inducing=0)]
+)
+def test_config_rejects_what_the_reference_rejects(kwargs):
+    with pytest.raises(ValueError):
+        jconfig.SurrogateConfig(**kwargs)
+    with pytest.raises(ValueError):
+        tconfig.SurrogateConfig(**kwargs)
+
+
+def _problem(vz):
+    p = vz.ProblemStatement()
+    for d in range(2):
+        p.search_space.root.add_float_param(f"x{d}", 0.0, 1.0)
+    p.metric_information.append(vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    return p
+
+
+def _trials(vz, start, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        x = rng.uniform(size=2)
+        t = vz.Trial(id=start + i, parameters={"x0": float(x[0]), "x1": float(x[1])})
+        t.complete(vz.Measurement(metrics={"obj": float(-np.sum((x - 0.3) ** 2))}))
+        out.append(t)
+    return out
+
+
+def _drive(designer, vz, count):
+    """Grows the study to 10, 20, 24, 30 trials, then shrinks it to 18 and 14
+    (the threshold is 24, hysteresis 8): (mode, crossovers, sparse suggests,
+    cold, warm trains) after each suggest."""
+    seen, added = [], 0
+    for target in (10, 20, 24, 30, 18, 14):
+        if target > added:
+            designer.update(vz.CompletedTrials(_trials(vz, added + 1, target - added, seed=target)))
+            added = target
+        else:
+            designer._trials = designer._trials[:target]
+            designer._cached_states = None
+        suggestions = designer.suggest(count)
+        assert len(suggestions) == count
+        counts, trains = designer.surrogate_counts, designer.ard_train_counts
+        seen.append((designer.surrogate_mode, counts["crossovers"], counts["sparse_suggests"],
+                     trains["cold"], trains["warm"]))
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["gp_bandit", "gp_ucb_pe"])
+def test_designer_modes_and_train_counts_match(kind):
+    cfg = dict(sparse_threshold_trials=24, hysteresis_trials=8, num_inducing=8)
+    kw = dict(ard_restarts=2, max_acquisition_evaluations=150, warm_start_min_trials=0,
+              warm_ard_restarts=1, num_seed_trials=1, rng_seed=0)
+    jcls = jbandit.VizierGPBandit if kind == "gp_bandit" else jucb.VizierGPUCBPEBandit
+    tcls = tbandit.VizierGPBandit if kind == "gp_bandit" else tucb.VizierGPUCBPEBandit
+    jd = jcls(_problem(jvz), surrogate=jconfig.SurrogateConfig(**cfg), use_mesh=False, **kw)
+    td = tcls(_problem(tvz), surrogate=tconfig.SurrogateConfig(**cfg), device="cpu", **kw)
+    count = 1 if kind == "gp_bandit" else 2
+    want, got = _drive(jd, jvz, count), _drive(td, tvz, count)
+    assert got == want
+    assert [s[0] for s in got] == ["exact", "exact", "sparse", "sparse", "sparse", "exact"]
+    assert got[-1][1:] == (2, 3, 3, 3)
+
+
+def test_service_default_trains_to_the_reference_optimum_at_1000_trials():
+    """bench.py's study (1000 trials × 20-D) under the service's sparse
+    config: both packages' collapsed-bound trains land in the same corner
+    (amplitude near its lower clip, noise ≈ 0.16, length scales at the
+    prior's 0.3). The amplitude is a flat direction there, so it is held to
+    the corner rather than to the reference's value."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(1000, 20)).astype(np.float32)
+    y = -np.sum((x - 0.5) ** 2, axis=1) + 0.1 * rng.normal(size=1000)
+
+    def trained(vz, make):
+        p = vz.ProblemStatement()
+        for j in range(20):
+            p.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+        p.metric_information.append(vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+        trials = []
+        for i in range(1000):
+            t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[i, j]) for j in range(20)})
+            t.complete(vz.Measurement(metrics={"obj": float(y[i])}))
+            trials.append(t)
+        d = make(p)
+        d.update(vz.CompletedTrials(trials))
+        return d
+
+    kw = dict(rng_seed=0, warm_ard_restarts=1)
+    td = trained(tvz, lambda p: tucb.VizierGPUCBPEBandit(
+        p, surrogate=tconfig.SurrogateConfig(), device="cpu", **kw))
+    td._train_states()
+    jd = trained(jvz, lambda p: jucb.VizierGPUCBPEBandit(
+        p, surrogate=jconfig.SurrogateConfig(), use_mesh=False, **kw))
+    jstates, _ = jd._train_states_me()
+    got = {k: v[0].numpy() for k, v in td.sparse_inducing_state().params.items()}
+    want = {k: np.asarray(v)[0, 0] for k, v in jstates.params.items()}
+    assert td.surrogate_mode == jd.surrogate_mode == "sparse"
+    assert float(got["amplitude"]) < 0.05 and float(want["amplitude"]) < 0.05
+    np.testing.assert_allclose(got["noise_stddev"], want["noise_stddev"], rtol=1e-2)
+    np.testing.assert_allclose(
+        got["continuous_length_scales"], want["continuous_length_scales"], atol=0.05
+    )

@@ -1,4 +1,4 @@
-"""VizierGPBandit: the GP Bayesian-optimization designer, single-objective exact path.
+"""VizierGPBandit: the GP Bayesian-optimization designer, single-objective.
 
 Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
 
@@ -8,11 +8,15 @@ Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
   previous suggest's optimum prepended as one more restart;
 - hyperparameter ensembles (top-k restarts) combined as a uniform mixture;
 - UCB/EI/PE acquisition with an L∞ trust region, maximized by the
-  vectorized Eagle strategy.
+  vectorized Eagle strategy;
+- the sparse-surrogate auto-switch (``surrogate``): from the config's trial
+  threshold up, with hysteresis, the single-objective suggest trains the SGPR
+  inducing-point posterior (``surrogates.sparse_bandit``) instead of the
+  exact GP; ``warm_ard_restarts`` cuts a warm-started train's restart budget.
 
-Multi-objective studies, transfer priors, joint q-batches, sparse
-surrogates, mesh sharding and cross-study batching are served by the JAX
-package only; see ROADMAP.md for their place in the port's queue.
+Multi-objective studies, transfer priors, joint q-batches, mesh sharding and
+cross-study batching are served by the JAX package only; see ROADMAP.md for
+their place in the port's queue.
 """
 
 from __future__ import annotations
@@ -32,13 +36,15 @@ from vizier_tpu_torch.converters import padding as padding_lib
 from vizier_tpu_torch.designers import quasi_random
 from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
-from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.pyvizier import base_study_config
 from vizier_tpu_torch.pyvizier import trial as trial_
+from vizier_tpu_torch.surrogates import config as surrogate_config_lib
+from vizier_tpu_torch.surrogates import sparse_bandit
+from vizier_tpu_torch.surrogates import sparse_gp
 
 Tensor = torch.Tensor
 
@@ -72,18 +78,8 @@ def _train_gp(
     return model.precompute(result.params, data)
 
 
-def _prior_features_from_data(data: gp_lib.GPData) -> kernels.MixedFeatures:
-    """Top observed points (by warped label) to seed the eagle pool.
-
-    ``k`` follows the padded row count; slots past the valid rows are
-    redirected to the best row.
-    """
-    labels = torch.where(data.row_mask, data.labels, torch.full_like(data.labels, float("-inf")))
-    k = min(10, data.num_rows)
-    idx = torch.sort(labels, descending=True, stable=True).indices[:k]
-    num_valid = torch.sum(data.row_mask)
-    idx = torch.where(torch.arange(k, device=idx.device) < num_valid, idx, idx[0])
-    return kernels.MixedFeatures(data.continuous[idx], data.categorical[idx])
+# One implementation for the exact and the sparse sweep.
+_prior_features_from_data = sparse_bandit._prior_features_from_data
 
 
 @dataclasses.dataclass
@@ -106,6 +102,11 @@ class VizierGPBandit(core_lib.Designer):
     # extra restart seed, once ``warm_start_min_trials`` trials are in.
     use_warm_start_ard: bool = True
     warm_start_min_trials: int = 20
+    # Restart budget of a WARM train (one with trained seed params); None
+    # keeps ``ard_restarts``. The service sets 1.
+    warm_ard_restarts: Optional[int] = None
+    # The sparse-surrogate auto-switch; None keeps the exact GP everywhere.
+    surrogate: Optional[surrogate_config_lib.SurrogateConfig] = None
     # "cuda" (the default) or "cpu"; CUDA raises when no GPU is present.
     device: device_lib.DeviceLike = "cuda"
 
@@ -151,6 +152,13 @@ class VizierGPBandit(core_lib.Designer):
             _generator(self.device, self.rng_seed + 1)
         )
         self._warm_is_trained = False
+        self._ard_train_counts = {"warm": 0, "cold": 0}
+        # The auto-switch's sticky mode; a crossover drops the warm seed and
+        # the cached posterior (``_refresh_surrogate_mode``).
+        self._surrogate_mode = surrogate_config_lib.MODE_EXACT
+        self._sparse_model_cache: Optional[sparse_gp.SparseGaussianProcess] = None
+        self._last_sparse_state: Optional[sparse_gp.SparseGPState] = None
+        self._surrogate_counts = {"sparse_suggests": 0, "crossovers": 0}
 
     # -- Designer ----------------------------------------------------------
 
@@ -162,20 +170,43 @@ class VizierGPBandit(core_lib.Designer):
         del all_active
         self._trials.extend(completed.trials)
 
+    def _restarts(self, ensemble_size: int) -> int:
+        """The next train's random restarts: the warm budget when one applies,
+        else ``ard_restarts``, floored at ``ensemble_size``."""
+        return max(self._warm_restart_budget() or self.ard_restarts, ensemble_size)
+
     def _train(
         self, data: gp_lib.GPData, ensemble_size: int, warm_start: gp_lib.Params
     ) -> gp_lib.GPState:
-        """ARD train; the restart count is floored at ``ensemble_size``."""
-        restarts = max(self.ard_restarts, ensemble_size)
-        return _train_gp(
-            self._model, self._ard, data, self._generator, restarts, ensemble_size, warm_start
+        """Exact ARD train, counted as warm or cold."""
+        states = _train_gp(
+            self._model, self._ard, data, self._generator, self._restarts(ensemble_size),
+            ensemble_size, warm_start,
         )
+        self._record_train()
+        return states
 
     def _warm_update_allowed(self) -> bool:
         """Whether this train's optimum may seed the next one (floor met)."""
         return self.use_warm_start_ard and len(self._trials) >= self.warm_start_min_trials
 
-    def _unconstrained_best(self, states: gp_lib.GPState) -> gp_lib.Params:
+    def _warm_restart_budget(self) -> Optional[int]:
+        """Restart override for the next train: set only when a trained warm
+        seed exists and a reduced warm budget is configured."""
+        if self.use_warm_start_ard and self._warm_is_trained and self.warm_ard_restarts is not None:
+            return self.warm_ard_restarts
+        return None
+
+    def _record_train(self) -> None:
+        warm = self.use_warm_start_ard and self._warm_is_trained
+        self._ard_train_counts["warm" if warm else "cold"] += 1
+
+    @property
+    def ard_train_counts(self) -> dict:
+        """Copies of the warm/cold ARD train counters."""
+        return dict(self._ard_train_counts)
+
+    def _unconstrained_best(self, states) -> gp_lib.Params:
         """The best ensemble member's params, mapped back through the bijectors."""
         coll = self._model.param_collection()
         return coll.unconstrain({k: v[0] for k, v in states.params.items()})
@@ -190,6 +221,80 @@ class VizierGPBandit(core_lib.Designer):
         """Injects trained unconstrained params as the next extra restart."""
         self._warm_params = {k: v.to(self.device) for k, v in params.items()}
         self._warm_is_trained = True
+
+    # -- sparse-surrogate auto-switch --------------------------------------
+
+    @property
+    def surrogate_mode(self) -> str:
+        """The active surrogate mode ("exact" | "sparse")."""
+        return self._surrogate_mode
+
+    @property
+    def surrogate_counts(self) -> dict:
+        """Copies of the sparse-suggest / crossover counters."""
+        return dict(self._surrogate_counts)
+
+    def sparse_inducing_state(self) -> Optional[sparse_gp.SparseGPState]:
+        """The last trained sparse posterior; None on the exact path or
+        before the first sparse train."""
+        return self._last_sparse_state
+
+    def _sparse_model(self) -> sparse_gp.SparseGaussianProcess:
+        if self._sparse_model_cache is None:
+            # m is padded like a trial count.
+            m_pad = self._converter.padding.pad_trials(self.surrogate.num_inducing)
+            self._sparse_model_cache = sparse_gp.SparseGaussianProcess(
+                base=self._model, num_inducing=m_pad
+            )
+        return self._sparse_model_cache
+
+    def _refresh_surrogate_mode(self) -> str:
+        """Applies the auto-switch for the current trial count.
+
+        A crossover (either direction) re-randomizes the warm seed and drops
+        the sparse posterior, so neither surrogate trains from the other's
+        optimum: the next train is a full-budget cold train.
+        """
+        cfg = self.surrogate
+        if cfg is None:
+            return self._surrogate_mode
+        mode = cfg.mode_for(len(self._trials), current=self._surrogate_mode)
+        if mode != self._surrogate_mode:
+            self._surrogate_mode = mode
+            self._surrogate_counts["crossovers"] += 1
+            self._warm_params = self._model.param_collection().random_init_unconstrained(
+                _generator(self.device, self.rng_seed + 1 + self._surrogate_counts["crossovers"])
+            )
+            self._warm_is_trained = False
+            self._last_sparse_state = None
+        return mode
+
+    def _train_sparse(
+        self, data: gp_lib.GPData, ensemble_size: int, warm_start: gp_lib.Params
+    ) -> sparse_gp.SparseGPState:
+        """Sparse ARD train, counted as warm or cold."""
+        states = sparse_bandit._train_sparse_gp(
+            self._sparse_model(), self._ard, data, self._generator,
+            self._restarts(ensemble_size), ensemble_size, warm_start,
+        )
+        self._record_train()
+        self._last_sparse_state = states
+        return states
+
+    def _suggest_sparse(self, count: int) -> List[trial_.TrialSuggestion]:
+        """The sparse twin of the single-objective suggest: collapsed-bound
+        train, then the same acquisition sweep over the sparse posterior."""
+        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+        states = self._train_sparse(data, self.ensemble_size, self._warm_params)
+        if self._warm_update_allowed():
+            self._warm_params = self._unconstrained_best(states)
+            self._warm_is_trained = True
+        result = sparse_bandit._sweep_one(
+            self._vec_opt, self._make_acquisition(), states, data, self._generator, count,
+            self.use_trust_region,
+        )
+        self._surrogate_counts["sparse_suggests"] += 1
+        return self._decode_result(result, count, kind=f"{self.acquisition}+sparse")
 
     # -- encoding ------------------------------------------------------------
 
@@ -241,6 +346,8 @@ class VizierGPBandit(core_lib.Designer):
         if len(self._trials) < self.num_seed_trials:
             return self._seed_suggestions(count)
         self._require_single_objective()
+        if self._refresh_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
+            return self._suggest_sparse(count)
         data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
         states = self._train(data, self.ensemble_size, self._warm_params)
         if self._warm_update_allowed():

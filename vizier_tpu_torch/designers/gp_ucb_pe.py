@@ -1,7 +1,7 @@
 """VizierGPUCBPEBandit: the DEFAULT algorithm (GP-UCB with Pure Exploration).
 
 Counterpart of the JAX package's ``designers/gp_ucb_pe.py:858``, single-objective
-exact-GP path (algorithm from Contal et al., "Parallel Gaussian Process
+path, exact GP and sparse surrogate (algorithm from Contal et al., "Parallel Gaussian Process
 Optimization with UCB and Pure Exploration"):
 
 - Two conditioned posteriors: ``completed`` (observed labels) and ``all``
@@ -18,7 +18,10 @@ Optimization with UCB and Pure Exploration"):
 
 Picks are written into spare padded rows, and each pick re-conditions the
 all-points posterior (one batched Cholesky over the ensemble) before its
-eagle sweep.
+eagle sweep. Above the ``surrogate`` config's trial threshold the posteriors
+are the sparse inducing-point ones (``surrogates.sparse_gp``): each pick
+re-conditions in O(n·m²) through the trained inducing set, and a pick far
+from it joins it (``_append_row_sparse``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.pyvizier import trial as trial_
+from vizier_tpu_torch.surrogates import config as surrogate_config_lib
+from vizier_tpu_torch.surrogates import sparse_gp
 
 Tensor = torch.Tensor
 
@@ -113,10 +118,61 @@ def _append_row(data: gp_lib.GPData, x: kernels.MixedFeatures) -> gp_lib.GPData:
     )
 
 
+# A pick whose Nyström residual k** − ‖L⁻¹k(Z,x)‖² exceeds this fraction of
+# the prior variance is "not near an inducing row": conditioning through the
+# base inducing set would barely deflate the stddev there, and PE would pick
+# the same point again. Such picks join the inducing set.
+_NYSTROM_RESIDUAL_FRACTION = 0.1
+
+
+def _append_row_sparse(
+    sdata: sparse_gp.SparseGPData, x: kernels.MixedFeatures, ref_state: sparse_gp.SparseGPState
+) -> sparse_gp.SparseGPData:
+    """Sparse pending-pick conditioning: append + conditional Nyström augment.
+
+    The pick always joins the all-points data rows. When its Nyström residual
+    under ``ref_state`` (the trained completed posterior's member 0, a batch
+    of one) exceeds ``_NYSTROM_RESIDUAL_FRACTION`` of amp², it is also written
+    into the next spare inducing slot (``sparse_gp.with_pending_capacity``).
+    No value is read back to the host.
+    """
+    data = _append_row(sdata.data, x)
+    ref = ref_state.sdata
+    kz = ref_state.model.base._kernel(
+        ref_state.params, x, ref.z_features(), ref.data, row_mask2=ref.inducing_mask
+    )  # [1, 1, m]
+    t1 = ref_state.linv[0] @ kz[0, 0]
+    amp2 = ref_state.params["amplitude"][0] * ref_state.params["amplitude"][0]
+    augment = amp2 - torch.sum(t1 * t1) > _NYSTROM_RESIDUAL_FRACTION * amp2
+    # The mask is a true prefix (k-center fills one, augments extend it), so
+    # the next free slot is the current true count.
+    mask = sdata.inducing_mask
+    idx = torch.clamp(torch.sum(mask.to(torch.int64)), max=mask.shape[0] - 1)
+    at = torch.arange(mask.shape[0], device=mask.device) == idx
+    write = at & augment & ~mask
+    return sparse_gp.SparseGPData(
+        data=data,
+        z_continuous=torch.where(write[:, None], x.continuous[:1], sdata.z_continuous),
+        z_categorical=torch.where(write[:, None], x.categorical[:1], sdata.z_categorical),
+        inducing_mask=mask | write,
+        inducing_indices=sdata.inducing_indices,
+    )
+
+
+def _pick_appender(states_completed, all_data):
+    """How a pick joins the pending rows: ``_append_row`` on the exact path,
+    ``_append_row_sparse`` against the trained posterior's member 0 on the
+    sparse one (``all_data`` a ``SparseGPData``)."""
+    if isinstance(all_data, sparse_gp.SparseGPData):
+        member0 = states_completed.member(0)
+        return lambda d, x: _append_row_sparse(d, x, member0)
+    return _append_row
+
+
 def _suggest_batch(
     vec_opt: vectorized_lib.VectorizedOptimizer,
-    states_completed: gp_lib.GPState,
-    all_data: gp_lib.GPData,
+    states_completed,
+    all_data,
     prior_features: kernels.MixedFeatures,
     generator: torch.Generator,
     first_has_new: bool,
@@ -124,16 +180,29 @@ def _suggest_batch(
     count: int,
     config: UCBPEConfig,
     use_trust_region: bool = True,
+    model=None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
-    """The greedy batch: per pick, UCB-or-PE with pending-point conditioning."""
-    model = states_completed.model
-    trust = acquisitions.TrustRegion.from_data(all_data) if use_trust_region else None
+    """The greedy batch: per pick, UCB-or-PE with pending-point conditioning.
+
+    Exact: ``states_completed`` is a ``GPState`` and ``all_data`` a
+    ``GPData``. Sparse: a ``SparseGPState`` and a ``SparseGPData`` (the
+    trained inducing set over the all-points rows, with spare slots), and
+    ``model`` the ``SparseGaussianProcess`` over those slots that
+    re-conditions each pick. ``model`` defaults to ``states_completed``'s.
+    """
+    model = states_completed.model if model is None else model
+    if isinstance(all_data, sparse_gp.SparseGPData):
+        base_data = lambda d: d.data  # noqa: E731
+    else:
+        base_data = lambda d: d  # noqa: E731
+    append = _pick_appender(states_completed, all_data)
+    trust = acquisitions.TrustRegion.from_data(base_data(all_data)) if use_trust_region else None
     picks, scores = [], []
     aux: Dict[str, list] = {"mean": [], "stddev": [], "stddev_from_all": [], "use_ucb": []}
     for b in range(count):
         # Shared conditioning, recomputed on the grown pending set.
         pe_params, noise_is_high, threshold = _pe_conditioning(
-            states_completed, all_data, config
+            states_completed, base_data(all_data), config
         )
         states_all = model.precompute_constrained(pe_params, all_data)
 
@@ -168,7 +237,7 @@ def _suggest_batch(
         )
         mean_x, std_x = _mixture_predict(states_completed, x)
         _, std_all_x = _mixture_predict(states_all, x)
-        all_data = _append_row(all_data, x)
+        all_data = append(all_data, x)
         picks.append(x)
         scores.append(result.scores[:1])
         aux["mean"].append(mean_x)
@@ -264,8 +333,52 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             return True
         return max(completion) > max(creation)
 
+    # -- sparse surrogate for the DEFAULT ----------------------------------
+
+    def _sparse_ucb_pe_eligible(self) -> bool:
+        """Whether the sparse surrogate may serve this designer's suggests:
+        the single-objective greedy path only."""
+        cfg = self.surrogate
+        return bool(
+            cfg is not None and cfg.sparse and cfg.sparse_ucb_pe and self._num_objectives() == 1
+        )
+
+    def _refresh_ucb_pe_surrogate_mode(self) -> str:
+        """The auto-switch, applied only where the sparse UCB-PE path covers;
+        ineligible designers never leave exact."""
+        if not self._sparse_ucb_pe_eligible():
+            return self._surrogate_mode
+        return self._refresh_surrogate_mode()
+
+    def _refresh_surrogate_mode(self) -> str:
+        before = self._surrogate_counts["crossovers"]
+        mode = super()._refresh_surrogate_mode()
+        if self._surrogate_counts["crossovers"] != before:
+            # The per-objective warm seeds and the cached fit are as stale as
+            # the base class's state: fresh random placeholders.
+            crossovers = self._surrogate_counts["crossovers"]
+            coll = self._model.param_collection()
+            self._warm_params_me = [
+                coll.random_init_unconstrained(
+                    gp_bandit._generator(self.device, self.rng_seed + 2 + crossovers)
+                )
+            ]
+            self._cached_states = None
+        return mode
+
+    def _sparse_all_model(self, count: int) -> sparse_gp.SparseGaussianProcess:
+        """The re-conditioning model: the trained posterior's m slots plus one
+        spare Nyström slot per batch pick."""
+        return sparse_gp.SparseGaussianProcess(
+            base=self._model, num_inducing=self._sparse_model().num_inducing + count
+        )
+
     def _train_states(self) -> Tuple[gp_lib.GPState, gp_lib.GPData]:
-        """ARD train of the single objective; cached until update() adds labels."""
+        """ARD train of the single objective; cached until update() adds labels.
+
+        In sparse mode the state is a ``SparseGPState`` over the k-center
+        inducing set of the data.
+        """
         if self._cached_states is not None:
             return self._cached_states
         self._require_single_objective()
@@ -278,7 +391,11 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         data = gp_lib.GPData.from_model_data(
             types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
         )
-        states = self._train(data, max(self.ensemble_size, 1), self._warm_params_me[0])
+        ensemble = max(self.ensemble_size, 1)
+        if self._refresh_ucb_pe_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
+            states = self._train_sparse(data, ensemble, self._warm_params_me[0])
+        else:
+            states = self._train(data, ensemble, self._warm_params_me[0])
         if self._warm_update_allowed():
             self._warm_params_me = [self._unconstrained_best(states)]
             self._warm_is_trained = True
@@ -322,10 +439,16 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             return self._seed_suggestions(count)
         states, data = self._train_states()
         all_data = self._all_points_data(count)
+        is_sparse = isinstance(states, sparse_gp.SparseGPState)
+        if is_sparse:
+            # The trained inducing set over the all-points rows, with one
+            # spare slot per pick, re-conditioned by the model over m + count.
+            all_data = sparse_gp.with_pending_capacity(states.sdata, all_data, count)
+        append = _pick_appender(states, all_data)
         first_has_new = self._has_new_completed_trials()
         has_completed = bool(self._trials)
         prior = gp_bandit._prior_features_from_data(data)
-        args = (self.config, self.use_trust_region)
+        args = (self.config, self.use_trust_region, self._sparse_all_model(count) if is_sparse else None)
         if self.acquisition_budget_policy == "first_pick_full" and count > 1:
             # Full budget on the exploitation-critical first pick; one
             # further full budget split across the remaining picks.
@@ -333,7 +456,7 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 self._vec_opt, states, all_data, prior, self._generator,
                 first_has_new, has_completed, 1, *args,
             )
-            all_data = _append_row(all_data, first.features)
+            all_data = append(all_data, first.features)
             rest, aux2 = _suggest_batch(
                 self._pick_vec_opt(count), states, all_data, prior, self._generator,
                 False, has_completed, count - 1, *args,
@@ -345,6 +468,8 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 first_has_new, has_completed, count, *args,
             )
             results = [(batch, aux, count)]
+        if is_sparse:
+            self._surrogate_counts["sparse_suggests"] += 1
         out: List[trial_.TrialSuggestion] = []
         for result, aux, rows in results:
             out.extend(self._decode_ucb_pe(result, aux, rows))

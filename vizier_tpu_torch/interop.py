@@ -5,6 +5,8 @@ layouts as the port's (the port adds a leading batch axis where the JAX
 package ``vmap``s). These functions take either package's values as numpy
 arrays (``np.asarray`` of a ``jax.Array`` works), so a caller can hand
 trained parameters across and have both packages compute one posterior.
+The sparse surrogate's ``SparseGPData`` (data, inducing rows, masks and
+indices) crosses the same way, so both packages can share one inducing set.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.models import gp as gp_lib
+from vizier_tpu_torch.surrogates import sparse_gp
 
 _PARAM_NAMES = (
     "amplitude",
@@ -60,4 +63,22 @@ def gp_data_from_numpy(data: Any, device: device_lib.DeviceLike) -> gp_lib.GPDat
             name: torch.as_tensor(np.array(getattr(data, name)), device=dev).to(dtype)
             for name, dtype in _DATA_FIELDS.items()
         }
+    )
+
+
+def sparse_gp_data_from_numpy(sdata: Any, device: device_lib.DeviceLike) -> sparse_gp.SparseGPData:
+    """A ``SparseGPData`` from any object with its fields (e.g. the JAX
+    package's): ``data`` with the six ``GPData`` fields, the inducing rows
+    ``z_continuous`` / ``z_categorical``, ``inducing_mask`` and
+    ``inducing_indices``."""
+    dev = device_lib.resolve(device)
+    as_tensor = lambda name, dtype: torch.as_tensor(  # noqa: E731
+        np.array(getattr(sdata, name)), device=dev
+    ).to(dtype)
+    return sparse_gp.SparseGPData(
+        data=gp_data_from_numpy(sdata.data, dev),
+        z_continuous=as_tensor("z_continuous", torch.float32),
+        z_categorical=as_tensor("z_categorical", torch.int32),
+        inducing_mask=as_tensor("inducing_mask", torch.bool),
+        inducing_indices=as_tensor("inducing_indices", torch.int64),
     )
