@@ -33,8 +33,8 @@ Phases (any failure raises and exits non-zero):
    just before and read just after; both kernels, K1's Gram and cross modes
    and K2's Gram mode must have run. Suggestions finite and in bounds, every
    trained Cholesky finite, the trained posterior's predictions on the card
-   against the port's plain CPU path at the same parameters. Then profiles
-   one more request.
+   against the port's plain CPU path at the same parameters (the trained
+   ones and unit-scale ones). Then profiles one more request.
 5. The service-configured DEFAULT: the same designer with
    ``surrogate=SurrogateConfig()``, ``warm_ard_restarts=1`` on the same study
    serves three ``suggest(count=5)`` through the sparse SGPR surrogate (one
@@ -43,7 +43,21 @@ Phases (any failure raises and exits non-zero):
    and predictions against the CPU plain path, the k-center loop's launches
    and time, and one more profiled request. Then one sparse
    ``suggest(count=1)`` of ``VizierGPBandit`` (GAUSSIAN_PROCESS_BANDIT).
-6. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
+6. Multi-objective studies: DTLZ2 with two objectives (both MINIMIZE) at
+   1000 completed trials drawn uniformly from [0, 1]^20 with seed 0. The
+   DEFAULT as the service builds it (``SurrogateConfig()``,
+   ``warm_ard_restarts=1``) serves three ``suggest(count=5)``, one GP per
+   objective (one cold train, then two warm), with its launch counts (K1
+   Gram and cross, K2 Gram), the mode staying exact, every per-metric
+   Cholesky finite, each metric's predictions and the pick's HV-scalarized
+   and PE scores against the CPU plain path, and one profiled request. Then
+   the SEPARABLE multi-task variant serves one request (joint Cholesky
+   finite, per-task predictions against the CPU, the learned task
+   correlation printed), GAUSSIAN_PROCESS_BANDIT one multi-objective
+   ``suggest(count=1)``, and the Pareto ops run over the study's 1015
+   completed trials on the card against the CPU. The kernel checks, tile
+   comparisons and timings of phases 2-3 include this phase's shapes.
+7. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no GPU is visible or when run outside a
@@ -90,6 +104,12 @@ _BWD_TOL = 1e-4
 # variance is ~1e-4 of its diagonal, in different orders, and the condition
 # number amplifies the rounding (5.7e-4 measured on an H100).
 _PREDICT_TOL = 5e-3
+# The multi-objective pick's scores (HV-scalarized UCB, PE) on the card
+# against the CPU plain path at the same factorizations: max |card - cpu|
+# over max |cpu|. The cumulative hypervolume with the same directions: max
+# |card - cpu| / cpu per prefix.
+_SCORE_TOL = 1e-4
+_HV_TOL = 1e-5
 
 # The main path's shapes at 1000 trials x 20-D (padded to 1024 rows): the
 # masked ARD Gram over 4 restarts + the warm row, and the sweep's pool of 50
@@ -133,9 +153,42 @@ _SPARSE_CASES = _SPARSE_CROSS_CASES + [
      dict(b=1, n=128, m=128, dc=20, ds=0, same=True, valid=128, jitter=1e-4)),
     (_SPARSE_KMM_PICK, dict(b=1, n=133, m=133, dc=20, ds=0, same=True, valid=130, jitter=1e-4)),
 ]
+# The multi-objective phase's shapes (DTLZ2, two objectives, 1000 trials x
+# 20-D, the service's DEFAULT: SurrogateConfig(), warm_ard_restarts=1). Each
+# metric trains its own GP: cold at the exact path's Gram (B=5), warm at B=2
+# (1 restart + the warm row) over 1005 and 1010 valid rows; each metric's
+# PE conditioning and sweep predict at B=1 (ensemble 1). GAUSSIAN_PROCESS_
+# BANDIT trains each metric cold at B=4 (no warm row) over 1015 rows. The
+# SEPARABLE multi-task GP builds Kx as K1's Gram without masks or diagonal
+# (the task mask is applied to the Kronecker product) at B=4 restarts, and
+# B=1 when each pick re-conditions; its k* is an unmasked cross at 1, 50
+# (the sweep) and 1024 (the PE conditioning) queries.
+_MO_GRAM_WARM = "multi-objective warm gram B=2 N=M=1024 (1005 valid) Dc=20"
+_MO_PE = "multi-objective PE conditioning cross B=1 N=M=1024 (1010 valid) Dc=20"
+_MO_SWEEP = "multi-objective sweep cross B=1 N=50 M=1024 (1010 valid) Dc=20"
+_MO_BANDIT_GRAM = "multi-objective bandit gram B=4 N=M=1024 (1015 valid) Dc=20"
+_MT_KX = "multi-task Kx gram B=4 N=M=1024 unmasked Dc=20"
+_MT_KX_PICK = "multi-task per-pick Kx gram B=1 N=M=1024 unmasked Dc=20"
+_MT_KSTAR = "multi-task sweep k* cross B=1 N=50 M=1024 unmasked Dc=20"
+_MT_KSTAR_PE = "multi-task PE k* cross B=1 N=M=1024 unmasked Dc=20"
+_MO_CROSS_CASES = [
+    (_MO_PE, dict(b=1, n=1024, m=1024, dc=20, ds=0, valid=1010)),
+    (_MO_SWEEP, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1010)),
+    ("multi-task one-query k* cross B=1 N=1 M=1024 unmasked Dc=20",
+     dict(b=1, n=1, m=1024, dc=20, ds=0)),
+    (_MT_KSTAR, dict(b=1, n=50, m=1024, dc=20, ds=0)),
+    (_MT_KSTAR_PE, dict(b=1, n=1024, m=1024, dc=20, ds=0)),
+]
+_MO_CASES = _MO_CROSS_CASES + [
+    (_MO_GRAM_WARM, dict(b=2, n=1024, m=1024, dc=20, ds=0, same=True, valid=1005)),
+    (_MO_BANDIT_GRAM, dict(b=4, n=1024, m=1024, dc=20, ds=0, same=True, valid=1015)),
+    (_MT_KX, dict(b=4, n=1024, m=1024, dc=20, ds=0, same=True)),
+    (_MT_KX_PICK, dict(b=1, n=1024, m=1024, dc=20, ds=0, same=True)),
+]
 _TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_KMM_COLD,
           _SPARSE_KMM_WARM, _SPARSE_KNM_PICK, _SPARSE_KMM_PICK, _SPARSE_PE, _SPARSE_SWEEP,
-          _SPARSE_SWEEP_AUG)
+          _SPARSE_SWEEP_AUG, _MO_GRAM_WARM, _MO_PE, _MO_SWEEP, _MO_BANDIT_GRAM, _MT_KX, _MT_KX_PICK,
+          _MT_KSTAR, _MT_KSTAR_PE)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
@@ -151,7 +204,7 @@ _CASES = [
     ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
-] + _SPARSE_CASES
+] + _SPARSE_CASES + _MO_CASES
 # The cross kernels of both paths: the exact path's, B=1 against the 1024
 # data rows (1000 real): one pick's predict, the sweep's pool and the PE
 # conditioning; and the sparse path's. Every tile shape is checked and timed
@@ -159,7 +212,7 @@ _CASES = [
 _TILE_CASES = [
     (f"cross B=1 N={q} M=1024 (1000 valid) Dc=20", dict(b=1, n=q, m=1024, dc=20, ds=0, valid=1000))
     for q in (1, 50, 1024)
-] + _SPARSE_CROSS_CASES
+] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES
 _TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
@@ -554,6 +607,17 @@ def _bench_trials(vz, num_trials: int, dim: int):
 _DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
 
 
+def _dtlz2(x: np.ndarray) -> np.ndarray:
+    """DTLZ2 with two objectives (Deb, Thiele, Laumanns, Zitzler 2002), both
+    to MINIMIZE: g = sum((x[1:] - 0.5)^2), f = (1 + g)(cos, sin)(pi x0 / 2).
+    A numpy copy of the repo's benchmark function (the JAX package's
+    benchmarks/experimenters/synthetic/multiobjective.py), held to it by a
+    CPU test."""
+    g = np.sum((x[..., 1:] - 0.5) ** 2, axis=-1)
+    angle = 0.5 * np.pi * x[..., 0]
+    return np.stack([(1.0 + g) * np.cos(angle), (1.0 + g) * np.sin(angle)], axis=-1)
+
+
 def _bench_problem(vz):
     problem = vz.ProblemStatement()
     for j in range(_DIM):
@@ -564,24 +628,31 @@ def _bench_problem(vz):
     return problem
 
 
-def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3):
-    """``requests`` suggest(count=5) requests on bench.py's study, the picks
-    completed between requests; ``check_state(request)`` checks the trained
+def _bench_objective(values: np.ndarray) -> dict:
+    return {"obj": float(-np.sum((values - 0.5) ** 2))}
+
+
+def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3, trials=None,
+           evaluate=_bench_objective):
+    """``requests`` suggest(count=5) requests on a study (bench.py's unless
+    ``trials`` is given), each request's picks completed through
+    ``evaluate`` before the next; ``check_state(request)`` checks the trained
     state after each. Returns (latencies in s, that path's launches by mode,
-    peak device memory above what was allocated before the path), with the
-    launch counts and the peak reset just before the first request. Each
-    request's ARD train runs first (``_train_states``, which the suggest then
-    reuses) so its share is printed."""
-    trials = _bench_trials(vz, _NUM_TRIALS, _DIM)
+    peak device memory above what was allocated before the path, the
+    completed picks), with the launch counts and the peak reset just before
+    the first request. Each request's ARD train runs first
+    (``_train_states_me``, which the suggest then reuses) so its share is
+    printed."""
+    trials = _bench_trials(vz, _NUM_TRIALS, _DIM) if trials is None else trials
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     designer.update(vz.CompletedTrials(trials), vz.ActiveTrials())
-    latencies, next_id = [], _NUM_TRIALS + 1
+    latencies, picks, next_id = [], [], len(trials) + 1
     for request in range(requests):
         start = time.perf_counter()
-        designer._train_states()
+        designer._train_states_me()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - start
         suggestions = designer.suggest(count=_COUNT)
@@ -597,15 +668,17 @@ def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3):
                 raise AssertionError(f"{kind} request {request}: suggestion out of bounds {values}")
             t = s.to_trial(next_id)
             next_id += 1
-            t.complete(vz.Measurement(metrics={"obj": float(-np.sum((values - 0.5) ** 2))}))
+            t.complete(vz.Measurement(metrics=evaluate(values)))
             completed.append(t)
+        ns = suggestions[0].metadata.ns("gp_ucb_pe")
         print(f"{kind} request {request}: suggest(count={_COUNT}) {latencies[-1] * 1e3:.1f} ms "
-              f"(ARD train {train_s * 1e3:.1f} ms), first acquisition "
-              f"{suggestions[0].metadata.ns('gp_ucb_pe')['acquisition']}")
+              f"(ARD train {train_s * 1e3:.1f} ms), first acquisition {ns['acquisition']} "
+              f"(use_ucb {ns['use_ucb']}, mean {ns.ns('prediction_in_warped_y_space')['mean']})")
         designer.update(vz.CompletedTrials(completed), vz.ActiveTrials())
+        picks.extend(completed)
     torch.cuda.synchronize()
     by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
-    return latencies, by_mode, torch.cuda.max_memory_allocated() - before
+    return latencies, by_mode, torch.cuda.max_memory_allocated() - before, picks
 
 
 def _require_modes(by_mode, required, path: str):
@@ -614,18 +687,18 @@ def _require_modes(by_mode, required, path: str):
             raise AssertionError(f"{name} was not launched in its {mode} mode on the {path}")
 
 
-def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
+def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
     """Phase 4: three suggest(count=5) requests at 1000 trials x 20-D."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
     states = []
 
     def check_state(request):
-        state = designer._cached_states[0]
+        (state,) = designer._cached_states[0]
         states.append(state)
         if not bool(torch.isfinite(state.chol).all()):
             raise AssertionError(f"request {request}: non-finite Cholesky factor")
 
-    latencies, by_mode, peak = _serve(vz, kernels, designer, check_state, "exact")
+    latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact")
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
@@ -636,7 +709,8 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib):
     # K1's masked cross mode.
     _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
                              ("matern52_ard_bwd", "gram")), "main path")
-    _check_against_cpu(states[-1], kernels, gp_lib)
+    _check_posterior_against_cpu("exact", states[-1], kernels, gp_lib, multitask_gp,
+                                 hold_trained=True)
     return designer, launches, by_mode
 
 
@@ -660,7 +734,7 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
         if not finite or bool(torch.any(info != 0)):
             raise AssertionError(f"sparse request {request}: failed or non-finite Cholesky")
 
-    latencies, by_mode, peak = _serve(vz, kernels, designer, check_state, "sparse")
+    latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "sparse")
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"sparse path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
@@ -700,26 +774,323 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
     return designer, launches, by_mode
 
 
-def _check_against_cpu(state, kernels, gp_lib):
-    """The trained posterior on the card against the port's plain CPU path."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    query = torch.rand((64, state.data.continuous.shape[1]), generator=gen, device="cuda")
-    feats = kernels.MixedFeatures(query, torch.zeros((64, 0), dtype=torch.int32, device="cuda"))
-    mean, std = gp_lib.EnsemblePredictive(state).predict(feats)
+def _dtlz2_problem(vz):
+    problem = vz.ProblemStatement()
+    for j in range(_DIM):
+        problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    for name in ("f1", "f2"):
+        problem.metric_information.append(
+            vz.MetricInformation(name=name, goal=vz.ObjectiveMetricGoal.MINIMIZE))
+    return problem
+
+
+def _dtlz2_objectives(values: np.ndarray) -> dict:
+    f = _dtlz2(values[None, :])[0]
+    return {"f1": float(f[0]), "f2": float(f[1])}
+
+
+def _dtlz2_trials(vz):
+    """1000 completed trials drawn uniformly from [0, 1]^20 with seed 0."""
+    x = np.random.default_rng(0).uniform(size=(_NUM_TRIALS, _DIM))
+    trials = []
+    for i in range(_NUM_TRIALS):
+        t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[i, j]) for j in range(_DIM)})
+        t.complete(vz.Measurement(metrics=_dtlz2_objectives(x[i])))
+        trials.append(t)
+    return trials
+
+
+_GP_DATA_FIELDS = ("continuous", "categorical", "labels", "row_mask", "cont_dim_mask",
+                   "cat_dim_mask")
+
+
+def _cpu_data(data, gp_lib, multitask_gp):
+    """A ``GPData`` or ``MultiTaskData`` copied to the CPU."""
     cpu = lambda t: t.detach().cpu()  # noqa: E731
-    data = gp_lib.GPData(**{f: cpu(getattr(state.data, f)) for f in (
-        "continuous", "categorical", "labels", "row_mask", "cont_dim_mask", "cat_dim_mask")})
-    params = {k: cpu(v) for k, v in state.params.items()}
-    cpu_model = dataclasses.replace(state.model, device="cpu")
-    cpu_state = cpu_model.precompute_constrained(params, data)
-    mean_c, std_c = gp_lib.EnsemblePredictive(cpu_state).predict(
-        kernels.MixedFeatures(cpu(query), cpu(feats.categorical)))
-    err_mean = float(torch.max(torch.abs(cpu(mean) - mean_c)))
-    err_std = float(torch.max(torch.abs(cpu(std) - std_c)))
-    print(f"predict on the card vs CPU plain path: max_abs_err mean={err_mean:.3e} "
-          f"stddev={err_std:.3e} (tol {_PREDICT_TOL})")
-    if not (max(err_mean, err_std) <= _PREDICT_TOL and math.isfinite(err_mean + err_std)):
-        raise AssertionError("predict on the card disagrees with the CPU plain path")
+    if isinstance(data, multitask_gp.MultiTaskData):
+        return multitask_gp.MultiTaskData(
+            features_data=_cpu_data(data.features_data, gp_lib, multitask_gp),
+            task_labels=cpu(data.task_labels), task_mask=cpu(data.task_mask))
+    return gp_lib.GPData(**{f: cpu(getattr(data, f)) for f in _GP_DATA_FIELDS})
+
+
+def _cpu_state(state, gp_lib, multitask_gp):
+    """A copy of an exact or multi-task posterior, its factorization included,
+    on the CPU."""
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    return dataclasses.replace(
+        state, model=dataclasses.replace(state.model, device="cpu"),
+        params={k: cpu(v) for k, v in state.params.items()},
+        data=_cpu_data(state.data, gp_lib, multitask_gp),
+        chol=cpu(state.chol), alpha=cpu(state.alpha), linv=cpu(state.linv))
+
+
+def _unit_scale(params):
+    """The parameters at unit scales, as the sparse check uses them:
+    amplitude 1, length scales 1, noise 0.1 (task parameters kept)."""
+    unit = {"amplitude": 1.0, "noise_stddev": 0.1, "continuous_length_scales": 1.0,
+            "categorical_length_scales": 1.0}
+    return {k: torch.full_like(v, unit[k]) if k in unit else v for k, v in params.items()}
+
+
+def _float64_predict(state, query, kernels):
+    """An exact posterior's mean and stddev ([B, Q]) factored and solved in
+    float64 on the CPU, from the float32 Gram and k* of its parameters."""
+    model, p, data = state.model, state.params, state.data
+    gram = model._masked_gram(p, data).double()
+    k_star = model._kernel(p, query, data.features(), data, row_mask2=data.row_mask).double()
+    chol = torch.linalg.cholesky(gram)
+    alpha = torch.cholesky_solve(data.labels.double().expand(gram.shape[0], -1)[..., None], chol)
+    v = torch.linalg.solve_triangular(chol, k_star.transpose(-1, -2), upper=False)
+    var = (p["amplitude"].double() ** 2)[:, None] - torch.sum(v * v, dim=-2)
+    return (k_star @ alpha)[..., 0], torch.sqrt(torch.clamp(var, min=1e-12))
+
+
+def _check_posterior_against_cpu(label, state, kernels, gp_lib, multitask_gp,
+                                 hold_trained: bool = False):
+    """A trained exact (one metric) or multi-task posterior's predictions at
+    64 queries on the card against the port's plain CPU path, at the same
+    parameters on both sides:
+    - at unit-scale parameters (``_unit_scale``), factored on each side: the
+      whole posterior, within _PREDICT_TOL;
+    - at the trained parameters, with the card's factorization copied to the
+      CPU and factored on each side, beside each side's distance to the
+      float64 posterior (exact posteriors) and the Gram's condition number:
+      factored on each side, within _PREDICT_TOL where ``hold_trained``
+      (bench.py's noisy study), printed otherwise. A noiseless study trains
+      the noise to its floor, where the condition number exceeds float32's
+      reach: every float32 factorization, the CPU's too, is then off the
+      float64 one by a few 1e-3, and the mean, a cancelling sum of large
+      alpha terms, differs by ~1e-3 even from one factorization (PERF.md,
+      PR 4)."""
+    query = torch.rand((64, _DIM), generator=torch.Generator().manual_seed(1))
+    zeros = torch.zeros((64, 0), dtype=torch.int32)
+    card_q = kernels.MixedFeatures(query.cuda(), zeros.cuda())
+    cpu_q = kernels.MixedFeatures(query, zeros)
+    predict = lambda s, q: gp_lib.EnsemblePredictive(s).predict(q)  # noqa: E731
+    cpu_state = _cpu_state(state, gp_lib, multitask_gp)
+    cpu_model = cpu_state.model
+
+    def diff(a, b):
+        return max(float(torch.max(torch.abs(x.detach().cpu().double() - y.double())))
+                   for x, y in zip(a, b))
+
+    card = predict(state, card_q)
+    same = diff(card, predict(cpu_state, cpu_q))
+    unit = _unit_scale(state.params)
+    unit_err = diff(predict(state.model.precompute_constrained(unit, state.data), card_q),
+                    predict(cpu_model.precompute_constrained(
+                        {k: v.cpu() for k, v in unit.items()}, cpu_state.data), cpu_q))
+    refactored = predict(cpu_model.precompute_constrained(cpu_state.params, cpu_state.data), cpu_q)
+    note = f"refactored on each side {diff(card, refactored):.3e}"
+    if isinstance(state, gp_lib.GPState):
+        truth = [t.mean(0) for t in _float64_predict(cpu_state, cpu_q, kernels)]
+        eig = torch.linalg.eigvalsh(cpu_model._masked_gram(cpu_state.params, cpu_state.data)[0]
+                                    .double())
+        note += (f" (card to float64 {diff(card, truth):.3e}, CPU float32 to float64 "
+                 f"{diff(refactored, truth):.3e}; Gram condition {float(eig[-1] / eig[0]):.3g})")
+    trained_err = diff(card, refactored)
+    held = f"(tol {_PREDICT_TOL})" if hold_trained else "(not held to a tolerance)"
+    print(f"{label} predict on the card vs CPU plain path, max_abs_err over mean and stddev: "
+          f"unit-scale parameters {unit_err:.3e} (tol {_PREDICT_TOL}); trained parameters "
+          f"{held}: same factorization {same:.3e}, {note}")
+    worst = max(unit_err, trained_err) if hold_trained else unit_err
+    if not (worst <= _PREDICT_TOL and math.isfinite(same + unit_err + trained_err)):
+        raise AssertionError(f"{label} predict on the card disagrees with the CPU plain path")
+
+
+def _check_scores_against_cpu(designer, gp_ucb_pe, kernels, gp_lib, acquisitions, pareto,
+                              multitask_gp, unit_scale):
+    """The multi-objective pick's HV-scalarized UCB and PE scores at 256
+    query points on the card against the port's CPU plain path, with the
+    same directions, at the same factorizations of the completed and the
+    all-points posteriors: the kernels, the predictions, the threshold, the
+    floor, the scalarization and the penalty are computed on each side. At
+    the trained parameters the differences are printed; at unit-scale
+    parameters (``unit_scale``) they are held to _SCORE_TOL."""
+    states, datas = designer._train_states_me()
+    if unit_scale:
+        states = [s.model.precompute_constrained(_unit_scale(s.params), s.data) for s in states]
+    cfg = designer.config
+    all_data = designer._all_points_data(_COUNT)
+    pe_params, _, _ = gp_ucb_pe._pe_conditioning(states, all_data, cfg)
+    states_all = [designer._model.precompute_constrained(p, all_data) for p in pe_params]
+    weights = pareto.draw_directions(torch.Generator().manual_seed(3), cfg.num_scalarizations,
+                                     len(datas))
+    query = torch.rand((256, _DIM), generator=torch.Generator().manual_seed(4))
+
+    def scores(states, states_all, all_data, datas, device):
+        _, _, threshold = gp_ucb_pe._pe_conditioning(states, all_data, cfg)
+        labels = torch.stack([d.labels for d in datas])
+        ref = acquisitions.get_reference_point(labels, datas[0].row_mask)
+        inv_w = 1.0 / torch.clamp(weights.to(device), min=1e-6)
+        hv = (inv_w, ref, gp_ucb_pe._hv_floor(inv_w, ref, labels, datas[0].row_mask))
+        trust = acquisitions.TrustRegion.from_data(all_data)
+        feats = kernels.MixedFeatures(query.to(device),
+                                      torch.zeros((256, 0), dtype=torch.int32, device=device))
+        return [gp_ucb_pe._score_fn(states, states_all, cfg, torch.tensor(flag, device=device),
+                                    threshold, hv, trust)(feats).cpu()
+                for flag in (True, False)]
+
+    card = scores(states, states_all, all_data, datas, torch.device("cuda"))
+    cpu_states = [_cpu_state(s, gp_lib, multitask_gp) for s in states]
+    cpu_all = [_cpu_state(s, gp_lib, multitask_gp) for s in states_all]
+    cpu = scores(cpu_states, cpu_all, cpu_all[0].data, [s.data for s in cpu_states],
+                 torch.device("cpu"))
+    at = "unit-scale parameters" if unit_scale else "trained parameters"
+    for label, got, want in zip(("HV-scalarized UCB", "PE"), card, cpu):
+        rel, err = _rel_err(got, want)
+        gate = f"tol {_SCORE_TOL}" if unit_scale else "not held to a tolerance"
+        print(f"multi-objective {label} scores at 256 queries on the card vs CPU plain path, {at}: "
+              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ({gate}; "
+              f"range {float(want.min()):.4g}..{float(want.max()):.4g})")
+        if not bool(torch.isfinite(got).all()) or (unit_scale and not rel <= _SCORE_TOL):
+            raise AssertionError(f"multi-objective {label} scores disagree with the CPU plain path")
+
+
+def _task_correlation(state) -> float:
+    """The learned task correlation B[0,1]/sqrt(B[0,0]B[1,1]) of a multi-task
+    posterior's first member."""
+    b = state.model._task_cov(state.params)[0]
+    return float(b[0, 1] / torch.sqrt(b[0, 0] * b[1, 1]))
+
+
+def _check_pareto(pareto, trials):
+    """Pareto ops over the study's completed trials on the card against the
+    CPU: the frontier mask and the ranks identical, the cumulative
+    hypervolume with the same directions within _HV_TOL relative. Prints the
+    frontier's size and the hypervolume after each request."""
+    f = np.array([[t.final_measurement.metrics[k].value for k in ("f1", "f2")] for t in trials])
+    points = torch.tensor(-f, dtype=torch.float32)  # MAXIMIZE convention
+    first = points[:_NUM_TRIALS]
+    origin = first.amin(0) - 0.1 * (first.amax(0) - first.amin(0))
+    shifted = torch.clamp(points - origin, min=0.0)
+    directions = pareto.draw_directions(torch.Generator().manual_seed(0), 1000, 2)
+    frontier = pareto.is_frontier(points)
+    rank = pareto.pareto_rank(points)
+    hv = pareto.cum_hypervolume_origin(shifted, directions)
+    start = time.perf_counter()
+    frontier_g = pareto.is_frontier(points.cuda())
+    rank_g = pareto.pareto_rank(points.cuda())
+    hv_g = pareto.cum_hypervolume_origin(shifted.cuda(), directions.cuda())
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - start) * 1e3
+    hv_rel = float(torch.max(torch.abs(hv_g.cpu() - hv) / torch.clamp(hv, min=1e-30)))
+    same = torch.equal(frontier_g.cpu(), frontier) and torch.equal(rank_g.cpu(), rank)
+    after = {n: float(hv[n - 1]) for n in range(_NUM_TRIALS, len(trials) + 1, _COUNT)}
+    print(f"Pareto ops over {len(trials)} trials on the card ({card_ms:.1f} ms) vs CPU: frontier "
+          f"and ranks {'identical' if same else 'DIFFERENT'}, frontier size "
+          f"{int(frontier.sum())}, max rank {int(rank.max())}; cumulative hypervolume "
+          f"max_rel_err={hv_rel:.3e} (tol {_HV_TOL}); hypervolume after 1000 trials and after "
+          f"each request: {after}")
+    if not (same and hv_rel <= _HV_TOL):
+        raise AssertionError("Pareto ops on the card disagree with the CPU")
+
+
+def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates, acquisitions,
+                            multitask_gp, pareto):
+    """Phase 6: DTLZ2 with two objectives at 1000 trials x 20-D. The DEFAULT
+    as the service builds it serves three suggest(count=5) (one cold train,
+    then warm ones; the mode stays exact: multi-objective studies do not go
+    sparse), then the SEPARABLE multi-task variant and
+    GAUSSIAN_PROCESS_BANDIT serve one request each on the same study, and the
+    Pareto ops run over its completed trials. Returns {path: launches by
+    mode}."""
+    service = dict(rng_seed=0, surrogate=surrogates.SurrogateConfig(), use_warm_start_ard=True,
+                   warm_ard_restarts=1)
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(_dtlz2_problem(vz), **service)
+    states_seen = []
+
+    def check_state(request):
+        states, datas = designer._cached_states
+        states_seen.append(states)
+        if len(states) != 2 or not all(bool(torch.isfinite(s.chol).all()) for s in states):
+            raise AssertionError(f"multi-objective request {request}: non-finite Cholesky factor")
+        if designer.surrogate_mode != "exact":
+            raise AssertionError(f"multi-objective request {request}: went {designer.surrogate_mode}")
+
+    trials = _dtlz2_trials(vz)
+    latencies, by_mode, peak, picks = _serve(vz, kernels, designer, check_state, "multi-objective",
+                                             trials=trials, evaluate=_dtlz2_objectives)
+    launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
+    print(f"multi-objective path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
+          f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
+          f"surrogate_mode={designer.surrogate_mode} ard_train_counts={designer.ard_train_counts}")
+    if designer.ard_train_counts != {"cold": 1, "warm": 2}:
+        raise AssertionError(f"multi-objective trains {designer.ard_train_counts}, "
+                             f"expected one cold and two warm")
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), "multi-objective path")
+    profile_request(designer, "multi-objective")
+    for metric, state in enumerate(states_seen[-1]):
+        _check_posterior_against_cpu(f"metric {metric}", state, kernels, gp_lib, multitask_gp)
+    for unit_scale in (False, True):
+        _check_scores_against_cpu(designer, gp_ucb_pe, kernels, gp_lib, acquisitions, pareto,
+                                  multitask_gp, unit_scale)
+    paths = {"multi_objective": by_mode}
+    study = trials + picks
+
+    mt = gp_ucb_pe.VizierGPUCBPEBandit(
+        _dtlz2_problem(vz), config=gp_ucb_pe.UCBPEConfig(multitask_type=gp_ucb_pe.MultiTaskType.SEPARABLE),
+        **service)
+    mt.update(vz.CompletedTrials(study), vz.ActiveTrials())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    mt._train_states_me()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    suggestions = mt.suggest(count=_COUNT)
+    torch.cuda.synchronize()
+    mt_s = time.perf_counter() - start
+    mt_peak = torch.cuda.max_memory_allocated() - before
+    paths["multi_task"] = {name: dict(m) for name, m in kernels.LAUNCHES_BY_MODE.items()}
+    state = mt._cached_states[0]
+    if not isinstance(state, multitask_gp.MultiTaskGPState) or not bool(torch.isfinite(state.chol).all()):
+        raise AssertionError("SEPARABLE: no finite joint Cholesky factor")
+    _check_suggestions(suggestions, "SEPARABLE")
+    print(f"SEPARABLE multi-task suggest(count={_COUNT}) on {len(study)} trials: {mt_s * 1e3:.1f} ms "
+          f"(ARD train {train_s * 1e3:.1f} ms, joint Gram {tuple(state.chol.shape)}, peak memory "
+          f"{mt_peak} B above baseline), launches by mode {paths['multi_task']}, learned task "
+          f"correlation B01/sqrt(B00 B11) = {_task_correlation(state):.4f}, first acquisition "
+          f"{suggestions[0].metadata.ns('gp_ucb_pe')['acquisition']}")
+    start = time.perf_counter()
+    _check_posterior_against_cpu("SEPARABLE per-task", state, kernels, gp_lib, multitask_gp)
+    print(f"(multi-task check on the CPU: {time.perf_counter() - start:.1f} s)")
+    _require_modes(paths["multi_task"], (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "other"),
+                                         ("matern52_ard_bwd", "gram")), "multi-task path")
+
+    bandit = gp_bandit.VizierGPBandit(_dtlz2_problem(vz), **service)
+    bandit.update(vz.CompletedTrials(study))
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    (suggestion,) = bandit.suggest(count=1)
+    torch.cuda.synchronize()
+    bandit_s = time.perf_counter() - start
+    paths["gp_bandit_multi_objective"] = {
+        name: dict(m) for name, m in kernels.LAUNCHES_BY_MODE.items()}
+    kind = suggestion.metadata.ns("gp_bandit")["acquisition_kind"]
+    _check_suggestions([suggestion], "GAUSSIAN_PROCESS_BANDIT")
+    print(f"GAUSSIAN_PROCESS_BANDIT multi-objective suggest(count=1): {bandit_s * 1e3:.1f} ms, "
+          f"kind {kind}, ard_train_counts={bandit.ard_train_counts}, launches by mode "
+          f"{paths['gp_bandit_multi_objective']}")
+    if kind != "hv_scalarized_ucb" or bandit.surrogate_mode != "exact":
+        raise AssertionError(f"GAUSSIAN_PROCESS_BANDIT multi-objective: {kind} {bandit.surrogate_mode}")
+    _require_modes(paths["gp_bandit_multi_objective"], (
+        ("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+        ("matern52_ard_bwd", "gram")), "GAUSSIAN_PROCESS_BANDIT multi-objective path")
+
+    _check_pareto(pareto, study)
+    return paths
+
+
+def _check_suggestions(suggestions, kind: str) -> None:
+    for s in suggestions:
+        values = np.array([s.parameters.get_value(f"x{j}") for j in range(_DIM)], float)
+        if not (np.all(np.isfinite(values)) and np.all((values >= 0.0) & (values <= 1.0))):
+            raise AssertionError(f"{kind}: suggestion out of bounds {values}")
 
 
 def _check_sparse_against_cpu(state, kernels, sparse_gp):
@@ -774,20 +1145,25 @@ def _profile_kcenter(sparse_gp, state):
         sparse_gp.select_inducing_kcenter(data, m)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    kernels_ = [e for e in prof.key_averages() if _is_cuda_kernel(e) and _device_us(e) > 0]
+    totals = _device_activity(prof)
     print(f"k-center selection of {m} of {data.num_rows} rows (once per sparse train): "
-          f"{sum(e.count for e in kernels_)} device launches, device "
-          f"{sum(_device_us(e) for e in kernels_) / 1e3:.3f} ms, wall {wall_ms:.1f} ms "
+          f"{sum(n for n, _ in totals.values())} device launches, device "
+          f"{sum(us for _, us in totals.values()) / 1e3:.3f} ms, wall {wall_ms:.1f} ms "
           f"(profiler on)")
 
 
-def _is_cuda_kernel(evt) -> bool:
-    return str(getattr(evt, "device_type", "")).endswith("CUDA")
-
-
-def _device_us(evt) -> float:
-    value = getattr(evt, "self_device_time_total", None)
-    return float(value if value is not None else evt.self_cuda_time_total)
+def _device_activity(prof) -> dict:
+    """{name: [launches, device us]} of a profile's device activity (kernels,
+    copies, fills), summed from its raw Kineto events. ``key_averages`` gives
+    the same sums but builds a Python object per event, which takes minutes
+    at the ~500 000 launches of one request."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            entry = totals.setdefault(e.name(), [0, 0.0])
+            entry[0] += 1
+            entry[1] += e.duration_ns() / 1e3
+    return totals
 
 
 def profile_request(designer, kind: str, count: int = 5):
@@ -800,20 +1176,20 @@ def profile_request(designer, kind: str, count: int = 5):
     # trace's size and its post-processing time.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        designer._train_states()
+        designer._train_states_me()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - start
         designer.suggest(count=count)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - start
-    kernels = [e for e in prof.key_averages() if _is_cuda_kernel(e) and _device_us(e) > 0]
-    busy_us = sum(_device_us(e) for e in kernels)
+    totals = _device_activity(prof)
+    busy_us = sum(us for _, us in totals.values())
     print(f"profiled {kind} request: wall {wall_s * 1e3:.1f} ms = ARD train {train_s * 1e3:.1f} ms "
           f"+ picks/sweeps/decode {(wall_s - train_s) * 1e3:.1f} ms (profiler on)")
     print(f"profiled {kind} request: device busy {busy_us / 1e3:.1f} ms, idle share "
-          f"{1.0 - busy_us / 1e6 / wall_s:.3f}, {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
-        print(f"  {_device_us(e) / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+          f"{1.0 - busy_us / 1e6 / wall_s:.3f}, {sum(n for n, _ in totals.values())} kernel launches")
+    for name, (n, us) in sorted(totals.items(), key=lambda kv: kv[1][1], reverse=True)[:12]:
+        print(f"  {us / 1e3:9.2f} ms {n:7d}x  {name[:90]}")
 
 
 def main() -> int:
@@ -829,9 +1205,12 @@ def main() -> int:
     from vizier_tpu_torch import pyvizier as vz
     from vizier_tpu_torch import surrogates
     from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
+    from vizier_tpu_torch.designers.gp import acquisitions
     from vizier_tpu_torch.models import gp as gp_lib
     from vizier_tpu_torch.models import kernels
+    from vizier_tpu_torch.models import multitask_gp
     from vizier_tpu_torch.ops import native
+    from vizier_tpu_torch.ops import pareto
     from vizier_tpu_torch.surrogates import sparse_gp
 
     card = _card_line()
@@ -851,7 +1230,7 @@ def main() -> int:
     if opts.baseline_source:
         baseline = time_baseline(kernels, _load_baseline(opts.baseline_source), timed)
     print(f"[{time.perf_counter() - start:.1f} s] kernel timing done")
-    designer, launches, by_mode = run_main_path(vz, gp_ucb_pe, kernels, gp_lib)
+    designer, launches, by_mode = run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp)
     print(f"[{time.perf_counter() - start:.1f} s] main path done")
     profile_request(designer, "exact")
     print(f"[{time.perf_counter() - start:.1f} s] profiled request done")
@@ -860,6 +1239,9 @@ def main() -> int:
     print(f"[{time.perf_counter() - start:.1f} s] sparse path done")
     profile_request(sparse_designer, "sparse")
     print(f"[{time.perf_counter() - start:.1f} s] profiled sparse request done")
+    mo_paths = run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates,
+                                       acquisitions, multitask_gp, pareto)
+    print(f"[{time.perf_counter() - start:.1f} s] multi-objective path done")
 
     # One JSON row per kernel, at the shape that carries most of its
     # main-path launches (K1: the sweep's cross kernel; K2: the ARD Gram),
@@ -887,7 +1269,11 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
             "launches_by_mode": by_mode[name], "launches_sparse_path": sparse_launches[name],
-            "launches_by_mode_sparse_path": sparse_by_mode[name], "by_shape": by_shape,
+            "launches_by_mode_sparse_path": sparse_by_mode[name],
+            "launches_by_mode_by_path": {
+                "exact": by_mode[name], "sparse": sparse_by_mode[name],
+                **{path: modes[name] for path, modes in mo_paths.items()}},
+            "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{
                     tile: row[tile][f"{key}_ms"] for tile in _TILE_KINDS.values()}}

@@ -163,10 +163,14 @@ def _check_cross(device, b, n, m, valid1, valid2):
     want = tk.matern52_ard_fwd_plain(*args, mask1, mask2)
     got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert torch.all(got[..., valid2:] == 0)
+    if valid2 is not None:
+        assert torch.all(got[..., valid2:] == 0)
     if valid1 is not None:
         assert torch.all(got[:, valid1:] == 0)
-    grad = torch.randn(want.shape, device=device)
+    # Seeded: the default CUDA generator starts from another seed in each
+    # process, so an unseeded draw made each run check other inputs.
+    grad = torch.randn(want.shape, generator=torch.Generator(device=device).manual_seed(4),
+                       device=device)
     got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, need_x1=True, need_x2=True)
     _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2))
     _assert_params_within_rounding(got_g, grad, args, mask1, mask2)
@@ -434,3 +438,162 @@ def test_sparse_designer_suggests_through_the_kernels(cuda_device):
         assert tk.LAUNCHES_BY_MODE[name][mode] > 0, (name, mode)
     for s in suggestions:
         assert 0.0 <= s.parameters.get_value("x") <= 1.0
+
+
+# The multi-objective phase's shapes (two objectives, 1000 trials x 20-D):
+# each metric's PE conditioning and sweep predict against 1024 rows (1010
+# real after two requests), and the multi-task GP's k*, an unmasked cross
+# (the task mask applies to the Kronecker product), at 1, 50 and 1024
+# queries.
+_MO_CROSS = {
+    "per_metric_pe_conditioning": dict(b=1, n=1024, m=1024, valid1=None, valid2=1010),
+    "per_metric_sweep": dict(b=1, n=50, m=1024, valid1=None, valid2=1010),
+    "multitask_kstar_one": dict(b=1, n=1, m=1024, valid1=None, valid2=None),
+    "multitask_kstar_sweep": dict(b=1, n=50, m=1024, valid1=None, valid2=None),
+    "multitask_kstar_pe": dict(b=1, n=1024, m=1024, valid1=None, valid2=None),
+}
+
+
+@pytest.mark.parametrize("tile", [-1, 0, 1], ids=["chosen", "big", "tiny"])
+@pytest.mark.parametrize("shape", list(_MO_CROSS), ids=list(_MO_CROSS))
+def test_multiobjective_cross_shapes_match_plain_at_every_tile(cuda_device, shape, tile):
+    from vizier_tpu_torch.ops import native
+
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        _check_cross(cuda_device, **_MO_CROSS[shape])
+    finally:
+        lib.matern52_force_tile(-1)
+
+
+@pytest.mark.parametrize(
+    "b,valid",
+    [(2, 1005), (4, 1015), (4, None), (1, None)],
+    ids=["per_metric_warm_train", "bandit_per_metric_train", "multitask_kx_train",
+         "multitask_kx_per_pick"],
+)
+def test_multiobjective_grams_match_plain(cuda_device, b, valid):
+    """The per-metric masked Grams (noise diagonal) and the multi-task Kx, K1's
+    Gram mode without masks or diagonal: triangles bit-identical, K2's
+    symmetric path deterministic."""
+    args = _args(cuda_device, b, 1024, 1024, 20, 0, same=True)
+    mask1, mask2, diag = _masks(cuda_device, b, 1024, 1024, valid, same=True, diag=valid is not None)
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, diag)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+    grad = torch.randn(want.shape, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device)
+    first = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    _assert_grads_close(first[:3], tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)[:3])
+    _assert_params_within_rounding(first, grad, args, mask1, mask2)
+    second = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    for a, c in zip(first[:3], second[:3]):
+        assert torch.equal(a, c)
+
+
+def _multitask(device, kind="SEPARABLE"):
+    """A two-task model, data over 256 rows (250 real; task 1 lacks row 7)
+    and parameters for two restarts (a negative task correlation)."""
+    from vizier_tpu_torch.models import multitask_gp as tmt
+
+    data = _gp_data(device, 256, 250, 20, 0)
+    gen = torch.Generator().manual_seed(5)
+    labels = torch.stack([data.labels, (-data.labels + 0.3 * torch.randn(256, generator=gen)
+                                        .to(device))])
+    mask = torch.stack([data.row_mask, data.row_mask.clone()])
+    mask[1, 7] = False
+    mt_data = tmt.MultiTaskData(features_data=data, task_labels=labels * mask, task_mask=mask)
+    model = tmt.MultiTaskGaussianProcess(20, 0, 2, tmt.MultiTaskType[kind], device=device)
+    params = {
+        "amplitude": torch.tensor([1.2, 0.9], device=device),
+        "noise_stddev": torch.tensor([0.1, 0.2], device=device),
+        "continuous_length_scales": torch.full((2, 20), 0.8, device=device),
+        "task_chol_diag": torch.tensor([[1.0, 0.7], [0.8, 1.1]], device=device),
+        "task_chol_offdiag": torch.tensor([[-0.6], [0.3]], device=device),
+        "task_corr_chol_vec": torch.tensor([[-0.6], [0.3]], device=device),
+        "task_sqrt_diag": torch.tensor([[0.9, 0.7], [0.6, 0.8]], device=device),
+    }
+    names = {s.name for s in model.param_collection().specs}
+    return model, mt_data, {k: v for k, v in params.items() if k in names}
+
+
+@pytest.mark.parametrize("kind", ["SEPARABLE", "SEPARABLE_LKJ", "SEPARABLE_DIAG"])
+def test_multitask_joint_gram_on_the_card_matches_the_cpu(cuda_device, kind):
+    """The joint Gram (Kx from K1's Gram, the Kronecker product with B, the
+    task mask and the diagonal) on the card against the CPU plain path, and
+    the NLL, its gradient and the per-task predictions from it."""
+    card_model, card_data, card_params = _multitask(cuda_device, kind)
+    cpu_model, cpu_data, cpu_params = _multitask("cpu", kind)
+    got = card_model._joint_gram(card_params, card_data)
+    want = cpu_model._joint_gram(cpu_params, cpu_data)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, got.transpose(-1, -2))
+
+    def nll_and_grad(model, data, params):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in model.param_collection().unconstrain(params).items()}
+        loss = model.neg_log_likelihood(leaves, data)
+        loss.sum().backward()
+        return loss.detach().cpu(), {k: v.grad.cpu() for k, v in leaves.items()}
+
+    got_nll, got_grad = nll_and_grad(card_model, card_data, card_params)
+    want_nll, want_grad = nll_and_grad(cpu_model, cpu_data, cpu_params)
+    torch.testing.assert_close(got_nll, want_nll, rtol=1e-4, atol=0)
+    for k, g in want_grad.items():
+        scale = float(torch.max(torch.abs(g)))
+        torch.testing.assert_close(got_grad[k], g, rtol=1e-3, atol=1e-3 * scale)
+    query = torch.rand((64, 20), generator=torch.Generator().manual_seed(3))
+    zeros = torch.zeros((64, 0), dtype=torch.int32)
+    got_pred = card_model.precompute_constrained(card_params, card_data).predict(
+        tk.MixedFeatures(query.to(cuda_device), zeros.to(cuda_device)))
+    want_pred = cpu_model.precompute_constrained(cpu_params, cpu_data).predict(
+        tk.MixedFeatures(query, zeros))
+    for g, w in zip(got_pred, want_pred):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=0)
+
+
+def _two_objective_problem_and_trials(n=20):
+    problem = vz.ProblemStatement()
+    for name in ("x", "y"):
+        problem.search_space.root.add_float_param(name, 0.0, 1.0)
+    for name in ("f1", "f2"):
+        problem.metric_information.append(
+            vz.MetricInformation(name=name, goal=vz.ObjectiveMetricGoal.MINIMIZE))
+    rng = np.random.default_rng(0)
+    trials = []
+    for i in range(n):
+        x, y = float(rng.uniform()), float(rng.uniform())
+        t = vz.Trial(id=i + 1, parameters={"x": x, "y": y})
+        g = (y - 0.5) ** 2
+        t.complete(vz.Measurement(metrics={"f1": (1 + g) * np.cos(x * np.pi / 2),
+                                           "f2": (1 + g) * np.sin(x * np.pi / 2)}))
+        trials.append(t)
+    return problem, trials
+
+
+@pytest.mark.parametrize("multitask", [False, True], ids=["independent", "separable"])
+def test_multiobjective_designer_suggests_through_the_kernels(cuda_device, multitask):
+    """Two objectives on the card: per-metric GPs (K1 Gram and masked cross,
+    K2 Gram) or the SEPARABLE multi-task GP (K1 Gram for Kx, unmasked cross
+    for k*, K2 Gram)."""
+    problem, trials = _two_objective_problem_and_trials()
+    config = gp_ucb_pe.UCBPEConfig(
+        multitask_type=gp_ucb_pe.MultiTaskType.SEPARABLE if multitask
+        else gp_ucb_pe.MultiTaskType.INDEPENDENT)
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(
+        problem, config=config, ard_restarts=2, max_acquisition_evaluations=2000)
+    designer.update(vz.CompletedTrials(trials), vz.ActiveTrials())
+    tk.reset_launch_counts()
+    suggestions = designer.suggest(3)
+    torch.cuda.synchronize()
+    assert len(suggestions) == 3
+    k_star = "other" if multitask else "cross"
+    for name, mode in (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", k_star),
+                       ("matern52_ard_bwd", "gram")):
+        assert tk.LAUNCHES_BY_MODE[name][mode] > 0, (name, mode)
+    for s in suggestions:
+        assert 0.0 <= s.parameters.get_value("x") <= 1.0
+        mean = s.metadata.ns("gp_ucb_pe").ns("prediction_in_warped_y_space")["mean"]
+        assert len(mean.strip("[]").split(",")) == 2

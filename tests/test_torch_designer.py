@@ -82,7 +82,7 @@ def test_both_designers_make_valid_suggestions(designers):
     ns = tsugg[0].metadata.ns("gp_ucb_pe")
     assert ns["use_ucb"] == "True" and np.isfinite(ns["acquisition"])
     states, _ = td._cached_states
-    assert bool(torch.isfinite(states.chol).all())
+    assert len(states) == 1 and bool(torch.isfinite(states[0].chol).all())
 
 
 def _port_state_from_jax(jd, td):
@@ -91,7 +91,7 @@ def _port_state_from_jax(jd, td):
     params = interop.gp_params_from_numpy(
         {k: np.asarray(v)[0] for k, v in jstates.params.items()}, "cpu"
     )
-    _, tdata = td._train_states()
+    _, (tdata,) = td._train_states_me()
     for field in ("continuous", "categorical", "labels", "row_mask"):
         np.testing.assert_allclose(
             getattr(tdata, field).numpy(), np.asarray(getattr(jdatas[0], field)), atol=1e-6
@@ -125,7 +125,7 @@ def test_first_pick_acquisition_within_two_percent(designers):
     )
     tstate = _port_state_from_jax(jd, td)
     tresult, aux = tucb._suggest_batch(
-        td._vec_opt, tstate, td._all_points_data(1),
+        td._vec_opt, [tstate], td._all_points_data(1),
         tbandit._prior_features_from_data(tstate.data), torch.Generator().manual_seed(7),
         True, True, 1, td.config,
     )

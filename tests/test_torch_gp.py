@@ -185,3 +185,17 @@ def test_select_best_keeps_the_top_restarts_in_order():
     res = tlbfgs._select_best(finals, torch.tensor([3.0, float("nan"), 1.0, 2.0]), 2)
     assert res.params["a"][:, 0].tolist() == [2.0, 3.0]
     assert float(res.best_loss) == 1.0
+
+
+def test_posterior_cholesky_refactors_in_float64_what_float32_cannot():
+    """A positive definite Gram whose float32 factorization fails (all-ones
+    plus 2^-22·I at 1024 rows: condition ~4e9) is factored in float64 and
+    rounded back; a member float32 completes keeps its float32 factor."""
+    n = 1024
+    gram = torch.ones(2, n, n) + torch.stack([2.0**-22 * torch.eye(n), 0.5 * torch.eye(n)])
+    plain, info = torch.linalg.cholesky_ex(gram)
+    assert info.tolist()[0] > 0 and info.tolist()[1] == 0
+    chol = tgp.posterior_cholesky(gram)
+    assert bool(torch.isfinite(chol).all())
+    torch.testing.assert_close(chol[0], torch.linalg.cholesky(gram[0].double()).float())
+    assert torch.equal(chol[1], plain[1])

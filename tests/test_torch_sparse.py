@@ -476,7 +476,7 @@ def test_service_default_trains_to_the_reference_optimum_at_1000_trials():
     kw = dict(rng_seed=0, warm_ard_restarts=1)
     td = trained(tvz, lambda p: tucb.VizierGPUCBPEBandit(
         p, surrogate=tconfig.SurrogateConfig(), device="cpu", **kw))
-    td._train_states()
+    td._train_states_me()
     jd = trained(jvz, lambda p: jucb.VizierGPUCBPEBandit(
         p, surrogate=jconfig.SurrogateConfig(), use_mesh=False, **kw))
     jstates, _ = jd._train_states_me()

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Protocol
+from typing import Optional, Protocol, Sequence
 
 import torch
 
@@ -150,6 +150,36 @@ class ScoringFunction:
     def score(self, query: kernels.MixedFeatures) -> Tensor:
         mean, stddev = self.predictive.predict(query)
         values = self.acquisition(mean, stddev, self.best_label)
+        if self.trust_region is not None:
+            values = values - self.trust_region.penalty(query)
+        return values
+
+
+@dataclasses.dataclass(frozen=True)
+class HVScalarizedScoring:
+    """Multi-objective scoring: random-direction HV scalarization of UCB.
+
+    Per-metric UCB values are scalarized along K random positive directions
+    as min_m((ucb_m − ref_m)_+ / v_m)^M and averaged over the directions.
+    Each metric's state holds one parameter set over its own data (its own
+    row mask), so each predict is its own K1 launch.
+    """
+
+    metric_states: Sequence[gp_lib.GPState]  # one per objective, batch 1 each
+    directions: Tensor  # [K, M] positive unit vectors
+    reference_point: Tensor  # [M]
+    ucb_coefficient: float = 1.8
+    trust_region: Optional[TrustRegion] = None
+
+    def score(self, query: kernels.MixedFeatures) -> Tensor:
+        predictions = [s.predict(query) for s in self.metric_states]  # ([1, Q], [1, Q]) each
+        means = torch.cat([mean for mean, _ in predictions])
+        stddevs = torch.cat([std for _, std in predictions])
+        ucb = means + self.ucb_coefficient * stddevs  # [M, Q]
+        m = ucb.shape[0]
+        shifted = torch.clamp(ucb - self.reference_point[:, None], min=0.0)
+        ratios = shifted[None, :, :] / torch.clamp(self.directions[:, :, None], min=1e-12)
+        values = torch.mean(torch.amin(ratios, dim=1) ** m, dim=0)  # [Q]
         if self.trust_region is not None:
             values = values - self.trust_region.penalty(query)
         return values

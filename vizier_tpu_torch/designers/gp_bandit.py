@@ -1,4 +1,4 @@
-"""VizierGPBandit: the GP Bayesian-optimization designer, single-objective.
+"""VizierGPBandit: the GP Bayesian-optimization designer.
 
 Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
 
@@ -12,11 +12,14 @@ Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
 - the sparse-surrogate auto-switch (``surrogate``): from the config's trial
   threshold up, with hysteresis, the single-objective suggest trains the SGPR
   inducing-point posterior (``surrogates.sparse_bandit``) instead of the
-  exact GP; ``warm_ard_restarts`` cuts a warm-started train's restart budget.
+  exact GP; ``warm_ard_restarts`` cuts a warm-started train's restart budget;
+- multi-objective studies: one cold-trained GP per objective and UCB
+  hypervolume-scalarized along 64 random directions
+  (``acquisitions.HVScalarizedScoring``).
 
-Multi-objective studies, transfer priors, joint q-batches, mesh sharding and
-cross-study batching are served by the JAX package only; see ROADMAP.md for
-their place in the port's queue.
+Transfer priors, joint q-batches, mesh sharding and cross-study batching are
+served by the JAX package only; see ROADMAP.md for their place in the port's
+queue.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from vizier_tpu_torch.designers import quasi_random
 from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import output_warpers
+from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
@@ -76,6 +80,27 @@ def _train_gp(
         lambda p: model.neg_log_likelihood(p, data), inits, best_n=ensemble_size
     )
     return model.precompute(result.params, data)
+
+
+def _train_gp_per_metric(
+    model: gp_lib.VizierGaussianProcess,
+    optimizer: lbfgs_lib.LbfgsOptimizer,
+    datas: Sequence[gp_lib.GPData],
+    generator: torch.Generator,
+    num_restarts: int,
+) -> List[gp_lib.GPState]:
+    """One cold-trained GP per objective: ``num_restarts`` random restarts
+    over each metric's data (its own labels and row mask), the best kept as a
+    batch of one."""
+    coll = model.param_collection()
+    states = []
+    for data in datas:
+        inits = coll.batch_random_init_unconstrained(generator, num_restarts)
+        result = optimizer(
+            lambda p, d=data: model.neg_log_likelihood(p, d), inits, best_n=1
+        )
+        states.append(model.precompute(result.params, data))
+    return states
 
 
 # One implementation for the exact and the sparse sweep.
@@ -332,20 +357,14 @@ class VizierGPBandit(core_lib.Designer):
     def _num_objectives(self) -> int:
         return sum(1 for m in self.problem.metric_information if not m.is_safety_metric)
 
-    def _require_single_objective(self) -> None:
-        if self._num_objectives() > 1:
-            raise NotImplementedError(
-                "vizier_tpu_torch serves single-objective studies; multi-objective "
-                "GP designers are not ported yet."
-            )
-
     # -- suggest -----------------------------------------------------------
 
     def suggest(self, count: Optional[int] = None) -> List[trial_.TrialSuggestion]:
         count = count or 1
         if len(self._trials) < self.num_seed_trials:
             return self._seed_suggestions(count)
-        self._require_single_objective()
+        if self._num_objectives() > 1:
+            return self._suggest_multiobjective(count)
         if self._refresh_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
             return self._suggest_sparse(count)
         data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
@@ -364,6 +383,43 @@ class VizierGPBandit(core_lib.Designer):
             prior_features=_prior_features_from_data(data),
         )
         return self._decode_result(result, count, kind=self.acquisition)
+
+    def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
+        """Random-hypervolume scalarized UCB over per-metric GPs, with each
+        metric's reference point at nadir − 0.1·range of its warped labels."""
+        raw = self._converter.metrics.encode(self._trials)  # [N, M] all-MAXIMIZE
+        features, n_pad = self._padded_features(self._trials)
+        datas, refs = [], []
+        for j, info in enumerate(self.problem.metric_information):
+            if info.is_safety_metric:
+                continue
+            warped = self._warper(raw[:, j])
+            datas.append(gp_lib.GPData.from_model_data(
+                types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
+            ))
+            labels = torch.as_tensor(warped.astype(np.float32), device=self.device)
+            refs.append(acquisitions.get_reference_point(
+                labels, torch.ones(labels.shape, dtype=torch.bool, device=self.device)
+            ))
+        states = _train_gp_per_metric(
+            self._model, self._ard, datas, self._generator, self.ard_restarts
+        )
+        # Cold by definition: GP-UCB-PE owns the warm multi-objective path.
+        self._ard_train_counts["cold"] += 1
+        scoring = acquisitions.HVScalarizedScoring(
+            metric_states=states,
+            directions=pareto_ops.draw_directions(self._generator, 64, len(datas)),
+            reference_point=torch.stack(refs),
+            ucb_coefficient=self.ucb_coefficient,
+            trust_region=(
+                acquisitions.TrustRegion.from_data(datas[0]) if self.use_trust_region else None
+            ),
+        )
+        result = self._vec_opt(
+            scoring.score, self._generator, count=count,
+            prior_features=_prior_features_from_data(datas[0]),
+        )
+        return self._decode_result(result, count, kind="hv_scalarized_ucb")
 
     def _decode_result(
         self, result: vectorized_lib.VectorizedOptimizerResult, count: int, *, kind: str

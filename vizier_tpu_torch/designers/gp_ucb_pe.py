@@ -1,8 +1,9 @@
 """VizierGPUCBPEBandit: the DEFAULT algorithm (GP-UCB with Pure Exploration).
 
-Counterpart of the JAX package's ``designers/gp_ucb_pe.py:858``, single-objective
-path, exact GP and sparse surrogate (algorithm from Contal et al., "Parallel Gaussian Process
-Optimization with UCB and Pure Exploration"):
+Counterpart of the JAX package's ``designers/gp_ucb_pe.py:858``: exact GP,
+sparse surrogate (single objective) and multi-objective studies (algorithm
+from Contal et al., "Parallel Gaussian Process Optimization with UCB and
+Pure Exploration"):
 
 - Two conditioned posteriors: ``completed`` (observed labels) and ``all``
   (completed + pending/active + already-picked batch points; only the
@@ -15,6 +16,11 @@ Optimization with UCB and Pure Exploration"):
 - **UCB/PE choice** per pick: fresh completed trials → UCB except w.p.
   ``pe_overwrite_probability`` (raised in the high-noise regime);
   otherwise PE except w.p. ``ucb_overwrite_probability``.
+- **Multimetric**: one GP per objective, each over its own warped labels
+  and row mask (or, with a SEPARABLE ``multitask_type``, one multi-task GP
+  with a learned task covariance); UCB hypervolume-scalarized along random
+  directions (floored at the observed labels' scalarization), the PE
+  penalty scalarized by union / intersection / average across metrics.
 
 Picks are written into spare padded rows, and each pick re-conditions the
 all-points posterior (one batched Cholesky over the ensemble) before its
@@ -27,6 +33,8 @@ from it joins it (``_append_row_sparse``).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,7 +46,9 @@ from vizier_tpu_torch.designers import gp_bandit
 from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
+from vizier_tpu_torch.models import multitask_gp
 from vizier_tpu_torch.models import output_warpers
+from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
@@ -46,13 +56,15 @@ from vizier_tpu_torch.surrogates import sparse_gp
 
 Tensor = torch.Tensor
 
+MultiTaskType = multitask_gp.MultiTaskType
+
 _PE_NOISE_STDDEV = 1e-5  # noise floor for the all-predictive in high noise
 _MIN_PICK_EVALUATIONS = 500  # ≥10 eagle generations at the default pool of 50
 
 
 @dataclasses.dataclass(frozen=True)
 class UCBPEConfig:
-    """UCB-PE config (reference ``UCBPEConfig``), single-objective fields."""
+    """UCB-PE config (reference ``UCBPEConfig``)."""
 
     ucb_coefficient: float = 1.8
     # A separate (smaller) coefficient defining the region worth exploring.
@@ -68,42 +80,104 @@ class UCBPEConfig:
     # signal/noise variance ratio below which noise is considered high
     # (0 disables the high-noise behaviors).
     signal_to_noise_threshold: float = 0.7
+    # Multimetric promising-region penalty: union | intersection | average.
+    multimetric_promising_region_penalty_type: str = "average"
+    # Random HV-scalarization directions for multimetric UCB, drawn per pick.
+    num_scalarizations: int = 1000
+    # Multimetric GP structure: INDEPENDENT trains one GP per metric; the
+    # SEPARABLE* variants train one GP with a learned task covariance B over
+    # a B ⊗ Kx Gram (``models.multitask_gp``).
+    multitask_type: MultiTaskType = MultiTaskType.INDEPENDENT
+
+    def __post_init__(self):
+        if self.multimetric_promising_region_penalty_type not in (
+            "union", "intersection", "average",
+        ):
+            raise ValueError(
+                "multimetric_promising_region_penalty_type must be one of "
+                "'union' | 'intersection' | 'average', got "
+                f"{self.multimetric_promising_region_penalty_type!r}."
+            )
+        if not isinstance(self.multitask_type, MultiTaskType):
+            raise ValueError(f"multitask_type must be a MultiTaskType, got {self.multitask_type!r}.")
 
 
-def _mixture_predict(states: gp_lib.GPState, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
-    """Moment-matched mixture over the ensemble axis: ([Q] mean, [Q] stddev)."""
+def _mixture_predict(states, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+    """Per metric, the moment-matched mixture over its ensemble axis.
+
+    ``states``: one state per metric (``GPState`` or ``SparseGPState``, each
+    over its own data), or a ``MultiTaskGPState``. Returns ([M, Q] mean,
+    [M, Q] stddev).
+    """
+    if isinstance(states, multitask_gp.MultiTaskGPState):
+        return _mt_mixture_predict(states, query)
+    pairs = [gp_lib.EnsemblePredictive(s).predict(query) for s in states]
+    if len(pairs) == 1:  # views: one metric adds no launch
+        return pairs[0][0][None], pairs[0][1][None]
+    return torch.stack([m for m, _ in pairs]), torch.stack([s for _, s in pairs])
+
+
+def _mt_mixture_predict(
+    states: multitask_gp.MultiTaskGPState, query: kernels.MixedFeatures
+) -> Tuple[Tensor, Tensor]:
+    """The moment-matched mixture over a multi-task state's ensemble axis:
+    ([M, Q] mean, [M, Q] stddev), as :func:`_mixture_predict`."""
     return gp_lib.EnsemblePredictive(states).predict(query)
 
 
-def _pe_conditioning(
-    states_completed: gp_lib.GPState, all_data: gp_lib.GPData, config: UCBPEConfig
-) -> Tuple[Dict[str, Tensor], Tensor, Tensor]:
-    """(pe_params, noise_is_high, threshold): shared UCB-PE conditioning.
+class _MetricZeroMTPredictive:
+    """``.predict`` over the first metric of a multi-task state: the
+    single-metric predictive contract of ``EnsemblePredictive``."""
 
-    - High-noise detection: all ensemble members' signal/noise variance
-      ratios below the config threshold → the all-points predictive gets a
-      near-zero noise floor so pending points fully deflate local stddev.
-    - Promising-region threshold: completed-posterior mean at the
-      argmax-UCB point among observed + pending features.
+    def __init__(self, states: multitask_gp.MultiTaskGPState):
+        self._states = states
+
+    def predict(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+        mean, std = _mt_mixture_predict(self._states, query)
+        return mean[0], std[0]
+
+
+def _pe_conditioning(states_completed, all_data: gp_lib.GPData, config: UCBPEConfig):
+    """(pe_params, noise_is_high, threshold [M]): shared UCB-PE conditioning.
+
+    ``states_completed`` is a list of per-metric states or a
+    ``MultiTaskGPState``; ``all_data`` the all-points rows (features only).
+
+    - High-noise detection: every metric's and ensemble member's
+      signal/noise variance ratio below the config threshold → the
+      all-points predictive gets a near-zero noise floor so pending points
+      fully deflate the local stddev. The multi-task signal variance of task
+      m is amp²·B[m, m].
+    - Promising-region threshold, per metric: the completed-posterior mean
+      at the argmax-UCB point among observed + pending features.
+
+    ``pe_params`` is a list of per-metric parameter dicts, or one dict for a
+    multi-task state.
     """
-    params = states_completed.params
-    snr = (params["amplitude"] / params["noise_stddev"]) ** 2
-    noise_is_high = torch.all(snr < config.signal_to_noise_threshold) & (
-        config.signal_to_noise_threshold > 0.0
-    )
-    pe_params = dict(params)
-    pe_params["noise_stddev"] = torch.where(
-        noise_is_high, torch.full_like(params["noise_stddev"], _PE_NOISE_STDDEV),
-        params["noise_stddev"],
-    )
-    mean_at, std_at = _mixture_predict(states_completed, all_data.features())
+    is_mt = isinstance(states_completed, multitask_gp.MultiTaskGPState)
+    if is_mt:
+        p = states_completed.params
+        b_diag = torch.diagonal(states_completed.model._task_cov(p), dim1=-2, dim2=-1)
+        snr = [(p["amplitude"][:, None] ** 2) * b_diag / (p["noise_stddev"][:, None] ** 2)]
+        param_sets = [p]
+    else:
+        param_sets = [s.params for s in states_completed]
+        snr = [(p["amplitude"] / p["noise_stddev"]) ** 2 for p in param_sets]
+    thr = config.signal_to_noise_threshold
+    noise_is_high = functools.reduce(operator.and_, [torch.all(r < thr) for r in snr]) & (thr > 0.0)
+    pe_params = [
+        dict(p, noise_stddev=torch.where(
+            noise_is_high, torch.full_like(p["noise_stddev"], _PE_NOISE_STDDEV), p["noise_stddev"]))
+        for p in param_sets
+    ]
+    mean_at, std_at = _mixture_predict(states_completed, all_data.features())  # [M, N]
     ucb_at = torch.where(
         all_data.row_mask,
         mean_at + config.ucb_coefficient * std_at,
         torch.full_like(mean_at, float("-inf")),
     )
-    threshold = mean_at[torch.argmax(ucb_at)]
-    return pe_params, noise_is_high, threshold
+    threshold = torch.gather(mean_at, 1, torch.argmax(ucb_at, dim=-1, keepdim=True))[:, 0]
+    return (pe_params[0] if is_mt else pe_params), noise_is_high, threshold
 
 
 def _append_row(data: gp_lib.GPData, x: kernels.MixedFeatures) -> gp_lib.GPData:
@@ -115,6 +189,19 @@ def _append_row(data: gp_lib.GPData, x: kernels.MixedFeatures) -> gp_lib.GPData:
         continuous=torch.where(at[:, None], x.continuous[:1], data.continuous),
         categorical=torch.where(at[:, None], x.categorical[:1], data.categorical),
         row_mask=data.row_mask | at,
+    )
+
+
+def _append_row_mt(
+    data: multitask_gp.MultiTaskData, x: kernels.MixedFeatures
+) -> multitask_gp.MultiTaskData:
+    """Multi-task pending-point append: every task observes the new row."""
+    fd = data.features_data
+    at = torch.arange(fd.num_rows, device=fd.device) == torch.sum(fd.row_mask.to(torch.int64))
+    return multitask_gp.MultiTaskData(
+        features_data=_append_row(fd, x),
+        task_labels=data.task_labels,
+        task_mask=data.task_mask | at[None, :],
     )
 
 
@@ -161,12 +248,93 @@ def _append_row_sparse(
 
 def _pick_appender(states_completed, all_data):
     """How a pick joins the pending rows: ``_append_row`` on the exact path,
+    ``_append_row_mt`` for a multi-task ``all_data``, and
     ``_append_row_sparse`` against the trained posterior's member 0 on the
     sparse one (``all_data`` a ``SparseGPData``)."""
+    if isinstance(all_data, multitask_gp.MultiTaskData):
+        return _append_row_mt
     if isinstance(all_data, sparse_gp.SparseGPData):
-        member0 = states_completed.member(0)
+        member0 = states_completed[0].member(0)
         return lambda d, x: _append_row_sparse(d, x, member0)
     return _append_row
+
+
+def _hv_floor(inv_w: Tensor, ref_point: Tensor, labels: Tensor, labels_mask: Tensor) -> Tensor:
+    """[K] floor of each direction's scalarization: the best scalarized
+    observed label, min_m(inv_w·(label − ref)_+)^M over the valid rows.
+
+    ``inv_w`` [K, M] are the inverse directions, ``labels`` [M, N] the
+    completed warped labels. It depends on the pick's directions and the
+    labels only, so it is computed once per pick, not per score call.
+    """
+    lab_shifted = torch.clamp(labels - ref_point[:, None], min=0.0)  # [M, N]
+    per_dir = torch.amin(inv_w[:, :, None] * lab_shifted[None, :, :], dim=1) ** labels.shape[0]
+    return torch.amax(
+        torch.where(labels_mask[None, :], per_dir, torch.full_like(per_dir, float("-inf"))), dim=-1
+    )
+
+
+def _hv_scalarized(values: Tensor, inv_w: Tensor, ref_point: Tensor, floor: Tensor) -> Tensor:
+    """Random-direction hypervolume scalarization, floored at the labels.
+
+    Reference ``create_hv_scalarization`` (https://arxiv.org/abs/2006.04655):
+    per direction min_m((v_m − ref_m)_+ / w_m)^M of the [M, Q] per-metric
+    ``values``, floored at :func:`_hv_floor`'s [K] values, then averaged
+    over the directions. Returns [Q].
+    """
+    shifted = torch.clamp(values - ref_point[:, None], min=0.0)  # [M, Q]
+    per_dir = torch.amin(inv_w[:, :, None] * shifted[None, :, :], dim=1) ** values.shape[0]
+    return torch.mean(torch.maximum(per_dir, floor[:, None]), dim=0)
+
+
+def _scalarize_penalty(penalty: Tensor, mode: str) -> Tensor:
+    """[M, Q] per-metric promising-region penalties → [Q]."""
+    if mode == "union":
+        return torch.amax(penalty, dim=0)
+    if mode == "intersection":
+        return torch.amin(penalty, dim=0)
+    return torch.mean(penalty, dim=0)
+
+
+def _score_fn(
+    states_completed,
+    states_all,
+    config: UCBPEConfig,
+    use_ucb: Tensor,
+    threshold: Tensor,
+    hv: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+    trust: Optional[acquisitions.TrustRegion] = None,
+):
+    """One pick's acquisition over [Q] queries: UCB, or PE penalized outside
+    the promising region, less the trust-region penalty.
+
+    With one metric, UCB = mean(completed) + c·stddev(all) and PE =
+    stddev(all) + penalty. With M > 1 (``hv`` = (inverse directions [K, M],
+    reference point [M], floor [K])), UCB is HV-scalarized over the metrics
+    and PE is the mean stddev plus the scalarized penalty.
+    """
+
+    def score(query: kernels.MixedFeatures) -> Tensor:
+        mean_c, std_c = _mixture_predict(states_completed, query)  # [M, Q]
+        _, std_all = _mixture_predict(states_all, query)  # [M, Q]
+        ucb_vals = mean_c + config.ucb_coefficient * std_all
+        explore_ucb = mean_c + config.explore_region_ucb_coefficient * std_c
+        penalty = config.cb_violation_penalty_coefficient * torch.clamp(
+            explore_ucb - threshold[:, None], max=0.0
+        )
+        if hv is None:
+            ucb_score, pe_score = ucb_vals[0], std_all[0] + penalty[0]
+        else:
+            ucb_score = _hv_scalarized(ucb_vals, *hv)
+            pe_score = torch.mean(std_all, dim=0) + _scalarize_penalty(
+                penalty, config.multimetric_promising_region_penalty_type
+            )
+        value = torch.where(use_ucb, ucb_score, pe_score)
+        if trust is not None:
+            value = value - trust.penalty(query)
+        return value
+
+    return score
 
 
 def _suggest_batch(
@@ -181,20 +349,37 @@ def _suggest_batch(
     config: UCBPEConfig,
     use_trust_region: bool = True,
     model=None,
+    *,
+    labels_mn: Optional[Tensor] = None,
+    labels_mask: Optional[Tensor] = None,
+    ref_point: Optional[Tensor] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
     """The greedy batch: per pick, UCB-or-PE with pending-point conditioning.
 
-    Exact: ``states_completed`` is a ``GPState`` and ``all_data`` a
-    ``GPData``. Sparse: a ``SparseGPState`` and a ``SparseGPData`` (the
-    trained inducing set over the all-points rows, with spare slots), and
-    ``model`` the ``SparseGaussianProcess`` over those slots that
-    re-conditions each pick. ``model`` defaults to ``states_completed``'s.
+    ``states_completed`` is a list of per-metric states over ``all_data``'s
+    kind: ``GPState``s and a ``GPData`` (exact), one ``SparseGPState`` and a
+    ``SparseGPData`` (the trained inducing set over the all-points rows,
+    with spare slots; ``model`` the ``SparseGaussianProcess`` over those
+    slots that re-conditions each pick), or a ``MultiTaskGPState`` and a
+    ``MultiTaskData``. ``model`` defaults to the states' own. With M > 1
+    metrics the pick draws ``config.num_scalarizations`` directions for the
+    HV scalarization over ``labels_mn`` [M, N1] (valid where
+    ``labels_mask`` [N1]) from ``ref_point`` [M].
     """
-    model = states_completed.model if model is None else model
-    if isinstance(all_data, sparse_gp.SparseGPData):
-        base_data = lambda d: d.data  # noqa: E731
+    is_mt = isinstance(states_completed, multitask_gp.MultiTaskGPState)
+    if is_mt:
+        model = states_completed.model if model is None else model
+        num_metrics = model.num_tasks
+        base_data = lambda d: d.features_data  # noqa: E731
+        recondition = model.precompute_constrained
     else:
-        base_data = lambda d: d  # noqa: E731
+        model = states_completed[0].model if model is None else model
+        num_metrics = len(states_completed)
+        if isinstance(all_data, sparse_gp.SparseGPData):
+            base_data = lambda d: d.data  # noqa: E731
+        else:
+            base_data = lambda d: d  # noqa: E731
+        recondition = lambda ps, d: [model.precompute_constrained(p, d) for p in ps]  # noqa: E731
     append = _pick_appender(states_completed, all_data)
     trust = acquisitions.TrustRegion.from_data(base_data(all_data)) if use_trust_region else None
     picks, scores = [], []
@@ -204,7 +389,7 @@ def _suggest_batch(
         pe_params, noise_is_high, threshold = _pe_conditioning(
             states_completed, base_data(all_data), config
         )
-        states_all = model.precompute_constrained(pe_params, all_data)
+        states_all = recondition(pe_params, all_data)
 
         # Pick-level UCB/PE decision (reference `_suggest_one` logic).
         u = torch.rand((), generator=generator, device=generator.device)
@@ -218,33 +403,27 @@ def _suggest_batch(
         else:
             use_ucb = (u < config.ucb_overwrite_probability) & has_completed
 
-        def score_fn(query: kernels.MixedFeatures) -> Tensor:
-            mean_c, std_c = _mixture_predict(states_completed, query)
-            _, std_all = _mixture_predict(states_all, query)
-            ucb_score = mean_c + config.ucb_coefficient * std_all
-            explore_ucb = mean_c + config.explore_region_ucb_coefficient * std_c
-            penalty = config.cb_violation_penalty_coefficient * torch.clamp(
-                explore_ucb - threshold, max=0.0
-            )
-            value = torch.where(use_ucb, ucb_score, std_all + penalty)
-            if trust is not None:
-                value = value - trust.penalty(query)
-            return value
-
+        hv = None
+        if num_metrics > 1:
+            weights = pareto_ops.draw_directions(generator, config.num_scalarizations, num_metrics)
+            inv_w = 1.0 / torch.clamp(weights, min=1e-6)
+            hv = (inv_w, ref_point, _hv_floor(inv_w, ref_point, labels_mn, labels_mask))
+        score_fn = _score_fn(states_completed, states_all, config, use_ucb, threshold, hv, trust)
         result = vec_opt(score_fn, generator, count=1, prior_features=prior_features)
         x = kernels.MixedFeatures(
             result.features.continuous[:1], result.features.categorical[:1]
         )
-        mean_x, std_x = _mixture_predict(states_completed, x)
+        mean_x, std_x = _mixture_predict(states_completed, x)  # [M, 1]
         _, std_all_x = _mixture_predict(states_all, x)
         all_data = append(all_data, x)
         picks.append(x)
         scores.append(result.scores[:1])
-        aux["mean"].append(mean_x)
-        aux["stddev"].append(std_x)
-        aux["stddev_from_all"].append(std_all_x)
+        aux["mean"].append(mean_x[:, 0])
+        aux["stddev"].append(std_x[:, 0])
+        aux["stddev_from_all"].append(std_all_x[:, 0])
         aux["use_ucb"].append(use_ucb.reshape(1))
-    out = {k: torch.cat(v) for k, v in aux.items()}
+    out = {k: torch.stack(v) for k, v in aux.items() if k != "use_ucb"}  # [count, M]
+    out["use_ucb"] = torch.cat(aux["use_ucb"])
     out["trust_radius"] = (
         trust.trust_radius() if trust is not None else torch.tensor(float("inf"))
     )
@@ -252,6 +431,24 @@ def _suggest_batch(
         torch.cat([p.continuous for p in picks]), torch.cat([p.categorical for p in picks])
     )
     return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores)), out
+
+
+def _train_mt_gp(
+    model: multitask_gp.MultiTaskGaussianProcess,
+    optimizer,
+    data: multitask_gp.MultiTaskData,
+    generator: torch.Generator,
+    num_restarts: int,
+    ensemble_size: int,
+) -> multitask_gp.MultiTaskGPState:
+    """Joint multi-task ARD: random restarts → batched L-BFGS → the top
+    ``ensemble_size`` posteriors."""
+    coll = model.param_collection()
+    inits = coll.batch_random_init_unconstrained(generator, num_restarts)
+    result = optimizer(
+        lambda p: model.neg_log_likelihood(p, data), inits, best_n=ensemble_size
+    )
+    return model.precompute(result.params, data)
 
 
 @dataclasses.dataclass
@@ -277,16 +474,18 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 f"'per_batch' | 'per_pick', got {self.acquisition_budget_policy!r}."
             )
         self._active_trials: List[trial_.Trial] = []
-        self._metric_warper = output_warpers.create_default_warper()
-        # The trained state, reused until new data arrives.
-        self._cached_states: Optional[Tuple[gp_lib.GPState, gp_lib.GPData]] = None
+        # The trained (states, datas), reused until new data arrives.
+        self._cached_states = None
         self._pick_opt_cache: Dict[int, vectorized_lib.VectorizedOptimizer] = {}
-        # Per-objective warm-start seeds (one: single objective), random until
-        # a train has run.
+        # Per-objective warm-start seeds of the independent-GP path, random
+        # until a train has run. The multi-task trainer has no warm start.
+        self._warm_params_me = self._random_warm_seeds(self.rng_seed + 2)
+
+    def _random_warm_seeds(self, seed: int) -> List[gp_lib.Params]:
+        """One random placeholder seed per objective, from one generator."""
         coll = self._model.param_collection()
-        self._warm_params_me = [
-            coll.random_init_unconstrained(gp_bandit._generator(self.device, self.rng_seed + 2))
-        ]
+        gen = gp_bandit._generator(self.device, seed)
+        return [coll.random_init_unconstrained(gen) for _ in self._objective_indices()]
 
     def _split_vec_opt(self, num_picks: int) -> vectorized_lib.VectorizedOptimizer:
         """One full budget split evenly across ``num_picks`` picks."""
@@ -333,6 +532,21 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             return True
         return max(completion) > max(creation)
 
+    def _objective_indices(self) -> List[int]:
+        return [j for j, m in enumerate(self.problem.metric_information) if not m.is_safety_metric]
+
+    def _use_multitask(self, num_metrics: int) -> bool:
+        return self.config.multitask_type is not MultiTaskType.INDEPENDENT and num_metrics > 1
+
+    def _mt_model(self, num_metrics: int) -> multitask_gp.MultiTaskGaussianProcess:
+        return multitask_gp.MultiTaskGaussianProcess(
+            num_continuous=self._model.num_continuous,
+            num_categorical=self._model.num_categorical,
+            num_tasks=num_metrics,
+            multitask_type=self.config.multitask_type,
+            device=self.device,
+        )
+
     # -- sparse surrogate for the DEFAULT ----------------------------------
 
     def _sparse_ucb_pe_eligible(self) -> bool:
@@ -355,14 +569,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         mode = super()._refresh_surrogate_mode()
         if self._surrogate_counts["crossovers"] != before:
             # The per-objective warm seeds and the cached fit are as stale as
-            # the base class's state: fresh random placeholders.
+            # the base class's state: fresh random placeholders, one per metric.
             crossovers = self._surrogate_counts["crossovers"]
-            coll = self._model.param_collection()
-            self._warm_params_me = [
-                coll.random_init_unconstrained(
-                    gp_bandit._generator(self.device, self.rng_seed + 2 + crossovers)
-                )
-            ]
+            self._warm_params_me = self._random_warm_seeds(self.rng_seed + 2 + crossovers)
             self._cached_states = None
         return mode
 
@@ -373,39 +582,57 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             base=self._model, num_inducing=self._sparse_model().num_inducing + count
         )
 
-    def _train_states(self) -> Tuple[gp_lib.GPState, gp_lib.GPData]:
-        """ARD train of the single objective; cached until update() adds labels.
+    def _train_states_me(self) -> tuple:
+        """Per-objective ARD trains, cached until update() adds labels.
 
-        In sparse mode the state is a ``SparseGPState`` over the k-center
-        inducing set of the data.
+        Returns (states, datas): ``datas`` holds one warped ``GPData`` per
+        objective (safety metrics left out), each with its own warper and row
+        mask; ``states`` one trained state per objective, or one
+        ``MultiTaskGPState`` for a SEPARABLE ``multitask_type`` with several
+        objectives. In sparse mode (a single objective only) the state is a
+        ``SparseGPState`` over the k-center inducing set of the data.
         """
         if self._cached_states is not None:
             return self._cached_states
-        self._require_single_objective()
-        (index,) = [
-            j for j, m in enumerate(self.problem.metric_information) if not m.is_safety_metric
-        ]
         raw = self._converter.metrics.encode(self._trials)  # [N, M_all], all-MAXIMIZE
         features, n_pad = self._padded_features(self._trials)
-        warped = self._metric_warper(raw[:, index]) if raw.shape[0] else raw[:, index]
-        data = gp_lib.GPData.from_model_data(
-            types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
-        )
+        datas = []
+        for j in self._objective_indices():
+            warped = output_warpers.create_default_warper()(raw[:, j]) if raw.shape[0] else raw[:, j]
+            datas.append(gp_lib.GPData.from_model_data(
+                types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
+            ))
         ensemble = max(self.ensemble_size, 1)
-        if self._refresh_ucb_pe_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
-            states = self._train_sparse(data, ensemble, self._warm_params_me[0])
+        if len(datas) == 1 and self._refresh_ucb_pe_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
+            states = [self._train_sparse(datas[0], ensemble, self._warm_params_me[0])]
+        elif self._use_multitask(len(datas)):
+            states = _train_mt_gp(
+                self._mt_model(len(datas)), self._ard, multitask_gp.MultiTaskData.from_gp_datas(datas),
+                self._generator, self.ard_restarts, ensemble,
+            )
+            self._ard_train_counts["cold"] += 1
+            self._cached_states = (states, datas)
+            return self._cached_states
         else:
-            states = self._train(data, ensemble, self._warm_params_me[0])
+            # Each metric's train is seeded with its own previous optimum.
+            restarts = self._restarts(ensemble)
+            states = [
+                gp_bandit._train_gp(
+                    self._model, self._ard, data, self._generator, restarts, ensemble, warm
+                )
+                for data, warm in zip(datas, self._warm_params_me)
+            ]
+            self._record_train()
         if self._warm_update_allowed():
-            self._warm_params_me = [self._unconstrained_best(states)]
+            self._warm_params_me = [self._unconstrained_best(s) for s in states]
             self._warm_is_trained = True
-        self._cached_states = (states, data)
+        self._cached_states = (states, datas)
         return self._cached_states
 
     # -- warm-start surface ------------------------------------------------
 
     def warm_start_state(self) -> Optional[List[gp_lib.Params]]:
-        """Per-objective trained unconstrained params."""
+        """Per-objective trained unconstrained params (independent path)."""
         return list(self._warm_params_me) if self._warm_is_trained else None
 
     def set_warm_start_state(self, params: List[gp_lib.Params]) -> None:
@@ -437,35 +664,54 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         count = count or 1
         if len(self._trials) + len(self._active_trials) < self.num_seed_trials:
             return self._seed_suggestions(count)
-        states, data = self._train_states()
+        states, datas = self._train_states_me()
         all_data = self._all_points_data(count)
-        is_sparse = isinstance(states, sparse_gp.SparseGPState)
-        if is_sparse:
+        num_metrics = len(datas)
+        hv = {}
+        if num_metrics > 1:
+            labels_mn = torch.stack([d.labels for d in datas])  # [M, N1]
+            labels_mask = datas[0].row_mask
+            hv = dict(
+                labels_mn=labels_mn, labels_mask=labels_mask,
+                # Reference point: nadir − 0.1·range of the warped labels.
+                ref_point=acquisitions.get_reference_point(labels_mn, labels_mask),
+            )
+        is_sparse = False
+        model = None
+        if isinstance(states, multitask_gp.MultiTaskGPState):
+            all_data = multitask_gp.MultiTaskData(
+                features_data=all_data,
+                task_labels=torch.zeros((num_metrics, all_data.num_rows), device=self.device),
+                task_mask=all_data.row_mask[None, :].repeat(num_metrics, 1),
+            )
+        elif isinstance(states[0], sparse_gp.SparseGPState):
+            is_sparse = True
             # The trained inducing set over the all-points rows, with one
             # spare slot per pick, re-conditioned by the model over m + count.
-            all_data = sparse_gp.with_pending_capacity(states.sdata, all_data, count)
+            all_data = sparse_gp.with_pending_capacity(states[0].sdata, all_data, count)
+            model = self._sparse_all_model(count)
         append = _pick_appender(states, all_data)
         first_has_new = self._has_new_completed_trials()
         has_completed = bool(self._trials)
-        prior = gp_bandit._prior_features_from_data(data)
-        args = (self.config, self.use_trust_region, self._sparse_all_model(count) if is_sparse else None)
+        prior = gp_bandit._prior_features_from_data(datas[0])
+        args = (self.config, self.use_trust_region, model)
         if self.acquisition_budget_policy == "first_pick_full" and count > 1:
             # Full budget on the exploitation-critical first pick; one
             # further full budget split across the remaining picks.
             first, aux1 = _suggest_batch(
                 self._vec_opt, states, all_data, prior, self._generator,
-                first_has_new, has_completed, 1, *args,
+                first_has_new, has_completed, 1, *args, **hv,
             )
             all_data = append(all_data, first.features)
             rest, aux2 = _suggest_batch(
                 self._pick_vec_opt(count), states, all_data, prior, self._generator,
-                False, has_completed, count - 1, *args,
+                False, has_completed, count - 1, *args, **hv,
             )
             results = [(first, aux1, 1), (rest, aux2, count - 1)]
         else:
             batch, aux = _suggest_batch(
                 self._pick_vec_opt(count), states, all_data, prior, self._generator,
-                first_has_new, has_completed, count, *args,
+                first_has_new, has_completed, count, *args, **hv,
             )
             results = [(batch, aux, count)]
         if is_sparse:
@@ -493,8 +739,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             ns["acquisition"] = float(scores[i])
             ns["use_ucb"] = str(bool(host["use_ucb"][i]))
             ns["trust_radius"] = float(host["trust_radius"])
+            # One entry per objective.
             pred = ns.ns("prediction_in_warped_y_space")
             for key in ("mean", "stddev", "stddev_from_all"):
-                pred[key] = np.array2string(host[key][i : i + 1], separator=",")
+                pred[key] = np.array2string(host[key][i], separator=",")
             suggestions.append(s)
         return suggestions

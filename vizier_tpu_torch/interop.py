@@ -6,18 +6,21 @@ package ``vmap``s). These functions take either package's values as numpy
 arrays (``np.asarray`` of a ``jax.Array`` works), so a caller can hand
 trained parameters across and have both packages compute one posterior.
 The sparse surrogate's ``SparseGPData`` (data, inducing rows, masks and
-indices) crosses the same way, so both packages can share one inducing set.
+indices) crosses the same way, so both packages can share one inducing set,
+and so do the multi-task GP's parameters and ``MultiTaskData`` and the
+per-metric posteriors of a multi-objective designer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.models import gp as gp_lib
+from vizier_tpu_torch.models import multitask_gp
 from vizier_tpu_torch.surrogates import sparse_gp
 
 _PARAM_NAMES = (
@@ -27,6 +30,11 @@ _PARAM_NAMES = (
     "categorical_length_scales",
     "warp_a",
     "warp_b",
+    # The multi-task GP's task covariance.
+    "task_chol_diag",
+    "task_chol_offdiag",
+    "task_corr_chol_vec",
+    "task_sqrt_diag",
 )
 _DATA_FIELDS = {
     "continuous": torch.float32,
@@ -82,3 +90,32 @@ def sparse_gp_data_from_numpy(sdata: Any, device: device_lib.DeviceLike) -> spar
         inducing_mask=as_tensor("inducing_mask", torch.bool),
         inducing_indices=as_tensor("inducing_indices", torch.int64),
     )
+
+
+def multitask_data_from_numpy(data: Any, device: device_lib.DeviceLike) -> multitask_gp.MultiTaskData:
+    """A ``MultiTaskData`` from any object with its fields (e.g. the JAX
+    package's): ``features_data`` with the six ``GPData`` fields,
+    ``task_labels`` [M, N] and ``task_mask`` [M, N]."""
+    dev = device_lib.resolve(device)
+    return multitask_gp.MultiTaskData(
+        features_data=gp_data_from_numpy(data.features_data, dev),
+        task_labels=torch.as_tensor(np.array(data.task_labels, dtype=np.float32), device=dev),
+        task_mask=torch.as_tensor(np.array(data.task_mask, dtype=bool), device=dev),
+    )
+
+
+def gp_states_from_numpy(
+    model: gp_lib.VizierGaussianProcess,
+    params: Mapping[str, Any],
+    datas: Sequence[Any],
+) -> List[gp_lib.GPState]:
+    """Per-metric posteriors from a multi-objective designer's trained values:
+    constrained ``params`` with leading axes [M, E] (metric, ensemble member)
+    and one data object per metric, precomputed by ``model`` on its device."""
+    tensors = gp_params_from_numpy(params, model.device)
+    return [
+        model.precompute_constrained(
+            {k: v[j] for k, v in tensors.items()}, gp_data_from_numpy(data, model.device)
+        )
+        for j, data in enumerate(datas)
+    ]

@@ -32,6 +32,25 @@ _LOG_2PI = 1.8378770664093453
 _JITTER = 1e-5
 
 
+def posterior_cholesky(gram: Tensor) -> Tensor:
+    """[B, N, N] float32 Cholesky factors of a posterior's Grams.
+
+    A Gram within float32 rounding of singular (noiseless labels with the
+    noise at its floor, near-duplicate rows: condition numbers past 1e8)
+    can fail the float32 factorization (``info`` > 0) where it is positive
+    definite in exact arithmetic; the reference's factor is then NaN, and
+    every prediction from it. Those members alone are factored again in
+    float64 and rounded back to float32, so the posterior stays finite. A
+    factorization that float32 completes is used as it is.
+    """
+    chol, info = torch.linalg.cholesky_ex(gram)
+    failed = info != 0
+    if bool(torch.any(failed)):
+        redo = torch.linalg.cholesky_ex(gram[failed].to(torch.float64))[0]
+        chol = chol.index_put((torch.nonzero(failed)[:, 0],), redo.to(chol.dtype))
+    return chol
+
+
 @dataclasses.dataclass(frozen=True)
 class GPData:
     """Training data as tensors, with validity masks."""
@@ -206,7 +225,7 @@ class VizierGaussianProcess:
         """Cholesky, alpha and the explicit L⁻¹ for matmul-only predicts."""
         device_lib.check(data.continuous, self.device, "GP data")
         gram = self._masked_gram(p, data)
-        chol = torch.linalg.cholesky_ex(gram)[0]
+        chol = posterior_cholesky(gram)
         alpha = torch.cholesky_solve(data.labels.expand(gram.shape[0], -1)[..., None], chol)[..., 0]
         eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
         linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)

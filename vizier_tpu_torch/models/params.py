@@ -62,6 +62,11 @@ class ParameterSpec:
     ``init_low/high``: constrained-space log-uniform init range for random
     restarts. ``prior_mu/sigma``: log-normal regularizer
     0.5*((log(v) - mu)/sigma)^2 summed over elements.
+
+    ``linear=True`` samples uniformly in linear space and regularizes with a
+    plain Gaussian 0.5*((v - mu)/sigma)^2: signed parameters (the
+    multi-task GP's Cholesky off-diagonals) need it. ``regularize=False``
+    drops the per-spec penalty (a Uniform prior, or one the model adds).
     """
 
     name: str
@@ -71,18 +76,29 @@ class ParameterSpec:
     init_high: float
     prior_mu: float = 0.0
     prior_sigma: float = 1.0
+    linear: bool = False
+    regularize: bool = True
 
     def sample_constrained(self, generator: torch.Generator, batch: int) -> Tensor:
         u = torch.rand(
             (batch,) + self.shape, generator=generator, device=generator.device,
             dtype=torch.float32,
         )
+        if self.linear:
+            return self.init_low + (self.init_high - self.init_low) * u
         lo, hi = float(np.log(self.init_low)), float(np.log(self.init_high))
         return torch.exp(lo + (hi - lo) * u)
 
     def regularizer(self, constrained_value: Tensor) -> Tensor:
-        z = (torch.log(constrained_value) - self.prior_mu) / self.prior_sigma
-        return 0.5 * _sum_trailing(z * z, len(self.shape))
+        ndim = len(self.shape)
+        if not self.regularize:
+            batch = constrained_value.shape[: constrained_value.dim() - ndim]
+            return torch.zeros(batch, device=constrained_value.device)
+        if self.linear:
+            z = (constrained_value - self.prior_mu) / self.prior_sigma
+        else:
+            z = (torch.log(constrained_value) - self.prior_mu) / self.prior_sigma
+        return 0.5 * _sum_trailing(z * z, ndim)
 
 
 @dataclasses.dataclass(frozen=True)
