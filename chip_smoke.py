@@ -1,6 +1,6 @@
 """Drives the PyTorch/CUDA port on one GPU and checks it end to end.
 
-    python3 chip_smoke.py [--baseline-source FILE]
+    python3 chip_smoke.py [--baseline-source FILE] [--previous-source FILE]
 
 Phases (any failure raises and exits non-zero):
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the CUDA
@@ -57,8 +57,42 @@ Phases (any failure raises and exits non-zero):
    ``suggest(count=1)``, and the Pareto ops run over the study's 1015
    completed trials on the card against the CPU. The kernel checks, tile
    comparisons and timings of phases 2-3 include this phase's shapes.
-7. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
+7. The service's suggest path, as the Pythia process runs it: the port's
+   ``service/policy_factory.py`` -> ``CachedDesignerStatePolicy`` ->
+   ``ServingRuntime`` -> ``BatchExecutor``, one ``InRamPolicySupporter`` per
+   study and 8 threads calling ``policy.suggest(SuggestRequest(count=5))``
+   at once. serving-exact: 8 studies of bench.py's 20-D objective (seed =
+   study index) with 480 + 2i completed trials (the 512-row bucket, below
+   the sparse threshold): one cold flush and two warm ones through
+   ``UCBPEProgram``, the picks completed between rounds, then one
+   GAUSSIAN_PROCESS_BANDIT round of ``suggest(count=1)`` through
+   ``GPBanditProgram``. serving-sparse: the same at 1000 + 2i trials (the
+   1024 bucket, SGPR with 128 k-center inducing points) through
+   ``UCBPESparseProgram`` (two rounds) and ``GPBanditSparseProgram``. Each
+   round must be one flush of occupancy 8 with no fallback and no slot
+   error; suggestions finite and in bounds; every trained factor finite.
+   The first round is served again with batching off (the same 8 studies one
+   after another): the throughput reference and the parity reference (each
+   slot's trained NLL, and its posterior at unit-scale parameters computed in
+   the stacked batch and alone). Prints flushes, occupancy, wall time per
+   flush and request, throughput on and off, K1/K2 launches per flush
+   against the 8 sequential requests', the device busy and idle share of one
+   profiled flush and of one profiled sequential request, and the peak
+   device memory above the phase's baseline. The batched rounds run at a
+   2 s flush window (``_SERVE_WINDOW_MS``); serving-exact ends with one more
+   cold round of the same 8 studies at ``ServingConfig()`` itself (4 ms),
+   whose flushes, occupancy and wall time are printed, not gated (its
+   suggestions are checked, and it must have no fallback or slot error).
+   The kernel checks and timings of phases 2-3 include the flushes' grouped
+   shapes (a study's rows, codes and masks per group of restarts, and each
+   pick's re-conditioning).
+8. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
+
+With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
+show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
+and checks that today's shared-input launches give the same floats, bit for
+bit, as that source's at every ungrouped case of phase 2.
 
 Exits non-zero without a result when no GPU is visible or when run outside a
 checkout of the repository.
@@ -76,6 +110,7 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -171,11 +206,11 @@ _MT_KX = "multi-task Kx gram B=4 N=M=1024 unmasked Dc=20"
 _MT_KX_PICK = "multi-task per-pick Kx gram B=1 N=M=1024 unmasked Dc=20"
 _MT_KSTAR = "multi-task sweep k* cross B=1 N=50 M=1024 unmasked Dc=20"
 _MT_KSTAR_PE = "multi-task PE k* cross B=1 N=M=1024 unmasked Dc=20"
+_MT_KSTAR_ONE = "multi-task one-query k* cross B=1 N=1 M=1024 unmasked Dc=20"
 _MO_CROSS_CASES = [
     (_MO_PE, dict(b=1, n=1024, m=1024, dc=20, ds=0, valid=1010)),
     (_MO_SWEEP, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1010)),
-    ("multi-task one-query k* cross B=1 N=1 M=1024 unmasked Dc=20",
-     dict(b=1, n=1, m=1024, dc=20, ds=0)),
+    (_MT_KSTAR_ONE, dict(b=1, n=1, m=1024, dc=20, ds=0)),
     (_MT_KSTAR, dict(b=1, n=50, m=1024, dc=20, ds=0)),
     (_MT_KSTAR_PE, dict(b=1, n=1024, m=1024, dc=20, ds=0)),
 ]
@@ -185,10 +220,61 @@ _MO_CASES = _MO_CROSS_CASES + [
     (_MT_KX, dict(b=4, n=1024, m=1024, dc=20, ds=0, same=True)),
     (_MT_KX_PICK, dict(b=1, n=1024, m=1024, dc=20, ds=0, same=True)),
 ]
+# The serving phases' flushes: 8 studies in one batch, each study's rows,
+# codes and masks one group of the batch. serving-exact (480 + 2i valid rows
+# of 512): the cold train's Gram over 4 restarts + the warm row, the warm
+# train's over 1 + the warm row, the PE conditioning's all-points rows
+# against each study's data and the sweep's 50 queries, and each pick's
+# all-points Gram (one member per study, 480 + 2i + pending valid rows).
+# serving-sparse (1000 + 2i valid rows of 1024, 128 inducing points): Knm
+# over 6 (cold) and 3 (warm) restarts, Kmm, and the sweep's k* against
+# 128 + 5 slots; each pick's re-conditioning over the all-points rows
+# (1000 + 2i + pending) and 128 + 5 slots (128 + the study's augments
+# valid), its Kmm, and the PE conditioning's k* at the 1024 all-points rows.
+_FLUSH_GRAM_COLD = "flush exact cold gram B=8x5 N=M=512 (480-494 valid) Dc=20"
+_FLUSH_GRAM_WARM = "flush exact warm gram B=8x2 N=M=512 (480-494 valid) Dc=20"
+_FLUSH_PE = "flush exact PE cross B=8 N=M=512 (480-494 valid) Dc=20"
+_FLUSH_SWEEP = "flush exact sweep cross B=8 N=50 M=512 (480-494 valid) Dc=20"
+_FLUSH_KNM_COLD = "flush sparse Knm B=8x6 N=1024 (1000-1014 valid) M=128 Dc=20"
+_FLUSH_KNM_WARM = "flush sparse Knm B=8x3 N=1024 (1000-1014 valid) M=128 Dc=20"
+_FLUSH_KMM = "flush sparse Kmm gram B=8x6 N=M=128 diag 1e-4 Dc=20"
+_FLUSH_KSTAR = "flush sparse k* cross B=8 N=50 M=133 (130 valid) Dc=20"
+_FLUSH_GRAM_PICK = "flush exact per-pick all-points gram B=8 N=M=512 (483-497 valid) Dc=20"
+_FLUSH_KNM_PICK = "flush sparse per-pick Knm B=8 N=1024 (1003-1017 valid) M=133 (128-133 valid) Dc=20"
+_FLUSH_KMM_PICK = "flush sparse per-pick Kmm gram B=8 N=M=133 (130 valid) diag 1e-4 Dc=20"
+_FLUSH_SPARSE_PE = "flush sparse PE k* cross B=8 N=1024 M=128 Dc=20"
+_FLUSH_CAT = "flush categorical-only gram B=4x2 N=M=200 (190-196 valid) Dc=0 Ds=5"
+_FLUSH_CROSS_CASES = [
+    (_FLUSH_PE, dict(b=8, n=512, m=512, dc=20, ds=0, valid=480, step=2, studies=8)),
+    (_FLUSH_SWEEP, dict(b=8, n=50, m=512, dc=20, ds=0, valid=480, step=2, studies=8)),
+    (_FLUSH_KNM_COLD, dict(b=48, n=1024, m=128, dc=20, ds=0, valid1=1000, step1=2, valid=128,
+                           studies=8)),
+    (_FLUSH_KNM_WARM, dict(b=24, n=1024, m=128, dc=20, ds=0, valid1=1000, step1=2, valid=128,
+                           studies=8)),
+    (_FLUSH_KSTAR, dict(b=8, n=50, m=133, dc=20, ds=0, valid=130, studies=8)),
+    (_FLUSH_KNM_PICK, dict(b=8, n=1024, m=133, dc=20, ds=0, valid1=1003, step1=2, valid=128,
+                           step=1, studies=8)),
+    (_FLUSH_SPARSE_PE, dict(b=8, n=1024, m=128, dc=20, ds=0, valid=128, studies=8)),
+]
+_FLUSH_CASES = _FLUSH_CROSS_CASES + [
+    (_FLUSH_GRAM_COLD, dict(b=40, n=512, m=512, dc=20, ds=0, same=True, valid=480, step=2,
+                            studies=8)),
+    (_FLUSH_GRAM_WARM, dict(b=16, n=512, m=512, dc=20, ds=0, same=True, valid=480, step=2,
+                            studies=8)),
+    (_FLUSH_KMM, dict(b=48, n=128, m=128, dc=20, ds=0, same=True, valid=128, jitter=1e-4,
+                      studies=8)),
+    (_FLUSH_GRAM_PICK, dict(b=8, n=512, m=512, dc=20, ds=0, same=True, valid=483, step=2,
+                            studies=8)),
+    (_FLUSH_KMM_PICK, dict(b=8, n=133, m=133, dc=20, ds=0, same=True, valid=130, jitter=1e-4,
+                           studies=8)),
+    (_FLUSH_CAT, dict(b=8, n=200, m=200, dc=0, ds=5, same=True, valid=190, step=2, studies=4)),
+]
 _TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_KMM_COLD,
           _SPARSE_KMM_WARM, _SPARSE_KNM_PICK, _SPARSE_KMM_PICK, _SPARSE_PE, _SPARSE_SWEEP,
           _SPARSE_SWEEP_AUG, _MO_GRAM_WARM, _MO_PE, _MO_SWEEP, _MO_BANDIT_GRAM, _MT_KX, _MT_KX_PICK,
-          _MT_KSTAR, _MT_KSTAR_PE)
+          _MT_KSTAR, _MT_KSTAR_PE, _MT_KSTAR_ONE, _FLUSH_GRAM_COLD, _FLUSH_GRAM_WARM, _FLUSH_PE, _FLUSH_SWEEP,
+          _FLUSH_KNM_COLD, _FLUSH_KNM_WARM, _FLUSH_KMM, _FLUSH_KSTAR, _FLUSH_GRAM_PICK,
+          _FLUSH_KNM_PICK, _FLUSH_KMM_PICK, _FLUSH_SPARSE_PE)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
@@ -204,7 +290,7 @@ _CASES = [
     ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
-] + _SPARSE_CASES + _MO_CASES
+] + _SPARSE_CASES + _MO_CASES + _FLUSH_CASES
 # The cross kernels of both paths: the exact path's, B=1 against the 1024
 # data rows (1000 real): one pick's predict, the sweep's pool and the PE
 # conditioning; and the sparse path's. Every tile shape is checked and timed
@@ -212,7 +298,7 @@ _CASES = [
 _TILE_CASES = [
     (f"cross B=1 N={q} M=1024 (1000 valid) Dc=20", dict(b=1, n=q, m=1024, dc=20, ds=0, valid=1000))
     for q in (1, 50, 1024)
-] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES
+] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES + _FLUSH_CROSS_CASES
 _TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
@@ -275,17 +361,29 @@ def _rel_err(got, want) -> float:
 
 
 def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=False, valid=None,
-          valid1=None, jitter=None):
+          valid1=None, jitter=None, studies=None, step=0, step1=0):
     """Random kernel inputs on the card: (args, masks). A Gram (``same``) with
     ``valid`` rows gets one row mask on both sides and a noise diagonal (the
     constant ``jitter`` where given, as Kmm); a cross case with ``valid``
     masks its second side, as predict does, and with ``valid1`` its first
-    side too, as Knm does."""
+    side too, as Knm does. With ``studies`` S (a flush) every input has one
+    block per study, the b members are S groups of b / S, and study s has
+    ``valid + step * s`` valid rows (``valid1 + step1 * s`` on the first
+    side)."""
     dev = "cuda"
-    x1 = torch.rand((b, n, dc) if batched_x1 else (n, dc), generator=gen, device=dev)
-    x2 = x1 if same else torch.rand((m, dc), generator=gen, device=dev)
-    z1 = torch.randint(0, 3, (n, ds), generator=gen, device=dev, dtype=torch.int32)
-    z2 = z1 if same else torch.randint(0, 3, (m, ds), generator=gen, device=dev, dtype=torch.int32)
+    lead = () if studies is None else (studies,)
+    x1 = torch.rand(((b,) if batched_x1 else lead) + (n, dc), generator=gen, device=dev)
+    x2 = x1 if same else torch.rand(lead + (m, dc), generator=gen, device=dev)
+    z1 = torch.randint(0, 3, lead + (n, ds), generator=gen, device=dev, dtype=torch.int32)
+    z2 = z1 if same else torch.randint(0, 3, lead + (m, ds), generator=gen, device=dev,
+                                       dtype=torch.int32)
+
+    def rows(count, first, per_study):
+        if studies is None:
+            return torch.arange(count, device=dev) < first
+        limit = first + per_study * torch.arange(studies, device=dev)
+        return torch.arange(count, device=dev)[None, :] < limit[:, None]
+
     amp = 0.5 + torch.rand((b,), generator=gen, device=dev)
     inv = 1.0 / (0.3 + 1.7 * torch.rand((b, dc), generator=gen, device=dev))
     inv_sq = 1.0 / (0.3 + 1.7 * torch.rand((b, ds), generator=gen, device=dev)) ** 2
@@ -295,7 +393,7 @@ def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=Fal
     args = (x1, z1, x2, z2, amp, inv.contiguous(), inv_sq.contiguous())
     masks = (None, None, None)
     if valid is not None and same:
-        mask = torch.arange(n, device=dev) < valid
+        mask = rows(n, valid, step)
         if jitter is not None:
             diag = torch.full((b,), jitter, device=dev)
         else:
@@ -303,8 +401,8 @@ def _case(gen, b, n, m, dc, ds, *, same=False, masked_dims=False, batched_x1=Fal
             diag = noise * noise + 1e-5
         masks = (mask, mask, diag)
     elif valid is not None:
-        mask1 = None if valid1 is None else torch.arange(n, device=dev) < valid1
-        masks = (mask1, torch.arange(m, device=dev) < valid, None)
+        mask1 = None if valid1 is None else rows(n, valid1, step1)
+        masks = (mask1, rows(m, valid, step), None)
     return args, masks
 
 
@@ -471,11 +569,18 @@ def _library_fn(kernels, args, masks):
     """One PyTorch call for the distance with exact differences (torch.cdist
     without the matmul expansion), then the elementwise Matern and masks."""
     x1, z1, x2, z2, amp, inv, inv_sq = args
+    # A flush's grouped rows and masks are repeated to one block per member
+    # first: torch.cdist has no group axis.
+    b = amp.shape[0]
+    s = kernels.group_count(b, x1, z1, x2, z2, *masks[:2], base_dims=(2, 2, 2, 2, 1, 1))
+    x1m = kernels.per_member(x1, s, b, 2)
+    x2m = x1m if x2 is x1 else kernels.per_member(x2, s, b, 2)
+    masks = tuple(kernels.per_member(m, s, b, 1) for m in masks[:2]) + masks[2:]
 
     def library():
-        a = x1 * inv[:, None, :]
-        b = a if x2 is x1 else x2 * inv[:, None, :]
-        d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist")
+        a = x1m * inv[:, None, :]
+        c = a if x2 is x1 else x2m * inv[:, None, :]
+        d = torch.cdist(a, c, compute_mode="donot_use_mm_for_euclid_dist")
         return kernels.apply_masks((amp * amp)[:, None, None] * kernels.matern52(d * d), *masks)
 
     return library
@@ -553,6 +658,8 @@ def time_baseline(kernels, lib, timed):
     rows = {}
     for shape, (args, masks, grad, _, _) in timed.items():
         x1, z1, x2, z2, amp, inv, inv_sq = args
+        if _grouped(args, masks):
+            continue  # that source has no group axis
         b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
         s1 = n * dc if x1.dim() == 3 else 0
         s2 = m * dc if x2.dim() == 3 else 0
@@ -589,6 +696,73 @@ def time_baseline(kernels, lib, timed):
               f"{rows[shape]['fwd_masked_ms']:.5f} ms, K2 {rows[shape]['bwd_ms']:.5f} ms/launch "
               f"(device time; K1 max_abs_err {err:.2e} vs plain)")
     return rows
+
+
+def _grouped(args, masks) -> bool:
+    """Whether a case holds a flush's per-study blocks (a group axis)."""
+    x1, z1, x2, z2 = args[:4]
+    return (z1.dim() == 3 or (x2.dim() == 3 and x2 is not x1 and x1.dim() == 3)
+            or any(m is not None and m.dim() == 2 for m in masks[:2]))
+
+
+def _load_previous(path: str):
+    """The kernels of commit 997e03e (shared inputs only: no group strides),
+    built into a temporary directory and bound with that source's interface."""
+    from vizier_tpu_torch.ops import native
+
+    build_dir = pathlib.Path(tempfile.mkdtemp(prefix="matern52_previous_"))
+    lib = native.build(pathlib.Path(path).resolve(), build_dir)
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.matern52_bwd_num_blocks.argtypes = [i] * 4
+    lib.matern52_bwd_num_blocks.restype = i
+    lib.matern52_ard_fwd.argtypes = [p] * 10 + [l, l] + [i] * 6 + [p, p]
+    lib.matern52_ard_fwd.restype = i
+    lib.matern52_ard_bwd.argtypes = [p] * 10 + [l, l] + [i] * 6 + [p] * 6
+    lib.matern52_ard_bwd.restype = i
+    print(f"previous kernels {path}: built in {lib.build_seconds:.1f} s")
+    return lib
+
+
+def check_previous_bit_identity(kernels, lib):
+    """Every ungrouped case of phase 2 through the previous source's kernels
+    and today's: K1's output and K2's parameter gradients must be the same
+    floats, bit for bit (the group strides are 0 and the group size 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    checked = 0
+    for name, spec in _CASES:
+        args, masks = _case(gen, **spec)
+        if _grouped(args, masks):
+            continue
+        x1, z1, x2, z2, amp, inv, inv_sq = args
+        b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
+        s1 = n * dc if x1.dim() == 3 else 0
+        s2 = m * dc if x2.dim() == 3 else 0
+        sym = int(x2 is x1)
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((b, n, m), device="cuda")
+        status = lib.matern52_ard_fwd(*(ptr(t) for t in args + masks), s1, s2, b, n, m, dc, ds,
+                                      sym, out.data_ptr(), stream)
+        if status:
+            raise RuntimeError(f"previous K1: CUDA error {status}")
+        now = kernels.matern52_ard_fwd_cuda(*args, *masks)
+        grad = torch.randn((b, n, m), generator=gen, device="cuda")
+        blocks = lib.matern52_bwd_num_blocks(b, n, m, sym)
+        grads = torch.empty((b, 1 + dc + ds), device="cuda")
+        partials = torch.empty((b, max(blocks, 1), 1 + dc + ds), device="cuda")
+        status = lib.matern52_ard_bwd(grad.data_ptr(), *(ptr(t) for t in args + masks[:2]), s1, s2,
+                                      b, n, m, dc, ds, sym, grads.data_ptr(), partials.data_ptr(),
+                                      None, None, None, stream)
+        if status:
+            raise RuntimeError(f"previous K2: CUDA error {status}")
+        now_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2])
+        same = torch.equal(out, now) and torch.equal(grads[:, 0], now_g[0]) and torch.equal(
+            grads[:, 1 : 1 + dc], now_g[1]) and torch.equal(grads[:, 1 + dc:], now_g[2])
+        print(f"previous vs today's kernels [{name}]: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"today's shared-input launch differs from 997e03e's at {name}")
+        checked += 1
+    print(f"today's shared-input K1/K2 launches bit-identical to 997e03e's at {checked} cases")
 
 
 def _bench_trials(vz, num_trials: int, dim: int):
@@ -633,16 +807,17 @@ def _bench_objective(values: np.ndarray) -> dict:
 
 
 def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3, trials=None,
-           evaluate=_bench_objective):
+           evaluate=_bench_objective, split_train: bool = False):
     """``requests`` suggest(count=5) requests on a study (bench.py's unless
     ``trials`` is given), each request's picks completed through
     ``evaluate`` before the next; ``check_state(request)`` checks the trained
     state after each. Returns (latencies in s, that path's launches by mode,
     peak device memory above what was allocated before the path, the
     completed picks), with the launch counts and the peak reset just before
-    the first request. Each request's ARD train runs first
-    (``_train_states_me``, which the suggest then reuses) so its share is
-    printed."""
+    the first request. With ``split_train`` (the multi-objective path) each
+    request's ARD train runs first (``_train_states_me``, which the suggest
+    then reuses) so its share is printed; a single-objective suggest trains
+    inside its compute-IR program."""
     trials = _bench_trials(vz, _NUM_TRIALS, _DIM) if trials is None else trials
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -652,8 +827,9 @@ def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3, tri
     latencies, picks, next_id = [], [], len(trials) + 1
     for request in range(requests):
         start = time.perf_counter()
-        designer._train_states_me()
-        torch.cuda.synchronize()
+        if split_train:
+            designer._train_states_me()
+            torch.cuda.synchronize()
         train_s = time.perf_counter() - start
         suggestions = designer.suggest(count=_COUNT)
         torch.cuda.synchronize()
@@ -671,8 +847,9 @@ def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3, tri
             t.complete(vz.Measurement(metrics=evaluate(values)))
             completed.append(t)
         ns = suggestions[0].metadata.ns("gp_ucb_pe")
+        train = f"ARD train {train_s * 1e3:.1f} ms" if split_train else "ARD train inside"
         print(f"{kind} request {request}: suggest(count={_COUNT}) {latencies[-1] * 1e3:.1f} ms "
-              f"(ARD train {train_s * 1e3:.1f} ms), first acquisition {ns['acquisition']} "
+              f"({train}), first acquisition {ns['acquisition']} "
               f"(use_ucb {ns['use_ucb']}, mean {ns.ns('prediction_in_warped_y_space')['mean']})")
         designer.update(vz.CompletedTrials(completed), vz.ActiveTrials())
         picks.extend(completed)
@@ -1011,7 +1188,8 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
 
     trials = _dtlz2_trials(vz)
     latencies, by_mode, peak, picks = _serve(vz, kernels, designer, check_state, "multi-objective",
-                                             trials=trials, evaluate=_dtlz2_objectives)
+                                             trials=trials, evaluate=_dtlz2_objectives,
+                                             split_train=True)
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"multi-objective path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
@@ -1021,7 +1199,7 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
                              f"expected one cold and two warm")
     _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
                              ("matern52_ard_bwd", "gram")), "multi-objective path")
-    profile_request(designer, "multi-objective")
+    profile_request(designer, "multi-objective", split_train=True)
     for metric, state in enumerate(states_seen[-1]):
         _check_posterior_against_cpu(f"metric {metric}", state, kernels, gp_lib, multitask_gp)
     for unit_scale in (False, True):
@@ -1166,18 +1344,20 @@ def _device_activity(prof) -> dict:
     return totals
 
 
-def profile_request(designer, kind: str, count: int = 5):
-    """One more request after a path's three, split into ARD training and the
-    rest (pick loop, sweeps, decode), under torch.profiler: device busy time
-    by kernel and the device's idle share of the request's wall time."""
+def profile_request(designer, kind: str, count: int = 5, split_train: bool = False):
+    """One more request after a path's three, under torch.profiler: device
+    busy time by kernel and the device's idle share of the request's wall
+    time; with ``split_train`` split into ARD training and the rest (pick
+    loop, sweeps, decode)."""
     from torch.profiler import ProfilerActivity, profile
 
     # Device activity only: recording every host op too multiplies the
     # trace's size and its post-processing time.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        designer._train_states_me()
-        torch.cuda.synchronize()
+        if split_train:
+            designer._train_states_me()
+            torch.cuda.synchronize()
         train_s = time.perf_counter() - start
         designer.suggest(count=count)
         torch.cuda.synchronize()
@@ -1192,10 +1372,387 @@ def profile_request(designer, kind: str, count: int = 5):
         print(f"  {us / 1e3:9.2f} ms {n:7d}x  {name[:90]}")
 
 
+# -- the service's suggest path: policy factory -> cache -> executor ----------
+
+_SERVE_STUDIES = 8
+# Study i starts with base + 2i completed trials: all 8 share one padding
+# bucket (512 rows exact, below the 512-trial sparse threshold; 1024 sparse).
+_SERVE_TRIALS = {"exact": 480, "sparse": 1000}
+_SERVE_ROUNDS = {"exact": 3, "sparse": 2}
+# A study's trained NLL served in a flush against the same study served
+# alone (batching off): |flush - alone| <= _NLL_TOL * max(1, |alone|). Both
+# train from the same seeds; batched and single Choleskys round differently,
+# which L-BFGS carries into its iterates.
+_NLL_TOL = 1e-3
+# A study's posterior at unit-scale parameters computed in the stacked batch
+# against computed alone: max |batch - alone| (mean and stddev).
+_SERVE_PREDICT_TOL = 1e-4
+# The flush window of the serving phases' batched rounds, in place of
+# ServingConfig()'s 4 ms: the 8 concurrent requests reach the executor tens
+# to hundreds of ms apart (each thread's policy lookup, designer update and
+# trial encoding take the interpreter lock in turn), so at 4 ms they would
+# not meet. A full bucket (8) flushes at once either way. One more
+# serving-exact round runs at ServingConfig() itself and prints what the
+# default window gives, without a gate on its flushes.
+_SERVE_WINDOW_MS = 2000.0
+
+
+def _serving_config(study_config_lib, vz, algorithm: str):
+    config = study_config_lib.StudyConfig(algorithm=algorithm)
+    for j in range(_DIM):
+        config.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    config.metric_information.append(
+        vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    return config
+
+
+def _serving_trials(vz, study: int, num_trials: int):
+    """bench.py's objective, y = -|x - 0.5|^2 + 0.1 noise, seed = study."""
+    rng = np.random.default_rng(study)
+    x = rng.uniform(size=(num_trials, _DIM)).astype(np.float32)
+    y = -np.sum((x - 0.5) ** 2, axis=1) + 0.1 * rng.normal(size=num_trials)
+    trials = []
+    for i in range(num_trials):
+        t = vz.Trial(parameters={f"x{j}": float(x[i, j]) for j in range(_DIM)})
+        t.complete(vz.Measurement(metrics={"obj": float(y[i])}))
+        trials.append(t)
+    return trials
+
+
+class _Fleet:
+    """8 studies, one InRamPolicySupporter each, served through the port's
+    policy factory by one ServingRuntime."""
+
+    def __init__(self, mods, runtime, algorithm: str, base_trials: int, name: str):
+        vz, study_config_lib, lps, policy_factory = (
+            mods["vz"], mods["study_config"], mods["lps"], mods["policy_factory"])
+        self.runtime = runtime
+        self.factory = policy_factory.DefaultPolicyFactory(runtime)
+        self.policy_lib = mods["policy"]
+        self.vz = vz
+        self.studies = []
+        for i in range(_SERVE_STUDIES):
+            config = _serving_config(study_config_lib, vz, algorithm)
+            supporter = lps.InRamPolicySupporter(config, study_guid=f"{name}-{i}")
+            supporter.AddTrials(_serving_trials(vz, i, base_trials + 2 * i))
+            self.studies.append((config, supporter, f"{name}-{i}"))
+
+    def _suggest(self, i: int, count: int):
+        config, supporter, study_name = self.studies[i]
+        policy = self.factory(config, config.algorithm, supporter, study_name)
+        request = self.policy_lib.SuggestRequest(
+            study_descriptor=supporter.study_descriptor(), count=count)
+        return policy.suggest(request).suggestions
+
+    def round(self, count: int, concurrent: bool, profile_first: bool = False):
+        """One request per study: all at once on 8 threads, or one after
+        another. Returns (suggestions per study, wall seconds, profiled
+        (busy us, wall s, launches) of study 0's request when asked)."""
+        results = [None] * _SERVE_STUDIES
+        errors = []
+        profiled = None
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if concurrent:
+            barrier = threading.Barrier(_SERVE_STUDIES)
+
+            def run(i):
+                try:
+                    barrier.wait()
+                    results[i] = self._suggest(i, count)
+                except BaseException as e:  # surfaced below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(_SERVE_STUDIES)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:
+            for i in range(_SERVE_STUDIES):
+                if profile_first and i == 0:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        results[i] = self._suggest(i, count)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                    totals = _device_activity(prof)
+                    profiled = (sum(us for _, us in totals.values()), wall,
+                                sum(n for n, _ in totals.values()))
+                else:
+                    results[i] = self._suggest(i, count)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        if errors:
+            raise errors[0]
+        return results, wall, profiled
+
+    def complete(self, results):
+        """Adds each study's picks as trials and completes them."""
+        for (_, supporter, _), suggestions in zip(self.studies, results):
+            for t in supporter.AddSuggestions(suggestions):
+                values = np.array([t.parameters.get_value(f"x{j}") for j in range(_DIM)], float)
+                t.complete(self.vz.Measurement(metrics=_bench_objective(values)))
+
+    def designer(self, i: int):
+        return self.runtime.designer_cache.peek(self.studies[i][2], touch=False).designer
+
+
+def _check_round(results, count: int, label: str):
+    for i, suggestions in enumerate(results):
+        if suggestions is None or len(suggestions) != count:
+            raise AssertionError(f"{label}: study {i} got {suggestions}")
+        _check_suggestions(suggestions, f"{label} study {i}")
+
+
+def _check_factors(fleet, label: str, sparse: bool):
+    """Every study's trained factors finite (sparse: both Choleskys, info 0)."""
+    for i in range(_SERVE_STUDIES):
+        d = fleet.designer(i)
+        if sparse:
+            state = d.sparse_inducing_state()
+            chol, chol_b, _, _, _, info = state.model._factorize(state.params, state.sdata)
+            ok = all(bool(torch.isfinite(t).all()) for t in (chol, chol_b, state.w, state.linv))
+            ok = ok and not bool(torch.any(info != 0))
+        else:
+            (state,), _ = d._cached_states
+            ok = bool(torch.isfinite(state.chol).all())
+        if not ok:
+            raise AssertionError(f"{label}: study {i}'s trained factor is not finite")
+
+
+def _trained_state(designer, sparse: bool):
+    if sparse:
+        return designer.sparse_inducing_state()
+    (state,), _ = designer._cached_states
+    return state
+
+
+def _check_serving_parity(fleet, reference, sparse: bool, batch_executor, gp_lib, kernels,
+                          label: str):
+    """Each study served in the flush against the same study served alone:
+    the same data; trained NLLs within _NLL_TOL; the posterior at unit-scale
+    parameters computed in the stacked batch of 8 against alone."""
+    worst_nll, worst_pred = 0.0, 0.0
+    datas, states = [], []
+    for i in range(_SERVE_STUDIES):
+        flush_state = _trained_state(fleet.designer(i), sparse)
+        alone_state = _trained_state(reference.designer(i), sparse)
+        fd = flush_state.sdata if sparse else flush_state.data
+        ad = alone_state.sdata if sparse else alone_state.data
+        for a, b in zip(batch_executor.tree_leaves(fd), batch_executor.tree_leaves(ad)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: study {i}'s data differs between the runs")
+        model = flush_state.model
+        coll = model.param_collection()
+        nll = [float(s.model.neg_log_likelihood(coll.unconstrain(s.params), d)[0])
+               for s, d in ((flush_state, fd), (alone_state, ad))]
+        err = abs(nll[0] - nll[1]) / max(1.0, abs(nll[1]))
+        worst_nll = max(worst_nll, err)
+        print(f"{label} study {i}: trained NLL flush {nll[0]:.6f} alone {nll[1]:.6f} "
+              f"(rel {err:.2e}, tol {_NLL_TOL})")
+        if not err <= _NLL_TOL:
+            raise AssertionError(f"{label}: study {i}'s trained NLL differs from batching off")
+        datas.append(fd)
+        states.append(flush_state)
+    model = states[0].model
+    unit = {k: torch.full_like(v[:1], 0.1 if k == "noise_stddev" else 1.0)
+            for k, v in states[0].params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    query = torch.rand((_SERVE_STUDIES, 64, _DIM), generator=gen, device="cuda")
+    cat = torch.zeros((_SERVE_STUDIES, 64, 0), dtype=torch.int32, device="cuda")
+    stacked = batch_executor.stack_pytrees(datas)
+    unit8 = {k: v.expand(_SERVE_STUDIES, *v.shape[1:]).contiguous() for k, v in unit.items()}
+    batch_state = model.precompute_constrained(unit8, stacked)
+    mean_b, std_b = gp_lib.EnsemblePredictive(batch_state, studies=_SERVE_STUDIES).predict(
+        kernels.MixedFeatures(query, cat))
+    for i, d in enumerate(datas):
+        alone = model.precompute_constrained(unit, d)
+        mean_a, std_a = gp_lib.EnsemblePredictive(alone).predict(
+            kernels.MixedFeatures(query[i], cat[i]))
+        err = max(float(torch.max(torch.abs(mean_b[i] - mean_a))),
+                  float(torch.max(torch.abs(std_b[i] - std_a))))
+        worst_pred = max(worst_pred, err)
+    print(f"{label}: posterior at unit-scale parameters, stacked batch of 8 vs each study alone: "
+          f"max_abs_err {worst_pred:.3e} (tol {_SERVE_PREDICT_TOL}); worst trained-NLL rel "
+          f"{worst_nll:.2e}")
+    if not worst_pred <= _SERVE_PREDICT_TOL:
+        raise AssertionError(f"{label}: batched posterior differs from the study alone")
+    return worst_nll, worst_pred
+
+
+def run_serving_phase(kind: str, mods, kernels):
+    """Phase 7: the service's suggest path over 8 studies (see the module
+    docstring). Returns the phase's launches by mode and its figures."""
+    serving, batch_executor, gp_lib = mods["serving"], mods["batch_executor"], mods["gp"]
+    sparse = kind == "sparse"
+    base, rounds = _SERVE_TRIALS[kind], _SERVE_ROUNDS[kind]
+    label = f"serving-{kind}"
+    config = dataclasses.replace(serving.ServingConfig(), batch_max_wait_ms=_SERVE_WINDOW_MS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bytes = torch.cuda.memory_allocated()
+    runtime = serving.ServingRuntime(config)
+    fleet = _Fleet(mods, runtime, "DEFAULT", base, label)
+    reference_runtime = serving.ServingRuntime(dataclasses.replace(config, batching=False))
+    reference = _Fleet(mods, reference_runtime, "DEFAULT", base, f"{label}-alone")
+    kernels.reset_launch_counts()
+    # The batched rounds' launches (the main path's count); the batching-off
+    # reference and the default-window round are counted apart.
+    phase_counts = {name: {m: 0 for m in modes} for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+
+    def take_counts(batched: bool = True):
+        counts = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+        for name, modes in counts.items():
+            for m, n in modes.items():
+                phase_counts[name][m] += n if batched else 0
+        kernels.reset_launch_counts()
+        return counts
+
+    figures = {"rounds": []}
+    for r in range(rounds):
+        stats_before = runtime.stats.snapshot()
+        profile = r == rounds - 1
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+                results, wall, _ = fleet.round(_COUNT, concurrent=True)
+            totals = _device_activity(prof)
+            busy = sum(us for _, us in totals.values())
+            flush_profile = dict(busy_ms=busy / 1e3, wall_ms=wall * 1e3,
+                                 idle=1.0 - busy / 1e6 / wall,
+                                 launches=sum(n for n, _ in totals.values()))
+            for name, (n, us) in sorted(totals.items(), key=lambda kv: kv[1][1],
+                                        reverse=True)[:8]:
+                print(f"  flush {us / 1e3:9.2f} ms {n:7d}x  {name[:90]}")
+        else:
+            results, wall, _ = fleet.round(_COUNT, concurrent=True)
+        counts = take_counts()
+        stats = {k: runtime.stats.get(k) - stats_before[k] for k in (
+            "batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+            "warm_trains", "cold_trains", "sparse_suggests")}
+        _check_round(results, _COUNT, f"{label} round {r}")
+        _check_factors(fleet, f"{label} round {r}", sparse)
+        occupancy = stats["batched_suggests"] / max(stats["batch_flushes"], 1)
+        row = dict(round=r, wall_ms=wall * 1e3, stats=stats, occupancy=occupancy,
+                   launches=counts, suggestions_per_s=_SERVE_STUDIES * _COUNT / wall)
+        print(f"{label} round {r} (batching on): {stats}, occupancy {occupancy:.1f}, flush wall "
+              f"{wall * 1e3:.1f} ms, {wall * 1e3:.1f} ms per request (8 concurrent), "
+              f"{row['suggestions_per_s']:.2f} suggestions/s, launches {counts}")
+        if profile:
+            row["profile"] = flush_profile
+            print(f"{label} round {r} profiled flush: device busy {flush_profile['busy_ms']:.1f} ms "
+                  f"of {flush_profile['wall_ms']:.1f} ms, idle share {flush_profile['idle']:.3f}, "
+                  f"{flush_profile['launches']} device launches (profiler on)")
+        if (stats["batch_flushes"] != 1 or stats["batched_suggests"] != _SERVE_STUDIES
+                or stats["batch_fallbacks"] or stats["batch_slot_errors"]):
+            raise AssertionError(f"{label} round {r}: not one flush of occupancy 8 without "
+                                 f"fallback or slot error: {stats}")
+        if r == 0:
+            ref_results, ref_wall, ref_profile = reference.round(
+                _COUNT, concurrent=False, profile_first=True)
+            ref_counts = take_counts(batched=False)
+            figures["launches_batching_off"] = ref_counts
+            _check_round(ref_results, _COUNT, f"{label} batching off")
+            if reference_runtime.batch_executor is not None:
+                raise AssertionError("the reference runtime batches")
+            busy_us, one_wall, one_launches = ref_profile
+            row["batching_off"] = dict(
+                wall_ms=ref_wall * 1e3, launches=ref_counts,
+                suggestions_per_s=_SERVE_STUDIES * _COUNT / ref_wall,
+                profiled_request=dict(busy_ms=busy_us / 1e3, wall_ms=one_wall * 1e3,
+                                      idle=1.0 - busy_us / 1e6 / one_wall, launches=one_launches))
+            ratio = {name: (sum(counts[name].values()) / max(sum(ref_counts[name].values()), 1))
+                     for name in counts}
+            print(f"{label} round 0 (batching off, 8 requests one after another): "
+                  f"{ref_wall * 1e3:.1f} ms, {ref_wall * 1e3 / _SERVE_STUDIES:.1f} ms per request, "
+                  f"{row['batching_off']['suggestions_per_s']:.2f} suggestions/s; launches "
+                  f"{ref_counts}; flush launches / 8 sequential requests' launches {ratio}; "
+                  f"throughput on/off {row['suggestions_per_s'] / row['batching_off']['suggestions_per_s']:.2f}x")
+            print(f"{label} profiled sequential request (batching off): device busy "
+                  f"{busy_us / 1e3:.1f} ms of {one_wall * 1e3:.1f} ms, idle share "
+                  f"{1.0 - busy_us / 1e6 / one_wall:.3f}, {one_launches} device launches "
+                  f"(profiler on)")
+            row["parity"] = _check_serving_parity(fleet, reference, sparse, batch_executor,
+                                                  gp_lib, kernels, f"{label} round 0")
+        figures["rounds"].append(row)
+        fleet.complete(results)
+        if stats["cold_trains" if r == 0 else "warm_trains"] != _SERVE_STUDIES:
+            raise AssertionError(f"{label} round {r}: trains {stats}")
+        if sparse and stats["sparse_suggests"] != _SERVE_STUDIES:
+            raise AssertionError(f"{label} round {r}: not sparse: {stats}")
+
+    # GAUSSIAN_PROCESS_BANDIT: suggest(count=1) for 8 studies at the same sizes.
+    bandit = _Fleet(mods, runtime, "GAUSSIAN_PROCESS_BANDIT", base, f"{label}-bandit")
+    stats_before = runtime.stats.snapshot()
+    results, wall, _ = bandit.round(1, concurrent=True)
+    counts = take_counts()
+    stats = {k: runtime.stats.get(k) - stats_before[k] for k in (
+        "batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+        "sparse_suggests")}
+    _check_round(results, 1, f"{label} bandit")
+    kinds = {r[0].metadata.ns("gp_bandit")["acquisition_kind"] for r in results}
+    print(f"{label} GAUSSIAN_PROCESS_BANDIT round (suggest(count=1)): {stats}, flush wall "
+          f"{wall * 1e3:.1f} ms, kinds {sorted(kinds)}, launches {counts}")
+    if (stats["batch_flushes"] != 1 or stats["batched_suggests"] != _SERVE_STUDIES
+            or stats["batch_fallbacks"] or stats["batch_slot_errors"]
+            or kinds != {"ucb+sparse" if sparse else "ucb"}):
+        raise AssertionError(f"{label} GAUSSIAN_PROCESS_BANDIT round: {stats} {kinds}")
+    figures["bandit"] = dict(wall_ms=wall * 1e3, stats=stats, launches=counts)
+    figures["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - before_bytes
+    print(f"{label}: peak device memory {figures['peak_memory_bytes']} B above the phase's "
+          f"baseline; launches over the batched rounds {phase_counts}")
+    _require_modes(phase_counts, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                  ("matern52_ard_bwd", "gram")), label)
+    if sparse:
+        _require_modes(phase_counts, (("matern52_ard_bwd", "cross"),), label)
+    runtime.shutdown()
+    reference_runtime.shutdown()
+    if not sparse:
+        figures["default_window"] = _default_window_round(mods, base, label, take_counts)
+    return phase_counts, figures
+
+
+def _default_window_round(mods, base: int, label: str, take_counts) -> dict:
+    """One cold round of the phase's 8 studies at ``ServingConfig()`` (its
+    4 ms flush window): prints the flushes and occupancy that window gives
+    under this concurrent load, and the wall time. Only the suggestions, the
+    fallbacks and the slot errors are held."""
+    serving = mods["serving"]
+    runtime = serving.ServingRuntime(serving.ServingConfig())
+    fleet = _Fleet(mods, runtime, "DEFAULT", base, f"{label}-default-window")
+    before = runtime.stats.snapshot()
+    results, wall, _ = fleet.round(_COUNT, concurrent=True)
+    counts = take_counts(batched=False)
+    stats = {k: runtime.stats.get(k) - before[k] for k in (
+        "batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+        "cold_trains")}
+    runtime.shutdown()
+    _check_round(results, _COUNT, f"{label} default window")
+    sequential = _SERVE_STUDIES - stats["batched_suggests"]
+    occupancy = stats["batched_suggests"] / max(stats["batch_flushes"] - sequential, 1)
+    print(f"{label} round at ServingConfig() (batch_max_wait_ms "
+          f"{serving.ServingConfig().batch_max_wait_ms}, 8 concurrent, cold): {stats}, "
+          f"{sequential} requests served alone, occupancy of the batched flushes "
+          f"{occupancy:.2f}, wall {wall * 1e3:.1f} ms, "
+          f"{_SERVE_STUDIES * _COUNT / wall:.2f} suggestions/s, launches {counts} (not gated)")
+    if stats["batch_fallbacks"] or stats["batch_slot_errors"]:
+        raise AssertionError(f"{label} default window: fallback or slot error: {stats}")
+    return dict(wall_ms=wall * 1e3, stats=stats, served_alone=sequential,
+                batched_occupancy=occupancy, suggestions_per_s=_SERVE_STUDIES * _COUNT / wall,
+                launches=counts)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
                         help="commit a3a3a6f's matern52.cu, to time beside the current kernels")
+    parser.add_argument("--previous-source", default=None,
+                        help="commit 997e03e's matern52.cu: today's shared-input launches must "
+                             "give its floats bit for bit")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1211,6 +1768,12 @@ def main() -> int:
     from vizier_tpu_torch.models import multitask_gp
     from vizier_tpu_torch.ops import native
     from vizier_tpu_torch.ops import pareto
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.pythia import local_policy_supporters
+    from vizier_tpu_torch.pythia import policy as policy_lib
+    from vizier_tpu_torch.pyvizier import study_config
+    from vizier_tpu_torch import serving
+    from vizier_tpu_torch.service import policy_factory
     from vizier_tpu_torch.surrogates import sparse_gp
 
     card = _card_line()
@@ -1223,6 +1786,8 @@ def main() -> int:
 
     start = time.perf_counter()
     timed = check_kernels(kernels, lib)
+    if opts.previous_source:
+        check_previous_bit_identity(kernels, _load_previous(opts.previous_source))
     tiles = compare_tiles(kernels, lib)
     print(f"[{time.perf_counter() - start:.1f} s] kernel checks done")
     timing = time_kernels(kernels, timed)
@@ -1242,11 +1807,25 @@ def main() -> int:
     mo_paths = run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates,
                                        acquisitions, multitask_gp, pareto)
     print(f"[{time.perf_counter() - start:.1f} s] multi-objective path done")
+    mods = dict(vz=vz, study_config=study_config, lps=local_policy_supporters,
+                policy_factory=policy_factory, policy=policy_lib, serving=serving,
+                batch_executor=batch_executor, gp=gp_lib)
+    serving_paths, serving_figures = {}, {}
+    for kind in ("exact", "sparse"):
+        serving_paths[f"serving_{kind}"], serving_figures[kind] = run_serving_phase(
+            kind, mods, kernels)
+        print(f"[{time.perf_counter() - start:.1f} s] serving-{kind} phase done")
+    print(json.dumps({"serving": serving_figures}))
 
-    # One JSON row per kernel, at the shape that carries most of its
-    # main-path launches (K1: the sweep's cross kernel; K2: the ARD Gram),
-    # with every timed shape under "by_shape".
-    headline = {"fwd": _CROSS, "bwd": _GRAM}
+    # One JSON row per kernel, at the shape that carries most of its launches
+    # on this slice's main path, serving-exact (K1: the flush's sweep cross
+    # kernel; K2: the flush's cold Gram), with every timed shape under
+    # "by_shape". "launches" is serving-exact's batched rounds' count; every
+    # path's is under "launches_by_mode_by_path".
+    headline = {"fwd": _FLUSH_SWEEP, "bwd": _FLUSH_GRAM_COLD}
+    main_launches = {name: sum(modes.values())
+                     for name, modes in ((n, serving_paths["serving_exact"][n])
+                                         for n in ("matern52_ard_fwd", "matern52_ard_bwd"))}
     rows = []
     for key, name in (("fwd", "matern52_ard_fwd"), ("bwd", "matern52_ard_bwd")):
         by_shape = {}
@@ -1264,15 +1843,20 @@ def main() -> int:
         head = by_shape[headline[key]]
         rows.append({
             "name": name, "route": "cuda", "source": "vizier_tpu_torch/csrc/matern52.cu",
-            "replaces": _REPLACES, "launches": launches[name],
+            "replaces": _REPLACES, "launches": main_launches[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
             "launches_by_mode": by_mode[name], "launches_sparse_path": sparse_launches[name],
             "launches_by_mode_sparse_path": sparse_by_mode[name],
+            # The batching-off reference's 8 sequential requests, apart.
+            "launches_serving_batching_off": {
+                kind: sum(figures["launches_batching_off"][name].values())
+                for kind, figures in serving_figures.items()},
             "launches_by_mode_by_path": {
                 "exact": by_mode[name], "sparse": sparse_by_mode[name],
-                **{path: modes[name] for path, modes in mo_paths.items()}},
+                **{path: modes[name] for path, modes in mo_paths.items()},
+                **{path: modes[name] for path, modes in serving_paths.items()}},
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -597,3 +597,154 @@ def test_multiobjective_designer_suggests_through_the_kernels(cuda_device, multi
         assert 0.0 <= s.parameters.get_value("x") <= 1.0
         mean = s.metadata.ns("gp_ucb_pe").ns("prediction_in_warped_y_space")["mean"]
         assert len(mean.strip("[]").split(",")) == 2
+
+
+# -- a cross-study flush's grouped inputs: per-study rows, codes and masks --
+
+
+def _flush_args(device, studies, group, n, m, dc, ds, same=False, valid=None, step=0,
+                valid1=None, step1=0, diag=None, seed=5):
+    """A flush's grouped kernel inputs: each input one block per study, the
+    batch ``studies`` groups of ``group`` members, study s with ``valid +
+    step * s`` valid rows (``valid1 + step1 * s`` on the first side)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = studies * group
+    x1 = torch.rand((studies, n, dc), generator=gen, device=device)
+    x2 = x1 if same else torch.rand((studies, m, dc), generator=gen, device=device)
+    z1 = torch.randint(0, 3, (studies, n, ds), generator=gen, device=device, dtype=torch.int32)
+    z2 = z1 if same else torch.randint(0, 3, (studies, m, ds), generator=gen, device=device,
+                                       dtype=torch.int32)
+    amp = 0.5 + torch.rand((b,), generator=gen, device=device)
+    inv = 1.0 / (0.5 + torch.rand((b, dc), generator=gen, device=device))
+    inv_sq = 1.0 / (0.5 + torch.rand((b, ds), generator=gen, device=device)) ** 2
+    per_study = torch.arange(studies, device=device)[:, None]
+    rows = lambda count, first, inc: torch.arange(count, device=device)[None, :] < first + inc * per_study  # noqa: E731
+    mask2 = None if valid is None else rows(m, valid, step)
+    mask1 = mask2 if same else (None if valid1 is None else rows(n, valid1, step1))
+    d = None if diag is None else torch.full((b,), diag, device=device)
+    return (x1, z1, x2, z2, amp, inv, inv_sq), (mask1, mask2, d)
+
+
+_FLUSH_SHAPES = {
+    "exact_cold_gram_8x5": dict(studies=8, group=5, n=512, m=512, dc=20, ds=0, same=True,
+                                valid=480, step=2, diag=1e-3),
+    "exact_warm_gram_8x2": dict(studies=8, group=2, n=512, m=512, dc=20, ds=0, same=True,
+                                valid=480, step=2, diag=1e-3),
+    "pe_cross_8": dict(studies=8, group=1, n=512, m=512, dc=20, ds=0, valid=480, step=2),
+    "sweep_cross_8": dict(studies=8, group=1, n=50, m=512, dc=20, ds=0, valid=480, step=2),
+    "sparse_knm_8x6": dict(studies=8, group=6, n=1024, m=128, dc=20, ds=0, valid=128,
+                           valid1=1000, step1=2),
+    "sparse_knm_8x3": dict(studies=8, group=3, n=1024, m=128, dc=20, ds=0, valid=128,
+                           valid1=1000, step1=2),
+    "kmm_8x6": dict(studies=8, group=6, n=128, m=128, dc=20, ds=0, same=True, valid=128,
+                    diag=1e-4),
+    "sparse_kstar_8": dict(studies=8, group=1, n=50, m=133, dc=20, ds=0, valid=130),
+    # Each pick's re-conditioning: the exact all-points Gram, and the sparse
+    # Knm (per-study rows and inducing slots valid), Kmm and PE k*.
+    "exact_pick_gram_8": dict(studies=8, group=1, n=512, m=512, dc=20, ds=0, same=True,
+                              valid=483, step=2, diag=1e-3),
+    "sparse_knm_pick_8": dict(studies=8, group=1, n=1024, m=133, dc=20, ds=0, valid=128, step=1,
+                              valid1=1003, step1=2),
+    "kmm_pick_8": dict(studies=8, group=1, n=133, m=133, dc=20, ds=0, same=True, valid=130,
+                       diag=1e-4),
+    "sparse_pe_kstar_8": dict(studies=8, group=1, n=1024, m=128, dc=20, ds=0, valid=128),
+    "categorical_only_4x2": dict(studies=4, group=2, n=60, m=60, dc=0, ds=4, same=True,
+                                 valid=50, step=2, diag=1e-3),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_FLUSH_SHAPES))
+def test_grouped_kernels_match_plain_at_the_flush_shapes(cuda_device, shape):
+    """K1 and K2 with per-study rows, codes and masks against their plain
+    versions (which repeat each study's inputs to its members)."""
+    args, (mask1, mask2, diag) = _flush_args(cuda_device, **_FLUSH_SHAPES[shape])
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, diag)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    grad = torch.randn(want.shape, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                       device=cuda_device)
+    got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, need_x1=True, need_x2=True)
+    _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2))
+    _assert_params_within_rounding(got_g, grad, args, mask1, mask2)
+
+
+@pytest.mark.parametrize("shape", ["exact_cold_gram_8x5", "sweep_cross_8", "sparse_knm_8x3"])
+def test_each_member_of_a_grouped_launch_computes_its_shared_launch(cuda_device, shape):
+    """Member b of a grouped K1 launch gives, bit for bit, what today's
+    shared-input launch on its study's rows gives (whatever tile either
+    takes); K2's parameter gradients agree to float32 rounding (the block
+    partition of the sums follows the tile)."""
+    spec = _FLUSH_SHAPES[shape]
+    args, (mask1, mask2, diag) = _flush_args(cuda_device, **spec)
+    x1, z1, x2, z2, amp, inv, inv_sq = args
+    g = spec["group"]
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+    grad = torch.randn(got.shape, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device)
+    got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2)
+    for b in range(amp.shape[0]):
+        s = b // g
+        pick = lambda t: None if t is None else t[s]  # noqa: E731
+        one = (x1[s], z1[s], x1[s] if x2 is x1 else x2[s], z1[s] if z2 is z1 else z2[s],
+               amp[b : b + 1], inv[b : b + 1], inv_sq[b : b + 1])
+        m1, m2 = pick(mask1), (pick(mask1) if mask2 is mask1 else pick(mask2))
+        d = None if diag is None else diag[b : b + 1]
+        if x2 is x1:
+            one = (one[0], one[1], one[0], one[1]) + one[4:]
+        want = tk.matern52_ard_fwd_cuda(*one, m1, m2, d)
+        assert torch.equal(got[b : b + 1], want)
+        want_g = tk.matern52_ard_bwd_cuda(grad[b : b + 1], *one, m1, m2)
+        for a, w in zip(got_g[:3], want_g[:3]):
+            if w.numel():
+                torch.testing.assert_close(a[b : b + 1], w, rtol=1e-5,
+                                           atol=1e-5 * float(w.abs().max()))
+
+
+def test_a_flush_of_designers_matches_each_study_alone_on_the_card(cuda_device):
+    """Three studies through ``UCBPEProgram`` as one flush and one by one:
+    every pick in bounds, each study's trained factor finite in both, the
+    same data in both, and the trained NLLs within 1e-3 relative (batched
+    and single Choleskys are different routines on the card, so the two
+    L-BFGS runs end near, not at, the same optimum)."""
+    from vizier_tpu_torch.compute import registry
+
+    def designer(study):
+        problem = vz.ProblemStatement()
+        for j in range(4):
+            problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+        problem.metric_information.append(vz.MetricInformation(name="y"))
+        d = gp_ucb_pe.VizierGPUCBPEBandit(problem, rng_seed=study, ard_restarts=2,
+                                          max_acquisition_evaluations=500)
+        rng = np.random.default_rng(study)
+        trials = []
+        for i in range(40 + study):
+            x = rng.uniform(size=4)
+            t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[j]) for j in range(4)})
+            t.complete(vz.Measurement(metrics={"y": float(-np.sum((x - 0.5) ** 2))}))
+            trials.append(t)
+        d.update(vz.CompletedTrials(trials))
+        return d
+
+    def nll(state):
+        coll = state.model.param_collection()
+        return float(state.model.neg_log_likelihood(coll.unconstrain(state.params), state.data)[0])
+
+    flush = [designer(s) for s in range(3)]
+    program, _ = registry.resolve(flush[0], 3)
+    items = [program.prepare(d, 3) for d in flush]
+    outputs = program.device_program(items, pad_to=4)
+    for study, (d, item, output) in enumerate(zip(flush, items, outputs)):
+        suggestions = program.finalize(d, item, output)
+        assert len(suggestions) == 3
+        for s in suggestions:
+            assert all(0.0 <= s.parameters.get_value(f"x{j}") <= 1.0 for j in range(4))
+        (state,), _ = d._cached_states
+        assert bool(torch.isfinite(state.chol).all())
+        alone = designer(study)
+        alone.suggest(3)
+        (alone_state,), _ = alone._cached_states
+        assert bool(torch.isfinite(alone_state.chol).all())
+        for field in ("continuous", "categorical", "labels", "row_mask"):
+            assert torch.equal(getattr(state.data, field), getattr(alone_state.data, field))
+        got, want = nll(state), nll(alone_state)
+        assert abs(got - want) <= 1e-3 * max(1.0, abs(want)), (study, got, want)

@@ -11,6 +11,8 @@ under that posterior.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from vizier_tpu_torch.designers import gp_bandit as tbandit
 from vizier_tpu_torch.designers import gp_ucb_pe as tucb
 from vizier_tpu_torch.models import gp as tgp
 from vizier_tpu_torch.models import kernels as tk
+from vizier_tpu_torch.parallel import batch_executor as tbatch
 
 _CATS = ["red", "green", "blue"]
 # The first pick is UCB in both packages (no random PE override), so the
@@ -123,14 +126,17 @@ def test_first_pick_acquisition_within_two_percent(designers):
         jnp.zeros(1), jd._prior_features(jdatas[0]), jax.random.PRNGKey(7),
         jnp.asarray(True), jnp.asarray(True), 1, jd.config, True, None, None,
     )
+    # The port's single-objective picks run over a study axis (one here).
     tstate = _port_state_from_jax(jd, td)
-    tresult, aux = tucb._suggest_batch(
-        td._vec_opt, [tstate], td._all_points_data(1),
-        tbandit._prior_features_from_data(tstate.data), torch.Generator().manual_seed(7),
-        True, True, 1, td.config,
+    one = lambda tree: tbatch.stack_pytrees([tree])  # noqa: E731
+    tstates = dataclasses.replace(tstate, data=one(tstate.data))
+    tresult, aux = tucb._suggest_batch_studies(
+        td._vec_opt, tstates, one(td._all_points_data(1)),
+        tbandit._prior_features_from_data(tstates.data), [torch.Generator().manual_seed(7)],
+        torch.tensor([True]), torch.tensor([True]), 1, td.config,
     )
-    assert bool(aux["use_ucb"][0])
-    want, got = float(jresult.scores[0]), float(tresult.scores[0])
+    assert bool(aux["use_ucb"][0, 0])
+    want, got = float(jresult.scores[0]), float(tresult.scores[0, 0])
     assert abs(got - want) <= 0.02 * abs(want), (got, want)
 
 

@@ -282,3 +282,138 @@ def test_masked_backward_matches_autograd_of_the_masked_forward():
     got = tk.matern52_ard_bwd_plain(grad, *[x.detach() for x in args], mask1, mask2)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=_GRAD_RTOL, atol=1e-5)
+
+
+# -- grouped inputs: a cross-study flush's per-study rows, codes and masks --
+
+_GROUPED = {
+    # (studies S, members per study G, N, M, Dc, Ds, gram)
+    "gram_restarts": (3, 2, 16, 16, 4, 0, True),
+    "gram_mixed": (2, 3, 12, 12, 3, 2, True),
+    "cross_one_member": (4, 1, 7, 16, 4, 0, False),
+    "cross_mixed": (2, 2, 5, 9, 3, 2, False),
+    "categorical_only": (3, 1, 8, 8, 0, 3, True),
+}
+
+
+def _grouped_inputs(seed, s, g, n, m, dc, ds, gram):
+    rng = np.random.default_rng(seed)
+    b = s * g
+    x1 = rng.uniform(size=(s, n, dc)).astype(np.float32)
+    z1 = rng.integers(0, 3, size=(s, n, ds)).astype(np.int32)
+    x2 = x1 if gram else rng.uniform(size=(s, m, dc)).astype(np.float32)
+    z2 = z1 if gram else rng.integers(0, 3, size=(s, m, ds)).astype(np.int32)
+    valid1 = rng.integers(n // 2, n + 1, size=s)
+    valid2 = valid1 if gram else rng.integers(m // 2, m + 1, size=s)
+    mask1 = np.arange(n)[None, :] < valid1[:, None]
+    mask2 = np.arange(m)[None, :] < valid2[:, None]
+    return dict(
+        x1=x1, z1=z1, x2=x2, z2=z2, mask1=mask1, mask2=mask2,
+        amp=rng.uniform(0.5, 2.0, size=b).astype(np.float32),
+        cont_ls=rng.uniform(0.2, 2.0, size=(b, dc)).astype(np.float32),
+        cat_ls=rng.uniform(0.2, 2.0, size=(b, ds)).astype(np.float32),
+        noise=rng.uniform(0.05, 0.2, size=b).astype(np.float32),
+        g=g, gram=gram,
+    )
+
+
+def _torch_grouped(a, member=None):
+    """The port's kernel on the grouped inputs, or (``member`` b) on member
+    b's own study rows with today's shared-input interface."""
+    t = torch.tensor
+    g, gram = a["g"], a["gram"]
+    sel = slice(None) if member is None else slice(member, member + 1)
+    study = slice(None) if member is None else member // g
+    x1, z1 = t(a["x1"][study]), t(a["z1"][study])
+    f1 = tk.MixedFeatures(x1, z1)
+    f2 = f1 if gram else tk.MixedFeatures(t(a["x2"][study]), t(a["z2"][study]))
+    mask1 = t(a["mask1"][study])
+    mask2 = mask1 if gram else t(a["mask2"][study])
+    noise = t(a["noise"][sel])
+    return tk.matern52_ard(
+        f1, f2, amplitude=t(a["amp"][sel]),
+        continuous_length_scales=t(a["cont_ls"][sel]),
+        categorical_length_scales=t(a["cat_ls"][sel]),
+        row_mask1=mask1, row_mask2=mask2,
+        diag=noise * noise + 1e-5 if gram else None,
+    )
+
+
+@pytest.mark.parametrize("case", sorted(_GROUPED))
+def test_grouped_plain_kernel_equals_the_loop_over_members(case):
+    """K1's plain version with per-study rows, codes and masks (group size G)
+    gives every member exactly what today's shared-input call on its own
+    study's inputs gives."""
+    a = _grouped_inputs(1, *_GROUPED[case])
+    got = _torch_grouped(a)
+    b = got.shape[0]
+    want = torch.cat([_torch_grouped(a, member) for member in range(b)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(_GROUPED))
+def test_grouped_plain_kernel_matches_the_jax_kernel_vmapped_over_studies(case):
+    """The same inputs through the JAX package: ``matern52_ard`` (with
+    ``_masked_gram``'s masks and diagonal for a Gram, ``predict``'s k* mask
+    for a cross kernel) vmapped over studies and members."""
+    a = _grouped_inputs(2, *_GROUPED[case])
+    s, g, gram = a["x1"].shape[0], a["g"], a["gram"]
+    study = np.repeat(np.arange(s), g)
+
+    def one(x1, z1, x2, z2, m1, m2, amp, cls, zls, noise):
+        k = jk.matern52_ard(
+            jk.MixedFeatures(x1, z1), jk.MixedFeatures(x2, z2), amplitude=amp,
+            continuous_length_scales=cls, categorical_length_scales=zls,
+        )
+        k = jnp.where(m1[:, None] & m2[None, :], k, 0.0)
+        if gram:
+            d = jnp.where(m1, noise * noise + 1e-5, 1.0)
+            k = k + jnp.diag(d)
+        return k
+
+    want = jax.vmap(one)(*(jnp.asarray(a[k][study]) for k in ("x1", "z1", "x2", "z2", "mask1", "mask2")),
+                         *(jnp.asarray(a[k]) for k in ("amp", "cont_ls", "cat_ls", "noise")))
+    np.testing.assert_allclose(_torch_grouped(a).numpy(), np.asarray(want), rtol=_RTOL, atol=_ATOL)
+
+
+@pytest.mark.parametrize("case", ["gram_mixed", "cross_mixed"])
+def test_grouped_plain_backward_equals_the_loop_over_members(case):
+    """K2's plain version with grouped inputs: per-member parameter
+    gradients equal the loop over members; a grouped side's feature
+    gradient sums its group's members."""
+    a = _grouped_inputs(3, *_GROUPED[case])
+    t = torch.tensor
+    g = a["g"]
+    b = a["amp"].shape[0]
+    rng = np.random.default_rng(4)
+    n, m = a["x1"].shape[1], a["x2"].shape[1]
+    grad = t(rng.normal(size=(b, n, m)).astype(np.float32))
+    inv = 1.0 / t(a["cont_ls"])
+    inv_sq = 1.0 / t(a["cat_ls"]) ** 2
+    got = tk.matern52_ard_bwd_plain(
+        grad, t(a["x1"]), t(a["z1"]), t(a["x2"]), t(a["z2"]), t(a["amp"]), inv, inv_sq,
+        t(a["mask1"]), t(a["mask2"]))
+    per_member = [
+        tk.matern52_ard_bwd_plain(
+            grad[i : i + 1], t(a["x1"][i // g]), t(a["z1"][i // g]), t(a["x2"][i // g]),
+            t(a["z2"][i // g]), t(a["amp"][i : i + 1]), inv[i : i + 1], inv_sq[i : i + 1],
+            t(a["mask1"][i // g]), t(a["mask2"][i // g]))
+        for i in range(b)
+    ]
+    for k in range(3):
+        torch.testing.assert_close(got[k], torch.cat([p[k] for p in per_member]), rtol=0, atol=0)
+    for k in (3, 4):
+        want = torch.stack([sum(per_member[s * g + j][k] for j in range(g)) for s in range(b // g)])
+        torch.testing.assert_close(got[k], want, rtol=1e-6, atol=1e-6)
+
+
+def test_grouped_inputs_must_agree_on_the_study_count():
+    a = _grouped_inputs(5, 3, 2, 6, 6, 2, 0, False)
+    t = torch.tensor
+    with pytest.raises(ValueError):
+        tk.matern52_ard(
+            tk.MixedFeatures(t(a["x1"]), t(a["z1"])),
+            tk.MixedFeatures(t(a["x2"][:2]), t(a["z2"][:2])),
+            amplitude=t(a["amp"]), continuous_length_scales=t(a["cont_ls"]),
+            categorical_length_scales=t(a["cat_ls"]),
+        )

@@ -1,10 +1,42 @@
-"""The search space's default point (the JAX package's ``designer_policy``)."""
+"""Designer → Policy wrappers, and the search space's default point.
+
+Counterpart of the JAX package's ``algorithms/designer_policy.py``: the
+stateless ``DesignerPolicy`` rebuilds a designer per request and replays all
+trials; the serializable variants checkpoint designer state + an
+incorporated-trial-id cache into study metadata namespace
+``designer_policy_v0`` and feed only *new* completed trials, falling back to
+full replay on ``DecodeError``; ``InRamDesignerPolicy`` keeps one designer
+alive in memory.
+
+The serving suggest path does NOT use the stateless wrapper: the port's
+policy factory routes the GP algorithms through
+``vizier_tpu_torch.serving.CachedDesignerStatePolicy`` (per-study designer
+cache + warm-started ARD + the cross-study batch executor) unless the
+designer cache is off.
+"""
 
 from __future__ import annotations
 
+import json
+import logging
+from typing import Optional, Sequence
+
+from vizier_tpu_torch.algorithms import core as core_lib
+from vizier_tpu_torch.algorithms import trial_caches
+from vizier_tpu_torch.observability import tracing as tracing_lib
+from vizier_tpu_torch.pythia import policy as policy_lib
+from vizier_tpu_torch.pythia import policy_supporter as supporter_lib
 from vizier_tpu_torch.pyvizier import base_study_config
+from vizier_tpu_torch.pyvizier import common
 from vizier_tpu_torch.pyvizier import parameter_config as pc
 from vizier_tpu_torch.pyvizier import trial as trial_
+from vizier_tpu_torch.utils import serializable
+
+_logger = logging.getLogger(__name__)
+
+_NS = "designer_policy_v0"
+_DESIGNER_KEY = "designer"
+_CACHE_KEY = "incorporated_trial_ids"
 
 
 def default_suggestion(problem: base_study_config.ProblemStatement) -> trial_.TrialSuggestion:
@@ -25,3 +57,212 @@ def default_suggestion(problem: base_study_config.ProblemStatement) -> trial_.Tr
     for config in problem.search_space.parameters:
         assign(config)
     return trial_.TrialSuggestion(parameters=params)
+
+
+class DesignerPolicy(policy_lib.Policy):
+    """Stateless wrapper: fresh designer per request, full trial replay."""
+
+    def __init__(
+        self,
+        supporter: supporter_lib.PolicySupporter,
+        designer_factory: core_lib.DesignerFactory,
+        *,
+        use_seeding: bool = False,
+    ):
+        self._supporter = supporter
+        self._designer_factory = designer_factory
+        self._use_seeding = use_seeding
+
+    def suggest(self, request: policy_lib.SuggestRequest) -> policy_lib.SuggestDecision:
+        if self._use_seeding and request.max_trial_id == 0:
+            seed = default_suggestion(request.study_config.to_problem())
+            rest = []
+            if request.count > 1:
+                rest = self._run_designer(request, request.count - 1)
+            return policy_lib.SuggestDecision(suggestions=[seed] + list(rest))
+        return policy_lib.SuggestDecision(
+            suggestions=self._run_designer(request, request.count)
+        )
+
+    def _run_designer(
+        self, request: policy_lib.SuggestRequest, count: int
+    ) -> Sequence[trial_.TrialSuggestion]:
+        tracer = tracing_lib.get_tracer()
+        designer = self._designer_factory(request.study_config.to_problem())
+        completed = self._supporter.GetTrials(
+            status_matches=trial_.TrialStatus.COMPLETED
+        )
+        active = self._supporter.GetTrials(status_matches=trial_.TrialStatus.ACTIVE)
+        with tracer.span(
+            "designer.update",
+            designer=type(designer).__name__,
+            new_completed=len(completed),
+            incremental=False,
+        ):
+            designer.update(
+                core_lib.CompletedTrials(completed), core_lib.ActiveTrials(active)
+            )
+        with tracer.span(
+            "designer.suggest", designer=type(designer).__name__, count=count
+        ):
+            return designer.suggest(count)
+
+
+class _SerializableDesignerPolicyBase(policy_lib.Policy):
+    """Shared logic: state + trial-id cache in study metadata, incremental updates."""
+
+    def __init__(
+        self,
+        supporter: supporter_lib.PolicySupporter,
+        designer_factory: core_lib.DesignerFactory,
+    ):
+        self._supporter = supporter
+        self._designer_factory = designer_factory
+        self._incorporated_ids: set = set()
+
+    # subclass hooks -------------------------------------------------------
+
+    def _make_or_restore_designer(
+        self, problem: base_study_config.ProblemStatement, state: Optional[common.Metadata]
+    ) -> core_lib.Designer:
+        raise NotImplementedError
+
+    def _dump_designer(self, designer: core_lib.Designer) -> common.Metadata:
+        raise NotImplementedError
+
+    # ---------------------------------------------------------------------
+
+    def suggest(self, request: policy_lib.SuggestRequest) -> policy_lib.SuggestDecision:
+        problem = request.study_config.to_problem()
+        study_md = request.study_config.metadata.abs_ns(common.Namespace((_NS,)))
+        state_md: Optional[common.Metadata] = None
+        cached_ids: set = set()
+        encoded_state = study_md.get(_DESIGNER_KEY)
+        encoded_cache = study_md.get(_CACHE_KEY)
+        if encoded_state is not None and encoded_cache is not None:
+            try:
+                cached_ids = trial_caches.decode_trial_ids(encoded_cache)
+                state_md = common.Metadata()
+                state_md.ns(_DESIGNER_KEY).update(
+                    {"state": encoded_state}
+                )
+            except (serializable.DecodeError, ValueError, TypeError) as e:
+                _logger.warning("Corrupt designer cache; replaying all trials: %s", e)
+                state_md, cached_ids = None, set()
+
+        try:
+            designer = self._make_or_restore_designer(problem, state_md)
+            self._incorporated_ids = set(cached_ids) if state_md is not None else set()
+        except serializable.DecodeError as e:
+            _logger.warning("DecodeError restoring designer; replaying all trials: %s", e)
+            designer = self._make_or_restore_designer(problem, None)
+            self._incorporated_ids = set()
+
+        all_completed = self._supporter.GetTrials(status_matches=trial_.TrialStatus.COMPLETED)
+        new_completed = [t for t in all_completed if t.id not in self._incorporated_ids]
+        active = self._supporter.GetTrials(status_matches=trial_.TrialStatus.ACTIVE)
+        designer.update(
+            core_lib.CompletedTrials(new_completed), core_lib.ActiveTrials(active)
+        )
+        self._incorporated_ids.update(t.id for t in new_completed)
+
+        suggestions = designer.suggest(request.count)
+
+        delta = trial_.MetadataDelta()
+        try:
+            dumped = self._dump_designer(designer)
+            state = dumped.ns(_DESIGNER_KEY).get("state")
+            if state is not None:
+                delta.assign(_NS, _DESIGNER_KEY, state)
+                delta.assign(
+                    _NS, _CACHE_KEY, trial_caches.encode_trial_ids(self._incorporated_ids)
+                )
+        except Exception as e:  # dump failure must not lose the suggestions
+            _logger.warning("Failed to dump designer state: %s", e)
+        return policy_lib.SuggestDecision(suggestions=list(suggestions), metadata=delta)
+
+
+class PartiallySerializableDesignerPolicy(_SerializableDesignerPolicyBase):
+    """Wraps a PartiallySerializableDesigner (construct, then load state)."""
+
+    def _make_or_restore_designer(self, problem, state):
+        designer = self._designer_factory(problem)
+        if state is not None:
+            raw = state.ns(_DESIGNER_KEY).get("state")
+            md = common.Metadata()
+            if isinstance(raw, str):
+                try:
+                    for k, v in json.loads(raw).items():
+                        md[k] = v
+                except (ValueError, TypeError) as e:
+                    raise serializable.DecodeError(str(e))
+            try:
+                if hasattr(designer, "load"):
+                    designer.load(md)
+                elif hasattr(type(designer), "recover"):
+                    designer = type(designer).recover(md)
+                else:
+                    raise serializable.DecodeError(
+                        f"{type(designer).__name__} implements neither load nor recover."
+                    )
+            except serializable.DecodeError:
+                raise
+            except Exception as e:  # bad stored state must degrade to replay
+                raise serializable.DecodeError(str(e))
+        return designer
+
+    def _dump_designer(self, designer) -> common.Metadata:
+        inner = designer.dump()  # type: ignore[attr-defined]
+        out = common.Metadata()
+        out.ns(_DESIGNER_KEY)["state"] = json.dumps({k: inner[k] for k in inner})
+        return out
+
+
+class SerializableDesignerPolicy(PartiallySerializableDesignerPolicy):
+    """Wraps a fully Serializable designer; identical wire format."""
+
+
+class InRamDesignerPolicy(policy_lib.Policy):
+    """Keeps one designer instance alive in process memory across requests.
+
+    Useful for benchmarking (``should_be_cached`` = True); incremental
+    updates without serialization overhead. For SERVING use
+    ``vizier_tpu_torch.serving.CachedDesignerStatePolicy`` instead: same
+    incremental-update idea, but the designer lives in a shared TTL/LRU
+    cache with explicit invalidation on study deletion rather than for
+    whatever lifetime the Pythia servicer keeps this policy object.
+    """
+
+    def __init__(
+        self,
+        supporter: supporter_lib.PolicySupporter,
+        designer_factory: core_lib.DesignerFactory,
+        problem: Optional[base_study_config.ProblemStatement] = None,
+    ):
+        self._supporter = supporter
+        self._designer_factory = designer_factory
+        self._designer: Optional[core_lib.Designer] = None
+        self._problem = problem
+        self._incorporated_ids: set = set()
+
+    @property
+    def should_be_cached(self) -> bool:
+        return True
+
+    def suggest(self, request: policy_lib.SuggestRequest) -> policy_lib.SuggestDecision:
+        if self._designer is None:
+            problem = self._problem or request.study_config.to_problem()
+            self._designer = self._designer_factory(problem)
+        completed = [
+            t
+            for t in self._supporter.GetTrials(status_matches=trial_.TrialStatus.COMPLETED)
+            if t.id not in self._incorporated_ids
+        ]
+        active = self._supporter.GetTrials(status_matches=trial_.TrialStatus.ACTIVE)
+        self._designer.update(
+            core_lib.CompletedTrials(completed), core_lib.ActiveTrials(active)
+        )
+        self._incorporated_ids.update(t.id for t in completed)
+        return policy_lib.SuggestDecision(
+            suggestions=list(self._designer.suggest(request.count))
+        )

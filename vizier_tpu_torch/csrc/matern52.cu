@@ -102,22 +102,52 @@ using BigTile = Tile<8, 8, 4, 2>;
 // launch's latency is most of the time and more blocks in flight shorten it.
 using TinyTile = Tile<16, 1, 1>;
 
+// Batched inputs belong to groups of `group` consecutive batch members (a
+// study's restarts or ensemble members): member b reads group b / group's
+// rows, categorical block and row masks, at that group's stride. A stride of
+// 0 shares the input across the whole batch. group 1 with every stride but
+// x's 0 is the original interface, and computes the same floats.
 struct Inputs {
-  const float* x1;       // [N, Dc] or [B, N, Dc]
-  const int32_t* z1;     // [N, Ds]
-  const float* x2;       // [M, Dc] or [B, M, Dc]
-  const int32_t* z2;     // [M, Ds]
+  const float* x1;       // [N, Dc] or [B / group, N, Dc]
+  const int32_t* z1;     // [N, Ds] or [B / group, N, Ds]
+  const float* x2;       // [M, Dc] or [B / group, M, Dc]
+  const int32_t* z2;     // [M, Ds] or [B / group, M, Ds]
   const float* amp;      // [B]
   const float* inv_c;    // [B, Dc], zero on masked dims
   const float* inv_s;    // [B, Ds] squared inverse length scales, zero on masked dims
-  const uint8_t* mask1;  // [N] row mask (bool), or null for all valid
-  const uint8_t* mask2;  // [M]
+  const uint8_t* mask1;  // [N] or [B / group, N] row mask (bool), or null for all valid
+  const uint8_t* mask2;  // [M] or [B / group, M]
   const float* diag;     // [B], or null: added on the valid diagonal, 1 on the padded one
-  int64_t x1_bstride;    // elements between batch members of x1; 0 when shared
+  int64_t x1_bstride;    // elements between groups of x1; 0 when shared
   int64_t x2_bstride;
+  int64_t z1_bstride;
+  int64_t z2_bstride;
+  int64_t m1_bstride;
+  int64_t m2_bstride;
+  int group;      // batch members per group (>= 1)
   int B, N, M, Dc, Ds;
-  int symmetric;  // x2 is x1 and z2 is z1 (N == M): upper tiles only
+  int symmetric;  // x2 is x1, z2 is z1 and mask2 is mask1 (N == M): upper tiles only
 };
+
+// The batch member's view of the inputs: its group's rows, codes and masks.
+struct MemberRows {
+  const float* x1;
+  const int32_t* z1;
+  const float* x2;
+  const int32_t* z2;
+  const uint8_t* mask1;
+  const uint8_t* mask2;
+};
+
+__device__ __forceinline__ MemberRows member_rows(const Inputs& in, int b) {
+  const int64_t g = b / in.group;
+  return {in.x1 + g * in.x1_bstride,
+          in.z1 + g * in.z1_bstride,
+          in.x2 + g * in.x2_bstride,
+          in.z2 + g * in.z2_bstride,
+          in.mask1 != nullptr ? in.mask1 + g * in.m1_bstride : nullptr,
+          in.mask2 != nullptr ? in.mask2 + g * in.m2_bstride : nullptr};
+}
 
 template <int R>
 __device__ __forceinline__ void load_vec(float (&v)[R], const float* p) {
@@ -262,8 +292,7 @@ __device__ __forceinline__ void micro_tile_distances(const Inputs& in, int b, in
                                                      bool scale_in_registers, float* sa,
                                                      float* sb, float (&sq)[R][T::RM]) {
   const int tx = threadIdx.x, tid = threadIdx.y * kTX + tx;
-  const float* x1 = in.x1 + b * in.x1_bstride;
-  const float* x2 = in.x2 + b * in.x2_bstride;
+  const MemberRows rows = member_rows(in, b);
   const float* inv = in.inv_c + (int64_t)b * in.Dc;
   const float* inv_s = in.inv_s + (int64_t)b * in.Ds;
   const float* stage_scale = scale_in_registers ? nullptr : inv;
@@ -277,8 +306,10 @@ __device__ __forceinline__ void micro_tile_distances(const Inputs& in, int b, in
     const int width = min(kSlots, P - p0);
     if (!staged || P > kSlots) {
       __syncthreads();  // the previous chunk may still be read
-      stage_rows<T::TN, T::kThreads>(sa, x1, in.z1, n0, in.N, in.Dc, in.Ds, p0, width, tid);
-      stage_rows<T::TM, T::kThreads>(sb, x2, in.z2, m0, in.M, in.Dc, in.Ds, p0, width, tid);
+      stage_rows<T::TN, T::kThreads>(sa, rows.x1, rows.z1, n0, in.N, in.Dc, in.Ds, p0, width,
+                                     tid);
+      stage_rows<T::TM, T::kThreads>(sb, rows.x2, rows.z2, m0, in.M, in.Dc, in.Ds, p0, width,
+                                     tid);
       cp_async_wait_all();
       if (stage_scale != nullptr) {
         scale_rows<T::TN, T::kThreads>(sa, in.Dc, p0, width, stage_scale, tid);
@@ -296,19 +327,20 @@ __device__ __forceinline__ bool row_valid(const uint8_t* mask, int row) {
 }
 
 // Validity of R rows from n0 + a_row and the thread's RM columns: in range
-// and unmasked.
+// and unmasked in batch member b's masks.
 template <class T, int R>
-__device__ __forceinline__ void micro_tile_valid(const Inputs& in, int n0, int m0, int a_row,
-                                                 bool (&v1)[R], bool (&v2)[T::RM]) {
+__device__ __forceinline__ void micro_tile_valid(const Inputs& in, int b, int n0, int m0,
+                                                 int a_row, bool (&v1)[R], bool (&v2)[T::RM]) {
+  const MemberRows rows = member_rows(in, b);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = n0 + a_row + i;
-    v1[i] = row < in.N && row_valid(in.mask1, row);
+    v1[i] = row < in.N && row_valid(rows.mask1, row);
   }
 #pragma unroll
   for (int j = 0; j < T::RM; ++j) {
     const int col = m0 + threadIdx.x * T::RM + j;
-    v2[j] = col < in.M && row_valid(in.mask2, col);
+    v2[j] = col < in.M && row_valid(rows.mask2, col);
   }
 }
 
@@ -354,7 +386,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     float k[RNP][T::RM];
     micro_tile_distances<T, RNP>(in, b, n0, m0, a_row, pass > 0, false, sa, sb, k);
     bool v1[RNP], v2[T::RM];
-    micro_tile_valid<T, RNP>(in, n0, m0, a_row, v1, v2);
+    micro_tile_valid<T, RNP>(in, b, n0, m0, a_row, v1, v2);
 #pragma unroll
     for (int i = 0; i < RNP; ++i) {
       const int row = n0 + a_row + i;
@@ -474,8 +506,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
   const int P = in.Dc + in.Ds;
   const int chunks = (P + kSlots - 1) / kSlots;
   float* out = partials + ((int64_t)b * gridDim.x + blockIdx.x) * (1 + P);
-  const float* x1 = in.x1 + b * in.x1_bstride;
-  const float* x2 = in.x2 + b * in.x2_bstride;
+  const MemberRows rows = member_rows(in, b);
   const float* inv = in.inv_c + (int64_t)b * in.Dc;
   // Rows in kPasses passes, as in K1: fewer live registers. The per-block
   // sums add up over the passes in out, in a fixed order.
@@ -484,7 +515,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     float w[T::RNP][T::RM];
     micro_tile_distances<T, T::RNP>(in, b, n0, m0, a_row, pass > 0, true, sa, sb, w);
     bool v1[T::RNP], v2[T::RM];
-    micro_tile_valid<T, T::RNP>(in, n0, m0, a_row, v1, v2);
+    micro_tile_valid<T, T::RNP>(in, b, n0, m0, a_row, v1, v2);
     float g_amp = 0.f;
 #pragma unroll
     for (int i = 0; i < T::RNP; ++i) {
@@ -511,8 +542,10 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       const int width = min(kSlots, P - p0);
       __syncthreads();  // red (and the staged chunk) may still be read
       if (chunks > 1) {  // otherwise the one chunk is still staged
-        stage_rows<T::TN, T::kThreads>(sa, x1, in.z1, n0, in.N, in.Dc, in.Ds, p0, width, tid);
-        stage_rows<T::TM, T::kThreads>(sb, x2, in.z2, m0, in.M, in.Dc, in.Ds, p0, width, tid);
+        stage_rows<T::TN, T::kThreads>(sa, rows.x1, rows.z1, n0, in.N, in.Dc, in.Ds, p0, width,
+                                       tid);
+        stage_rows<T::TM, T::kThreads>(sb, rows.x2, rows.z2, m0, in.M, in.Dc, in.Ds, p0, width,
+                                       tid);
         cp_async_wait_all();
         __syncthreads();
       }
@@ -593,9 +626,10 @@ __global__ void matern52_bwd_reduce_kernel(const float* __restrict__ partials, i
 // Gradient with respect to one side's continuous features:
 //   side 0: gx1[bx, n, d] = sum_{b, m} w[b, n, m] * 2 (x1 - x2)[d] * inv[b, d]^2
 //   side 1: gx2[bx, m, d] = sum_{b, n} w[b, n, m] * 2 (x2 - x1)[d] * inv[b, d]^2
-// where bx runs over the batch when that side is batched (then b = bx), and
-// is a single slot summing over every b when the side is shared. w is zero
-// on masked pairs. Serves input warping only (off on the main path).
+// where bx runs over the groups when that side is batched (then b runs over
+// group bx's members), and is a single slot summing over every b when the
+// side is shared. w is zero on masked pairs. Serves input warping only (off
+// on the main path).
 __global__ void matern52_bwd_features_kernel(Inputs in, const float* __restrict__ w, int side,
                                              float* __restrict__ gx) {
   const int self_count = side == 0 ? in.N : in.M;
@@ -606,19 +640,20 @@ __global__ void matern52_bwd_features_kernel(Inputs in, const float* __restrict_
   const float* xo = side == 0 ? in.x2 : in.x1;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t per_slot = (int64_t)self_count * in.Dc;
-  const int slots = self_bstride != 0 ? in.B : 1;
+  const int slots = self_bstride != 0 ? in.B / in.group : 1;
   if (idx >= per_slot * slots) return;
   const int bx = (int)(idx / per_slot);
   const int j = (int)((idx % per_slot) / in.Dc);
   const int d = (int)(idx % in.Dc);
-  const int b_lo = self_bstride != 0 ? bx : 0;
-  const int b_hi = self_bstride != 0 ? bx + 1 : in.B;
+  const int b_lo = self_bstride != 0 ? bx * in.group : 0;
+  const int b_hi = self_bstride != 0 ? b_lo + in.group : in.B;
   const int64_t total = (int64_t)in.N * in.M;
   float acc = 0.f;
   for (int b = b_lo; b < b_hi; ++b) {
+    const int64_t g = b / in.group;
     const float inv = __ldg(in.inv_c + (int64_t)b * in.Dc + d);
-    const float xj = __ldg(xs + b * self_bstride + (int64_t)j * in.Dc + d);
-    const float* other = xo + b * other_bstride + d;
+    const float xj = __ldg(xs + g * self_bstride + (int64_t)j * in.Dc + d);
+    const float* other = xo + g * other_bstride + d;
     float part = 0.f;
     for (int o = 0; o < other_count; ++o) {
       const int64_t e = side == 0 ? (int64_t)j * in.M + o : (int64_t)o * in.M + j;
@@ -740,15 +775,19 @@ int matern52_occupancy(int kernel, int B, int N, int M, int symmetric, int* tn, 
 
 // out: [B, N, M]. mask1 [N] / mask2 [M] (bool, null for all valid) zero the
 // pairs with a padded row; diag [B] (null for none) is added on the valid
-// diagonal and the padded diagonal is 1. symmetric: x2 == x1, z2 == z1,
-// N == M, the same batching.
+// diagonal and the padded diagonal is 1. Each batched input has one block
+// per group of `group` members at its stride (0: shared). symmetric:
+// x2 == x1, z2 == z1, mask2 == mask1, N == M, the same batching.
 int matern52_ard_fwd(const float* x1, const int32_t* z1, const float* x2, const int32_t* z2,
                      const float* amp, const float* inv_c, const float* inv_s,
                      const uint8_t* mask1, const uint8_t* mask2, const float* diag,
-                     int64_t x1_bstride, int64_t x2_bstride, int B, int N, int M, int Dc, int Ds,
-                     int symmetric, float* out, void* stream) {
+                     int64_t x1_bstride, int64_t x2_bstride, int64_t z1_bstride,
+                     int64_t z2_bstride, int64_t m1_bstride, int64_t m2_bstride, int group, int B,
+                     int N, int M, int Dc, int Ds, int symmetric, float* out, void* stream) {
+  if (group < 1 || B % group != 0) return (int)cudaErrorInvalidValue;
   const Inputs in{x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, diag,
-                  x1_bstride, x2_bstride, B, N, M, Dc, Ds, symmetric};
+                  x1_bstride, x2_bstride, z1_bstride, z2_bstride, m1_bstride, m2_bstride,
+                  group, B, N, M, Dc, Ds, symmetric};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   with_tile(B, N, M, symmetric, [&](auto t) { launch_fwd<decltype(t)>(in, out, s); });
   return (int)cudaGetLastError();
@@ -757,19 +796,23 @@ int matern52_ard_fwd(const float* x1, const int32_t* z1, const float* x2, const 
 // grads: [B, 1 + Dc + Ds]; partials: [B, G, 1 + Dc + Ds] scratch with
 // G = matern52_bwd_num_blocks(B, N, M, symmetric). w: [B, N, M] scratch,
 // needed (not null) only when gx1 or gx2 is requested, and then symmetric
-// must be 0; gx1: [N, Dc] or [B, N, Dc] as x1 is shared or batched (null to
-// skip), gx2 likewise. Masks as in the forward; the diagonal's own gradient
-// is the caller's (a sum of gk's valid diagonal).
+// must be 0; gx1: [N, Dc] or [B / group, N, Dc] as x1 is shared or batched
+// (null to skip), gx2 likewise. Inputs, strides and masks as in the forward;
+// the diagonal's own gradient is the caller's (a sum of gk's valid
+// diagonal).
 int matern52_ard_bwd(const float* gk, const float* x1, const int32_t* z1, const float* x2,
                      const int32_t* z2, const float* amp, const float* inv_c, const float* inv_s,
                      const uint8_t* mask1, const uint8_t* mask2, int64_t x1_bstride,
-                     int64_t x2_bstride, int B, int N, int M, int Dc, int Ds, int symmetric,
-                     float* grads, float* partials, float* w, float* gx1, float* gx2,
-                     void* stream) {
+                     int64_t x2_bstride, int64_t z1_bstride, int64_t z2_bstride,
+                     int64_t m1_bstride, int64_t m2_bstride, int group, int B, int N, int M,
+                     int Dc, int Ds, int symmetric, float* grads, float* partials, float* w,
+                     float* gx1, float* gx2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (symmetric && w != nullptr) return (int)cudaErrorInvalidValue;
+  if (group < 1 || B % group != 0) return (int)cudaErrorInvalidValue;
   const Inputs in{x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, nullptr,
-                  x1_bstride, x2_bstride, B, N, M, Dc, Ds, symmetric};
+                  x1_bstride, x2_bstride, z1_bstride, z2_bstride, m1_bstride, m2_bstride,
+                  group, B, N, M, Dc, Ds, symmetric};
   const int G = matern52_bwd_num_blocks(B, N, M, symmetric);
   const int P = 1 + Dc + Ds;
   if (G > 0) {
@@ -785,7 +828,7 @@ int matern52_ard_bwd(const float* gk, const float* x1, const int32_t* z1, const 
   for (int side = 0; side < 2; ++side) {
     if (gx[side] == nullptr || Dc == 0) continue;
     const int64_t stride = side == 0 ? x1_bstride : x2_bstride;
-    const int64_t count = (int64_t)(side == 0 ? N : M) * Dc * (stride != 0 ? B : 1);
+    const int64_t count = (int64_t)(side == 0 ? N : M) * Dc * (stride != 0 ? B / group : 1);
     const int blocks = (int)((count + 255) / 256);
     if (blocks == 0) continue;
     matern52_bwd_features_kernel<<<blocks, 256, 0, s>>>(in, w, side, gx[side]);

@@ -91,6 +91,8 @@ class TrustRegion:
 
     Candidates farther than the trust radius from every observed point are
     penalized linearly; the radius grows with the number of observed trials.
+    Built from a flush's stacked data it holds each study's region: radii
+    [S], and penalties [S, Q] of [S, Q, ...] queries.
     """
 
     observed_continuous: Tensor  # [N, Dc] scaled features
@@ -109,7 +111,7 @@ class TrustRegion:
         )
 
     def trust_radius(self) -> Tensor:
-        n = torch.sum(self.row_mask.to(torch.float32))
+        n = torch.sum(self.row_mask.to(torch.float32), dim=-1)
         dim = self.observed_continuous.shape[-1] + self.observed_cat.shape[-1]
         # 0.2 → 1.0 as observations accumulate relative to dimension.
         grow = 0.1 * n / max(math.sqrt(float(dim)), 1.0)
@@ -124,17 +126,19 @@ class TrustRegion:
         """
         qc = query.continuous
         if qc.shape[-1] == 0:
-            return torch.zeros(qc.shape[0], device=qc.device)
+            return torch.zeros(qc.shape[:-1], device=qc.device)
         linf = torch.amax(
-            torch.abs(qc[:, None, :] - self.observed_continuous[None, :, :]), dim=-1
-        )  # [M, N]
-        linf = torch.where(self.row_mask[None, :], linf, torch.full_like(linf, float("inf")))
+            torch.abs(qc[..., :, None, :] - self.observed_continuous[..., None, :, :]), dim=-1
+        )  # [(S,) M, N]
+        linf = torch.where(
+            self.row_mask[..., None, :], linf, torch.full_like(linf, float("inf"))
+        )
         dist = torch.amin(linf, dim=-1)
         # No observations at all -> everything is trusted.
         return torch.where(torch.isfinite(dist), dist, torch.zeros_like(dist))
 
     def penalty(self, query: kernels.MixedFeatures) -> Tensor:
-        excess = torch.clamp(self.linf_distance(query) - self.trust_radius(), min=0.0)
+        excess = torch.clamp(self.linf_distance(query) - self.trust_radius()[..., None], min=0.0)
         return self.penalty_weight * excess
 
 

@@ -17,9 +17,15 @@ Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
   hypervolume-scalarized along 64 random directions
   (``acquisitions.HVScalarizedScoring``).
 
-Transfer priors, joint q-batches, mesh sharding and cross-study batching are
-served by the JAX package only; see ROADMAP.md for their place in the port's
-queue.
+The single-objective suggest (exact or sparse) is a compute-IR program
+(``GPBanditProgram``, ``GPBanditSparseProgram``): the batch executor runs
+up to a bucket's worth of studies as one batch over a leading study axis,
+and the sequential ``suggest`` runs the same program on its study alone.
+Each suggest draws two seeds from the study's seed stream (train, then
+acquisition), so slot i of a flush draws what study i draws alone.
+
+Transfer priors, joint q-batches and mesh sharding are served by the JAX
+package only; see ROADMAP.md for their place in the port's queue.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch import types
 from vizier_tpu_torch.algorithms import core as core_lib
 from vizier_tpu_torch.algorithms import designer_policy
+from vizier_tpu_torch.compute import ir as compute_ir
+from vizier_tpu_torch.compute import registry as compute_registry
 from vizier_tpu_torch.converters import core as converters
 from vizier_tpu_torch.converters import padding as padding_lib
 from vizier_tpu_torch.designers import quasi_random
@@ -44,6 +52,7 @@ from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
+from vizier_tpu_torch.parallel import batch_executor
 from vizier_tpu_torch.pyvizier import base_study_config
 from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
@@ -80,6 +89,95 @@ def _train_gp(
         lambda p: model.neg_log_likelihood(p, data), inits, best_n=ensemble_size
     )
     return model.precompute(result.params, data)
+
+
+def _generators(device: torch.device, seeds: np.ndarray) -> List[torch.Generator]:
+    """One generator per study slot, from the slot's seed."""
+    return [_generator(device, int(seed)) for seed in np.asarray(seeds).reshape(-1)]
+
+
+def _stack_restarts(blocks: Sequence[gp_lib.Params]) -> gp_lib.Params:
+    """Per-study restart blocks [R, ...] as one batch [S * R, ...]."""
+    return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def _train_gp_studies(
+    model: gp_lib.VizierGaussianProcess,
+    optimizer: lbfgs_lib.LbfgsOptimizer,
+    data: gp_lib.GPData,
+    generators: Sequence[torch.Generator],
+    num_restarts: int,
+    ensemble_size: int,
+    warm_start: gp_lib.Params,
+) -> gp_lib.GPState:
+    """S studies' ARD as one batch: the study axis of the JAX package's
+    ``train_batched``.
+
+    ``data`` is the studies' stacked ``GPData`` and ``warm_start`` their
+    stacked warm seeds [S, ...]; study s's restarts are its warm row, then
+    ``num_restarts`` random rows from ``generators[s]`` (:func:`_train_gp`'s
+    rows). All S × (R + 1) restarts run as one L-BFGS batch; each study keeps
+    its best ``ensemble_size``, so the state holds S × E members.
+    """
+    coll = model.param_collection()
+    blocks = []
+    for s, generator in enumerate(generators):
+        inits = coll.batch_random_init_unconstrained(generator, num_restarts)
+        blocks.append({k: torch.cat([warm_start[k][s : s + 1], v]) for k, v in inits.items()})
+    result = optimizer(
+        lambda p: model.neg_log_likelihood(p, data), _stack_restarts(blocks),
+        best_n=ensemble_size, groups=len(generators),
+    )
+    return model.precompute(result.params, data)
+
+
+def _warm_next_batched(model, states, studies: int) -> gp_lib.Params:
+    """Each study's warm seed for its next train: its best member's params
+    mapped back through the bijectors ([S, ...]), the sequential writeback."""
+    stride = states.params["amplitude"].shape[0] // studies
+    coll = model.param_collection()
+    return coll.unconstrain({k: v[::stride] for k, v in states.params.items()})
+
+
+def _sweep_studies(
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    acquisition: acquisitions.Acquisition,
+    states,
+    data: gp_lib.GPData,
+    generators: Sequence[torch.Generator],
+    count: int,
+    use_trust_region: bool,
+) -> vectorized_lib.VectorizedOptimizerResult:
+    """S studies' scoring + eagle sweeps as one loop ([S, count] results):
+    each study's ensemble mixture, best label and trust region, over the
+    exact or the sparse posterior."""
+    studies = len(generators)
+    scoring = acquisitions.ScoringFunction(
+        predictive=gp_lib.EnsemblePredictive(states, studies=studies),
+        acquisition=acquisition,
+        best_label=acquisitions.get_best_labels(data.labels, data.row_mask)[:, None],
+        trust_region=acquisitions.TrustRegion.from_data(data) if use_trust_region else None,
+    )
+    return vec_opt.run_studies(
+        scoring.score, generators, count=count, prior_features=_prior_features_from_data(data)
+    )
+
+
+def _slot_state(states, index: int, studies: int):
+    """Study ``index``'s members of a flush's state: its params and factors
+    (views) over its own data, as the sequential path holds them."""
+    stride = states.params["amplitude"].shape[0] // studies
+    members = slice(index * stride, (index + 1) * stride)
+    params = {k: v[members] for k, v in states.params.items()}
+    if isinstance(states, sparse_gp.SparseGPState):
+        return dataclasses.replace(
+            states, params=params, sdata=batch_executor.slice_pytree(states.sdata, index),
+            w=states.w[members], linv=states.linv[members], lb_linv=states.lb_linv[members],
+        )
+    return dataclasses.replace(
+        states, params=params, data=batch_executor.slice_pytree(states.data, index),
+        chol=states.chol[members], alpha=states.alpha[members], linv=states.linv[members],
+    )
 
 
 def _train_gp_per_metric(
@@ -170,7 +268,9 @@ class VizierGPBandit(core_lib.Designer):
             self.problem.search_space, seed=self.rng_seed
         )
         self._trials: List[trial_.Trial] = []
-        self._generator = _generator(self.device, self.rng_seed)
+        # The study's one source of randomness, on the host: each suggest
+        # phase (train, acquisition sweep) seeds its own generator from it.
+        self._seed_stream = np.random.default_rng(self.rng_seed)
         # A random placeholder until a train has run; _warm_is_trained
         # says when it holds trained params.
         self._warm_params = self._model.param_collection().random_init_unconstrained(
@@ -200,16 +300,27 @@ class VizierGPBandit(core_lib.Designer):
         else ``ard_restarts``, floored at ``ensemble_size``."""
         return max(self._warm_restart_budget() or self.ard_restarts, ensemble_size)
 
-    def _train(
+    def _train_sparse(
         self, data: gp_lib.GPData, ensemble_size: int, warm_start: gp_lib.Params
-    ) -> gp_lib.GPState:
-        """Exact ARD train, counted as warm or cold."""
-        states = _train_gp(
-            self._model, self._ard, data, self._generator, self._restarts(ensemble_size),
-            ensemble_size, warm_start,
+    ) -> sparse_gp.SparseGPState:
+        """Sparse ARD train of one study outside a program, counted as warm
+        or cold."""
+        states = sparse_bandit._train_sparse_gp(
+            self._sparse_model(), self._ard, data, self._phase_generator(),
+            self._restarts(ensemble_size), ensemble_size, warm_start,
         )
         self._record_train()
+        self._last_sparse_state = states
         return states
+
+    def _next_seed(self) -> np.ndarray:
+        """The next phase seed from the study's host seed stream."""
+        return self._seed_stream.integers(0, 2**62, dtype=np.int64)
+
+    def _phase_generator(self) -> torch.Generator:
+        """A generator on the device for one suggest phase, seeded by
+        :meth:`_next_seed`."""
+        return _generator(self.device, int(self._next_seed()))
 
     def _warm_update_allowed(self) -> bool:
         """Whether this train's optimum may seed the next one (floor met)."""
@@ -294,32 +405,6 @@ class VizierGPBandit(core_lib.Designer):
             self._last_sparse_state = None
         return mode
 
-    def _train_sparse(
-        self, data: gp_lib.GPData, ensemble_size: int, warm_start: gp_lib.Params
-    ) -> sparse_gp.SparseGPState:
-        """Sparse ARD train, counted as warm or cold."""
-        states = sparse_bandit._train_sparse_gp(
-            self._sparse_model(), self._ard, data, self._generator,
-            self._restarts(ensemble_size), ensemble_size, warm_start,
-        )
-        self._record_train()
-        self._last_sparse_state = states
-        return states
-
-    def _suggest_sparse(self, count: int) -> List[trial_.TrialSuggestion]:
-        """The sparse twin of the single-objective suggest: collapsed-bound
-        train, then the same acquisition sweep over the sparse posterior."""
-        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
-        states = self._train_sparse(data, self.ensemble_size, self._warm_params)
-        if self._warm_update_allowed():
-            self._warm_params = self._unconstrained_best(states)
-            self._warm_is_trained = True
-        result = sparse_bandit._sweep_one(
-            self._vec_opt, self._make_acquisition(), states, data, self._generator, count,
-            self.use_trust_region,
-        )
-        self._surrogate_counts["sparse_suggests"] += 1
-        return self._decode_result(result, count, kind=f"{self.acquisition}+sparse")
 
     # -- encoding ------------------------------------------------------------
 
@@ -365,24 +450,10 @@ class VizierGPBandit(core_lib.Designer):
             return self._seed_suggestions(count)
         if self._num_objectives() > 1:
             return self._suggest_multiobjective(count)
-        if self._refresh_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
-            return self._suggest_sparse(count)
-        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
-        states = self._train(data, self.ensemble_size, self._warm_params)
-        if self._warm_update_allowed():
-            self._warm_params = self._unconstrained_best(states)
-            self._warm_is_trained = True
-        scoring = acquisitions.ScoringFunction(
-            predictive=gp_lib.EnsemblePredictive(states),
-            acquisition=self._make_acquisition(),
-            best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
-            trust_region=acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
-        )
-        result = self._vec_opt(
-            scoring.score, self._generator, count=count,
-            prior_features=_prior_features_from_data(data),
-        )
-        return self._decode_result(result, count, kind=self.acquisition)
+        # The single-objective suggest (exact or sparse, as the auto-switch
+        # says): this study alone through its compute-IR program.
+        program, _ = compute_registry.resolve(self, count)
+        return program.run_alone(self, count)
 
     def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
         """Random-hypervolume scalarized UCB over per-metric GPs, with each
@@ -402,13 +473,14 @@ class VizierGPBandit(core_lib.Designer):
                 labels, torch.ones(labels.shape, dtype=torch.bool, device=self.device)
             ))
         states = _train_gp_per_metric(
-            self._model, self._ard, datas, self._generator, self.ard_restarts
+            self._model, self._ard, datas, self._phase_generator(), self.ard_restarts
         )
+        acquisition_generator = self._phase_generator()
         # Cold by definition: GP-UCB-PE owns the warm multi-objective path.
         self._ard_train_counts["cold"] += 1
         scoring = acquisitions.HVScalarizedScoring(
             metric_states=states,
-            directions=pareto_ops.draw_directions(self._generator, 64, len(datas)),
+            directions=pareto_ops.draw_directions(acquisition_generator, 64, len(datas)),
             reference_point=torch.stack(refs),
             ucb_coefficient=self.ucb_coefficient,
             trust_region=(
@@ -416,7 +488,7 @@ class VizierGPBandit(core_lib.Designer):
             ),
         )
         result = self._vec_opt(
-            scoring.score, self._generator, count=count,
+            scoring.score, acquisition_generator, count=count,
             prior_features=_prior_features_from_data(datas[0]),
         )
         return self._decode_result(result, count, kind="hv_scalarized_ucb")
@@ -457,3 +529,141 @@ class VizierGPBandit(core_lib.Designer):
         while len(out) < count:
             out.extend(self._seeder.suggest(count - len(out)))
         return out[:count]
+
+
+# -- compute-IR programs (vizier_tpu_torch.compute) ---------------------------
+#
+# The batched compute of the GP-bandit family: one program per surrogate
+# (exact | sparse). A flush stacks its studies' host data along a leading
+# study axis and runs their trains and sweeps as one batch; the sequential
+# single-objective suggest is the same program over one study.
+
+
+def _gp_bandit_unbatchable(designer: "VizierGPBandit", count: int) -> bool:
+    """Paths the programs do not cover (seeding, multi-objective): those run
+    the sequential suggest's own code."""
+    del count
+    return bool(
+        len(designer._trials) < designer.num_seed_trials or designer._num_objectives() > 1
+    )
+
+
+def _gp_bandit_prepare(designer: "VizierGPBandit", count: int, sparse: bool) -> dict:
+    """Host-side half of a suggest: encode + warp + the phase seeds (train,
+    then acquisition), in the sequential order. Issues no device work."""
+    return dict(
+        designer=designer,
+        count=count,
+        md=designer._warped_model_data(),
+        seed_train=designer._next_seed(),
+        seed_acq=designer._next_seed(),
+        warm=designer._warm_params,
+        restarts=designer._restarts(designer.ensemble_size),
+        sparse=sparse,
+    )
+
+
+def _gp_bandit_flush(items: Sequence[dict], pad_to: Optional[int], sparse: bool) -> List[dict]:
+    """Encode → multi-restart ARD → acquisition sweep → warm seeds for every
+    study of the flush as one batch, then ONE device-to-host copy of the
+    sweep results. Each slot's state stays on the device as views."""
+    d0: VizierGPBandit = items[0]["designer"]
+    stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
+    device = d0.device
+    data = gp_lib.GPData.from_model_data(stack("md"), device)
+    studies = data.num_studies
+    train_args = (
+        d0._ard, data, _generators(device, stack("seed_train")), items[0]["restarts"],
+        d0.ensemble_size, stack("warm"),
+    )
+    if sparse:
+        model = d0._sparse_model()
+        states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
+    else:
+        model = d0._model
+        states = _train_gp_studies(model, *train_args)
+    warm_next = _warm_next_batched(model, states, studies)
+    result = _sweep_studies(
+        d0._vec_opt, d0._make_acquisition(), states, data,
+        _generators(device, stack("seed_acq")), items[0]["count"], d0.use_trust_region,
+    )
+    result = batch_executor.to_host(result)
+    return [
+        dict(
+            states=_slot_state(states, i, studies),
+            warm_next=batch_executor.slice_pytree(warm_next, i),
+            result=batch_executor.slice_pytree(result, i),
+            sparse=sparse,
+        )
+        for i in range(len(items))
+    ]
+
+
+def _gp_bandit_finalize(designer: "VizierGPBandit", item: dict, output: dict) -> list:
+    """The sequential suggest's state transitions (train count, warm seed,
+    sparse posterior and counter), then the decode."""
+    designer._record_train()
+    if designer._warm_update_allowed():
+        designer._warm_params = output["warm_next"]
+        designer._warm_is_trained = True
+    kind = designer.acquisition
+    if output["sparse"]:
+        designer._last_sparse_state = output["states"]
+        designer._surrogate_counts["sparse_suggests"] += 1
+        kind = f"{kind}+sparse"
+    return designer._decode_result(output["result"], item["count"], kind=kind)
+
+
+class GPBanditProgram(compute_ir.DesignerProgram):
+    """Exact-GP single-objective flush: encode → multi-restart ARD → UCB/EI/PE
+    sweep, the studies of a bucket as one batch."""
+
+    kind = "gp_bandit"
+    algorithms = ("GAUSSIAN_PROCESS_BANDIT",)
+    sparse = False
+
+    def bucket_key(self, designer, count):
+        if _gp_bandit_unbatchable(designer, count):
+            return None
+        is_sparse = designer._refresh_surrogate_mode() == surrogate_config_lib.MODE_SPARSE
+        if is_sparse != self.sparse:
+            return None  # the other surrogate's program owns this study
+        return compute_ir.BucketKey(
+            kind=self.kind,
+            pad_trials=designer._converter.padding.pad_trials(len(designer._trials)),
+            cont_width=designer._cont_width,
+            cat_width=designer._cat_width,
+            metric_count=1,
+            count=count,
+            statics=(
+                designer._sparse_model() if self.sparse else designer._model,
+                designer._ard,
+                designer._vec_opt,
+                designer._restarts(designer.ensemble_size),
+                designer.ensemble_size,
+                designer._make_acquisition(),
+                designer.use_trust_region,
+            ),
+        )
+
+    def prepare(self, designer, count):
+        return _gp_bandit_prepare(designer, count, sparse=self.sparse)
+
+    def device_program(self, items, pad_to=None):
+        return _gp_bandit_flush(items, pad_to, sparse=self.sparse)
+
+    def finalize(self, designer, item, output):
+        return _gp_bandit_finalize(designer, item, output)
+
+
+class GPBanditSparseProgram(GPBanditProgram):
+    """The sparse (SGPR) twin: the same stages over the collapsed-bound
+    posterior, its own bucket family (the inducing-slot count rides in the
+    statics)."""
+
+    kind = "gp_bandit_sparse"
+    sparse = True
+
+
+compute_registry.register(VizierGPBandit, GPBanditProgram())
+compute_registry.register(VizierGPBandit, GPBanditSparseProgram())

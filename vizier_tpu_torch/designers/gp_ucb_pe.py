@@ -24,7 +24,12 @@ Pure Exploration"):
 
 Picks are written into spare padded rows, and each pick re-conditions the
 all-points posterior (one batched Cholesky over the ensemble) before its
-eagle sweep. Above the ``surrogate`` config's trial threshold the posteriors
+eagle sweep. The single-objective suggest (exact or sparse) is a compute-IR
+program (``UCBPEProgram``, ``UCBPESparseProgram``): the batch executor runs a
+bucket's studies as one batch over a leading study axis, and the sequential
+``suggest`` runs the same program on its study alone, with the phase seeds
+(train, acquisition, and the two-phase budget's second sweep) drawn from
+the study's seed stream in the same order. Above the ``surrogate`` config's trial threshold the posteriors
 are the sparse inducing-point ones (``surrogates.sparse_gp``): each pick
 re-conditions in O(n·m²) through the trained inducing set, and a pick far
 from it joins it (``_append_row_sparse``).
@@ -35,13 +40,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import operator
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vizier_tpu_torch import types
 from vizier_tpu_torch.algorithms import core as core_lib
+from vizier_tpu_torch.compute import ir as compute_ir
+from vizier_tpu_torch.compute import registry as compute_registry
 from vizier_tpu_torch.designers import gp_bandit
 from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
@@ -50,8 +57,10 @@ from vizier_tpu_torch.models import multitask_gp
 from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
+from vizier_tpu_torch.parallel import batch_executor
 from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
+from vizier_tpu_torch.surrogates import sparse_bandit
 from vizier_tpu_torch.surrogates import sparse_gp
 
 Tensor = torch.Tensor
@@ -181,13 +190,17 @@ def _pe_conditioning(states_completed, all_data: gp_lib.GPData, config: UCBPECon
 
 
 def _append_row(data: gp_lib.GPData, x: kernels.MixedFeatures) -> gp_lib.GPData:
-    """Writes x into the first free padded row (labels stay 0: stddev-only)."""
-    idx = torch.sum(data.row_mask.to(torch.int64))  # first free slot
+    """Writes x into the first free padded row (labels stay 0: stddev-only).
+
+    A flush's stacked data takes each study's pick (``x`` [S, 1, ...]) into
+    that study's first free row.
+    """
+    idx = torch.sum(data.row_mask.to(torch.int64), dim=-1, keepdim=True)  # first free slot
     at = torch.arange(data.num_rows, device=idx.device) == idx
     return dataclasses.replace(
         data,
-        continuous=torch.where(at[:, None], x.continuous[:1], data.continuous),
-        categorical=torch.where(at[:, None], x.categorical[:1], data.categorical),
+        continuous=torch.where(at[..., None], x.continuous[..., :1, :], data.continuous),
+        categorical=torch.where(at[..., None], x.categorical[..., :1, :], data.categorical),
         row_mask=data.row_mask | at,
     )
 
@@ -221,42 +234,41 @@ def _append_row_sparse(
     under ``ref_state`` (the trained completed posterior's member 0, a batch
     of one) exceeds ``_NYSTROM_RESIDUAL_FRACTION`` of amp², it is also written
     into the next spare inducing slot (``sparse_gp.with_pending_capacity``).
-    No value is read back to the host.
+    A flush's stacked data takes each study's pick [S, 1, ...] against its
+    own member 0 (``ref_state`` one member per study). No value is read
+    back to the host.
     """
     data = _append_row(sdata.data, x)
     ref = ref_state.sdata
     kz = ref_state.model.base._kernel(
         ref_state.params, x, ref.z_features(), ref.data, row_mask2=ref.inducing_mask
-    )  # [1, 1, m]
-    t1 = ref_state.linv[0] @ kz[0, 0]
-    amp2 = ref_state.params["amplitude"][0] * ref_state.params["amplitude"][0]
-    augment = amp2 - torch.sum(t1 * t1) > _NYSTROM_RESIDUAL_FRACTION * amp2
+    )  # [S, 1, m]
+    t1 = gp_lib.matvec(ref_state.linv, kz[:, 0])  # [S, m]
+    amp2 = ref_state.params["amplitude"] * ref_state.params["amplitude"]
+    augment = amp2 - torch.sum(t1 * t1, dim=-1) > _NYSTROM_RESIDUAL_FRACTION * amp2
     # The mask is a true prefix (k-center fills one, augments extend it), so
     # the next free slot is the current true count.
     mask = sdata.inducing_mask
-    idx = torch.clamp(torch.sum(mask.to(torch.int64)), max=mask.shape[0] - 1)
-    at = torch.arange(mask.shape[0], device=mask.device) == idx
+    augment = augment[:, None] if mask.dim() == 2 else augment[0]
+    m = mask.shape[-1]
+    idx = torch.clamp(torch.sum(mask.to(torch.int64), dim=-1, keepdim=True), max=m - 1)
+    at = torch.arange(m, device=mask.device) == idx
     write = at & augment & ~mask
     return sparse_gp.SparseGPData(
         data=data,
-        z_continuous=torch.where(write[:, None], x.continuous[:1], sdata.z_continuous),
-        z_categorical=torch.where(write[:, None], x.categorical[:1], sdata.z_categorical),
+        z_continuous=torch.where(
+            write[..., None], x.continuous[..., :1, :], sdata.z_continuous),
+        z_categorical=torch.where(
+            write[..., None], x.categorical[..., :1, :], sdata.z_categorical),
         inducing_mask=mask | write,
         inducing_indices=sdata.inducing_indices,
     )
 
 
-def _pick_appender(states_completed, all_data):
-    """How a pick joins the pending rows: ``_append_row`` on the exact path,
-    ``_append_row_mt`` for a multi-task ``all_data``, and
-    ``_append_row_sparse`` against the trained posterior's member 0 on the
-    sparse one (``all_data`` a ``SparseGPData``)."""
-    if isinstance(all_data, multitask_gp.MultiTaskData):
-        return _append_row_mt
-    if isinstance(all_data, sparse_gp.SparseGPData):
-        member0 = states_completed[0].member(0)
-        return lambda d, x: _append_row_sparse(d, x, member0)
-    return _append_row
+def _pick_appender(all_data):
+    """How a multi-objective pick joins the pending rows: ``_append_row_mt``
+    for a multi-task ``all_data``, else ``_append_row``."""
+    return _append_row_mt if isinstance(all_data, multitask_gp.MultiTaskData) else _append_row
 
 
 def _hv_floor(inv_w: Tensor, ref_point: Tensor, labels: Tensor, labels_mask: Tensor) -> Tensor:
@@ -348,39 +360,33 @@ def _suggest_batch(
     count: int,
     config: UCBPEConfig,
     use_trust_region: bool = True,
-    model=None,
     *,
     labels_mn: Optional[Tensor] = None,
     labels_mask: Optional[Tensor] = None,
     ref_point: Optional[Tensor] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
-    """The greedy batch: per pick, UCB-or-PE with pending-point conditioning.
+    """The greedy multi-objective batch: per pick, UCB-or-PE with
+    pending-point conditioning. (A single-objective suggest runs
+    :func:`_suggest_batch_studies`, over a study axis of one when alone.)
 
-    ``states_completed`` is a list of per-metric states over ``all_data``'s
-    kind: ``GPState``s and a ``GPData`` (exact), one ``SparseGPState`` and a
-    ``SparseGPData`` (the trained inducing set over the all-points rows,
-    with spare slots; ``model`` the ``SparseGaussianProcess`` over those
-    slots that re-conditions each pick), or a ``MultiTaskGPState`` and a
-    ``MultiTaskData``. ``model`` defaults to the states' own. With M > 1
-    metrics the pick draws ``config.num_scalarizations`` directions for the
-    HV scalarization over ``labels_mn`` [M, N1] (valid where
+    ``states_completed`` is a list of per-metric ``GPState``s over a
+    ``GPData``, or a ``MultiTaskGPState`` over a ``MultiTaskData``. With
+    M > 1 metrics the pick draws ``config.num_scalarizations`` directions
+    for the HV scalarization over ``labels_mn`` [M, N1] (valid where
     ``labels_mask`` [N1]) from ``ref_point`` [M].
     """
     is_mt = isinstance(states_completed, multitask_gp.MultiTaskGPState)
     if is_mt:
-        model = states_completed.model if model is None else model
+        model = states_completed.model
         num_metrics = model.num_tasks
         base_data = lambda d: d.features_data  # noqa: E731
         recondition = model.precompute_constrained
     else:
-        model = states_completed[0].model if model is None else model
+        model = states_completed[0].model
         num_metrics = len(states_completed)
-        if isinstance(all_data, sparse_gp.SparseGPData):
-            base_data = lambda d: d.data  # noqa: E731
-        else:
-            base_data = lambda d: d  # noqa: E731
+        base_data = lambda d: d  # noqa: E731
         recondition = lambda ps, d: [model.precompute_constrained(p, d) for p in ps]  # noqa: E731
-    append = _pick_appender(states_completed, all_data)
+    append = _pick_appender(all_data)
     trust = acquisitions.TrustRegion.from_data(base_data(all_data)) if use_trust_region else None
     picks, scores = [], []
     aux: Dict[str, list] = {"mean": [], "stddev": [], "stddev_from_all": [], "use_ucb": []}
@@ -431,6 +437,126 @@ def _suggest_batch(
         torch.cat([p.continuous for p in picks]), torch.cat([p.categorical for p in picks])
     )
     return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores)), out
+
+
+def _pe_conditioning_studies(states, all_data: gp_lib.GPData, config: UCBPEConfig, studies: int):
+    """:func:`_pe_conditioning` of one metric for each study of a flush:
+    ([S × E] pe_params, [S] noise_is_high, [S] threshold). ``states`` holds
+    S studies' E members each (exact or sparse); ``all_data`` is stacked."""
+    p = states.params
+    snr = (p["amplitude"] / p["noise_stddev"]) ** 2
+    thr = config.signal_to_noise_threshold
+    noise_is_high = torch.all((snr < thr).reshape(studies, -1), dim=1) & (thr > 0.0)
+    member_high = torch.repeat_interleave(noise_is_high, snr.shape[0] // studies)
+    pe_params = dict(p, noise_stddev=torch.where(
+        member_high, torch.full_like(p["noise_stddev"], _PE_NOISE_STDDEV), p["noise_stddev"]))
+    mean_at, std_at = gp_lib.EnsemblePredictive(states, studies=studies).predict(
+        all_data.features())  # [S, N]
+    ucb_at = torch.where(
+        all_data.row_mask,
+        mean_at + config.ucb_coefficient * std_at,
+        torch.full_like(mean_at, float("-inf")),
+    )
+    threshold = torch.gather(mean_at, 1, torch.argmax(ucb_at, dim=-1, keepdim=True))[:, 0]
+    return pe_params, noise_is_high, threshold
+
+
+def _score_fn_studies(
+    states_completed, states_all, config: UCBPEConfig, use_ucb: Tensor, threshold: Tensor,
+    trust: Optional[acquisitions.TrustRegion], studies: int,
+):
+    """One pick's single-metric acquisition for each study of a flush:
+    [S, Q] scores of [S, Q, ...] queries, as :func:`_score_fn` per study."""
+
+    def score(query: kernels.MixedFeatures) -> Tensor:
+        mean_c, std_c = gp_lib.EnsemblePredictive(states_completed, studies=studies).predict(query)
+        _, std_all = gp_lib.EnsemblePredictive(states_all, studies=studies).predict(query)
+        ucb_score = mean_c + config.ucb_coefficient * std_all
+        explore_ucb = mean_c + config.explore_region_ucb_coefficient * std_c
+        penalty = config.cb_violation_penalty_coefficient * torch.clamp(
+            explore_ucb - threshold[:, None], max=0.0
+        )
+        value = torch.where(use_ucb[:, None], ucb_score, std_all + penalty)
+        if trust is not None:
+            value = value - trust.penalty(query)
+        return value
+
+    return score
+
+
+def _suggest_batch_studies(
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    states_completed,
+    all_data,
+    prior_features: kernels.MixedFeatures,
+    generators,
+    first_has_new: Tensor,
+    has_completed: Tensor,
+    count: int,
+    config: UCBPEConfig,
+    use_trust_region: bool = True,
+    model=None,
+) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
+    """The greedy single-objective batch of S studies at once: the study axis
+    of :func:`_suggest_batch` (the JAX package's ``_sweep_batched``).
+
+    ``states_completed`` holds S studies' E members (``GPState`` over the
+    stacked completed data, or ``SparseGPState`` with ``all_data`` the
+    stacked ``SparseGPData`` and ``model`` the re-conditioning model);
+    ``generators`` one per study; ``first_has_new`` and ``has_completed``
+    are [S] bool. Each pick draws each study's UCB/PE coin from its own
+    generator, re-conditions every study's all-points posterior in one
+    batch, sweeps all studies in one loop and appends each study's pick.
+    Returns [S, count, ...] picks and per-pick aux ([S, count, 1]).
+    """
+    studies = len(generators)
+    model = states_completed.model if model is None else model
+    sparse = isinstance(all_data, sparse_gp.SparseGPData)
+    base = all_data.data if sparse else all_data
+    ref = states_completed.first_members() if sparse else None
+    trust = acquisitions.TrustRegion.from_data(base) if use_trust_region else None
+    device = first_has_new.device
+    pe_prob = torch.tensor(config.pe_overwrite_probability, device=device)
+    pe_prob_high = torch.tensor(config.pe_overwrite_probability_in_high_noise, device=device)
+    mixture = lambda st, q: gp_lib.EnsemblePredictive(st, studies=studies).predict(q)  # noqa: E731
+    picks, scores = [], []
+    aux: Dict[str, list] = {"mean": [], "stddev": [], "stddev_from_all": [], "use_ucb": []}
+    for b in range(count):
+        base = all_data.data if sparse else all_data
+        pe_params, noise_is_high, threshold = _pe_conditioning_studies(
+            states_completed, base, config, studies
+        )
+        states_all = model.precompute_constrained(pe_params, all_data)
+        u = torch.stack([torch.rand((), generator=g, device=g.device) for g in generators])
+        use_ucb = (u < config.ucb_overwrite_probability) & has_completed
+        if b == 0:
+            first = ~(u < torch.where(noise_is_high, pe_prob_high, pe_prob))
+            use_ucb = torch.where(first_has_new, first, use_ucb)
+        score_fn = _score_fn_studies(
+            states_completed, states_all, config, use_ucb, threshold, trust, studies
+        )
+        result = vec_opt.run_studies(score_fn, generators, count=1, prior_features=prior_features)
+        x = kernels.MixedFeatures(result.features.continuous, result.features.categorical)
+        mean_x, std_x = mixture(states_completed, x)  # [S, 1]
+        _, std_all_x = mixture(states_all, x)
+        all_data = _append_row_sparse(all_data, x, ref) if sparse else _append_row(all_data, x)
+        picks.append(x)
+        scores.append(result.scores)
+        aux["mean"].append(mean_x)
+        aux["stddev"].append(std_x)
+        aux["stddev_from_all"].append(std_all_x)
+        aux["use_ucb"].append(use_ucb[:, None])
+    out = {k: torch.cat(v, dim=1)[..., None] for k, v in aux.items() if k != "use_ucb"}
+    out["use_ucb"] = torch.cat(aux["use_ucb"], dim=1)
+    out["trust_radius"] = (
+        trust.trust_radius() if trust is not None
+        else torch.full((studies,), float("inf"), device=device)
+    )
+    features = kernels.MixedFeatures(
+        torch.cat([x.continuous for x in picks], dim=1),
+        torch.cat([x.categorical for x in picks], dim=1),
+    )
+    return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores, dim=1)), out
 
 
 def _train_mt_gp(
@@ -590,7 +716,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         mask; ``states`` one trained state per objective, or one
         ``MultiTaskGPState`` for a SEPARABLE ``multitask_type`` with several
         objectives. In sparse mode (a single objective only) the state is a
-        ``SparseGPState`` over the k-center inducing set of the data.
+        ``SparseGPState`` over the k-center inducing set of the data. A
+        single-objective suggest trains in its compute-IR program instead,
+        and caches its fit (exact or sparse) here.
         """
         if self._cached_states is not None:
             return self._cached_states
@@ -608,7 +736,7 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         elif self._use_multitask(len(datas)):
             states = _train_mt_gp(
                 self._mt_model(len(datas)), self._ard, multitask_gp.MultiTaskData.from_gp_datas(datas),
-                self._generator, self.ard_restarts, ensemble,
+                self._phase_generator(), self.ard_restarts, ensemble,
             )
             self._ard_train_counts["cold"] += 1
             self._cached_states = (states, datas)
@@ -616,9 +744,10 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         else:
             # Each metric's train is seeded with its own previous optimum.
             restarts = self._restarts(ensemble)
+            generator = self._phase_generator()
             states = [
                 gp_bandit._train_gp(
-                    self._model, self._ard, data, self._generator, restarts, ensemble, warm
+                    self._model, self._ard, data, generator, restarts, ensemble, warm
                 )
                 for data, warm in zip(datas, self._warm_params_me)
             ]
@@ -648,6 +777,10 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
 
     def _all_points_data(self, count: int) -> gp_lib.GPData:
         """GPData over completed+active rows with capacity for the picks."""
+        return gp_lib.GPData.from_model_data(self._all_points_model_data(count), self.device)
+
+    def _all_points_model_data(self, count: int) -> types.ModelData:
+        """Host model data over completed+active rows with capacity for the picks."""
         all_trials = list(self._trials) + list(self._active_trials)
         features, n_pad = self._padded_features(all_trials, extra_rows=count)
         spare = n_pad - len(all_trials)
@@ -658,64 +791,96 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         zero_labels = types.PaddedArray.from_array(
             np.zeros((len(all_trials), 1), np.float32), (n_pad, 1), fill_value=np.nan
         )
-        return gp_lib.GPData.from_model_data(types.ModelData(features, zero_labels), self.device)
+        return types.ModelData(features, zero_labels)
 
     def suggest(self, count: Optional[int] = None) -> List[trial_.TrialSuggestion]:
         count = count or 1
         if len(self._trials) + len(self._active_trials) < self.num_seed_trials:
             return self._seed_suggestions(count)
+        resolved = compute_registry.resolve(self, count)
+        if resolved is not None:
+            # The single-objective suggest (exact or sparse) with no cached
+            # fit: this study alone through its compute-IR program.
+            return resolved[0].run_alone(self, count)
+        if len(self._objective_indices()) == 1:
+            return self._suggest_over_cached_fit(count)
+        return self._suggest_multiobjective(count)
+
+    def _two_phase(self, count: int) -> bool:
+        """Whether a batch runs as a full-budget first pick and the rest."""
+        return self.acquisition_budget_policy == "first_pick_full" and count > 1
+
+    def _suggest_over_cached_fit(self, count: int) -> List[trial_.TrialSuggestion]:
+        """A single-objective suggest with no new labels since the last
+        train: the program's sweeps over the cached fit, as a study axis of
+        one, with the acquisition phases seeded as the program seeds them."""
+        (state,), (data,) = self._train_states_me()
+        one = lambda tree: batch_executor.stack_pytrees([tree])  # noqa: E731
+        sparse = isinstance(state, sparse_gp.SparseGPState)
+        if sparse:
+            states = dataclasses.replace(state, sdata=one(state.sdata))
+        else:
+            states = dataclasses.replace(state, data=one(state.data))
+        seeds = [self._next_seed() for _ in range(2 if self._two_phase(count) else 1)]
+        flags = dict(
+            first_has_new=torch.tensor([self._has_new_completed_trials()], device=self.device),
+            has_completed=torch.tensor([bool(self._trials)], device=self.device),
+        )
+        segments, rows = _ucb_pe_sweeps(
+            self, states, one(data), gp_lib.GPData.from_model_data(
+                one(self._all_points_model_data(count)), self.device),
+            [gp_bandit._generators(self.device, seed) for seed in seeds], count, sparse, **flags,
+        )
+        if sparse:
+            self._surrogate_counts["sparse_suggests"] += 1
+        out: List[trial_.TrialSuggestion] = []
+        for (result, aux), n in zip(batch_executor.to_host(segments), rows):
+            out.extend(self._decode_ucb_pe(
+                batch_executor.slice_pytree(result, 0), batch_executor.slice_pytree(aux, 0), n))
+        return out
+
+    def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
+        """HV-scalarized UCB-PE over the per-metric (or multi-task) fit."""
         states, datas = self._train_states_me()
         all_data = self._all_points_data(count)
         num_metrics = len(datas)
-        hv = {}
-        if num_metrics > 1:
-            labels_mn = torch.stack([d.labels for d in datas])  # [M, N1]
-            labels_mask = datas[0].row_mask
-            hv = dict(
-                labels_mn=labels_mn, labels_mask=labels_mask,
-                # Reference point: nadir − 0.1·range of the warped labels.
-                ref_point=acquisitions.get_reference_point(labels_mn, labels_mask),
-            )
-        is_sparse = False
-        model = None
+        labels_mn = torch.stack([d.labels for d in datas])  # [M, N1]
+        labels_mask = datas[0].row_mask
+        hv = dict(
+            labels_mn=labels_mn, labels_mask=labels_mask,
+            # Reference point: nadir − 0.1·range of the warped labels.
+            ref_point=acquisitions.get_reference_point(labels_mn, labels_mask),
+        )
         if isinstance(states, multitask_gp.MultiTaskGPState):
             all_data = multitask_gp.MultiTaskData(
                 features_data=all_data,
                 task_labels=torch.zeros((num_metrics, all_data.num_rows), device=self.device),
                 task_mask=all_data.row_mask[None, :].repeat(num_metrics, 1),
             )
-        elif isinstance(states[0], sparse_gp.SparseGPState):
-            is_sparse = True
-            # The trained inducing set over the all-points rows, with one
-            # spare slot per pick, re-conditioned by the model over m + count.
-            all_data = sparse_gp.with_pending_capacity(states[0].sdata, all_data, count)
-            model = self._sparse_all_model(count)
-        append = _pick_appender(states, all_data)
+        append = _pick_appender(all_data)
         first_has_new = self._has_new_completed_trials()
         has_completed = bool(self._trials)
         prior = gp_bandit._prior_features_from_data(datas[0])
-        args = (self.config, self.use_trust_region, model)
-        if self.acquisition_budget_policy == "first_pick_full" and count > 1:
+        args = (self.config, self.use_trust_region)
+        if self._two_phase(count):
             # Full budget on the exploitation-critical first pick; one
             # further full budget split across the remaining picks.
             first, aux1 = _suggest_batch(
-                self._vec_opt, states, all_data, prior, self._generator,
+                self._vec_opt, states, all_data, prior, self._phase_generator(),
                 first_has_new, has_completed, 1, *args, **hv,
             )
             all_data = append(all_data, first.features)
             rest, aux2 = _suggest_batch(
-                self._pick_vec_opt(count), states, all_data, prior, self._generator,
+                self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
                 False, has_completed, count - 1, *args, **hv,
             )
             results = [(first, aux1, 1), (rest, aux2, count - 1)]
         else:
             batch, aux = _suggest_batch(
-                self._pick_vec_opt(count), states, all_data, prior, self._generator,
+                self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
                 first_has_new, has_completed, count, *args, **hv,
             )
             results = [(batch, aux, count)]
-        if is_sparse:
-            self._surrogate_counts["sparse_suggests"] += 1
         out: List[trial_.TrialSuggestion] = []
         for result, aux, rows in results:
             out.extend(self._decode_ucb_pe(result, aux, rows))
@@ -745,3 +910,219 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 pred[key] = np.array2string(host[key][i], separator=",")
             suggestions.append(s)
         return suggestions
+
+
+# -- compute-IR programs (vizier_tpu_torch.compute) ---------------------------
+#
+# The batched compute of the service DEFAULT: one program per surrogate
+# (exact | sparse UCB-PE). A flush trains its studies as one batch, then runs
+# their greedy batches as one loop (two sweeps under ``first_pick_full`` with
+# count > 1, with each study's first pick appended between them).
+
+
+def _ucb_pe_unbatchable(designer: "VizierGPUCBPEBandit", count: int) -> bool:
+    """Paths the programs do not cover: the seeding stage, more than one
+    objective (independent or multi-task), and a cached fit (the sequential
+    suggest would skip training; re-training it in a flush would not)."""
+    del count
+    return bool(
+        len(designer._trials) + len(designer._active_trials) < designer.num_seed_trials
+        or len(designer._objective_indices()) != 1
+        or designer._cached_states is not None
+    )
+
+
+def _ucb_pe_prepare(designer: "VizierGPUCBPEBandit", count: int, sparse: bool) -> dict:
+    """Host-side half of a single-objective UCB-PE suggest: encode + warp,
+    and the phase seeds in the sequential order (train, acquisition, and
+    the second sweep of a two-phase budget). Issues no device work."""
+    raw = designer._converter.metrics.encode(designer._trials)
+    features, n_pad = designer._padded_features(designer._trials)
+    j = designer._objective_indices()[0]
+    warped = output_warpers.create_default_warper()(raw[:, j]) if raw.shape[0] else raw[:, j]
+    return dict(
+        designer=designer,
+        count=count,
+        md=types.ModelData(features, designer._padded_labels(warped, n_pad)),
+        all_md=designer._all_points_model_data(count),
+        first_has_new=np.asarray(designer._has_new_completed_trials()),
+        has_completed=np.asarray(bool(designer._trials)),
+        warm=designer._warm_params_me[0],
+        restarts=designer._restarts(max(designer.ensemble_size, 1)),
+        seed_train=designer._next_seed(),
+        seed_acq=designer._next_seed(),
+        seed_rest=designer._next_seed() if designer._two_phase(count) else None,
+        sparse=sparse,
+    )
+
+
+def _ucb_pe_sweeps(
+    d0: VizierGPUCBPEBandit, states, data: gp_lib.GPData, all_data: gp_lib.GPData,
+    generators: Sequence[Sequence[torch.Generator]], count: int, sparse: bool, *,
+    first_has_new: Tensor, has_completed: Tensor,
+):
+    """The greedy UCB-PE batches of S studies over their trained ``states``
+    (S × E members; ``data`` and ``all_data`` stacked [S, ...]): one loop
+    of ``count`` picks, or with a two-phase budget a full-budget first pick,
+    its append, then the other picks on a split budget. ``generators`` holds
+    each phase's S generators. Returns the [(result, aux)] segments on the
+    device and their pick counts."""
+    if sparse:
+        # Each study's trained inducing set over its all-points rows, with
+        # one spare Nyström slot per pick, re-conditioned over m + count.
+        all_data = sparse_gp.with_pending_capacity(states.sdata, all_data, count)
+        pick_model = d0._sparse_all_model(count)
+    else:
+        pick_model = None
+    prior = gp_bandit._prior_features_from_data(data)
+    args = (d0.config, d0.use_trust_region, pick_model)
+    if not d0._two_phase(count):
+        batch, aux = _suggest_batch_studies(
+            d0._pick_vec_opt(count), states, all_data, prior, generators[0],
+            first_has_new, has_completed, count, *args,
+        )
+        return [(batch, aux)], [count]
+    # Full budget on the exploitation-critical first pick; one further full
+    # budget split across the remaining picks.
+    first, aux1 = _suggest_batch_studies(
+        d0._vec_opt, states, all_data, prior, generators[0],
+        first_has_new, has_completed, 1, *args,
+    )
+    if sparse:
+        all_data = _append_row_sparse(all_data, first.features, states.first_members())
+    else:
+        all_data = _append_row(all_data, first.features)
+    rest, aux2 = _suggest_batch_studies(
+        d0._pick_vec_opt(count), states, all_data, prior, generators[1],
+        torch.zeros_like(first_has_new), has_completed, count - 1, *args,
+    )
+    return [(first, aux1), (rest, aux2)], [1, count - 1]
+
+
+def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool) -> List[dict]:
+    """Encode → ARD → the greedy UCB-PE batch → warm seeds for every study
+    of the flush as one batch, then ONE device-to-host copy of the picks.
+    Each slot's state and data stay on the device as views."""
+    d0: VizierGPUCBPEBandit = items[0]["designer"]
+    stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
+    device = d0.device
+    count = items[0]["count"]
+    data = gp_lib.GPData.from_model_data(stack("md"), device)
+    all_data = gp_lib.GPData.from_model_data(stack("all_md"), device)
+    studies = data.num_studies
+    generators = lambda name: gp_bandit._generators(device, stack(name))  # noqa: E731
+    train_args = (
+        d0._ard, data, generators("seed_train"), items[0]["restarts"],
+        max(d0.ensemble_size, 1), stack("warm"),
+    )
+    if sparse:
+        model = d0._sparse_model()
+        states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
+    else:
+        model = d0._model
+        states = gp_bandit._train_gp_studies(model, *train_args)
+    warm_next = gp_bandit._warm_next_batched(model, states, studies)
+    phases = ["seed_acq", "seed_rest"] if d0._two_phase(count) else ["seed_acq"]
+    segments, rows = _ucb_pe_sweeps(
+        d0, states, data, all_data, [generators(name) for name in phases], count, sparse,
+        first_has_new=torch.as_tensor(stack("first_has_new"), device=device),
+        has_completed=torch.as_tensor(stack("has_completed"), device=device),
+    )
+    segments = batch_executor.to_host(segments)
+    return [
+        dict(
+            states=gp_bandit._slot_state(states, i, studies),
+            warm_next=batch_executor.slice_pytree(warm_next, i),
+            data=batch_executor.slice_pytree(data, i),
+            segments=[
+                (batch_executor.slice_pytree(result, i), batch_executor.slice_pytree(aux, i), n)
+                for (result, aux), n in zip(segments, rows)
+            ],
+            sparse=sparse,
+        )
+        for i in range(len(items))
+    ]
+
+
+def _ucb_pe_finalize(designer: "VizierGPUCBPEBandit", item: dict, output: dict) -> list:
+    """The sequential suggest's state transitions (train count, warm seed,
+    cached fit, sparse posterior and counter), then the decode."""
+    states = output["states"]
+    designer._record_train()
+    if designer._warm_update_allowed():
+        designer._warm_params_me = [output["warm_next"]]
+        designer._warm_is_trained = True
+    designer._cached_states = ([states], [output["data"]])
+    if output["sparse"]:
+        designer._last_sparse_state = states
+        designer._surrogate_counts["sparse_suggests"] += 1
+    out: List[trial_.TrialSuggestion] = []
+    for result, aux, rows in output["segments"]:
+        out.extend(designer._decode_ucb_pe(result, aux, rows))
+    return out
+
+
+class UCBPEProgram(compute_ir.DesignerProgram):
+    """Exact UCB-PE flush: the studies' ARD trains as one batch, then their
+    greedy batch loops as one."""
+
+    kind = "gp_ucb_pe"
+    algorithms = ("DEFAULT", "GP_UCB_PE", "ALGORITHM_UNSPECIFIED")
+    sparse = False
+
+    def bucket_key(self, designer, count):
+        if _ucb_pe_unbatchable(designer, count):
+            return None
+        mode = designer._refresh_ucb_pe_surrogate_mode()
+        if (mode == surrogate_config_lib.MODE_SPARSE) != self.sparse:
+            return None  # the other surrogate's program owns this study
+        pad = designer._converter.padding
+        n_all = len(designer._trials) + len(designer._active_trials)
+        models = (
+            (designer._sparse_model(), designer._sparse_all_model(count))
+            if self.sparse else (designer._model,)
+        )
+        return compute_ir.BucketKey(
+            kind=self.kind,
+            pad_trials=pad.pad_trials(len(designer._trials)),
+            cont_width=designer._cont_width,
+            cat_width=designer._cat_width,
+            metric_count=1,
+            count=count,
+            statics=(
+                # The all-points rows get their own padded size (spare rows
+                # for the picks), so it is part of the shape identity.
+                pad.pad_trials(n_all + count),
+                *models,
+                designer._ard,
+                designer._vec_opt,
+                designer._pick_vec_opt(count),
+                designer._restarts(max(designer.ensemble_size, 1)),
+                max(designer.ensemble_size, 1),
+                designer.config,
+                designer.use_trust_region,
+                designer.acquisition_budget_policy,
+            ),
+        )
+
+    def prepare(self, designer, count):
+        return _ucb_pe_prepare(designer, count, sparse=self.sparse)
+
+    def device_program(self, items, pad_to=None):
+        return _ucb_pe_flush(items, pad_to, sparse=self.sparse)
+
+    def finalize(self, designer, item, output):
+        return _ucb_pe_finalize(designer, item, output)
+
+
+class UCBPESparseProgram(UCBPEProgram):
+    """Sparse UCB-PE flush: SGPR trains, then the greedy batch with each
+    pick conditioned through the inducing-point posterior (Nyström
+    augment); both sparse models ride in the statics."""
+
+    kind = "gp_ucb_pe_sparse"
+    sparse = True
+
+
+compute_registry.register(VizierGPUCBPEBandit, UCBPEProgram())
+compute_registry.register(VizierGPUCBPEBandit, UCBPESparseProgram())

@@ -9,13 +9,15 @@ Where the JAX package ``vmap``s over restarts and ensemble members, every
 function here takes parameters with a leading batch axis ``B`` and shares
 one ``GPData`` across it; the Gram comes from the batched kernel
 (``kernels.matern52_ard``) and the factorizations from batched
-``torch.linalg`` calls.
+``torch.linalg`` calls. A cross-study flush stacks S studies' ``GPData``
+along a leading study axis (``GPData.num_studies``); the batch is then S
+groups of ``B / S`` members, each group over its own study's data.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,23 @@ Params = params_lib.Params
 
 _LOG_2PI = 1.8378770664093453
 _JITTER = 1e-5
+
+
+def rows_per_member(t: Tensor, batch: int) -> Tensor:
+    """A data row vector (labels or row mask) for each of ``batch`` members:
+    [N] shared by all, or [S, N] for S groups of ``batch / S`` members."""
+    if t.dim() == 1:
+        return t.expand(batch, -1)
+    return kernels.per_member(t, t.shape[0], batch, 1)
+
+
+def matvec(a: Tensor, v: Tensor) -> Tensor:
+    """[..., M, N] times [..., N] -> [..., M] as an elementwise product and a
+    reduction along N: every member's result is the same floats whatever the
+    batch holds (a batched matrix-vector ``matmul`` on the CPU rounds a
+    member differently in a batch of one than in a larger batch), so a study
+    computes the same posterior alone and in a flush."""
+    return torch.sum(a * v[..., None, :], dim=-1)
 
 
 def posterior_cholesky(gram: Tensor) -> Tensor:
@@ -61,15 +80,18 @@ class GPData:
     row_mask: Tensor  # [N] bool, True = real data
     cont_dim_mask: Tensor  # [Dc] bool
     cat_dim_mask: Tensor  # [Ds] bool
+    # A flush's data has a leading study axis on every field ([S, N, Dc], ...).
 
     @classmethod
     def from_model_data(
         cls, data: types.ModelData, device: torch.device, metric_index: int = 0
     ) -> "GPData":
+        """From host model data, or from S studies' stacked model data
+        (``batch_executor.stack_pytrees``), which gives a study axis."""
         data = data.to(device)
         cont = data.features.continuous
         cat = data.features.categorical
-        labels = data.labels.padded_array[:, metric_index]
+        labels = data.labels.padded_array[..., metric_index]
         row_mask = cont.valid_mask(0) & data.labels.valid_mask(0) & ~torch.isnan(labels)
         return cls(
             continuous=cont.padded_array.to(torch.float32),
@@ -84,7 +106,12 @@ class GPData:
 
     @property
     def num_rows(self) -> int:
-        return self.continuous.shape[0]
+        return self.continuous.shape[-2]
+
+    @property
+    def num_studies(self) -> int:
+        """S of a flush's stacked data; 1 for one study's data."""
+        return self.continuous.shape[0] if self.continuous.dim() == 3 else 1
 
     @property
     def device(self) -> torch.device:
@@ -165,6 +192,21 @@ class VizierGaussianProcess:
         ones = lambda n: torch.ones((batch, n), device=data.device)  # noqa: E731
         cont_ls = p.get("continuous_length_scales", ones(self.num_continuous))
         cat_ls = p.get("categorical_length_scales", ones(self.num_categorical))
+        dim_masks = (data.cont_dim_mask, data.cat_dim_mask)
+        if self.use_input_warping and self.num_continuous and data.num_studies > 1:
+            # Warped features are per member: give every input one block per
+            # member, so the groups stay consistent.
+            s = data.num_studies
+
+            def member(t: Tensor, base_dim: int) -> Tensor:
+                return kernels.per_member(t, s, batch, base_dim)
+
+            same = f2 is f1
+            f1 = kernels.MixedFeatures(member(f1.continuous, 2), member(f1.categorical, 2))
+            f2 = f1 if same else kernels.MixedFeatures(
+                member(f2.continuous, 2), member(f2.categorical, 2))
+            masks = {k: (v if k == "diag" else member(v, 1)) for k, v in masks.items()}
+            dim_masks = tuple(member(m, 1) for m in dim_masks)
         w1 = self._warp_features(p, f1)
         # The Gram passes one feature set twice: keep it one tensor, so the
         # kernels see the symmetric case.
@@ -175,8 +217,8 @@ class VizierGaussianProcess:
             amplitude=p["amplitude"],
             continuous_length_scales=cont_ls,
             categorical_length_scales=cat_ls,
-            continuous_dim_mask=data.cont_dim_mask,
-            categorical_dim_mask=data.cat_dim_mask,
+            continuous_dim_mask=dim_masks[0],
+            categorical_dim_mask=dim_masks[1],
             **masks,
         )
 
@@ -201,15 +243,14 @@ class VizierGaussianProcess:
         p = coll.constrain(unconstrained)
         gram = self._masked_gram(p, data)
         chol, info = torch.linalg.cholesky_ex(gram)
-        y = data.labels
-        alpha = torch.cholesky_solve(
-            y.expand(gram.shape[0], -1)[..., None], chol
-        )[..., 0]
-        n_valid = torch.sum(data.row_mask.to(torch.float32))
+        y = rows_per_member(data.labels, gram.shape[0])
+        mask = rows_per_member(data.row_mask, gram.shape[0])
+        alpha = torch.cholesky_solve(y[..., None], chol)[..., 0]
+        n_valid = torch.sum(mask.to(torch.float32), dim=-1)
         # Padded rows: y = 0 and unit diag ⇒ zero contribution to each term.
         data_fit = 0.5 * torch.sum(y * alpha, dim=-1)
         log_diag = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1))
-        log_det = torch.sum(torch.where(data.row_mask, log_diag, torch.zeros_like(log_diag)), -1)
+        log_det = torch.sum(torch.where(mask, log_diag, torch.zeros_like(log_diag)), -1)
         loss = data_fit + log_det + 0.5 * n_valid * _LOG_2PI + coll.regularization(p)
         # Guard non-finite losses and failed factorizations (the reference's
         # Cholesky returns NaN where torch reports info > 0).
@@ -226,7 +267,8 @@ class VizierGaussianProcess:
         device_lib.check(data.continuous, self.device, "GP data")
         gram = self._masked_gram(p, data)
         chol = posterior_cholesky(gram)
-        alpha = torch.cholesky_solve(data.labels.expand(gram.shape[0], -1)[..., None], chol)[..., 0]
+        y = rows_per_member(data.labels, gram.shape[0])
+        alpha = torch.cholesky_solve(y[..., None], chol)[..., 0]
         eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
         linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
         return GPState(model=self, params=p, data=data, chol=chol, alpha=alpha, linv=linv)
@@ -250,7 +292,7 @@ class GPState:
         model, p, data = self.model, self.params, self.data
         # [B, Q, N], zero on padded data rows.
         k_star = model._kernel(p, query, data.features(), data, row_mask2=data.row_mask)
-        mean = (k_star @ self.alpha[..., None])[..., 0]
+        mean = matvec(k_star, self.alpha)
         v = self.linv @ k_star.transpose(-1, -2)  # [B, N, Q]
         var = (p["amplitude"] * p["amplitude"])[:, None] - torch.sum(v * v, dim=-2)
         if include_noise:
@@ -260,13 +302,24 @@ class GPState:
 
 @dataclasses.dataclass(frozen=True)
 class EnsemblePredictive:
-    """Uniform, moment-matched Gaussian mixture over a GPState's batch axis."""
+    """Uniform, moment-matched Gaussian mixture over a GPState's batch axis.
+
+    With ``studies`` S the batch is S studies' ensembles (S groups of
+    ``B / S`` members): the mixture is taken per study and the predictions
+    are [S, Q].
+    """
 
     states: GPState
+    studies: Optional[int] = None
 
     def predict(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
         means, stddevs = self.states.predict(query)
-        mean = torch.mean(means, dim=0)
-        second = torch.mean(stddevs**2 + means**2, dim=0)
+        axis = 0
+        if self.studies is not None:
+            means = means.reshape(self.studies, -1, means.shape[-1])
+            stddevs = stddevs.reshape(self.studies, -1, stddevs.shape[-1])
+            axis = 1
+        mean = torch.mean(means, dim=axis)
+        second = torch.mean(stddevs**2 + means**2, dim=axis)
         var = torch.clamp(second - mean**2, min=1e-12)
         return mean, torch.sqrt(var)

@@ -2,8 +2,12 @@
 
 Counterpart of the JAX package's ``models/kernels.py``. Parameters carry a leading
 batch axis ``B`` (restarts or ensemble members, the JAX package's ``vmap``
-axis); features are shared across the batch (``[N, D]``) or batched
-(``[B, N, D]``, input warping). The result is ``[B, N, M]``.
+axis, times the studies of a cross-study flush). Each input (continuous
+features, categorical codes, row masks) is shared across the batch
+(``[N, D]``, ``[N]``) or has one block per group of ``B / S`` consecutive
+members (``[S, N, D]``, ``[S, N]``): a study's restarts read their study's
+rows without copies. ``S`` is ``B`` for input warping's per-member
+features. The result is ``[B, N, M]``.
 
 ``matern52_ard`` dispatches on the device of its features: a CUDA tensor goes
 to the hand-written kernels in ``csrc/matern52.cu`` (K1 forward, K2
@@ -63,6 +67,27 @@ def _batched(x: Tensor, batch: int) -> Tensor:
     return x if x.dim() == 3 else x.unsqueeze(0).expand(batch, *x.shape)
 
 
+def group_count(batch: int, *inputs: Optional[Tensor], base_dims: Tuple[int, ...]) -> int:
+    """The number S of groups the batched ``inputs`` hold (1 when all are
+    shared). ``base_dims[i]`` is input i's rank when shared; a batched input
+    has one more leading axis, of length S, and S must divide ``batch``."""
+    groups = {t.shape[0] for t, d in zip(inputs, base_dims) if t is not None and t.dim() > d}
+    if len(groups) > 1:
+        raise ValueError(f"Batched inputs disagree on their group count: {sorted(groups)}.")
+    s = groups.pop() if groups else 1
+    if s < 1 or batch % s:
+        raise ValueError(f"{s} groups do not divide a batch of {batch}.")
+    return s
+
+
+def per_member(t: Optional[Tensor], groups: int, batch: int, base_dim: int) -> Optional[Tensor]:
+    """A grouped input [S, ...] repeated to one block per member [B, ...];
+    a shared (or absent) input as it is."""
+    if t is None or t.dim() == base_dim or groups == batch:
+        return t
+    return torch.repeat_interleave(t, batch // groups, dim=0)
+
+
 def scaled_sq_distance_continuous(x1: Tensor, x2: Tensor, inv: Tensor) -> Tensor:
     """[(B,) N, D], [(B,) M, D], inverse length scales [B, D] -> [B, N, M].
 
@@ -81,32 +106,41 @@ def scaled_sq_distance_continuous(x1: Tensor, x2: Tensor, inv: Tensor) -> Tensor
     return torch.clamp(a2 + b2 - 2.0 * cross, min=0.0)
 
 
+def _mismatch(z1: Tensor, z2: Tensor) -> Tensor:
+    """[(B,) N, M, S] float mismatches of [(B,) N, S] and [(B,) M, S] codes."""
+    return (z1[..., :, None, :] != z2[..., None, :, :]).to(torch.float32)
+
+
 def categorical_sq_distance(z1: Tensor, z2: Tensor, inv_sq: Tensor) -> Tensor:
-    """[N, S] int, [M, S] int, squared inverse scales [B, S] -> [B, N, M]."""
+    """[(B,) N, S] int, [(B,) M, S] int, squared inverse scales [B, S] -> [B, N, M]."""
     if z1.shape[-1] == 0:
         return torch.zeros(
-            (inv_sq.shape[0], z1.shape[0], z2.shape[0]), dtype=torch.float32, device=z1.device
+            (inv_sq.shape[0], z1.shape[-2], z2.shape[-2]), dtype=torch.float32, device=z1.device
         )
-    mismatch = (z1[:, None, :] != z2[None, :, :]).to(torch.float32)  # [N, M, S]
-    return torch.einsum("nms,bs->bnm", mismatch, inv_sq)
+    if z1.dim() == 2 and z2.dim() == 2:
+        return torch.einsum("nms,bs->bnm", _mismatch(z1, z2), inv_sq)
+    batch = inv_sq.shape[0]
+    mismatch = _mismatch(_batched(z1, batch), _batched(z2, batch))  # [B, N, M, S]
+    return torch.einsum("bnms,bs->bnm", mismatch, inv_sq)
 
 
 class MixedFeatures(NamedTuple):
     """Plain-tensor view of model inputs (already scaled/indexed)."""
 
-    continuous: Tensor  # [N, Dc] (or [B, N, Dc]) float32
-    categorical: Tensor  # [N, Ds] int32
+    continuous: Tensor  # [N, Dc] (or [S, N, Dc]) float32
+    categorical: Tensor  # [N, Ds] (or [S, N, Ds]) int32
 
 
 def pair_mask(mask1: Optional[Tensor], mask2: Optional[Tensor]) -> Optional[Tensor]:
-    """[N, M] (or [1, M] / [N, 1]) validity of each pair, None when unmasked."""
+    """[(B,) N, M] (or [(B,) 1, M] / [(B,) N, 1]) validity of each pair, None
+    when unmasked; masks are [N] / [M] or per member [B, N] / [B, M]."""
     if mask1 is None and mask2 is None:
         return None
     if mask1 is None:
-        return mask2[None, :]
+        return mask2[..., None, :]
     if mask2 is None:
-        return mask1[:, None]
-    return mask1[:, None] & mask2[None, :]
+        return mask1[..., :, None]
+    return mask1[..., :, None] & mask2[..., None, :]
 
 
 def apply_masks(
@@ -121,16 +155,18 @@ def apply_masks(
     if diag is not None:
         d = diag[:, None].expand(-1, k.shape[-1])
         if mask1 is not None:
-            d = torch.where(mask1[None, :], d, torch.ones_like(d))
+            d = torch.where(mask1, d, torch.ones_like(d))
         k = k + torch.diag_embed(d)
     return k
 
 
 def gram_diag_grad(grad: Tensor, mask: Optional[Tensor]) -> Tensor:
-    """[B] gradient of the diagonal value: grad's valid diagonal, summed."""
+    """[B] gradient of the diagonal value: grad's valid diagonal, summed
+    (``mask`` [N], or [S, N] for S groups of members)."""
     d = torch.diagonal(grad, dim1=-2, dim2=-1)
     if mask is not None:
-        d = torch.where(mask[None, :], d, torch.zeros_like(d))
+        mask = per_member(mask, mask.shape[0] if mask.dim() == 2 else 1, d.shape[0], 1)
+        d = torch.where(mask, d, torch.zeros_like(d))
     return torch.sum(d, dim=-1)
 
 
@@ -140,7 +176,15 @@ def matern52_ard_fwd_plain(
     mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
     diag: Optional[Tensor] = None,
 ) -> Tensor:
-    """Plain PyTorch version of K1: the (masked) kernel matrix [B, N, M]."""
+    """Plain PyTorch version of K1: the (masked) kernel matrix [B, N, M].
+
+    Grouped inputs are repeated to one block per member first, so each
+    member computes exactly what an ungrouped call on its own rows would.
+    """
+    batch = amplitude.shape[0]
+    s = group_count(batch, x1, z1, x2, z2, mask1, mask2, base_dims=(2, 2, 2, 2, 1, 1))
+    x1, z1, x2, z2 = (per_member(t, s, batch, 2) for t in (x1, z1, x2, z2))
+    mask1, mask2 = (per_member(t, s, batch, 1) for t in (mask1, mask2))
     sq = scaled_sq_distance_continuous(x1, x2, inv_cont)
     sq = sq + categorical_sq_distance(z1, z2, inv_sq_cat)
     k = (amplitude * amplitude)[:, None, None] * matern52(sq)
@@ -158,45 +202,65 @@ def matern52_ard_bwd_plain(
     inv_sq_cat [B, Ds], x1, x2) given ``grad`` [B, N, M], using
     dk/d(r²) = −(5/6)·amp²·(1 + √5 r)·exp(−√5 r) on exact differences.
     Pairs outside the row masks contribute nothing; the diagonal value's
-    gradient is ``gram_diag_grad``.
+    gradient is ``gram_diag_grad``. Grouped inputs (``[S, ...]``) are
+    repeated to one block per member; a grouped side's feature gradient is
+    then summed over its group's members.
     """
+    batch = amplitude.shape[0]
+    s = group_count(batch, x1, z1, x2, z2, mask1, mask2, base_dims=(2, 2, 2, 2, 1, 1))
+    grouped = (x1.dim() == 3, x2.dim() == 3)
+    x1, z1, x2, z2 = (per_member(t, s, batch, 2) for t in (x1, z1, x2, z2))
+    mask1, mask2 = (per_member(t, s, batch, 1) for t in (mask1, mask2))
     pair = pair_mask(mask1, mask2)
     if pair is not None:
         grad = torch.where(pair, grad, torch.zeros_like(grad))
-    batch = amplitude.shape[0]
     diff = _batched(x1, batch)[:, :, None, :] - _batched(x2, batch)[:, None, :, :]
     scaled = diff * inv_cont[:, None, None, :]
     sq = torch.sum(scaled * scaled, dim=-1)
-    mismatch = (z1[:, None, :] != z2[None, :, :]).to(torch.float32)  # [N, M, S]
-    sq = sq + torch.einsum("nms,bs->bnm", mismatch, inv_sq_cat)
+    mismatch = _mismatch(_batched(z1, batch), _batched(z2, batch))  # [B, N, M, S]
+    sq = sq + torch.einsum("bnms,bs->bnm", mismatch, inv_sq_cat)
     r = torch.sqrt(torch.clamp(sq, min=1e-20))
     ex = torch.exp(-_SQRT5 * r)
     amp = amplitude[:, None, None]
     g_amp = torch.sum(grad * 2.0 * amp * (1.0 + _SQRT5 * r + (5.0 / 3.0) * sq) * ex, dim=(1, 2))
     w = grad * amp * amp * (-5.0 / 6.0) * (1.0 + _SQRT5 * r) * ex  # dL/d(r²)
     g_inv = 2.0 * inv_cont * torch.einsum("bnm,bnmd->bd", w, diff * diff)
-    g_inv_sq = torch.einsum("bnm,nms->bs", w, mismatch)
+    g_inv_sq = torch.einsum("bnm,bnms->bs", w, mismatch)
     gx = 2.0 * w[..., None] * diff * (inv_cont * inv_cont)[:, None, None, :]
     gx1 = gx.sum(dim=2)
     gx2 = -gx.sum(dim=1)
-    if x1.dim() == 2:
-        gx1 = gx1.sum(dim=0)
-    if x2.dim() == 2:
-        gx2 = gx2.sum(dim=0)
-    return g_amp, g_inv, g_inv_sq, gx1, gx2
+
+    def fold(g: Tensor, was_grouped: bool) -> Tensor:
+        if not was_grouped:
+            return g.sum(dim=0)
+        return g.reshape(s, batch // s, *g.shape[1:]).sum(dim=1)
+
+    return g_amp, g_inv, g_inv_sq, fold(gx1, grouped[0]), fold(gx2, grouped[1])
 
 
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+class _Launch(NamedTuple):
+    """A validated launch: sizes, group strides and mode."""
+
+    batch: int
+    n: int
+    m: int
+    dc: int
+    ds: int
+    strides: Tuple[int, int, int, int, int, int]  # x1, x2, z1, z2, mask1, mask2
+    group: int
+    symmetric: int
+
+
 def _check_cuda(
     x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
     mask1: Optional[Tensor], mask2: Optional[Tensor], diag: Optional[Tensor],
-) -> Tuple[int, int, int, int, int, int, int, int]:
-    """Validates the kernels' inputs; returns
-    (B, N, M, Dc, Ds, stride1, stride2, symmetric)."""
+) -> _Launch:
+    """Validates the kernels' inputs and works out their group strides."""
     device = x1.device
     for name, t, dtype in (
         ("x1", x1, torch.float32), ("z1", z1, torch.int32),
@@ -220,26 +284,32 @@ def _check_cuda(
         raise ValueError("amplitude/inv_sq_cat must share inv_cont's batch size.")
     if x1.shape[-1] != dc or x2.shape[-1] != dc:
         raise ValueError(f"Continuous widths {x1.shape}, {x2.shape} != {dc}.")
-    if z1.shape != (n, ds) or z2.shape != (m, ds):
+    if z1.shape[-2:] != (n, ds) or z2.shape[-2:] != (m, ds):
         raise ValueError(f"Categorical shapes {z1.shape}, {z2.shape} != ({n}|{m}, {ds}).")
-    for x in (x1, x2):
-        if x.dim() == 3 and x.shape[0] != batch:
-            raise ValueError(f"Batched features {x.shape} must have batch {batch}.")
-    if (mask1 is not None and mask1.shape != (n,)) or (mask2 is not None and mask2.shape != (m,)):
-        raise ValueError(f"Row masks must be [{n}] and [{m}].")
+    if batch < 1:
+        raise ValueError(f"Unsupported launch shape B={batch}, N={n}, M={m}.")
+    groups = group_count(batch, x1, z1, x2, z2, mask1, mask2, base_dims=(2, 2, 2, 2, 1, 1))
+    for t, rows in ((mask1, n), (mask2, m)):
+        if t is not None and t.shape[-1] != rows:
+            raise ValueError(f"Row masks must be [{n}] and [{m}] (or per group).")
     if diag is not None and (diag.shape != (batch,) or n != m):
         raise ValueError(f"diag must be [{batch}] on a square kernel matrix, got N={n}, M={m}.")
-    if batch < 1 or batch > 65535 or n * m > 2**31 - 1:
+    if batch > 65535 or n * m > 2**31 - 1:
         raise ValueError(f"Unsupported launch shape B={batch}, N={n}, M={m}.")
-    stride1 = n * dc if x1.dim() == 3 else 0
-    stride2 = m * dc if x2.dim() == 3 else 0
+
+    def stride(t: Optional[Tensor], base_dim: int) -> int:
+        return t[0].numel() if t is not None and t.dim() > base_dim else 0
+
+    strides = (stride(x1, 2), stride(x2, 2), stride(z1, 2), stride(z2, 2),
+               stride(mask1, 1), stride(mask2, 1))
     # The Gram: both sides are the same storage, batching and mask.
     symmetric = (
         x1.data_ptr() == x2.data_ptr() and x1.shape == x2.shape
         and z1.data_ptr() == z2.data_ptr() and z1.shape == z2.shape
         and _ptr(mask1) == _ptr(mask2)
+        and (mask1 is None or mask1.shape == mask2.shape)
     )
-    return batch, n, m, dc, ds, stride1, stride2, int(symmetric)
+    return _Launch(batch, n, m, dc, ds, strides, batch // groups, int(symmetric))
 
 
 def matern52_ard_fwd_cuda(
@@ -249,22 +319,21 @@ def matern52_ard_fwd_cuda(
     diag: Optional[Tensor] = None,
 ) -> Tensor:
     """K1: launches the forward kernel; returns [B, N, M]."""
-    batch, n, m, dc, ds, s1, s2, sym = _check_cuda(
-        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, diag)
-    out = torch.empty((batch, n, m), dtype=torch.float32, device=x1.device)
-    if n == 0 or m == 0:
+    c = _check_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, diag)
+    out = torch.empty((c.batch, c.n, c.m), dtype=torch.float32, device=x1.device)
+    if c.n == 0 or c.m == 0:
         return out
     lib = native.library()
     # The runtime launches on its current device: make it the tensors' one.
     with torch.cuda.device(x1.device):
         status = lib.matern52_ard_fwd(
             _ptr(x1), _ptr(z1), _ptr(x2), _ptr(z2), _ptr(amplitude), _ptr(inv_cont),
-            _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), _ptr(diag), s1, s2,
-            batch, n, m, dc, ds, sym, _ptr(out),
+            _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), _ptr(diag), *c.strides, c.group,
+            c.batch, c.n, c.m, c.dc, c.ds, c.symmetric, _ptr(out),
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
         native.check(status, "matern52_ard_fwd")
-    _count_launch("matern52_ard_fwd", sym, mask1 is not None or mask2 is not None)
+    _count_launch("matern52_ard_fwd", c.symmetric, mask1 is not None or mask2 is not None)
     return out
 
 
@@ -279,8 +348,8 @@ def matern52_ard_bwd_cuda(
     Returns the gradients with respect to (amplitude, inv_cont, inv_sq_cat,
     x1, x2); the feature gradients are None unless asked for.
     """
-    batch, n, m, dc, ds, s1, s2, sym = _check_cuda(
-        x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, None)
+    c = _check_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, None)
+    batch, n, m, dc, ds = c.batch, c.n, c.m, c.dc, c.ds
     grad = grad.contiguous()
     if grad.shape != (batch, n, m) or grad.dtype != torch.float32 or grad.device != x1.device:
         raise ValueError(f"grad must be float32 [{batch}, {n}, {m}] on {x1.device}.")
@@ -289,7 +358,7 @@ def matern52_ard_bwd_cuda(
     p = 1 + dc + ds
     need_w = (need_x1 or need_x2) and dc > 0
     # The feature gradients need dL/d(r²) of every ordered pair.
-    upper_tiles = int(sym and not need_w)
+    upper_tiles = int(c.symmetric and not need_w)
     blocks = lib.matern52_bwd_num_blocks(batch, n, m, upper_tiles)
     grads = torch.empty((batch, p), dtype=torch.float32, device=device)
     partials = torch.empty((batch, max(blocks, 1), p), dtype=torch.float32, device=device)
@@ -303,13 +372,13 @@ def matern52_ard_bwd_cuda(
     with torch.cuda.device(device):
         status = lib.matern52_ard_bwd(
             _ptr(grad), _ptr(x1), _ptr(z1), _ptr(x2), _ptr(z2), _ptr(amplitude),
-            _ptr(inv_cont), _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), s1, s2,
+            _ptr(inv_cont), _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), *c.strides, c.group,
             batch, n, m, dc, ds, upper_tiles,
             _ptr(grads), _ptr(partials), _ptr(w), _ptr(gx1), _ptr(gx2),
             torch.cuda.current_stream(device).cuda_stream,
         )
         native.check(status, "matern52_ard_bwd")
-    _count_launch("matern52_ard_bwd", sym, mask1 is not None or mask2 is not None)
+    _count_launch("matern52_ard_bwd", c.symmetric, mask1 is not None or mask2 is not None)
     return grads[:, 0], grads[:, 1 : 1 + dc], grads[:, 1 + dc :], gx1, gx2
 
 
@@ -352,15 +421,24 @@ def matern52_ard(
     ``categorical_length_scales`` [B, Ds]; masked dims drop out of the
     distance. ``row_mask1`` [N] / ``row_mask2`` [M] zero the pairs with a
     padded row; ``diag`` [B] (square matrix, ``row_mask1`` the row mask) is
-    added on the valid diagonal, and the padded diagonal is 1. CUDA features
-    go to K1/K2, CPU features to the plain version.
+    added on the valid diagonal, and the padded diagonal is 1. Features,
+    codes, row masks and dim masks may each carry a leading group axis S
+    (S divides B: member b belongs to group b // (B / S)). CUDA features go
+    to K1/K2, CPU features to the plain version.
     """
+    batch = amplitude.shape[0]
+
+    def member_dim_mask(mask: Optional[Tensor]) -> Optional[Tensor]:
+        return per_member(mask, mask.shape[0], batch, 1) if mask is not None else None
+
     inv = 1.0 / continuous_length_scales
     if continuous_dim_mask is not None:
-        inv = torch.where(continuous_dim_mask, inv, torch.zeros_like(inv))
+        mask = member_dim_mask(continuous_dim_mask)
+        inv = torch.where(mask, inv, torch.zeros_like(inv))
     inv_sq = 1.0 / (categorical_length_scales * categorical_length_scales)
     if categorical_dim_mask is not None:
-        inv_sq = torch.where(categorical_dim_mask, inv_sq, torch.zeros_like(inv_sq))
+        mask = member_dim_mask(categorical_dim_mask)
+        inv_sq = torch.where(mask, inv_sq, torch.zeros_like(inv_sq))
     args = (
         f1.continuous, f1.categorical, f2.continuous, f2.categorical,
         amplitude, inv, inv_sq, row_mask1, row_mask2, diag,

@@ -1,0 +1,457 @@
+"""Lightweight tracer: spans, contextvar nesting, cross-process propagation.
+
+A copy of the JAX package's ``observability/tracing.py``, so that the port imports nothing
+of the JAX package.
+
+One trace follows a SuggestTrials request across all four hops — client RPC
+→ Vizier service → Pythia dispatch (worker thread) → designer compute. The
+active span lives in a ``contextvars.ContextVar`` so nesting is automatic
+within a thread; across threads and processes the ``trace_id``/``span_id``
+pair travels as a compact ``"<trace_id>-<span_id>"`` string in request
+protos (``trace_context`` fields, see ``tools/regen_protos.py``) and is
+re-attached with :meth:`Tracer.use_context`.
+
+Timing is monotonic (``time.perf_counter`` for durations; ``time.time``
+only stamps the start for human-readable export). Finished spans land in a
+bounded ring buffer (no leak under sustained traffic) and can be dumped as
+JSON lines — no third-party deps anywhere.
+
+With observability off, :func:`get_tracer` returns the singleton
+:data:`NOOP_TRACER` whose ``span()`` hands back a reusable no-op context
+manager: no allocation, no contextvar write, ≈ zero overhead.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextvars
+import json
+import os
+import random
+import threading
+import time
+from typing import Any, Dict, List, Optional, Union
+
+from vizier_tpu_torch.observability import config as config_lib
+
+# The active span (or a remote SpanContext attached via use_context).
+_SPAN_VAR: contextvars.ContextVar = contextvars.ContextVar(
+    "vizier_tpu_torch_active_span", default=None
+)
+
+
+class SpanContext:
+    """The propagatable identity of a span: (trace_id, span_id)."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, trace_id: str, span_id: str):
+        self.trace_id = trace_id
+        self.span_id = span_id
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, SpanContext)
+            and self.trace_id == other.trace_id
+            and self.span_id == other.span_id
+        )
+
+    def __repr__(self) -> str:
+        return f"SpanContext({self.trace_id!r}, {self.span_id!r})"
+
+
+def format_context(ctx: Optional[SpanContext]) -> str:
+    """Wire form for request metadata; '' when there is nothing to carry."""
+    if ctx is None:
+        return ""
+    return f"{ctx.trace_id}-{ctx.span_id}"
+
+
+def parse_context(wire: str) -> Optional[SpanContext]:
+    """Inverse of :func:`format_context`; malformed input degrades to None
+    (a bad header must never fail the request it rides on)."""
+    if not wire or "-" not in wire:
+        return None
+    trace_id, _, span_id = wire.rpartition("-")
+    if not trace_id or not span_id:
+        return None
+    return SpanContext(trace_id, span_id)
+
+
+# Span/trace ids only need collision-resistance, not UUID semantics; a
+# process-seeded Mersenne generator is ~10x cheaper than uuid4 per id, and
+# id minting sits on every traced hop of the suggest hot path (measured 6
+# ids per served trial). getrandbits is one atomic C call — thread-safe
+# under the GIL.
+_ID_RNG = random.Random(os.urandom(16))
+
+
+def _new_trace_id() -> str:
+    return f"{_ID_RNG.getrandbits(128):032x}"
+
+
+def _new_span_id() -> str:
+    return f"{_ID_RNG.getrandbits(64):016x}"
+
+
+class Span:
+    """One timed operation; mutable until :meth:`end`."""
+
+    __slots__ = (
+        "name",
+        "trace_id",
+        "span_id",
+        "parent_id",
+        "attributes",
+        "events",
+        "links",
+        "status",
+        "start_time",
+        "duration_secs",
+        "_t0",
+    )
+
+    def __init__(
+        self,
+        name: str,
+        trace_id: str,
+        span_id: str,
+        parent_id: Optional[str],
+        attributes: Optional[Dict[str, Any]] = None,
+    ):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.attributes: Dict[str, Any] = dict(attributes or {})
+        self.events: List[Dict[str, Any]] = []
+        self.links: List[Dict[str, str]] = []
+        self.status = "ok"
+        self.start_time = time.time()
+        self.duration_secs: Optional[float] = None
+        self._t0 = time.perf_counter()
+
+    def context(self) -> SpanContext:
+        return SpanContext(self.trace_id, self.span_id)
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        self.attributes[key] = value
+
+    def add_event(self, name: str, **attributes: Any) -> None:
+        self.events.append(
+            {
+                "name": name,
+                "offset_secs": time.perf_counter() - self._t0,
+                **({"attributes": attributes} if attributes else {}),
+            }
+        )
+
+    def add_link(self, ctx: Optional[SpanContext], name: str = "") -> None:
+        """Associates another span (e.g. a coalesced leader's computation)
+        without making it a parent."""
+        if ctx is None:
+            return
+        link = {"trace_id": ctx.trace_id, "span_id": ctx.span_id}
+        if name:
+            link["name"] = name
+        self.links.append(link)
+
+    def record_exception(self, error: BaseException) -> None:
+        self.status = "error"
+        self.attributes.setdefault("error.type", type(error).__name__)
+        self.attributes.setdefault("error.message", str(error)[:500])
+
+    def end(self) -> None:
+        if self.duration_secs is None:
+            self.duration_secs = time.perf_counter() - self._t0
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start_time": self.start_time,
+            "duration_secs": self.duration_secs,
+            "status": self.status,
+        }
+        if self.attributes:
+            out["attributes"] = self.attributes
+        if self.events:
+            out["events"] = self.events
+        if self.links:
+            out["links"] = self.links
+        return out
+
+
+class _NoopSpan:
+    """Absorbs the whole Span API; one shared instance, zero state."""
+
+    __slots__ = ()
+
+    def context(self):
+        return None
+
+    def set_attribute(self, key, value):
+        pass
+
+    def add_event(self, name, **attributes):
+        pass
+
+    def add_link(self, ctx, name=""):
+        pass
+
+    def record_exception(self, error):
+        pass
+
+    def end(self):
+        pass
+
+    def to_dict(self):
+        return {}
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class _NoopSpanCM:
+    """Reusable no-op context manager — ``span()`` off the hot path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return NOOP_SPAN
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP_CM = _NoopSpanCM()
+
+
+class _SpanCM:
+    """Context manager for one active span (cheaper than a generator CM)."""
+
+    __slots__ = ("_tracer", "_span", "_token")
+
+    def __init__(self, tracer: "Tracer", span: Span):
+        self._tracer = tracer
+        self._span = span
+        self._token = None
+
+    def __enter__(self) -> Span:
+        self._token = _SPAN_VAR.set(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._token is not None:
+            _SPAN_VAR.reset(self._token)
+        if exc is not None:
+            self._span.record_exception(exc)
+        self._span.end()
+        self._tracer._export(self._span)
+        return False
+
+
+class _ContextCM:
+    """Attaches a remote SpanContext as the ambient parent for a block."""
+
+    __slots__ = ("_ctx", "_token")
+
+    def __init__(self, ctx: Optional[SpanContext]):
+        self._ctx = ctx
+        self._token = None
+
+    def __enter__(self):
+        if self._ctx is not None:
+            self._token = _SPAN_VAR.set(self._ctx)
+        return self._ctx
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            _SPAN_VAR.reset(self._token)
+        return False
+
+
+Parent = Union[Span, SpanContext, None]
+
+
+class Tracer:
+    """Creates spans, tracks the active one, rings finished ones."""
+
+    enabled = True
+
+    def __init__(
+        self,
+        max_spans: int = 4096,
+        export_path: Optional[str] = None,
+    ):
+        self._lock = threading.Lock()
+        self._finished: "collections.deque[Span]" = collections.deque(
+            maxlen=max(1, max_spans)
+        )
+        self._export_path = export_path or None
+        self._export_file = None
+
+    # -- span lifecycle ----------------------------------------------------
+
+    def span(self, name: str, parent: Parent = None, **attributes: Any) -> _SpanCM:
+        """Context manager: opens a child of ``parent`` (default: the
+        ambient span/context), makes it current, exports it on exit."""
+        if parent is None:
+            parent = _SPAN_VAR.get()
+        if isinstance(parent, Span):
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        elif isinstance(parent, SpanContext):
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        else:
+            trace_id, parent_id = _new_trace_id(), None
+        span = Span(name, trace_id, _new_span_id(), parent_id, attributes)
+        return _SpanCM(self, span)
+
+    def use_context(self, ctx: Optional[SpanContext]) -> _ContextCM:
+        """Re-attaches a propagated context (thread hop / wire hop)."""
+        return _ContextCM(ctx)
+
+    def current_span(self) -> Optional[Span]:
+        cur = _SPAN_VAR.get()
+        return cur if isinstance(cur, Span) else None
+
+    def current_context(self) -> Optional[SpanContext]:
+        cur = _SPAN_VAR.get()
+        if isinstance(cur, Span):
+            return cur.context()
+        if isinstance(cur, SpanContext):
+            return cur
+        return None
+
+    # -- export ------------------------------------------------------------
+
+    def _export(self, span: Span) -> None:
+        with self._lock:
+            self._finished.append(span)
+            if self._export_path is not None:
+                try:
+                    if self._export_file is None:
+                        self._export_file = open(self._export_path, "a")
+                    self._export_file.write(json.dumps(span.to_dict()) + "\n")
+                    self._export_file.flush()
+                except OSError:
+                    self._export_path = None  # sink gone; keep serving
+
+    def finished_spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._finished)
+
+    def drain(self) -> List[Span]:
+        """Pops and returns every finished span (oldest first)."""
+        with self._lock:
+            out = list(self._finished)
+            self._finished.clear()
+        return out
+
+    def spans_for_trace(self, trace_id: str) -> List[Span]:
+        """One trace's finished spans, ordered by start time."""
+        return sorted(
+            (s for s in self.finished_spans() if s.trace_id == trace_id),
+            key=lambda s: s.start_time,
+        )
+
+    def dump_jsonl(self, path: str) -> int:
+        """Writes the ring buffer to ``path`` as JSON lines; returns count."""
+        spans = self.finished_spans()
+        with open(path, "w") as f:
+            for span in spans:
+                f.write(json.dumps(span.to_dict()) + "\n")
+        return len(spans)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._export_file is not None:
+                try:
+                    self._export_file.close()
+                finally:
+                    self._export_file = None
+
+
+class NoopTracer:
+    """The off switch: same API, no state, no allocation per span."""
+
+    enabled = False
+
+    def span(self, name: str, parent: Parent = None, **attributes: Any):
+        return _NOOP_CM
+
+    def use_context(self, ctx):
+        return _NOOP_CM
+
+    def current_span(self):
+        return None
+
+    def current_context(self):
+        return None
+
+    def finished_spans(self):
+        return []
+
+    def drain(self):
+        return []
+
+    def spans_for_trace(self, trace_id: str):
+        return []
+
+    def dump_jsonl(self, path: str) -> int:
+        return 0
+
+    def close(self) -> None:
+        pass
+
+
+NOOP_TRACER = NoopTracer()
+
+_global_tracer: Optional[Union[Tracer, NoopTracer]] = None
+_global_lock = threading.Lock()
+
+
+def _tracer_from_config(
+    config: config_lib.ObservabilityConfig,
+) -> Union[Tracer, NoopTracer]:
+    if not config.tracing_on:
+        return NOOP_TRACER
+    return Tracer(
+        max_spans=config.span_buffer_size,
+        export_path=config.span_log_path or None,
+    )
+
+
+def get_tracer() -> Union[Tracer, NoopTracer]:
+    """The process-global tracer, built from the env config on first use."""
+    global _global_tracer
+    tracer = _global_tracer
+    if tracer is None:
+        with _global_lock:
+            if _global_tracer is None:
+                _global_tracer = _tracer_from_config(
+                    config_lib.ObservabilityConfig.from_env()
+                )
+            tracer = _global_tracer
+    return tracer
+
+
+def set_tracer(
+    tracer: Optional[Union[Tracer, NoopTracer]],
+) -> Optional[Union[Tracer, NoopTracer]]:
+    """Swaps the global tracer (tests/tools); None re-derives from env on
+    next use. Returns the previous tracer."""
+    global _global_tracer
+    with _global_lock:
+        old, _global_tracer = _global_tracer, tracer
+    return old
+
+
+def add_current_event(name: str, **attributes: Any) -> None:
+    """Adds an event to the active span, if any (deep-callee convenience —
+    e.g. breaker transitions firing inside a designer computation)."""
+    span = get_tracer().current_span()
+    if span is not None:
+        span.add_event(name, **attributes)

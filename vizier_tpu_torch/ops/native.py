@@ -91,13 +91,15 @@ def library() -> ctypes.CDLL:
     # tile kind (0 big, 1 tiny; -1 chosen by shape).
     lib.matern52_force_tile.argtypes = [_I]
     lib.matern52_force_tile.restype = _I
-    # x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, diag; strides; B, N,
-    # M, Dc, Ds, symmetric; out, stream.
-    lib.matern52_ard_fwd.argtypes = [_P] * 10 + [_L, _L] + [_I] * 6 + [_P, _P]
+    # x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, diag; group strides of
+    # x1, x2, z1, z2, mask1, mask2; group, B, N, M, Dc, Ds, symmetric; out,
+    # stream.
+    lib.matern52_ard_fwd.argtypes = [_P] * 10 + [_L] * 6 + [_I] * 7 + [_P, _P]
     lib.matern52_ard_fwd.restype = _I
-    # gk, x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2; strides; B, N, M,
-    # Dc, Ds, symmetric; grads, partials, w, gx1, gx2, stream.
-    lib.matern52_ard_bwd.argtypes = [_P] * 10 + [_L, _L] + [_I] * 6 + [_P] * 6
+    # gk, x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2; group strides as
+    # in the forward; group, B, N, M, Dc, Ds, symmetric; grads, partials, w,
+    # gx1, gx2, stream.
+    lib.matern52_ard_bwd.argtypes = [_P] * 10 + [_L] * 6 + [_I] * 7 + [_P] * 6
     lib.matern52_ard_bwd.restype = _I
     return lib
 

@@ -6,9 +6,11 @@ a two-loop recursion over fixed-size history buffers plus a warm-started
 Armijo backtracking line search, with gtol and patience-based ftol stops.
 
 The JAX package ``vmap``s a ``while_loop`` over restarts; here the restarts
-are a leading batch axis of every state tensor. A restart that has stopped
-keeps its state (masked updates), as a finished member of a vmapped
-``while_loop`` does, and the loop runs until every restart has stopped.
+are a leading batch axis of every state tensor (in a cross-study flush,
+studies × restarts). A restart that has stopped keeps its state (masked
+updates), as a finished member of a vmapped ``while_loop`` does, so it ends
+where it would end alone; the loop runs until every restart has stopped,
+reading one flag back per step for the whole batch.
 Gradients come from autograd through the kernel's ``autograd.Function`` and
 ``torch.linalg.cholesky_ex``.
 """
@@ -183,8 +185,25 @@ def lbfgs_minimize(
     return x, f
 
 
-def _select_best(finals: Params, losses: Tensor, best_n: Optional[int]) -> OptimizeResult:
+def _select_best(
+    finals: Params, losses: Tensor, best_n: Optional[int], groups: int = 1
+) -> OptimizeResult:
+    """The best restart (``best_n`` None) or the ``best_n`` best, stacked.
+
+    With ``groups`` S > 1 the restarts are S studies' consecutive blocks and
+    each study keeps its own ``best_n`` (required then): params [S * best_n],
+    ``best_loss`` [S].
+    """
     losses = torch.where(torch.isfinite(losses), losses, torch.full_like(losses, float("inf")))
+    if groups > 1:
+        per_study = losses.reshape(groups, -1)
+        # A stable sort breaks ties by restart index, as the reference's top_k does.
+        order = torch.sort(per_study, dim=-1, stable=True).indices[:, :best_n]
+        top = (order + per_study.shape[1] * torch.arange(groups, device=order.device)[:, None])
+        top = top.reshape(-1)
+        return OptimizeResult(
+            {k: v[top] for k, v in finals.items()}, losses, losses[top[::best_n]]
+        )
     # A stable sort breaks ties by restart index, as the reference's top_k does.
     order = torch.sort(losses, stable=True).indices
     if best_n is None:
@@ -228,8 +247,11 @@ class LbfgsOptimizer:
         object.__setattr__(self, "device", device_lib.resolve(self.device))
 
     def __call__(
-        self, loss_fn: LossFn, init_batch: Params, *, best_n: Optional[int] = None
+        self, loss_fn: LossFn, init_batch: Params, *, best_n: Optional[int] = None,
+        groups: int = 1,
     ) -> OptimizeResult:
+        """Minimizes from every row of ``init_batch``; ``groups`` S splits the
+        rows into S studies' blocks, each keeping its ``best_n``."""
         x0, unravel = _flatten(init_batch)
         device_lib.check(x0, self.device, "L-BFGS inits")
         x, f = lbfgs_minimize(
@@ -242,4 +264,4 @@ class LbfgsOptimizer:
             ftol=self.ftol,
             ftol_patience=self.ftol_patience,
         )
-        return _select_best(unravel(x), f, best_n)
+        return _select_best(unravel(x), f, best_n, groups)

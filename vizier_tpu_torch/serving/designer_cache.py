@@ -1,0 +1,226 @@
+"""Per-study designer-state cache with TTL/LRU eviction.
+
+A copy of the JAX package's ``serving/designer_cache.py``, so that the port imports nothing
+of the JAX package.
+
+Each entry holds the LIVE designer (trained GP fit, seed streams
+and all) plus the last trained unconstrained ARD params, so a steady-state
+suggest pays an incremental update + warm-started train instead of a full
+replay + cold multi-restart ARD. Entries are keyed by study resource name.
+
+Eviction:
+- **TTL** — an entry idle longer than ``ttl_seconds`` is dropped on the
+  next cache access (lazy; there is no background reaper thread to leak);
+- **LRU** — inserting beyond ``max_entries`` evicts the least recently
+  used entry;
+- **invalidation** — ``DeleteStudy`` calls :meth:`invalidate` so a reused
+  study name never sees a predecessor's designer state.
+
+Thread safety: the cache dict is guarded by one mutex; each entry carries
+its own lock that callers hold across the designer's update→suggest
+critical section, so suggests for *different* studies run concurrently
+while suggests for one study serialize on its entry (the designer is
+stateful).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Callable, List, Optional, Set
+
+from vizier_tpu_torch.observability import tracing as tracing_lib
+from vizier_tpu_torch.serving import stats as stats_lib
+
+
+class CachedDesignerEntry:
+    """One study's live serving state."""
+
+    def __init__(self, study_name: str, designer: Any, now: float):
+        self.study_name = study_name
+        self.designer = designer
+        # Last trained unconstrained ARD params (whatever pytree the
+        # designer's ``warm_start_state()`` returns); None until the first
+        # trained suggest.
+        self.warm_params: Any = None
+        # Scalable-surrogate mirrors (vizier_tpu_torch.surrogates): the active
+        # exact/sparse mode and the last trained sparse posterior (inducing
+        # set + factorization) — the inspection/hand-off surface, kept in
+        # lock-step with the live designer by the serving policy. Both die
+        # with the entry: DeleteStudy invalidation drops cached inducing
+        # state along with everything else.
+        self.surrogate_mode: Any = None
+        self.sparse_state: Any = None
+        # Completed-trial ids already fed to the designer (incremental
+        # updates only hand over the delta).
+        self.incorporated_trial_ids: Set[int] = set()
+        self.lock = threading.Lock()
+        self.created_at = now
+        self.last_used_at = now
+        self.num_suggests = 0
+
+
+class DesignerStateCache:
+    """TTL/LRU cache: study resource name → :class:`CachedDesignerEntry`."""
+
+    def __init__(
+        self,
+        max_entries: int = 64,
+        ttl_seconds: float = 3600.0,
+        stats: Optional[stats_lib.ServingStats] = None,
+        time_fn: Callable[[], float] = time.monotonic,
+        observe_latency: bool = True,
+    ):
+        if max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}.")
+        self._max_entries = max_entries
+        self._ttl = ttl_seconds
+        self._stats = stats or stats_lib.ServingStats()
+        self._time = time_fn
+        # Lookup latency histogram: a miss pays designer construction (and
+        # the full replay after it) — exactly the cost the cache exists to
+        # amortize, so it is worth a distribution, not just a counter.
+        registry = getattr(self._stats, "registry", None)
+        self._lookup_hist = (
+            registry.histogram(
+                "vizier_designer_cache_lookup_seconds",
+                help="Designer-cache lookup wall time; a miss includes "
+                "designer construction.",
+            )
+            if observe_latency and registry is not None
+            else None
+        )
+        self._lock = threading.Lock()
+        # Ordered oldest-used first; move_to_end on every hit.
+        self._entries: "collections.OrderedDict[str, CachedDesignerEntry]" = (
+            collections.OrderedDict()
+        )
+
+    @property
+    def stats(self) -> stats_lib.ServingStats:
+        return self._stats
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __contains__(self, study_name: str) -> bool:
+        with self._lock:
+            return study_name in self._entries
+
+    def get_or_create(
+        self, study_name: str, designer_factory: Callable[[], Any]
+    ) -> CachedDesignerEntry:
+        """The study's entry, creating (and possibly evicting) as needed.
+
+        The designer factory runs OUTSIDE the cache mutex — constructing a
+        GP designer compiles converters and optimizers, and holding the
+        map lock through that would serialize unrelated studies' misses.
+        The small race (two threads miss the same study concurrently) is
+        resolved by a second lookup before insert: the loser's designer is
+        discarded and the winner's entry returned.
+        """
+        t0 = time.perf_counter()
+        now = self._time()
+        # Counter/histogram updates run OUTSIDE the map mutex throughout:
+        # they take the metrics registry's own locks, and nesting those
+        # under the cache mutex would serialize unrelated studies' lookups
+        # on metric bookkeeping (the lock_order pass keeps this mutex a
+        # leaf of the serving lock graph).
+        ttl_evicted = False
+        with self._lock:
+            entry = self._entries.get(study_name)
+            if entry is not None and self._expired(entry, now):
+                del self._entries[study_name]
+                ttl_evicted = True
+                entry = None
+            if entry is not None:
+                entry.last_used_at = now
+                self._entries.move_to_end(study_name)
+        if ttl_evicted:
+            self._stats.increment("cache_evictions_ttl")
+        if entry is not None:
+            self._stats.increment("cache_hits")
+            self._observe_lookup("hit", t0)
+            return entry
+        designer = designer_factory()
+        lru_evictions = 0
+        race_hit = False
+        with self._lock:
+            entry = self._entries.get(study_name)
+            if entry is not None and not self._expired(entry, self._time()):
+                # Lost the miss race; serve the winner's entry as a hit.
+                entry.last_used_at = self._time()
+                self._entries.move_to_end(study_name)
+                race_hit = True
+            else:
+                entry = CachedDesignerEntry(study_name, designer, self._time())
+                self._entries[study_name] = entry
+                self._entries.move_to_end(study_name)
+                while len(self._entries) > self._max_entries:
+                    self._entries.popitem(last=False)
+                    lru_evictions += 1
+        if race_hit:
+            self._stats.increment("cache_hits")
+            self._observe_lookup("hit", t0)
+            return entry
+        self._stats.increment("cache_misses")
+        if lru_evictions:
+            self._stats.increment("cache_evictions_lru", lru_evictions)
+        self._observe_lookup("miss", t0)
+        return entry
+
+    def _observe_lookup(self, result: str, t0: float) -> None:
+        seconds = time.perf_counter() - t0
+        if self._lookup_hist is not None:
+            self._lookup_hist.observe(seconds, result=result)
+        tracing_lib.add_current_event(
+            "designer_cache", result=result, seconds=round(seconds, 6)
+        )
+
+    def peek(
+        self, study_name: str, touch: bool = True
+    ) -> Optional[CachedDesignerEntry]:
+        """The study's live entry, or None — never constructs a designer.
+
+        ``touch`` refreshes TTL/LRU (a served hit is a real use);
+        ``touch=False`` is a pure inspection read.
+        """
+        now = self._time()
+        with self._lock:
+            entry = self._entries.get(study_name)
+            if entry is None:
+                return None
+            if self._expired(entry, now):
+                del self._entries[study_name]
+                expired = True
+            else:
+                expired = False
+                if touch:
+                    entry.last_used_at = now
+                    self._entries.move_to_end(study_name)
+        if expired:
+            self._stats.increment("cache_evictions_ttl")
+            return None
+        return entry
+
+    def invalidate(self, study_name: str) -> bool:
+        """Drops the study's entry (study deleted / state known stale)."""
+        with self._lock:
+            removed = self._entries.pop(study_name, None)
+        if removed is not None:
+            self._stats.increment("cache_invalidations")
+        return removed is not None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def study_names(self) -> List[str]:
+        """Cached studies, least recently used first (for inspection)."""
+        with self._lock:
+            return list(self._entries)
+
+    def _expired(self, entry: CachedDesignerEntry, now: float) -> bool:
+        return self._ttl > 0 and (now - entry.last_used_at) > self._ttl

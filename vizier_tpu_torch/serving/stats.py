@@ -1,0 +1,109 @@
+"""Serving-level counters: cache, warm/cold ARD trains, coalescing.
+
+A copy of the JAX package's ``serving/stats.py``, so that the port imports nothing
+of the JAX package.
+
+Backed by the :mod:`vizier_tpu_torch.observability` metrics registry (one
+``Counter`` per field, prefixed ``vizier_serving_``) so the serving
+vocabulary shows up in the same Prometheus dump as the latency histograms,
+while keeping the original ``FIELDS``/``increment``/``snapshot``/``reset``
+API — counters are core serving behavior and stay on even with
+``VIZIER_TORCH_OBSERVABILITY=0``.
+
+Thread safety: the field→counter map is built once in ``__init__`` and
+never mutated, so the vocabulary membership check is race-free by
+construction (no lock needed to read an immutable dict); each counter
+serializes its own increments.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from vizier_tpu_torch.observability import metrics as metrics_lib
+
+
+class ServingStats:
+    """Thread-safe monotonic counters with a dict snapshot API."""
+
+    # The fixed counter vocabulary: a typo'd increment should fail loudly
+    # rather than mint a new counter nobody reads.
+    FIELDS = (
+        "cache_hits",
+        "cache_misses",
+        "cache_evictions_ttl",
+        "cache_evictions_lru",
+        "cache_invalidations",
+        # Config-hash turnover drops (shared compute tier: a frontend's
+        # delete/recreate detected via the request's StudySpec hash).
+        "cache_invalidations_config",
+        "coalesced_requests",  # followers served from a shared computation
+        "coalesced_computations",  # leader runs that had >= 1 follower
+        "warm_trains",
+        "cold_trains",
+        # Reliability: retry/fallback/breaker/deadline.
+        "retries",  # client-side RPC / suggest retries
+        "designer_failures",  # designer computations that raised
+        "fallbacks",  # suggestions served by the quasi-random fallback
+        "breaker_open_transitions",
+        "breaker_half_open_transitions",
+        "breaker_close_transitions",
+        "breaker_short_circuits",  # suggests skipped because a circuit was open
+        "deadline_exceeded",  # ops completed with TRANSIENT: DEADLINE_EXCEEDED
+        # Multi-tenant overload protection (admission plane).
+        "admission_sheds",  # requests shed with TRANSIENT: RESOURCE_EXHAUSTED
+        "admission_deadline_sheds",  # sheds because the deadline was infeasible
+        "admission_degraded",  # degraded-mode quasi-random serves
+        "admission_transitions",  # overload state-machine transitions
+        # Cross-study batching (vizier_tpu_torch.parallel.batch_executor).
+        "batch_flushes",  # bucket flushes (full / timeout / drain)
+        "batched_suggests",  # slots served from a shared vmapped program
+        "batch_fallbacks",  # slots rerun sequentially after a batch failure
+        "batch_slot_errors",  # slot-isolated prepare/finalize/NaN failures
+        "mesh_flushes",  # flushes executed on a mesh placement worker
+        # Scalable surrogates (vizier_tpu_torch.surrogates).
+        "sparse_suggests",  # suggests served by the sparse-GP posterior
+        "surrogate_crossovers",  # exact<->sparse auto-switch transitions
+        # Speculative pre-compute.
+        "speculative_hits",  # suggests served from a parked pre-computed batch
+        "speculative_misses",  # slot empty / frontier moved / count mismatch
+        "speculative_stale",  # slots expired by max_speculation_age_s
+        "speculative_cancelled",  # jobs superseded / dropped busy / shutdown
+        "speculative_precomputes",  # speculative designer computations run
+        "speculative_errors",  # speculative failures swallowed off-path
+        "speculative_rearms",  # pre-computes re-armed by replica failover
+    )
+
+    def __init__(self, registry: Optional[metrics_lib.MetricsRegistry] = None):
+        # A private registry by default so each stats object starts from
+        # zero; the serving runtime passes its shared registry so the
+        # counters land in the same Prometheus dump as the histograms.
+        self._registry = registry or metrics_lib.MetricsRegistry()
+        self._counters = {
+            f: self._registry.counter(
+                f"vizier_serving_{f}", help=f"Serving counter: {f}."
+            )
+            for f in self.FIELDS
+        }
+
+    @property
+    def registry(self) -> metrics_lib.MetricsRegistry:
+        """The backing registry (histogram co-location, Prometheus dump)."""
+        return self._registry
+
+    def increment(self, field: str, amount: int = 1) -> None:
+        counter = self._counters.get(field)
+        if counter is None:
+            raise KeyError(f"Unknown serving counter: {field!r}")
+        counter.inc(amount)
+
+    def get(self, field: str) -> int:
+        return int(self._counters[field].value())
+
+    def snapshot(self) -> Dict[str, int]:
+        """A point-in-time copy of every counter."""
+        return {f: int(c.value()) for f, c in self._counters.items()}
+
+    def reset(self) -> None:
+        for counter in self._counters.values():
+            counter.reset()

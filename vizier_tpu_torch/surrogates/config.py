@@ -10,14 +10,16 @@ decision is made per suggest from the study's completed-trial count:
   ``sparse_threshold_trials - hysteresis_trials``, so a study sitting at the
   boundary cannot flap between the two surrogates on alternate suggests.
 
-The environment overrides and the crossover listener of the JAX package's
-module belong to its serving runtime, their only caller; they come with the
-port's service wiring.
+``from_env`` reads the port's ``VIZIER_TORCH_SPARSE*`` switches for the
+serving runtime. The JAX package's crossover listener serves only its
+speculative pre-compute plane, which the port does not have.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from vizier_tpu_torch.utils import env as env_lib
 
 MODE_EXACT = "exact"
 MODE_SPARSE = "sparse"
@@ -50,6 +52,17 @@ class SurrogateConfig:
             raise ValueError(f"hysteresis_trials must be >= 0, got {self.hysteresis_trials}.")
         if self.num_inducing < 1:
             raise ValueError(f"num_inducing must be >= 1, got {self.num_inducing}.")
+
+    @classmethod
+    def from_env(cls) -> "SurrogateConfig":
+        """The default config with per-knob environment overrides applied."""
+        return cls(
+            sparse=env_lib.env_on("VIZIER_TORCH_SPARSE"),
+            sparse_threshold_trials=env_lib.env_int("VIZIER_TORCH_SPARSE_THRESHOLD", 512),
+            hysteresis_trials=env_lib.env_int("VIZIER_TORCH_SPARSE_HYSTERESIS", 64),
+            num_inducing=env_lib.env_int("VIZIER_TORCH_SPARSE_INDUCING", 128),
+            sparse_ucb_pe=env_lib.env_on("VIZIER_TORCH_SPARSE_UCB_PE"),
+        )
 
     @classmethod
     def disabled(cls) -> "SurrogateConfig":

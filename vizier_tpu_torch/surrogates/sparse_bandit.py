@@ -7,22 +7,25 @@ path. They mirror the exact-GP steps of ``designers.gp_bandit``:
   optimum prepended as one more restart, and a deterministic mid-scale
   restart (``_heuristic_init``) after it;
 - the same acquisition machinery (``ScoringFunction``, ``TrustRegion``, the
-  eagle sweep) over a ``SparseEnsemblePredictive``.
+  eagle sweep, ``designers.gp_bandit._sweep_studies``) over a
+  ``SparseEnsemblePredictive``.
+
+The cross-study flush trains S studies at once
+(``_train_sparse_gp_studies``, the JAX package's ``_sparse_flush_program``
+train) and takes its warm seeds and sweep from ``designers.gp_bandit``.
 
 This module sits below the designers (``designers.gp_bandit`` imports it).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
-from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.surrogates import sparse_gp
 
 
@@ -74,36 +77,51 @@ def _train_sparse_gp(
     return model.precompute(result.params, sdata)
 
 
+def _train_sparse_gp_studies(
+    model: sparse_gp.SparseGaussianProcess,
+    optimizer: lbfgs_lib.LbfgsOptimizer,
+    data: gp_lib.GPData,
+    generators: Sequence[torch.Generator],
+    num_restarts: int,
+    ensemble_size: int,
+    warm_start: gp_lib.Params,
+) -> sparse_gp.SparseGPState:
+    """S studies' sparse ARD as one batch: each study's k-center inducing
+    set (picked for all studies at once), then its restart rows as in
+    :func:`_train_sparse_gp` (its warm row, the heuristic row, ``num_restarts``
+    random rows from ``generators[s]``), one L-BFGS batch, each study's best
+    ``ensemble_size``."""
+    sdata = sparse_gp.select_inducing_kcenter(data, model.num_inducing)
+    coll = model.param_collection()
+    heuristic = _heuristic_init(coll, data.device)
+    blocks = []
+    for s, generator in enumerate(generators):
+        inits = coll.batch_random_init_unconstrained(generator, num_restarts)
+        blocks.append({
+            k: torch.cat([warm_start[k][s : s + 1], heuristic[k][None], v])
+            for k, v in inits.items()
+        })
+    inits = {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
+    result = optimizer(
+        lambda p: model.neg_log_likelihood(p, sdata), inits,
+        best_n=ensemble_size, groups=len(generators),
+    )
+    return model.precompute(result.params, sdata)
+
+
 def _prior_features_from_data(data: gp_lib.GPData) -> kernels.MixedFeatures:
     """Top observed points (by warped label) to seed the eagle pool.
 
     ``k`` follows the padded row count; slots past the valid rows are
-    redirected to the best row. The exact path uses it too.
+    redirected to the best row. The exact path uses it too; a flush's
+    stacked data gives each study's points ([S, k, ...]).
     """
     labels = torch.where(data.row_mask, data.labels, torch.full_like(data.labels, float("-inf")))
     k = min(10, data.num_rows)
-    idx = torch.sort(labels, descending=True, stable=True).indices[:k]
-    num_valid = torch.sum(data.row_mask)
-    idx = torch.where(torch.arange(k, device=idx.device) < num_valid, idx, idx[0])
-    return kernels.MixedFeatures(data.continuous[idx], data.categorical[idx])
-
-
-def _sweep_one(
-    vec_opt: vectorized_lib.VectorizedOptimizer,
-    acquisition: acquisitions.Acquisition,
-    states: sparse_gp.SparseGPState,
-    data: gp_lib.GPData,
-    generator: torch.Generator,
-    count: int,
-    use_trust_region: bool,
-) -> vectorized_lib.VectorizedOptimizerResult:
-    """Scoring + eagle sweep over the sparse posterior."""
-    scoring = acquisitions.ScoringFunction(
-        predictive=sparse_gp.SparseEnsemblePredictive(states),
-        acquisition=acquisition,
-        best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
-        trust_region=acquisitions.TrustRegion.from_data(data) if use_trust_region else None,
-    )
-    return vec_opt(
-        scoring.score, generator, count=count, prior_features=_prior_features_from_data(data)
+    idx = torch.sort(labels, dim=-1, descending=True, stable=True).indices[..., :k]
+    num_valid = torch.sum(data.row_mask, dim=-1, keepdim=True)
+    idx = torch.where(torch.arange(k, device=idx.device) < num_valid, idx, idx[..., :1])
+    return kernels.MixedFeatures(
+        torch.take_along_dim(data.continuous, idx[..., None], dim=-2),
+        torch.take_along_dim(data.categorical, idx[..., None], dim=-2),
     )

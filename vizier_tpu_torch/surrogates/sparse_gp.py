@@ -9,7 +9,9 @@ are the exact GP's, so the same multi-restart L-BFGS trains this model and
 warm-started restarts carry over.
 
 As in ``models.gp``, parameters carry a leading batch axis ``B`` (restarts or
-ensemble members) and share one ``SparseGPData``. Every kernel block goes
+ensemble members) and share one ``SparseGPData``, or, in a cross-study
+flush, S studies' stacked ``SparseGPData`` (a leading study axis on every
+field) with ``B / S`` members per study. Every kernel block goes
 through ``VizierGaussianProcess._kernel``, so on the card it is K1 (forward)
 and K2 (gradient):
 
@@ -52,14 +54,14 @@ class SparseGPData:
     """Training data and the selected (padded, masked) inducing set."""
 
     data: gp_lib.GPData
-    z_continuous: Tensor  # [M, Dc] float32
+    z_continuous: Tensor  # [M, Dc] float32 ([S, M, Dc] in a flush)
     z_categorical: Tensor  # [M, Ds] int32
     inducing_mask: Tensor  # [M] bool, True = real inducing point
     inducing_indices: Tensor  # [M] int64 rows of ``data`` the points came from
 
     @property
     def num_inducing(self) -> int:
-        return self.z_continuous.shape[0]
+        return self.z_continuous.shape[-2]
 
     def z_features(self) -> kernels.MixedFeatures:
         return kernels.MixedFeatures(self.z_continuous, self.z_categorical)
@@ -75,35 +77,38 @@ def select_inducing_kcenter(data: gp_lib.GPData, m: int) -> SparseGPData:
     to the lowest row index, as the JAX package's ``argmax`` breaks them.
     The picks stay on the device: no pick reads a value back to the host.
     When fewer than ``m`` valid rows exist the surplus slots repeat chosen
-    rows and ``inducing_mask`` masks them out.
+    rows and ``inducing_mask`` masks them out. A flush's stacked data picks
+    every study's rows at once, one gather per pick for all studies.
     """
     cont, cat = data.continuous, data.categorical
     valid = data.row_mask
+    lead = valid.shape[:-1]  # () or (S,)
     neg_inf = torch.tensor(float("-inf"), dtype=cont.dtype, device=cont.device)
-    cont_w = data.cont_dim_mask.to(cont.dtype)
-    cat_w = data.cat_dim_mask.to(cont.dtype)
-    idxs = torch.zeros((m,), dtype=torch.int64, device=cont.device)
-    last = torch.argmax(torch.where(valid, data.labels, neg_inf)).reshape(1)
-    idxs[0] = last[0]
-    min_d = torch.full((cont.shape[0],), float("inf"), dtype=cont.dtype, device=cont.device)
+    cont_w = data.cont_dim_mask.to(cont.dtype).unsqueeze(-2)
+    cat_w = data.cat_dim_mask.to(cont.dtype).unsqueeze(-2)
+    idxs = torch.zeros(lead + (m,), dtype=torch.int64, device=cont.device)
+    # Device indices throughout: plain indexing by a 0-d tensor would read it
+    # back to the host.
+    last = torch.argmax(torch.where(valid, data.labels, neg_inf), dim=-1, keepdim=True)
+    idxs[..., 0] = last[..., 0]
+    min_d = torch.full(valid.shape, float("inf"), dtype=cont.dtype, device=cont.device)
     for i in range(1, m):
-        # index_select with a device index: plain indexing by a 0-d tensor
-        # would read it back to the host.
-        dc = cont - torch.index_select(cont, 0, last)
+        dc = cont - torch.take_along_dim(cont, last[..., None], dim=-2)
         dist = torch.sum(dc * dc * cont_w, dim=-1)
         if cat.shape[-1]:
-            mismatch = (cat != torch.index_select(cat, 0, last)).to(cont.dtype)
+            picked = torch.take_along_dim(cat, last[..., None], dim=-2)
+            mismatch = (cat != picked).to(cont.dtype)
             dist = dist + torch.sum(mismatch * cat_w, dim=-1)
         min_d = torch.minimum(min_d, dist)
-        last = torch.argmax(torch.where(valid, min_d, neg_inf)).reshape(1)
-        idxs[i] = last[0]
-    num_valid = torch.sum(valid.to(torch.int64))
+        last = torch.argmax(torch.where(valid, min_d, neg_inf), dim=-1, keepdim=True)
+        idxs[..., i] = last[..., 0]
+    num_valid = torch.sum(valid.to(torch.int64), dim=-1, keepdim=True)
     mask = torch.arange(m, device=cont.device) < torch.clamp(num_valid, max=m)
     return SparseGPData(
         data=data,
-        z_continuous=cont[idxs],
-        z_categorical=cat[idxs],
-        inducing_mask=mask,
+        z_continuous=torch.take_along_dim(cont, idxs[..., None], dim=-2),
+        z_categorical=torch.take_along_dim(cat, idxs[..., None], dim=-2),
+        inducing_mask=mask.reshape(lead + (m,)),
         inducing_indices=idxs,
     )
 
@@ -114,15 +119,17 @@ def with_pending_capacity(sdata: SparseGPData, data: gp_lib.GPData, extra: int) 
     inducing slots that per-pick conditioning may fill
     (``gp_ucb_pe._append_row_sparse``)."""
 
-    def grow(t: Tensor) -> Tensor:
-        return torch.cat([t, torch.zeros((extra,) + t.shape[1:], dtype=t.dtype, device=t.device)])
+    def grow(t: Tensor, axis: int) -> Tensor:
+        shape = list(t.shape)
+        shape[axis] = extra
+        return torch.cat([t, torch.zeros(shape, dtype=t.dtype, device=t.device)], dim=axis)
 
     return SparseGPData(
         data=data,
-        z_continuous=grow(sdata.z_continuous),
-        z_categorical=grow(sdata.z_categorical),
-        inducing_mask=grow(sdata.inducing_mask),
-        inducing_indices=grow(sdata.inducing_indices),
+        z_continuous=grow(sdata.z_continuous, -2),
+        z_categorical=grow(sdata.z_categorical, -2),
+        inducing_mask=grow(sdata.inducing_mask, -1),
+        inducing_indices=grow(sdata.inducing_indices, -1),
     )
 
 
@@ -181,7 +188,9 @@ class SparseGaussianProcess:
         a = torch.linalg.solve_triangular(chol, knm.transpose(-1, -2), upper=False) / sigma
         eye = torch.eye(a.shape[-2], dtype=a.dtype, device=a.device)
         chol_b, info_b = torch.linalg.cholesky_ex(eye + a @ a.transpose(-1, -2))
-        ay = a @ sdata.data.labels[:, None]  # [B, M, 1]
+        y = sdata.data.labels
+        # One study's labels broadcast over the batch; a flush's per member.
+        ay = gp_lib.matvec(a, gp_lib.rows_per_member(y, a.shape[0]))[..., None]  # [B, M, 1]
         c = torch.linalg.solve_triangular(chol_b, ay, upper=False)[..., 0] / sigma[..., 0]
         return chol, chol_b, a, c, sigma2, info | info_b
 
@@ -199,13 +208,18 @@ class SparseGaussianProcess:
         p = coll.constrain(unconstrained)
         _, chol_b, a, c, sigma2, info = self._factorize(p, sdata)
         data = sdata.data
+        batch = sigma2.shape[0]
         y = data.labels
-        n_valid = torch.sum(data.row_mask.to(y.dtype))
+        row_mask = gp_lib.rows_per_member(data.row_mask, batch)
+        inducing_mask = gp_lib.rows_per_member(sdata.inducing_mask, batch)
+        n_valid = torch.sum(row_mask.to(y.dtype), dim=-1)
         log_diag = torch.log(torch.diagonal(chol_b, dim1=-2, dim2=-1))
         log_det = n_valid * torch.log(sigma2) + 2.0 * torch.sum(
-            torch.where(sdata.inducing_mask, log_diag, torch.zeros_like(log_diag)), dim=-1
+            torch.where(inducing_mask, log_diag, torch.zeros_like(log_diag)), dim=-1
         )
-        quad = torch.dot(y, y) / sigma2 - torch.sum(c * c, dim=-1)
+        yy = torch.dot(y, y) if y.dim() == 1 else gp_lib.rows_per_member(
+            torch.sum(y * y, dim=-1, keepdim=True), batch)[:, 0]
+        quad = yy / sigma2 - torch.sum(c * c, dim=-1)
         amp2 = p["amplitude"] * p["amplitude"]
         # tr(Knn − Qnn)/σ²: diag(Knn) = amp² on valid rows; ΣA² is tr(Qnn)/σ²
         # (padded columns are zero).
@@ -232,7 +246,7 @@ class SparseGaussianProcess:
         lb_inv = torch.linalg.solve_triangular(chol_b, eye, upper=False)
         # mean(x*) = k*ᵀ L⁻ᵀ LB⁻ᵀ c: the two back-substitutions fold into one
         # [M] weight vector; the variance needs both inverses.
-        w = (linv.transpose(-1, -2) @ (lb_inv.transpose(-1, -2) @ c[..., None]))[..., 0]
+        w = gp_lib.matvec(linv.transpose(-1, -2), gp_lib.matvec(lb_inv.transpose(-1, -2), c))
         return SparseGPState(
             model=self, params=p, sdata=sdata, w=w, linv=linv, lb_linv=lb_inv @ linv
         )
@@ -261,6 +275,14 @@ class SparseGPState:
             w=self.w[sl], linv=self.linv[sl], lb_linv=self.lb_linv[sl],
         )
 
+    def first_members(self) -> "SparseGPState":
+        """Each study's member 0 of a flush's state: one member per study."""
+        sl = slice(None, None, self.w.shape[0] // self.sdata.data.num_studies)
+        return dataclasses.replace(
+            self, params={k: v[sl] for k, v in self.params.items()},
+            w=self.w[sl], linv=self.linv[sl], lb_linv=self.lb_linv[sl],
+        )
+
     def predict(
         self, query: kernels.MixedFeatures, *, include_noise: bool = False
     ) -> Tuple[Tensor, Tensor]:
@@ -273,7 +295,7 @@ class SparseGPState:
         k_star = model.base._kernel(
             p, query, sdata.z_features(), sdata.data, row_mask2=sdata.inducing_mask
         )
-        mean = (k_star @ self.w[..., None])[..., 0]
+        mean = gp_lib.matvec(k_star, self.w)
         k_t = k_star.transpose(-1, -2)
         t1 = self.linv @ k_t  # [B, M, Q]
         t2 = self.lb_linv @ k_t
