@@ -43,8 +43,9 @@ Phases (any failure raises and exits non-zero):
    and predictions against the CPU plain path, the k-center loop's launches
    and time, and one more profiled request. Then one sparse
    ``suggest(count=1)`` of ``VizierGPBandit`` (GAUSSIAN_PROCESS_BANDIT).
-6. Multi-objective studies: DTLZ2 with two objectives (both MINIMIZE) at
-   1000 completed trials drawn uniformly from [0, 1]^20 with seed 0. The
+6. Multi-objective studies: DTLZ2 with two objectives (both MINIMIZE; the
+   port's ``MultiObjectiveExperimenter.dtlz``, its study's checksum printed)
+   at 1000 completed trials drawn uniformly from [0, 1]^20 with seed 0. The
    DEFAULT as the service builds it (``SurrogateConfig()``,
    ``warm_ard_restarts=1``) serves three ``suggest(count=5)``, one GP per
    objective (one cold train, then two warm), with its launch counts (K1
@@ -86,8 +87,31 @@ Phases (any failure raises and exits non-zero):
    The kernel checks and timings of phases 2-3 include the flushes' grouped
    shapes (a study's rows, codes and masks per group of restarts, and each
    pick's re-conditioning).
-8. Prints one ``{"kernels": [...]}`` line, the card line again, and as the
-   last line ``{"ok": true, "device": {...}}``.
+8. Regret parity, the DEFAULT designer against the JAX package's 5-seed
+   reference (``budget_ab_r5.json``'s ``first_pick_full`` rows) through the
+   port's benchmark layer (``vizier_tpu_torch/benchmarks/regret.py``):
+   Sphere20d, Rastrigin20d and Branin2d (``shifted_bbob_instance``), seeds
+   1-5, 150 trials, batch 10, 25 000 acquisition evaluations, each
+   function's 5 studies advancing in lockstep through one ``BatchExecutor``
+   (8 slots, 2 s window): every round after the seed round must be one flush
+   of all 5, with no fallback or slot error, every suggestion finite and in
+   bounds. Prints each run's final regret beside the reference's, the
+   medians and the exact one-sided Mann-Whitney p, and fails if p < 0.01 on
+   Sphere20d or Rastrigin20d or Branin2d's median is above 1e-3; prints the
+   wall time per round, flushes and occupancy, ``gp.posterior_cholesky``'s
+   float64 refactors and K1/K2 launches per function, and the peak device
+   memory above the phase's baseline. Then the runner entry point on one
+   study (Branin2d seed 1 through ``BenchmarkState`` ->
+   ``InRamDesignerPolicy`` -> ``BenchmarkRunner``, the same Branin gate),
+   and regret_suite.py's GAUSSIAN_PROCESS_BANDIT on Branin (seeds 1, 2:
+   each best below that seed's random best in ``regret_suite_r5.json``),
+   DEFAULT on the mixed space (above the reference-random median of
+   ``regret_report_r4.json``) and the bandit on ZDT1 (final hypervolume
+   finite and positive, printed beside the JAX run's). The kernel checks,
+   tile comparisons and timings of phases 2-3 include this phase's shapes.
+9. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+   run's), the card line again, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
 show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
@@ -103,6 +127,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -269,12 +294,70 @@ _FLUSH_CASES = _FLUSH_CROSS_CASES + [
                            studies=8)),
     (_FLUSH_CAT, dict(b=8, n=200, m=200, dc=0, ds=5, same=True, valid=190, step=2, studies=4)),
 ]
+# The regret phase's shapes. Lockstep: a function's 5 seeds flush together,
+# padded to the executor's 8 slots with copies of slot 0, each slot at the
+# round's n = 10r completed trials; rows are padded to the next power of two
+# (16 at n = 10, 32 at 20-30, ..., 256 at 130-140), the all-points rows to
+# pad(n + 10) with n to n + 9 valid as the picks go in. Each flush trains
+# over 4 restarts + the warm row (B = 8 x 5), re-conditions each pick on the
+# all-points Gram (B = 8), runs the PE conditioning's all-points queries and
+# the sweep's 50 (and the one-query predict) against the data: Dc = 20
+# (Sphere20d, Rastrigin20d) and Dc = 2 (Branin2d), at the first rounds (10
+# and 20 trials) and the last (120 and 140). The mixed-space DEFAULT runs
+# alone (B = 5 and 1) at Dc = 2 with Ds = 1 (the integer is continuous, the
+# categorical one code), the GP bandit on Branin alone (B = 5 and 1, its
+# sweep at B = 1 against up to 32 rows, 30 valid) and on ZDT1 at Dc = 6 (the
+# per-metric Grams at B = 4, the sweep at B = 1 against 64 rows, 55 valid).
+# These lists are worked out from the code; the phase itself records the
+# layout of every launch it makes (kernels.LAUNCH_SHAPES) and holds each one
+# to the plain version afterwards (check_recorded_shapes).
+_REGRET_GRAM = "regret cold gram B=8x5 N=M=256 (140 valid) Dc=20"
+_REGRET_GRAM_2D = "regret cold gram B=8x5 N=M=16 (10 valid) Dc=2"
+_REGRET_PICK = "regret per-pick all-points gram B=8 N=M=256 (149 valid) Dc=20"
+_REGRET_PICK_2D = "regret per-pick all-points gram B=8 N=M=32 (29 valid) Dc=2"
+_REGRET_PE = "regret PE cross B=8 N=M=256 (140 valid) Dc=20"
+_REGRET_PE_128 = "regret PE cross B=8 N=256 M=128 (120 valid) Dc=20"
+_REGRET_PE_2D = "regret PE cross B=8 N=32 M=16 (10 valid) Dc=2"
+_REGRET_SWEEP = "regret sweep cross B=8 N=50 M=256 (145 valid) Dc=20"
+_REGRET_SWEEP_2D = "regret sweep cross B=8 N=50 M=32 (20 valid) Dc=2"
+_REGRET_ONE_2D = "regret one-query cross B=8 N=1 M=32 (20 valid) Dc=2"
+_MIXED_GRAM = "mixed-space gram B=5 N=M=32 (27 valid) Dc=2 Ds=1"
+_MIXED_SWEEP = "mixed-space sweep cross B=1 N=50 M=32 (29 valid) Dc=2 Ds=1"
+_ZDT_GRAM = "ZDT1 bandit gram B=4 N=M=64 (55 valid) Dc=6"
+_ZDT_SWEEP = "ZDT1 bandit sweep cross B=1 N=50 M=64 (55 valid) Dc=6"
+_BANDIT_SWEEP_2D = "Branin bandit sweep cross B=1 N=50 M=32 (30 valid) Dc=2"
+_REGRET_CROSS_CASES = [
+    (_REGRET_PE, dict(b=8, n=256, m=256, dc=20, ds=0, valid=140, studies=8)),
+    (_REGRET_PE_128, dict(b=8, n=256, m=128, dc=20, ds=0, valid=120, studies=8)),
+    (_REGRET_PE_2D, dict(b=8, n=32, m=16, dc=2, ds=0, valid=10, studies=8)),
+    (_REGRET_SWEEP, dict(b=8, n=50, m=256, dc=20, ds=0, valid=145, studies=8)),
+    (_REGRET_SWEEP_2D, dict(b=8, n=50, m=32, dc=2, ds=0, valid=20, studies=8)),
+    (_REGRET_ONE_2D, dict(b=8, n=1, m=32, dc=2, ds=0, valid=20, studies=8)),
+    (_MIXED_SWEEP, dict(b=1, n=50, m=32, dc=2, ds=1, valid=29)),
+    (_ZDT_SWEEP, dict(b=1, n=50, m=64, dc=6, ds=0, valid=55)),
+    (_BANDIT_SWEEP_2D, dict(b=1, n=50, m=32, dc=2, ds=0, valid=30)),
+]
+_REGRET_CASES = _REGRET_CROSS_CASES + [
+    (_REGRET_GRAM, dict(b=40, n=256, m=256, dc=20, ds=0, same=True, valid=140, studies=8)),
+    ("regret cold gram B=8x5 N=M=128 (120 valid) Dc=20",
+     dict(b=40, n=128, m=128, dc=20, ds=0, same=True, valid=120, studies=8)),
+    (_REGRET_GRAM_2D, dict(b=40, n=16, m=16, dc=2, ds=0, same=True, valid=10, studies=8)),
+    ("regret cold gram B=8x5 N=M=256 (140 valid) Dc=2",
+     dict(b=40, n=256, m=256, dc=2, ds=0, same=True, valid=140, studies=8)),
+    (_REGRET_PICK, dict(b=8, n=256, m=256, dc=20, ds=0, same=True, valid=149, studies=8)),
+    (_REGRET_PICK_2D, dict(b=8, n=32, m=32, dc=2, ds=0, same=True, valid=29, studies=8)),
+    (_MIXED_GRAM, dict(b=5, n=32, m=32, dc=2, ds=1, same=True, valid=27)),
+    (_ZDT_GRAM, dict(b=4, n=64, m=64, dc=6, ds=0, same=True, valid=55)),
+]
 _TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_KMM_COLD,
           _SPARSE_KMM_WARM, _SPARSE_KNM_PICK, _SPARSE_KMM_PICK, _SPARSE_PE, _SPARSE_SWEEP,
           _SPARSE_SWEEP_AUG, _MO_GRAM_WARM, _MO_PE, _MO_SWEEP, _MO_BANDIT_GRAM, _MT_KX, _MT_KX_PICK,
           _MT_KSTAR, _MT_KSTAR_PE, _MT_KSTAR_ONE, _FLUSH_GRAM_COLD, _FLUSH_GRAM_WARM, _FLUSH_PE, _FLUSH_SWEEP,
           _FLUSH_KNM_COLD, _FLUSH_KNM_WARM, _FLUSH_KMM, _FLUSH_KSTAR, _FLUSH_GRAM_PICK,
-          _FLUSH_KNM_PICK, _FLUSH_KMM_PICK, _FLUSH_SPARSE_PE)
+          _FLUSH_KNM_PICK, _FLUSH_KMM_PICK, _FLUSH_SPARSE_PE, _REGRET_GRAM, _REGRET_GRAM_2D,
+          _REGRET_PICK, _REGRET_PICK_2D, _REGRET_PE, _REGRET_PE_2D, _REGRET_SWEEP,
+          _REGRET_SWEEP_2D, _REGRET_ONE_2D, _MIXED_GRAM, _MIXED_SWEEP, _ZDT_GRAM, _ZDT_SWEEP,
+          _BANDIT_SWEEP_2D)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
@@ -290,7 +373,7 @@ _CASES = [
     ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
-] + _SPARSE_CASES + _MO_CASES + _FLUSH_CASES
+] + _SPARSE_CASES + _MO_CASES + _FLUSH_CASES + _REGRET_CASES
 # The cross kernels of both paths: the exact path's, B=1 against the 1024
 # data rows (1000 real): one pick's predict, the sweep's pool and the PE
 # conditioning; and the sparse path's. Every tile shape is checked and timed
@@ -298,7 +381,7 @@ _CASES = [
 _TILE_CASES = [
     (f"cross B=1 N={q} M=1024 (1000 valid) Dc=20", dict(b=1, n=q, m=1024, dc=20, ds=0, valid=1000))
     for q in (1, 50, 1024)
-] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES + _FLUSH_CROSS_CASES
+] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES + _FLUSH_CROSS_CASES + _REGRET_CROSS_CASES
 _TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
@@ -424,15 +507,16 @@ def _param_term_sums(kernels, grad, args, masks):
             kernels.matern52_ard_bwd_plain(torch.abs(grad), *args, *masks[:2])[:3]]
 
 
-def _check_case(kernels, gen, name, args, masks, *, same, dc):
+def _check_case(kernels, gen, name, args, masks, *, same, dc, verbose=True):
     """K1 and K2 against their plain versions at one input; raises on a
     disagreement. Returns (incoming gradient, K1 max abs err, K2 max abs err)."""
+    say = print if verbose else (lambda *_: None)
     got = kernels.matern52_ard_fwd_cuda(*args, *masks)
     want = kernels.matern52_ard_fwd_plain(*args, *masks)
     torch.cuda.synchronize()
     rel, fwd_err = _rel_err(got, want)
     tol = _FWD_WIDE_TOL if dc > 64 else _FWD_TOL
-    print(f"K1 {name}: max_abs_err={fwd_err:.3e} max_rel_err={rel:.3e} (tol {tol})")
+    say(f"K1 {name}: max_abs_err={fwd_err:.3e} max_rel_err={rel:.3e} (tol {tol})")
     if not rel <= tol:
         raise AssertionError(f"K1 disagrees with its plain version at {name}")
     if same and not torch.equal(got, got.transpose(-1, -2)):
@@ -460,7 +544,7 @@ def _check_case(kernels, gen, name, args, masks, *, same, dc):
                 r, e = _rel_err(a, b)
                 measure = "rel"
             worst_rel, bwd_err = max(worst_rel, r), max(bwd_err, e)
-            print(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
+            say(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
                   f"max_abs_err={e:.3e} max_{measure}_err={r:.3e} (tol {_BWD_TOL})")
         if not worst_rel <= _BWD_TOL:
             raise AssertionError(f"K2 disagrees with its plain version at {name}")
@@ -536,6 +620,74 @@ def compare_tiles(kernels, lib):
         print(f"tile chosen at {shape}: {row['chosen']}")
         rows[shape] = row
     return rows
+
+
+def _case_at(gen, shape, device="cuda"):
+    """Random kernel inputs at a recorded launch layout (kernels.LaunchShape):
+    each input with the leading axis the launch gave it, one storage and mask
+    on both sides of a Gram, and ragged row masks (block s of a mask over r
+    rows has max(r - 1 - s, 1) valid)."""
+    def lead(size):
+        return (size,) if size else ()
+
+    def codes(size, rows):
+        return torch.randint(0, 3, lead(size) + (rows, shape.ds), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def mask(size, rows):
+        if size is None:
+            return None
+        valid = torch.clamp(rows - 1 - torch.arange(max(size, 1), device=device), min=1)
+        out = torch.arange(rows, device=device)[None, :] < valid[:, None]
+        return out if size else out[0]
+
+    x1 = torch.rand(lead(shape.x1) + (shape.n, shape.dc), generator=gen, device=device)
+    z1 = codes(shape.z1, shape.n)
+    mask1 = mask(shape.mask1, shape.n)
+    if shape.symmetric:
+        x2, z2, mask2 = x1, z1, mask1
+    else:
+        x2 = torch.rand(lead(shape.x2) + (shape.m, shape.dc), generator=gen, device=device)
+        z2, mask2 = codes(shape.z2, shape.m), mask(shape.mask2, shape.m)
+    b = shape.batch
+    amp = 0.5 + torch.rand((b,), generator=gen, device=device)
+    inv = 1.0 / (0.3 + 1.7 * torch.rand((b, shape.dc), generator=gen, device=device))
+    inv_sq = 1.0 / (0.3 + 1.7 * torch.rand((b, shape.ds), generator=gen, device=device)) ** 2
+    diag = None
+    if shape.diag:
+        noise = 0.05 + 0.1 * torch.rand((b,), generator=gen, device=device)
+        diag = noise * noise + 1e-5
+    return (x1, z1, x2, z2, amp, inv, inv_sq), (mask1, mask2, diag)
+
+
+def check_recorded_shapes(kernels, lib, recorded, label: str) -> dict:
+    """K1 and K2 against their plain versions at every launch layout a run
+    recorded, at the tile the shape chooses and with each tile forced in
+    turn; raises on a disagreement. Returns the counts and worst errors."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = sorted({shape for _, shape in recorded}, key=repr)
+    worst = dict(layouts=len(shapes), launch_kinds=len(recorded), k1_max_abs_err=0.0,
+                 k2_max_abs_err=0.0)
+    for shape in shapes:
+        args, masks = _case_at(gen, shape)
+        for kind in (-1, *_TILE_KINDS):
+            status = lib.matern52_force_tile(kind)
+            if status:
+                raise RuntimeError(f"matern52_force_tile({kind}): CUDA error {status}")
+            try:
+                _, fwd_err, bwd_err = _check_case(
+                    kernels, gen, f"{label} {shape} tile {kind}", args, masks,
+                    same=bool(shape.symmetric), dc=shape.dc, verbose=False)
+            finally:
+                lib.matern52_force_tile(-1)
+            worst["k1_max_abs_err"] = max(worst["k1_max_abs_err"], fwd_err)
+            worst["k2_max_abs_err"] = max(worst["k2_max_abs_err"], bwd_err)
+        print(f"{label} layout held to the plain version at every tile: {shape}")
+    print(f"{label}: K1/K2 within tolerance of their plain versions at all {len(shapes)} "
+          f"recorded launch layouts ({len(recorded)} (kernel, layout) pairs), each tile "
+          f"forced in turn; worst abs err K1 {worst['k1_max_abs_err']:.3e}, K2 "
+          f"{worst['k2_max_abs_err']:.3e}")
+    return worst
 
 
 def _bound(nbytes: int, ops: int):
@@ -781,17 +933,6 @@ def _bench_trials(vz, num_trials: int, dim: int):
 _DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
 
 
-def _dtlz2(x: np.ndarray) -> np.ndarray:
-    """DTLZ2 with two objectives (Deb, Thiele, Laumanns, Zitzler 2002), both
-    to MINIMIZE: g = sum((x[1:] - 0.5)^2), f = (1 + g)(cos, sin)(pi x0 / 2).
-    A numpy copy of the repo's benchmark function (the JAX package's
-    benchmarks/experimenters/synthetic/multiobjective.py), held to it by a
-    CPU test."""
-    g = np.sum((x[..., 1:] - 0.5) ** 2, axis=-1)
-    angle = 0.5 * np.pi * x[..., 0]
-    return np.stack([(1.0 + g) * np.cos(angle), (1.0 + g) * np.sin(angle)], axis=-1)
-
-
 def _bench_problem(vz):
     problem = vz.ProblemStatement()
     for j in range(_DIM):
@@ -951,30 +1092,34 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
     return designer, launches, by_mode
 
 
-def _dtlz2_problem(vz):
-    problem = vz.ProblemStatement()
-    for j in range(_DIM):
-        problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
-    for name in ("f1", "f2"):
-        problem.metric_information.append(
-            vz.MetricInformation(name=name, goal=vz.ObjectiveMetricGoal.MINIMIZE))
-    return problem
+def _dtlz2_experimenter():
+    """The port's DTLZ2 with two objectives (both MINIMIZE) on [0, 1]^20
+    (``benchmarks/experimenters/synthetic/multiobjective.py``, held to the
+    JAX package's by a CPU test)."""
+    from vizier_tpu_torch.benchmarks.experimenters.synthetic import multiobjective
+
+    return multiobjective.MultiObjectiveExperimenter.dtlz("dtlz2", dimension=_DIM, num_objectives=2)
 
 
-def _dtlz2_objectives(values: np.ndarray) -> dict:
-    f = _dtlz2(values[None, :])[0]
-    return {"f1": float(f[0]), "f2": float(f[1])}
-
-
-def _dtlz2_trials(vz):
-    """1000 completed trials drawn uniformly from [0, 1]^20 with seed 0."""
+def _dtlz2_study(vz):
+    """(problem, 1000 completed trials drawn uniformly from [0, 1]^20 with
+    seed 0, evaluated by the port's DTLZ2 experimenter)."""
+    exp = _dtlz2_experimenter()
     x = np.random.default_rng(0).uniform(size=(_NUM_TRIALS, _DIM))
-    trials = []
-    for i in range(_NUM_TRIALS):
-        t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[i, j]) for j in range(_DIM)})
-        t.complete(vz.Measurement(metrics=_dtlz2_objectives(x[i])))
-        trials.append(t)
-    return trials
+    trials = [vz.Trial(id=i + 1, parameters={f"x{j}": float(x[i, j]) for j in range(_DIM)})
+              for i in range(_NUM_TRIALS)]
+    exp.evaluate(trials)
+    return exp.problem_statement(), trials
+
+
+def _study_checksum(trials, problem) -> str:
+    """The first 16 hex digits of the SHA-256 of the trials' points and
+    labels (float64, one row per trial): the same study gives the same
+    checksum on any machine."""
+    rows = [[t.parameters.get_value(f"x{j}") for j in range(_DIM)]
+            + [t.final_measurement.metrics[m.name].value for m in problem.metric_information]
+            for t in trials]
+    return hashlib.sha256(np.asarray(rows, dtype=np.float64).tobytes()).hexdigest()[:16]
 
 
 _GP_DATA_FIELDS = ("continuous", "categorical", "labels", "row_mask", "cont_dim_mask",
@@ -1132,12 +1277,12 @@ def _task_correlation(state) -> float:
     return float(b[0, 1] / torch.sqrt(b[0, 0] * b[1, 1]))
 
 
-def _check_pareto(pareto, trials):
+def _check_pareto(pareto, trials, names):
     """Pareto ops over the study's completed trials on the card against the
     CPU: the frontier mask and the ranks identical, the cumulative
     hypervolume with the same directions within _HV_TOL relative. Prints the
     frontier's size and the hypervolume after each request."""
-    f = np.array([[t.final_measurement.metrics[k].value for k in ("f1", "f2")] for t in trials])
+    f = np.array([[t.final_measurement.metrics[k].value for k in names] for t in trials])
     points = torch.tensor(-f, dtype=torch.float32)  # MAXIMIZE convention
     first = points[:_NUM_TRIALS]
     origin = first.amin(0) - 0.1 * (first.amax(0) - first.amin(0))
@@ -1175,7 +1320,17 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
     mode}."""
     service = dict(rng_seed=0, surrogate=surrogates.SurrogateConfig(), use_warm_start_ard=True,
                    warm_ard_restarts=1)
-    designer = gp_ucb_pe.VizierGPUCBPEBandit(_dtlz2_problem(vz), **service)
+    problem, trials = _dtlz2_study(vz)
+    print(f"multi-objective study: {len(trials)} trials of the port's DTLZ2 experimenter, "
+          f"checksum of points and labels {_study_checksum(trials, problem)}")
+    experimenter = _dtlz2_experimenter()
+
+    def evaluate(values):
+        trial = vz.Trial(parameters={f"x{j}": float(v) for j, v in enumerate(values)})
+        experimenter.evaluate([trial])
+        return {name: m.value for name, m in trial.final_measurement.metrics.items()}
+
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(problem, **service)
     states_seen = []
 
     def check_state(request):
@@ -1186,9 +1341,8 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
         if designer.surrogate_mode != "exact":
             raise AssertionError(f"multi-objective request {request}: went {designer.surrogate_mode}")
 
-    trials = _dtlz2_trials(vz)
     latencies, by_mode, peak, picks = _serve(vz, kernels, designer, check_state, "multi-objective",
-                                             trials=trials, evaluate=_dtlz2_objectives,
+                                             trials=trials, evaluate=evaluate,
                                              split_train=True)
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"multi-objective path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
@@ -1209,7 +1363,7 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
     study = trials + picks
 
     mt = gp_ucb_pe.VizierGPUCBPEBandit(
-        _dtlz2_problem(vz), config=gp_ucb_pe.UCBPEConfig(multitask_type=gp_ucb_pe.MultiTaskType.SEPARABLE),
+        problem, config=gp_ucb_pe.UCBPEConfig(multitask_type=gp_ucb_pe.MultiTaskType.SEPARABLE),
         **service)
     mt.update(vz.CompletedTrials(study), vz.ActiveTrials())
     torch.cuda.synchronize()
@@ -1240,7 +1394,7 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
     _require_modes(paths["multi_task"], (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "other"),
                                          ("matern52_ard_bwd", "gram")), "multi-task path")
 
-    bandit = gp_bandit.VizierGPBandit(_dtlz2_problem(vz), **service)
+    bandit = gp_bandit.VizierGPBandit(problem, **service)
     bandit.update(vz.CompletedTrials(study))
     kernels.reset_launch_counts()
     start = time.perf_counter()
@@ -1260,7 +1414,7 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
         ("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
         ("matern52_ard_bwd", "gram")), "GAUSSIAN_PROCESS_BANDIT multi-objective path")
 
-    _check_pareto(pareto, study)
+    _check_pareto(pareto, study, [m.name for m in problem.metric_information])
     return paths
 
 
@@ -1746,6 +1900,133 @@ def _default_window_round(mods, base: int, label: str, take_counts) -> dict:
                 launches=counts)
 
 
+# -- regret: the DEFAULT designer against the JAX package's 5-seed reference --
+
+
+def _repo_json(name: str) -> dict:
+    return json.loads((pathlib.Path(__file__).resolve().parent / name).read_text())
+
+
+def _path_launches(kernels, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just after."""
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, {
+        name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+
+
+def run_regret_phase(kernels, lib):
+    """Phase 8: regret parity. The DEFAULT designer in lockstep at the
+    reference's configuration, the runner entry point on one Branin2d study,
+    and the GP-bandit, mixed-space and two-objective configs of
+    regret_suite.py; then K1/K2 at every launch layout these runs made.
+    Returns ({path: launches by mode}, figures)."""
+    from vizier_tpu_torch.benchmarks import regret
+
+    failures, paths = [], {}
+    kernels.LAUNCH_SHAPES = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    report = regret.run("lockstep", device="cuda")  # sets the launch counts to 0 first
+    peak = torch.cuda.max_memory_allocated() - before
+    paths["regret_lockstep"] = report["launches_by_mode"]
+    # A flush trains through K1's Gram mode and K2, predicts through K1's
+    # masked cross mode.
+    _require_modes(paths["regret_lockstep"], (("matern52_ard_fwd", "gram"),
+                                              ("matern52_ard_fwd", "cross"),
+                                              ("matern52_ard_bwd", "gram")), "regret lockstep")
+    report["parity"] = regret.parity(report)
+    report["peak_memory_bytes"] = peak
+    for key, row in report["parity"].items():
+        print(f"regret {key}: port {[round(v, 4) for v in row['port']]} (median "
+              f"{row['port_median']:.6g}) vs reference {row['reference']} (median "
+              f"{row['reference_median']:.6g}); one-sided exact Mann-Whitney p "
+              f"{row['p']:.4f}; gate {row['gate']}: {'held' if row['passed'] else 'FAILED'}")
+        if not row["passed"]:
+            failures.append(f"{key} parity")
+    for name, f in report["by_function"].items():
+        ex = f["executor"]
+        gp_rounds = ex["rounds"][1:]  # after the seed round, which runs inline
+        print(f"regret lockstep {name}: {f['wall_s']:.1f} s; flushes {ex['batch_flushes']}, "
+              f"batched suggests {ex['batched_suggests']}, occupancy {ex['occupancy']:.2f}, "
+              f"fallbacks {ex['batch_fallbacks']}, slot errors {ex['batch_slot_errors']}; "
+              f"float64 refactors {f['float64_refactors']}; launches {f['launches_by_mode']}")
+        print(f"regret lockstep {name} wall per round (s): "
+              f"{[round(r['wall_s'], 3) for r in ex['rounds']]}")
+        if ex["batch_fallbacks"] or ex["batch_slot_errors"] or any(
+                r["batch_flushes"] != 1 or r["batched_suggests"] != len(report["seeds"])
+                for r in gp_rounds):
+            failures.append(f"{name}: not one flush of every seed per round, or a fallback "
+                            f"or slot error")
+    print(f"regret lockstep: {report['wall_s']:.1f} s for {len(report['run_wall_s'])} runs, "
+          f"peak device memory {peak} B above the phase's baseline, launches "
+          f"{report['launches_by_mode']}")
+
+    seq, _, paths["regret_sequential"] = _path_launches(kernels, lambda: regret.run(
+        "sequential", functions=(("Branin", 2),), seeds=(1,), device="cuda"))
+    branin = seq["per_run"]["Branin2d:first_pick_full"][0]
+    print(f"regret runner entry point (BenchmarkState -> InRamDesignerPolicy -> "
+          f"BenchmarkRunner, Branin2d seed 1): final regret {branin:.6g} (gate <= "
+          f"{regret.BRANIN_MEDIAN_LIMIT}), wall per suggest round (s) "
+          f"{[round(t, 3) for t in seq['round_wall_s']['Branin2d:1']]}, float64 refactors "
+          f"{seq['by_function']['Branin2d']['float64_refactors']}")
+    if not branin <= regret.BRANIN_MEDIAN_LIMIT:
+        failures.append("runner entry point Branin2d regret")
+
+    suite = _repo_json("regret_suite_r5.json")
+    bandit = suite["branin_gp_ucb"]
+    figures = {"branin_gp_ucb": [], "sequential": dict(regret=branin, wall_s=seq["wall_s"])}
+    launches = []
+    for seed, ref_best, ref_random in zip((1, 2), bandit["best"], bandit["baseline_random"]):
+        best, wall, counts = _path_launches(kernels, lambda: regret.branin_gp_ucb(seed))
+        launches.append(counts)
+        figures["branin_gp_ucb"].append(dict(seed=seed, best=best, wall_s=wall))
+        print(f"regret branin_gp_ucb seed {seed}: best {best:.6g} (optimum 0.397887) vs "
+              f"reference {ref_best:.6g}, random {ref_random:.6g}; {wall:.1f} s")
+        if not best < ref_random:
+            failures.append(f"branin_gp_ucb seed {seed} not below random")
+    paths["regret_branin_gp_ucb"] = {name: {m: sum(c[name][m] for c in launches) for m in modes}
+                                     for name, modes in launches[0].items()}
+
+    mixed, wall, paths["regret_mixed_default_ucbpe"] = _path_launches(
+        kernels, lambda: regret.mixed_default_ucbpe(1))
+    rows = _repo_json("regret_report_r4.json")["configs"]["mixed_space_default"]["rows"]
+    random_median = next(r["objective_final_median"] for r in rows if r["algorithm"] == "ref-random")
+    figures["mixed_default_ucbpe"] = dict(best=mixed, wall_s=wall)
+    print(f"regret mixed_default_ucbpe seed 1: best {mixed:.7g} (optimum 1.05) vs reference "
+          f"{suite['mixed_default_ucbpe']['best'][0]:.7g}, reference-random median "
+          f"{random_median:.6g}; {wall:.1f} s")
+    if not mixed > random_median:
+        failures.append("mixed_default_ucbpe not above the random median")
+
+    (hv, _), wall, paths["regret_zdt1_gp_hv_ucb"] = _path_launches(
+        kernels, lambda: regret.zdt1_gp_hv_ucb())
+    figures["zdt1_gp_hv_ucb"] = dict(hypervolume=hv, wall_s=wall)
+    print(f"regret zdt1_hypervolume gp_hv_ucb: final hypervolume {hv:.6g} (reference point "
+          f"(-1.1, -6.0)) vs the JAX run's {suite['zdt1_hypervolume']['gp_hv_ucb']:.6g}; "
+          f"{wall:.1f} s")
+    if not (math.isfinite(hv) and hv > 0.0):
+        failures.append("zdt1 hypervolume not finite and positive")
+
+    figures["lockstep"] = {k: report[k] for k in (
+        "median_final_regret", "wall_s", "peak_memory_bytes")}
+    figures["lockstep"]["by_function"] = {name: dict(
+        wall_s=f["wall_s"], float64_refactors=f["float64_refactors"],
+        flushes=f["executor"]["batch_flushes"], occupancy=f["executor"]["occupancy"],
+        round_wall_s=[r["wall_s"] for r in f["executor"]["rounds"]])
+        for name, f in report["by_function"].items()}
+    figures["parity"] = {k: dict(port=r["port"], p=r["p"], passed=r["passed"])
+                         for k, r in report["parity"].items()}
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded, "regret phase")
+    if failures:
+        raise AssertionError(f"regret phase: {failures}")
+    return paths, figures
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -1816,16 +2097,18 @@ def main() -> int:
             kind, mods, kernels)
         print(f"[{time.perf_counter() - start:.1f} s] serving-{kind} phase done")
     print(json.dumps({"serving": serving_figures}))
+    regret_paths, regret_figures = run_regret_phase(kernels, lib)
+    print(f"[{time.perf_counter() - start:.1f} s] regret phase done")
+    print(json.dumps({"regret": regret_figures}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
-    # on this slice's main path, serving-exact (K1: the flush's sweep cross
-    # kernel; K2: the flush's cold Gram), with every timed shape under
-    # "by_shape". "launches" is serving-exact's batched rounds' count; every
-    # path's is under "launches_by_mode_by_path".
-    headline = {"fwd": _FLUSH_SWEEP, "bwd": _FLUSH_GRAM_COLD}
-    main_launches = {name: sum(modes.values())
-                     for name, modes in ((n, serving_paths["serving_exact"][n])
-                                         for n in ("matern52_ard_fwd", "matern52_ard_bwd"))}
+    # on this slice's main path, the regret phase's lockstep flushes (K1: the
+    # sweep cross kernel at the last rounds' 256 rows; K2: the cold Gram
+    # there), with every timed shape under "by_shape". "launches" is the
+    # lockstep run's count; every path's is under "launches_by_mode_by_path".
+    headline = {"fwd": _REGRET_SWEEP, "bwd": _REGRET_GRAM}
+    main_launches = {name: sum(regret_paths["regret_lockstep"][name].values())
+                     for name in ("matern52_ard_fwd", "matern52_ard_bwd")}
     rows = []
     for key, name in (("fwd", "matern52_ard_fwd"), ("bwd", "matern52_ard_bwd")):
         by_shape = {}
@@ -1847,7 +2130,8 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": headline[key], "host_us": head["host_us"],
-            "launches_by_mode": by_mode[name], "launches_sparse_path": sparse_launches[name],
+            "launches_by_mode": regret_paths["regret_lockstep"][name],
+            "launches_sparse_path": sparse_launches[name],
             "launches_by_mode_sparse_path": sparse_by_mode[name],
             # The batching-off reference's 8 sequential requests, apart.
             "launches_serving_batching_off": {
@@ -1856,7 +2140,8 @@ def main() -> int:
             "launches_by_mode_by_path": {
                 "exact": by_mode[name], "sparse": sparse_by_mode[name],
                 **{path: modes[name] for path, modes in mo_paths.items()},
-                **{path: modes[name] for path, modes in serving_paths.items()}},
+                **{path: modes[name] for path, modes in serving_paths.items()},
+                **{path: modes[name] for path, modes in regret_paths.items()}},
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

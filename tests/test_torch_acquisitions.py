@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu.designers.gp import acquisitions as jacq
 from vizier_tpu.models import kernels as jk

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu_torch import pyvizier as vz
 from vizier_tpu_torch.designers import gp_ucb_pe
@@ -748,3 +749,147 @@ def test_a_flush_of_designers_matches_each_study_alone_on_the_card(cuda_device):
             assert torch.equal(getattr(state.data, field), getattr(alone_state.data, field))
         got, want = nll(state), nll(alone_state)
         assert abs(got - want) <= 1e-3 * max(1.0, abs(want)), (study, got, want)
+
+
+# -- the regret phase's shapes: a function's 5 seeds per flush, padded to 8 --
+#
+# Rows padded to the next power of two (16 at 10 trials ... 256 at 130-140),
+# the all-points rows to pad(n + 10) with n to n + 9 valid; Dc = 20 (Sphere,
+# Rastrigin) and 2 (Branin); the mixed-space DEFAULT alone at Dc = 2, Ds = 1;
+# the GP bandit alone on ZDT1 (Dc = 6) and Branin.
+_REGRET_GRAMS = {
+    "cold_gram_8x5_256_dc20": dict(studies=8, group=5, n=256, m=256, dc=20, ds=0, same=True,
+                                   valid=140, diag=1e-3),
+    "cold_gram_8x5_128_dc20": dict(studies=8, group=5, n=128, m=128, dc=20, ds=0, same=True,
+                                   valid=120, diag=1e-3),
+    "cold_gram_8x5_16_dc2": dict(studies=8, group=5, n=16, m=16, dc=2, ds=0, same=True,
+                                 valid=10, diag=1e-3),
+    "cold_gram_8x5_256_dc2": dict(studies=8, group=5, n=256, m=256, dc=2, ds=0, same=True,
+                                  valid=140, diag=1e-3),
+    "pick_gram_8_256_dc20": dict(studies=8, group=1, n=256, m=256, dc=20, ds=0, same=True,
+                                 valid=149, diag=1e-3),
+    "pick_gram_8_32_dc2": dict(studies=8, group=1, n=32, m=32, dc=2, ds=0, same=True,
+                               valid=29, diag=1e-3),
+    "mixed_gram_5_32_dc2_ds1": dict(studies=1, group=5, n=32, m=32, dc=2, ds=1, same=True,
+                                    valid=27, diag=1e-3),
+}
+_REGRET_CROSS = {
+    "pe_8_256x256_dc20": dict(studies=8, group=1, n=256, m=256, dc=20, ds=0, valid=140),
+    "pe_8_256x128_dc20": dict(studies=8, group=1, n=256, m=128, dc=20, ds=0, valid=120),
+    "pe_8_32x16_dc2": dict(studies=8, group=1, n=32, m=16, dc=2, ds=0, valid=10),
+    "sweep_8_50x256_dc20": dict(studies=8, group=1, n=50, m=256, dc=20, ds=0, valid=145),
+    "sweep_8_50x32_dc2": dict(studies=8, group=1, n=50, m=32, dc=2, ds=0, valid=20),
+    "one_query_8_1x32_dc2": dict(studies=8, group=1, n=1, m=32, dc=2, ds=0, valid=20),
+    "mixed_sweep_1_50x32_dc2_ds1": dict(studies=1, group=1, n=50, m=32, dc=2, ds=1, valid=29),
+    # The GP bandit alone: its sweep on ZDT1 (Dc = 6) and on Branin.
+    "zdt1_sweep_1_50x64_dc6": dict(studies=1, group=1, n=50, m=64, dc=6, ds=0, valid=55),
+    "bandit_sweep_1_50x32_dc2": dict(studies=1, group=1, n=50, m=32, dc=2, ds=0, valid=30),
+}
+
+
+def _check_grouped(device, spec):
+    args, (mask1, mask2, diag) = _flush_args(device, **spec)
+    want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, diag)
+    got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    grad = torch.randn(want.shape, generator=torch.Generator(device=device).manual_seed(2),
+                       device=device)
+    got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, need_x1=True, need_x2=True)
+    _assert_grads_close(got_g, tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2))
+    _assert_params_within_rounding(got_g, grad, args, mask1, mask2)
+
+
+@pytest.mark.parametrize("shape", sorted(_REGRET_GRAMS))
+def test_grouped_kernels_match_plain_at_the_regret_grams(cuda_device, shape):
+    _check_grouped(cuda_device, _REGRET_GRAMS[shape])
+
+
+@pytest.mark.parametrize("tile", [-1, 0, 1], ids=["chosen", "big", "tiny"])
+@pytest.mark.parametrize("shape", sorted(_REGRET_CROSS))
+def test_regret_cross_shapes_match_plain_at_every_tile(cuda_device, shape, tile):
+    """K1 and K2 at the regret flushes' cross shapes, each tile forced in turn."""
+    from vizier_tpu_torch.ops import native
+
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        _check_grouped(cuda_device, _REGRET_CROSS[shape])
+    finally:
+        lib.matern52_force_tile(-1)
+
+
+def _lockstep_branin_round():
+    """Five Branin2d studies (seeds 1-5) at 10 completed trials, their
+    suggest(10) submitted at once to the regret run's executor. Returns
+    (executor stats, [(experimenter, suggestions)])."""
+    import threading
+
+    from vizier_tpu_torch.benchmarks import regret
+    from vizier_tpu_torch.benchmarks.experimenters import experimenter_factory
+
+    executor, stats = regret.make_executor()
+    studies = []
+    for seed in range(1, 6):
+        exp = experimenter_factory.shifted_bbob_instance("Branin", seed, dim=2)
+        designer = regret.make_designer(exp.problem_statement(), seed, 2000, "cuda")
+        seeds = [s.to_trial(i + 1) for i, s in enumerate(designer.suggest(10))]
+        exp.evaluate(seeds)
+        designer.update(vz.CompletedTrials(seeds))
+        studies.append((exp, designer))
+    results = [None] * 5
+    barrier = threading.Barrier(5)
+
+    def suggest(i):
+        barrier.wait()
+        results[i] = executor.suggest(studies[i][1], 10)
+
+    threads = [threading.Thread(target=suggest, args=(i,)) for i in range(5)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        executor.close()
+    return stats, [(exp, r) for (exp, _), r in zip(studies, results)]
+
+
+def test_a_lockstep_round_of_branin_studies_flushes_once_without_fallback(cuda_device):
+    """One lockstep round of five Branin2d studies: one flush of all five,
+    no fallback or slot error, every pick finite and in bounds."""
+    from vizier_tpu_torch.benchmarks import regret
+
+    stats, rounds = _lockstep_branin_round()
+    assert stats.get("batch_flushes") == 1 and stats.get("batched_suggests") == 5
+    assert stats.get("batch_fallbacks") == 0 and stats.get("batch_slot_errors") == 0
+    for exp, suggestions in rounds:
+        assert len(suggestions) == 10
+        regret.check_suggestions([s.to_trial(1) for s in suggestions], exp.problem_statement(),
+                                 "Branin2d")
+
+
+def test_every_layout_a_lockstep_round_launches_matches_plain(cuda_device):
+    """The wrappers record each launch's layout while LAUNCH_SHAPES is set;
+    chip_smoke's check holds K1/K2 to their plain versions at each layout of
+    a lockstep Branin2d round, at every tile."""
+    import importlib.util
+    import pathlib
+
+    from vizier_tpu_torch.ops import native
+
+    tk.LAUNCH_SHAPES = set()
+    try:
+        _lockstep_branin_round()
+        recorded = tk.LAUNCH_SHAPES
+    finally:
+        tk.LAUNCH_SHAPES = None
+    names = {name for name, _ in recorded}
+    assert names == {"matern52_ard_fwd", "matern52_ard_bwd"}
+    # The flush's grouped Gram: 5 studies padded to 8 slots, a block each.
+    assert any(shape.symmetric and shape.x1 == 8 and shape.dc == 2 for _, shape in recorded)
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    worst = chip_smoke.check_recorded_shapes(tk, native.library(), recorded, "lockstep round")
+    assert worst["layouts"] == len({shape for _, shape in recorded})

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu import types as jtypes
 from vizier_tpu.models import gp as jgp
@@ -190,12 +191,15 @@ def test_select_best_keeps_the_top_restarts_in_order():
 def test_posterior_cholesky_refactors_in_float64_what_float32_cannot():
     """A positive definite Gram whose float32 factorization fails (all-ones
     plus 2^-22·I at 1024 rows: condition ~4e9) is factored in float64 and
-    rounded back; a member float32 completes keeps its float32 factor."""
+    rounded back; a member float32 completes keeps its float32 factor. The
+    refactor is counted (one call, one member)."""
     n = 1024
     gram = torch.ones(2, n, n) + torch.stack([2.0**-22 * torch.eye(n), 0.5 * torch.eye(n)])
     plain, info = torch.linalg.cholesky_ex(gram)
     assert info.tolist()[0] > 0 and info.tolist()[1] == 0
+    before = dict(tgp.FLOAT64_REFACTORS)
     chol = tgp.posterior_cholesky(gram)
+    assert {k: tgp.FLOAT64_REFACTORS[k] - before[k] for k in before} == {"calls": 1, "members": 1}
     assert bool(torch.isfinite(chol).all())
     torch.testing.assert_close(chol[0], torch.linalg.cholesky(gram[0].double()).float())
     assert torch.equal(chol[1], plain[1])

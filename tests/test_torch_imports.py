@@ -10,6 +10,7 @@ import sys
 
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _FORBIDDEN = re.compile(r"import jax|from jax|vizier_tpu(?!_torch)")

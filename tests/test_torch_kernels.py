@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu import types as jtypes
 from vizier_tpu.models import gp as jgp
@@ -417,3 +418,43 @@ def test_grouped_inputs_must_agree_on_the_study_count():
             amplitude=t(a["amp"]), continuous_length_scales=t(a["cont_ls"]),
             categorical_length_scales=t(a["cat_ls"]),
         )
+
+
+# -- the launch layouts the card's smoke script records and checks --
+
+_LAYOUTS = {
+    # The mixed-space DEFAULT's sweep cross: one study block, data rows masked.
+    "cross_one_study": tk.LaunchShape(1, 50, 32, 2, 1, 1, 1, 1, 1, None, 1, 0, False),
+    # The ZDT1 bandit's per-metric Gram and sweep: shared inputs.
+    "gram_shared": tk.LaunchShape(4, 64, 64, 6, 0, 0, 0, 0, 0, 0, 0, 1, True),
+    "cross_shared": tk.LaunchShape(1, 50, 64, 6, 0, 0, 0, 0, 0, None, 0, 0, False),
+    # A lockstep flush's cold Gram (8 studies x 5 restarts) and sparse Knm.
+    "gram_grouped": tk.LaunchShape(40, 16, 16, 2, 0, 8, 8, 8, 8, 8, 8, 1, True),
+    "cross_grouped_both_masked": tk.LaunchShape(48, 40, 24, 3, 2, 8, 8, 8, 8, 8, 8, 0, False),
+    "cross_member_x1": tk.LaunchShape(2, 30, 30, 8, 4, 2, 0, 0, 0, None, None, 0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LAYOUTS))
+def test_chip_smoke_rebuilds_each_recorded_launch_layout(name):
+    """chip_smoke holds K1/K2 to their plain versions at every layout the
+    regret phase recorded: the inputs it builds have that layout exactly
+    (launch_shape gives it back), and the plain version runs on them."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    layout = _LAYOUTS[name]
+    args, masks = chip_smoke._case_at(torch.Generator().manual_seed(0), layout, device="cpu")
+    x1, z1, x2, z2, _, inv, inv_sq = args
+    symmetric = int(x1 is x2 and z1 is z2 and masks[0] is masks[1])
+    assert tk.launch_shape(x1, z1, x2, z2, inv, inv_sq, *masks, symmetric) == layout
+    out = tk.matern52_ard_fwd_plain(*args, *masks)
+    assert out.shape == (layout.batch, layout.n, layout.m)
+    assert bool(torch.isfinite(out).all())
+    for m in masks[:2]:
+        if m is not None:
+            assert bool(m.any(dim=-1).all()) and not bool(m.all())

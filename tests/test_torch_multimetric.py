@@ -19,6 +19,7 @@ the best first-pick acquisition within 2% (mean over four seeds), as
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import pathlib
 
@@ -27,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu import pyvizier as jvz
 from vizier_tpu.benchmarks.experimenters.synthetic import multiobjective as jmo
@@ -418,8 +420,20 @@ def _load_chip_smoke():
 
 
 def test_chip_smoke_dtlz2_is_the_repo_function():
-    x = np.random.default_rng(0).uniform(size=(50, 20))
-    np.testing.assert_array_equal(_load_chip_smoke()._dtlz2(x), jmo.dtlz2(x, num_objectives=2))
+    """chip_smoke's multi-objective phase builds its study through the port's
+    DTLZ2 experimenter: the points of seed 0 and the JAX package's DTLZ2
+    labels, bit for bit, with the checksum it prints."""
+    chip_smoke = _load_chip_smoke()
+    problem, trials = chip_smoke._dtlz2_study(tvz)
+    dim = chip_smoke._DIM
+    x = np.random.default_rng(0).uniform(size=(chip_smoke._NUM_TRIALS, dim))
+    got = np.array([[t.parameters.get_value(f"x{j}") for j in range(dim)] for t in trials])
+    names = [m.name for m in problem.metric_information]
+    labels = np.array([[t.final_measurement.metrics[k].value for k in names] for t in trials])
+    np.testing.assert_array_equal(got, x)
+    np.testing.assert_array_equal(labels, jmo.dtlz2(x, num_objectives=2))
+    digest = hashlib.sha256(np.concatenate([x, labels], axis=1).tobytes()).hexdigest()
+    assert chip_smoke._study_checksum(trials, problem) == digest[:16]
 
 
 def _problem(vz, safety=False):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu.models import kernels as jk
 from vizier_tpu.optimizers import eagle as jeagle

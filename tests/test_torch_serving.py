@@ -17,6 +17,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu.serving import config as jserving_config
 from vizier_tpu.serving import stats as jserving_stats

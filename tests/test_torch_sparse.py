@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (one torch CPU thread per test process)
 
 from vizier_tpu import pyvizier as jvz
 from vizier_tpu import types as jtypes

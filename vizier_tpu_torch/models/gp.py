@@ -17,7 +17,7 @@ groups of ``B / S`` members, each group over its own study's data.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,11 @@ def matvec(a: Tensor, v: Tensor) -> Tensor:
     return torch.sum(a * v[..., None, :], dim=-1)
 
 
+# Calls of posterior_cholesky that refactored members in float64, and the
+# members refactored.
+FLOAT64_REFACTORS: Dict[str, int] = {"calls": 0, "members": 0}
+
+
 def posterior_cholesky(gram: Tensor) -> Tensor:
     """[B, N, N] float32 Cholesky factors of a posterior's Grams.
 
@@ -65,6 +70,8 @@ def posterior_cholesky(gram: Tensor) -> Tensor:
     chol, info = torch.linalg.cholesky_ex(gram)
     failed = info != 0
     if bool(torch.any(failed)):
+        FLOAT64_REFACTORS["calls"] += 1
+        FLOAT64_REFACTORS["members"] += int(failed.sum())
         redo = torch.linalg.cholesky_ex(gram[failed].to(torch.float64))[0]
         chol = chol.index_put((torch.nonzero(failed)[:, 0],), redo.to(chol.dtype))
     return chol

@@ -26,7 +26,7 @@ distinct pair once.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -55,6 +55,50 @@ def reset_launch_counts() -> None:
 
 def _count_launch(name: str, symmetric: int, masked: bool) -> None:
     LAUNCHES_BY_MODE[name]["gram" if symmetric else "cross" if masked else "other"] += 1
+
+
+class LaunchShape(NamedTuple):
+    """All of a launch but its values: sizes, each input's leading axis
+    (None: not given, 0: shared by every member, S: one block per group or
+    member), the mode and whether a noise diagonal is added."""
+
+    batch: int
+    n: int
+    m: int
+    dc: int
+    ds: int
+    x1: Optional[int]
+    z1: Optional[int]
+    x2: Optional[int]
+    z2: Optional[int]
+    mask1: Optional[int]
+    mask2: Optional[int]
+    symmetric: int
+    diag: bool
+
+
+# While a set, each CUDA wrapper adds (its name, LaunchShape) of every launch
+# to it: a caller that must hold each shape it ran to the plain version sets
+# it, runs, and reads it back.
+LAUNCH_SHAPES: Optional[Set[Tuple[str, LaunchShape]]] = None
+
+
+def launch_shape(x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2, diag,
+                 symmetric: int) -> LaunchShape:
+    def lead(t: Optional[Tensor], base_dim: int) -> Optional[int]:
+        return None if t is None else (t.shape[0] if t.dim() > base_dim else 0)
+
+    return LaunchShape(
+        inv_cont.shape[0], x1.shape[-2], x2.shape[-2], inv_cont.shape[1], inv_sq_cat.shape[1],
+        lead(x1, 2), lead(z1, 2), lead(x2, 2), lead(z2, 2), lead(mask1, 1), lead(mask2, 1),
+        int(symmetric), diag is not None)
+
+
+def _record_shape(name: str, c: _Launch, x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2,
+                  diag) -> None:
+    if LAUNCH_SHAPES is not None:
+        LAUNCH_SHAPES.add((name, launch_shape(x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1,
+                                              mask2, diag, c.symmetric)))
 
 
 def matern52(sq_dist: Tensor) -> Tensor:
@@ -334,6 +378,7 @@ def matern52_ard_fwd_cuda(
         )
         native.check(status, "matern52_ard_fwd")
     _count_launch("matern52_ard_fwd", c.symmetric, mask1 is not None or mask2 is not None)
+    _record_shape("matern52_ard_fwd", c, x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2, diag)
     return out
 
 
@@ -379,6 +424,7 @@ def matern52_ard_bwd_cuda(
         )
         native.check(status, "matern52_ard_bwd")
     _count_launch("matern52_ard_bwd", c.symmetric, mask1 is not None or mask2 is not None)
+    _record_shape("matern52_ard_bwd", c, x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2, None)
     return grads[:, 0], grads[:, 1 : 1 + dc], grads[:, 1 + dc :], gx1, gx2
 
 
