@@ -28,8 +28,8 @@ Phases (any failure raises and exits non-zero):
    temporary directory and times its kernels the same way in the same run.
 4. The exact main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
-   synthetic completed trials and serves three ``suggest(count=5)`` requests,
-   completing the five suggestions between requests. Launch counts are reset
+   synthetic completed trials and serves two ``suggest(count=5)`` requests
+   (``_REQUESTS``), completing the five suggestions between requests. Launch counts are reset
    just before and read just after; both kernels, K1's Gram and cross modes
    and K2's Gram mode must have run. Suggestions finite and in bounds, every
    trained Cholesky finite, the trained posterior's predictions on the card
@@ -37,8 +37,8 @@ Phases (any failure raises and exits non-zero):
    ones and unit-scale ones). Then profiles one more request.
 5. The service-configured DEFAULT: the same designer with
    ``surrogate=SurrogateConfig()``, ``warm_ard_restarts=1`` on the same study
-   serves three ``suggest(count=5)`` through the sparse SGPR surrogate (one
-   cold train, then two warm ones), with its own launch counts (K1 and K2 in
+   serves two ``suggest(count=5)`` through the sparse SGPR surrogate (one
+   cold train, then a warm one), with its own launch counts (K1 and K2 in
    both their Gram and cross modes), the same output checks, k-center picks
    and predictions against the CPU plain path, the k-center loop's launches
    and time, and one more profiled request. Then one sparse
@@ -47,15 +47,15 @@ Phases (any failure raises and exits non-zero):
    port's ``MultiObjectiveExperimenter.dtlz``, its study's checksum printed)
    at 1000 completed trials drawn uniformly from [0, 1]^20 with seed 0. The
    DEFAULT as the service builds it (``SurrogateConfig()``,
-   ``warm_ard_restarts=1``) serves three ``suggest(count=5)``, one GP per
-   objective (one cold train, then two warm), with its launch counts (K1
+   ``warm_ard_restarts=1``) serves two ``suggest(count=5)``, one GP per
+   objective (one cold train, then a warm one), with its launch counts (K1
    Gram and cross, K2 Gram), the mode staying exact, every per-metric
    Cholesky finite, each metric's predictions and the pick's HV-scalarized
    and PE scores against the CPU plain path, and one profiled request. Then
    the SEPARABLE multi-task variant serves one request (joint Cholesky
    finite, per-task predictions against the CPU, the learned task
    correlation printed), GAUSSIAN_PROCESS_BANDIT one multi-objective
-   ``suggest(count=1)``, and the Pareto ops run over the study's 1015
+   ``suggest(count=1)``, and the Pareto ops run over the study's 1010
    completed trials on the card against the CPU. The kernel checks, tile
    comparisons and timings of phases 2-3 include this phase's shapes.
 7. The service's suggest path, as the Pythia process runs it: the port's
@@ -72,10 +72,11 @@ Phases (any failure raises and exits non-zero):
    ``UCBPESparseProgram`` (two rounds) and ``GPBanditSparseProgram``. Each
    round must be one flush of occupancy 8 with no fallback and no slot
    error; suggestions finite and in bounds; every trained factor finite.
-   The first round is served again with batching off (the same 8 studies one
-   after another): the throughput reference and the parity reference (each
-   slot's trained NLL, and its posterior at unit-scale parameters computed in
-   the stacked batch and alone). Prints flushes, occupancy, wall time per
+   The first round is served again with batching off (the first 4 studies,
+   ``_REFERENCE_STUDIES``, one after another): the throughput reference and
+   the parity reference (each of those slots' trained NLL; every slot's
+   posterior at unit-scale parameters computed in the stacked batch and
+   alone). Prints flushes, occupancy, wall time per
    flush and request, throughput on and off, K1/K2 launches per flush
    against the 8 sequential requests', the device busy and idle share of one
    profiled flush and of one profiled sequential request, and the peak
@@ -109,9 +110,29 @@ Phases (any failure raises and exits non-zero):
    ``regret_report_r4.json``) and the bandit on ZDT1 (final hypervolume
    finite and positive, printed beside the JAX run's). The kernel checks,
    tile comparisons and timings of phases 2-3 include this phase's shapes.
-9. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
-   run's), the card line again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. gp-surface: the GP designers' remaining single-objective surface on
+   bench.py's study (1000 trials x 20-D), each step a request through the
+   designers' entry points with its launches by mode and wall printed:
+   ``VizierGPBandit(acquisition="pi")`` ``suggest(1)``; joint qEI
+   (``acquisition="qei"``, ``surrogate=SurrogateConfig()``) ``suggest(5)``,
+   kind ``qei_joint``, on the exact posterior though the study is past the
+   sparse threshold, exactly one K1 cross (k*) launch per sweep iteration,
+   profiled (device busy, idle share, the Cholesky kernels' time), its
+   winning batch's qEI and a pool of 50 batches' qEI recomputed on the CPU
+   with the same normals, ``predict_joint`` against the CPU, and LCB / LogEI
+   / PI / Sample / the q-acquisitions / MES at the sweep's shape against the
+   CPU; ``predict`` and ``sample(1000)`` at 100 points with no Gram launch
+   and no train; UCB-PE's set acquisition ``suggest(5)`` (one pick, then a
+   set of four whose log-determinant score is recomputed on the CPU); UCB-PE
+   with the corner ``prior_acquisition`` (every pick near the corner);
+   transfer through ``set_priors`` (two 1000-trial prior studies of a
+   shifted objective under a 100-trial one: three exact levels at 1024,
+   1024 and 128 rows, the winning stacked UCB recomputed on the CPU); the
+   exact DEFAULT with ``ard_optimizer=AdamOptimizer()``. Then K1/K2 at every
+   launch layout the phase recorded, each tile forced in turn.
+10. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+   run's; every path's, the gp-surface steps' included, by mode), the card
+   line again, and as the last line ``{"ok": true, "device": {...}}``.
 
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
 show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
@@ -349,6 +370,28 @@ _REGRET_CASES = _REGRET_CROSS_CASES + [
     (_MIXED_GRAM, dict(b=5, n=32, m=32, dc=2, ds=1, same=True, valid=27)),
     (_ZDT_GRAM, dict(b=4, n=64, m=64, dc=6, ds=0, same=True, valid=55)),
 ]
+# The gp-surface phase's shapes at 1000 x 20-D: joint qEI's k* over a pool of
+# 50 batches of 5 (250 points) and set-PE's (50 sets of 4) against the data
+# rows, their K(q, q) blocks (candidate p is group p of the batch), and the
+# stacked residual's 100-trial level (its Gram over 4 restarts, its sweep).
+# The phase also records its launches' layouts and holds each one to the
+# plain version (check_recorded_shapes).
+_QEI_KSTAR = "gp-surface qEI k* cross B=1 N=250 M=1024 (1000 valid) Dc=20"
+_QEI_KQQ = "gp-surface qEI K(q,q) gram B=50 grouped N=M=5 unmasked Dc=20"
+_SET_PE_KSTAR = "gp-surface set-PE k* cross B=1 N=200 M=1024 (1006 valid) Dc=20"
+_SET_PE_KQQ = "gp-surface set-PE K(q,q) gram B=50 grouped N=M=4 unmasked Dc=20"
+_STACK_GRAM = "gp-surface stacked level gram B=4 N=M=128 (100 valid) Dc=20"
+_STACK_SWEEP = "gp-surface stacked level sweep cross B=1 N=50 M=128 (100 valid) Dc=20"
+_SURFACE_CROSS_CASES = [
+    (_QEI_KSTAR, dict(b=1, n=250, m=1024, dc=20, ds=0, valid=1000)),
+    (_SET_PE_KSTAR, dict(b=1, n=200, m=1024, dc=20, ds=0, valid=1006)),
+    (_STACK_SWEEP, dict(b=1, n=50, m=128, dc=20, ds=0, valid=100)),
+]
+_SURFACE_CASES = _SURFACE_CROSS_CASES + [
+    (_QEI_KQQ, dict(b=50, n=5, m=5, dc=20, ds=0, same=True, studies=50)),
+    (_SET_PE_KQQ, dict(b=50, n=4, m=4, dc=20, ds=0, same=True, studies=50)),
+    (_STACK_GRAM, dict(b=4, n=128, m=128, dc=20, ds=0, same=True, valid=100)),
+]
 _TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_KMM_COLD,
           _SPARSE_KMM_WARM, _SPARSE_KNM_PICK, _SPARSE_KMM_PICK, _SPARSE_PE, _SPARSE_SWEEP,
           _SPARSE_SWEEP_AUG, _MO_GRAM_WARM, _MO_PE, _MO_SWEEP, _MO_BANDIT_GRAM, _MT_KX, _MT_KX_PICK,
@@ -357,7 +400,8 @@ _TIMED = (_GRAM, _CROSS, _PE_CROSS, _SPARSE_KNM_COLD, _SPARSE_KNM_WARM, _SPARSE_
           _FLUSH_KNM_PICK, _FLUSH_KMM_PICK, _FLUSH_SPARSE_PE, _REGRET_GRAM, _REGRET_GRAM_2D,
           _REGRET_PICK, _REGRET_PICK_2D, _REGRET_PE, _REGRET_PE_2D, _REGRET_SWEEP,
           _REGRET_SWEEP_2D, _REGRET_ONE_2D, _MIXED_GRAM, _MIXED_SWEEP, _ZDT_GRAM, _ZDT_SWEEP,
-          _BANDIT_SWEEP_2D)
+          _BANDIT_SWEEP_2D, _QEI_KSTAR, _QEI_KQQ, _SET_PE_KSTAR, _SET_PE_KQQ, _STACK_GRAM,
+          _STACK_SWEEP)
 _CASES = [
     (_GRAM, dict(b=5, n=1024, m=1024, dc=20, ds=0, same=True, valid=1000)),
     (_CROSS, dict(b=1, n=50, m=1024, dc=20, ds=0, valid=1000)),
@@ -373,7 +417,7 @@ _CASES = [
     ("wide B=2 N=M=256 Dc=80", dict(b=2, n=256, m=256, dc=80, ds=0)),
     ("wide gram B=2 N=M=256 Dc=80 (250 valid)",
      dict(b=2, n=256, m=256, dc=80, ds=0, same=True, valid=250)),
-] + _SPARSE_CASES + _MO_CASES + _FLUSH_CASES + _REGRET_CASES
+] + _SPARSE_CASES + _MO_CASES + _FLUSH_CASES + _REGRET_CASES + _SURFACE_CASES
 # The cross kernels of both paths: the exact path's, B=1 against the 1024
 # data rows (1000 real): one pick's predict, the sweep's pool and the PE
 # conditioning; and the sparse path's. Every tile shape is checked and timed
@@ -381,7 +425,8 @@ _CASES = [
 _TILE_CASES = [
     (f"cross B=1 N={q} M=1024 (1000 valid) Dc=20", dict(b=1, n=q, m=1024, dc=20, ds=0, valid=1000))
     for q in (1, 50, 1024)
-] + _SPARSE_CROSS_CASES + _MO_CROSS_CASES + _FLUSH_CROSS_CASES + _REGRET_CROSS_CASES
+] + (_SPARSE_CROSS_CASES + _MO_CROSS_CASES + _FLUSH_CROSS_CASES + _REGRET_CROSS_CASES
+     + _SURFACE_CROSS_CASES)
 _TILE_KINDS = {0: "big", 1: "tiny"}
 
 _REPLACES = (
@@ -931,6 +976,9 @@ def _bench_trials(vz, num_trials: int, dim: int):
 
 
 _DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
+# suggest(count=5) requests of each designer path (phases 4-6) before its
+# profiled one.
+_REQUESTS = 2
 
 
 def _bench_problem(vz):
@@ -947,7 +995,7 @@ def _bench_objective(values: np.ndarray) -> dict:
     return {"obj": float(-np.sum((values - 0.5) ** 2))}
 
 
-def _serve(vz, kernels, designer, check_state, kind: str, requests: int = 3, trials=None,
+def _serve(vz, kernels, designer, check_state, kind: str, requests: int = _REQUESTS, trials=None,
            evaluate=_bench_objective, split_train: bool = False):
     """``requests`` suggest(count=5) requests on a study (bench.py's unless
     ``trials`` is given), each request's picks completed through
@@ -1006,7 +1054,7 @@ def _require_modes(by_mode, required, path: str):
 
 
 def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
-    """Phase 4: three suggest(count=5) requests at 1000 trials x 20-D."""
+    """Phase 4: two suggest(count=5) requests at 1000 trials x 20-D."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
     states = []
 
@@ -1034,9 +1082,9 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
 
 def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
     """Phase 5: the service-configured DEFAULT (``SurrogateConfig()``, warm
-    ARD with one warm restart) serves three suggest(count=5) requests on the
+    ARD with one warm restart) serves two suggest(count=5) requests on the
     same study, which is past the 512-trial threshold: one cold sparse train,
-    then two warm ones. Then GAUSSIAN_PROCESS_BANDIT's sparse suggest."""
+    then a warm one. Then GAUSSIAN_PROCESS_BANDIT's sparse suggest."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(
         _bench_problem(vz), rng_seed=0, surrogate=surrogates.SurrogateConfig(),
         use_warm_start_ard=True, warm_ard_restarts=1,
@@ -1058,12 +1106,13 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
           f"surrogate_mode={designer.surrogate_mode} surrogate_counts={designer.surrogate_counts} "
           f"ard_train_counts={designer.ard_train_counts}")
-    if designer.surrogate_mode != "sparse" or designer.surrogate_counts["sparse_suggests"] != 3:
-        raise AssertionError(f"the sparse path did not serve three sparse suggests: "
+    if (designer.surrogate_mode != "sparse"
+            or designer.surrogate_counts["sparse_suggests"] != _REQUESTS):
+        raise AssertionError(f"the sparse path did not serve {_REQUESTS} sparse suggests: "
                              f"{designer.surrogate_mode} {designer.surrogate_counts}")
-    if designer.ard_train_counts != {"cold": 1, "warm": 2}:
+    if designer.ard_train_counts != {"cold": 1, "warm": _REQUESTS - 1}:
         raise AssertionError(f"sparse path trains {designer.ard_train_counts}, "
-                             f"expected one cold and two warm")
+                             f"expected one cold and the rest warm")
     # Kmm through K1's and K2's Gram modes, Knm through their cross modes,
     # k* through K1's cross mode.
     _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
@@ -1312,8 +1361,8 @@ def _check_pareto(pareto, trials, names):
 def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates, acquisitions,
                             multitask_gp, pareto):
     """Phase 6: DTLZ2 with two objectives at 1000 trials x 20-D. The DEFAULT
-    as the service builds it serves three suggest(count=5) (one cold train,
-    then warm ones; the mode stays exact: multi-objective studies do not go
+    as the service builds it serves two suggest(count=5) (one cold train,
+    then a warm one; the mode stays exact: multi-objective studies do not go
     sparse), then the SEPARABLE multi-task variant and
     GAUSSIAN_PROCESS_BANDIT serve one request each on the same study, and the
     Pareto ops run over its completed trials. Returns {path: launches by
@@ -1348,9 +1397,9 @@ def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogate
     print(f"multi-objective path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode} "
           f"surrogate_mode={designer.surrogate_mode} ard_train_counts={designer.ard_train_counts}")
-    if designer.ard_train_counts != {"cold": 1, "warm": 2}:
+    if designer.ard_train_counts != {"cold": 1, "warm": _REQUESTS - 1}:
         raise AssertionError(f"multi-objective trains {designer.ard_train_counts}, "
-                             f"expected one cold and two warm")
+                             f"expected one cold and the rest warm")
     _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
                              ("matern52_ard_bwd", "gram")), "multi-objective path")
     profile_request(designer, "multi-objective", split_train=True)
@@ -1499,7 +1548,7 @@ def _device_activity(prof) -> dict:
 
 
 def profile_request(designer, kind: str, count: int = 5, split_train: bool = False):
-    """One more request after a path's three, under torch.profiler: device
+    """One more request after a path's others, under torch.profiler: device
     busy time by kernel and the device's idle share of the request's wall
     time; with ``split_train`` split into ARD training and the rest (pick
     loop, sweeps, decode)."""
@@ -1529,6 +1578,9 @@ def profile_request(designer, kind: str, count: int = 5, split_train: bool = Fal
 # -- the service's suggest path: policy factory -> cache -> executor ----------
 
 _SERVE_STUDIES = 8
+# Studies of round 0 served again with batching off (the throughput and
+# parity reference), one after another.
+_REFERENCE_STUDIES = 4
 # Study i starts with base + 2i completed trials: all 8 share one padding
 # bucket (512 rows exact, below the 512-trial sparse threshold; 1024 sparse).
 _SERVE_TRIALS = {"exact": 480, "sparse": 1000}
@@ -1598,11 +1650,13 @@ class _Fleet:
             study_descriptor=supporter.study_descriptor(), count=count)
         return policy.suggest(request).suggestions
 
-    def round(self, count: int, concurrent: bool, profile_first: bool = False):
-        """One request per study: all at once on 8 threads, or one after
-        another. Returns (suggestions per study, wall seconds, profiled
-        (busy us, wall s, launches) of study 0's request when asked)."""
-        results = [None] * _SERVE_STUDIES
+    def round(self, count: int, concurrent: bool, profile_first: bool = False,
+              studies: int = _SERVE_STUDIES):
+        """One request per study: all at once on 8 threads, or the first
+        ``studies`` one after another. Returns (suggestions per study, wall
+        seconds, profiled (busy us, wall s, launches) of study 0's request
+        when asked)."""
+        results = [None] * studies
         errors = []
         profiled = None
         torch.cuda.synchronize()
@@ -1623,7 +1677,7 @@ class _Fleet:
             for t in threads:
                 t.join()
         else:
-            for i in range(_SERVE_STUDIES):
+            for i in range(studies):
                 if profile_first and i == 0:
                     from torch.profiler import ProfilerActivity, profile
 
@@ -1686,15 +1740,20 @@ def _trained_state(designer, sparse: bool):
 
 def _check_serving_parity(fleet, reference, sparse: bool, batch_executor, gp_lib, kernels,
                           label: str):
-    """Each study served in the flush against the same study served alone:
-    the same data; trained NLLs within _NLL_TOL; the posterior at unit-scale
-    parameters computed in the stacked batch of 8 against alone."""
+    """Each study served alone (the reference's) against the same study
+    served in the flush: the same data; trained NLLs within _NLL_TOL; the
+    posterior at unit-scale parameters computed in the stacked batch of 8
+    against alone."""
     worst_nll, worst_pred = 0.0, 0.0
     datas, states = [], []
     for i in range(_SERVE_STUDIES):
         flush_state = _trained_state(fleet.designer(i), sparse)
-        alone_state = _trained_state(reference.designer(i), sparse)
         fd = flush_state.sdata if sparse else flush_state.data
+        datas.append(fd)
+        states.append(flush_state)
+        if i >= _REFERENCE_STUDIES:  # not served with batching off
+            continue
+        alone_state = _trained_state(reference.designer(i), sparse)
         ad = alone_state.sdata if sparse else alone_state.data
         for a, b in zip(batch_executor.tree_leaves(fd), batch_executor.tree_leaves(ad)):
             if not torch.equal(a, b):
@@ -1709,8 +1768,6 @@ def _check_serving_parity(fleet, reference, sparse: bool, batch_executor, gp_lib
               f"(rel {err:.2e}, tol {_NLL_TOL})")
         if not err <= _NLL_TOL:
             raise AssertionError(f"{label}: study {i}'s trained NLL differs from batching off")
-        datas.append(fd)
-        states.append(flush_state)
     model = states[0].model
     unit = {k: torch.full_like(v[:1], 0.1 if k == "noise_stddev" else 1.0)
             for k, v in states[0].params.items()}
@@ -1807,7 +1864,7 @@ def run_serving_phase(kind: str, mods, kernels):
                                  f"fallback or slot error: {stats}")
         if r == 0:
             ref_results, ref_wall, ref_profile = reference.round(
-                _COUNT, concurrent=False, profile_first=True)
+                _COUNT, concurrent=False, profile_first=True, studies=_REFERENCE_STUDIES)
             ref_counts = take_counts(batched=False)
             figures["launches_batching_off"] = ref_counts
             _check_round(ref_results, _COUNT, f"{label} batching off")
@@ -1815,16 +1872,21 @@ def run_serving_phase(kind: str, mods, kernels):
                 raise AssertionError("the reference runtime batches")
             busy_us, one_wall, one_launches = ref_profile
             row["batching_off"] = dict(
-                wall_ms=ref_wall * 1e3, launches=ref_counts,
-                suggestions_per_s=_SERVE_STUDIES * _COUNT / ref_wall,
+                wall_ms=ref_wall * 1e3, studies=_REFERENCE_STUDIES, launches=ref_counts,
+                suggestions_per_s=_REFERENCE_STUDIES * _COUNT / ref_wall,
                 profiled_request=dict(busy_ms=busy_us / 1e3, wall_ms=one_wall * 1e3,
                                       idle=1.0 - busy_us / 1e6 / one_wall, launches=one_launches))
-            ratio = {name: (sum(counts[name].values()) / max(sum(ref_counts[name].values()), 1))
-                     for name in counts}
-            print(f"{label} round 0 (batching off, 8 requests one after another): "
-                  f"{ref_wall * 1e3:.1f} ms, {ref_wall * 1e3 / _SERVE_STUDIES:.1f} ms per request, "
+            # Per request: the flush's launches over 8 requests' at the
+            # reference's rate.
+            ratio = {name: (sum(counts[name].values()) / max(
+                sum(ref_counts[name].values()) * _SERVE_STUDIES / _REFERENCE_STUDIES, 1))
+                for name in counts}
+            print(f"{label} round 0 (batching off, the first {_REFERENCE_STUDIES} studies one "
+                  f"after another): {ref_wall * 1e3:.1f} ms, "
+                  f"{ref_wall * 1e3 / _REFERENCE_STUDIES:.1f} ms per request, "
                   f"{row['batching_off']['suggestions_per_s']:.2f} suggestions/s; launches "
-                  f"{ref_counts}; flush launches / 8 sequential requests' launches {ratio}; "
+                  f"{ref_counts}; flush launches / 8 sequential requests' launches (at the "
+                  f"reference's per-request count) {ratio}; "
                   f"throughput on/off {row['suggestions_per_s'] / row['batching_off']['suggestions_per_s']:.2f}x")
             print(f"{label} profiled sequential request (batching off): device busy "
                   f"{busy_us / 1e3:.1f} ms of {one_wall * 1e3:.1f} ms, idle share "
@@ -2027,6 +2089,352 @@ def run_regret_phase(kernels, lib):
     return paths, figures
 
 
+# -- gp-surface: the GP designers' remaining single-objective surface --------
+
+# A winning score (joint qEI, set-PE, the stacked UCB) recomputed on the CPU
+# from the card's posteriors copied there, the same draws and the decoded
+# suggestions: |card - cpu| <= tol * max(1, |cpu|). The posterior gate's
+# tolerance: the decode/encode round trip moves each point by ~1e-7, and the
+# card's and the CPU's float32 sums differ in order.
+_SURFACE_SCORE_TOL = 5e-3
+# The new acquisitions at the sweep's shapes on the card against the CPU on
+# the same means, stddevs and draws: rtol and atol (LogEI: rtol 1e-4, its
+# log_ndtr differing in the last digits between the devices).
+_ACQ_RTOL, _ACQ_ATOL = 1e-5, 1e-6
+_QEI_ITERATIONS = 75_000 // 50  # the sweep: 75 000 evaluations, pools of 50
+
+
+def _shifted_trials(vz, num_trials: int, seed: int):
+    """A prior study: bench.py's objective with its optimum moved by a
+    seeded offset (normal, 0.05 per dimension), uniform x."""
+    rng = np.random.default_rng(seed)
+    offset = rng.normal(scale=0.05, size=_DIM)
+    x = rng.uniform(size=(num_trials, _DIM)).astype(np.float32)
+    y = -np.sum((x - 0.5 - offset) ** 2, axis=1) + 0.1 * rng.normal(size=num_trials)
+    trials = []
+    for i in range(num_trials):
+        t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[i, j]) for j in range(_DIM)})
+        t.complete(vz.Measurement(metrics={"obj": float(y[i])}))
+        trials.append(t)
+    return trials
+
+
+def _corner_prior(query):
+    """The JAX package's test prior (tests/designers/test_gp_ucb_pe.py):
+    an overwhelming preference for the all-ones corner of scaled space."""
+    return -1e4 * torch.sum((query.continuous - 1.0) ** 2, dim=-1)
+
+
+def _score_close(label: str, card: float, cpu: float) -> float:
+    err = abs(card - cpu) / max(1.0, abs(cpu))
+    print(f"gp-surface {label}: card {card:.6g}, recomputed on the CPU {cpu:.6g} "
+          f"(rel {err:.2e}, tol {_SURFACE_SCORE_TOL})")
+    if not err <= _SURFACE_SCORE_TOL:
+        raise AssertionError(f"gp-surface {label}: the card's score disagrees with the CPU")
+    return err
+
+
+def _check_acquisitions_against_cpu(acquisitions, kernels, predictive, best_label):
+    """LCB, LogEI, PI, Sample, the q-acquisitions and MES at the sweep's
+    shape (a pool of 50) on the card against the CPU, on the same means,
+    stddevs and draws."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    query = kernels.MixedFeatures(torch.rand((50, _DIM), generator=gen, device="cuda"),
+                                  torch.zeros((50, 0), dtype=torch.int32, device="cuda"))
+    mean, std = predictive.predict(query)
+    per_member = predictive.predict_per_member(query)
+    eps = torch.randn((32,) + per_member[0].shape, generator=gen, device="cuda")
+    u = torch.rand((16,), generator=gen, device="cuda").clamp(min=1e-6)
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    worst = {}
+
+    def both(name, fn, args, rtol=_ACQ_RTOL):
+        got, want = fn(*args), fn(*(cpu(a) if isinstance(a, torch.Tensor) else a for a in args))
+        err = float(torch.max(torch.abs(cpu(got) - want) / (_ACQ_ATOL + rtol * torch.abs(want))))
+        worst[name] = err
+        if not (err <= 1.0 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"gp-surface {name} on the card disagrees with the CPU")
+
+    both("LCB", acquisitions.LCB(), (mean, std, best_label))
+    both("PI", acquisitions.PI(), (mean, std, best_label))
+    # A label far above the posterior puts z deep in LogEI's tail regimes.
+    for shift in (0.0, 3.0, 30.0):
+        both(f"LogEI (best + {shift:g})", acquisitions.LogEI(), (mean, std, best_label + shift),
+             rtol=1e-4)
+    both("Sample", acquisitions.Sample.apply, (mean, std, eps[0, 0]))
+    for kind in ("qei", "qpi", "qucb"):
+        both(kind, lambda m, s, e, b: acquisitions.q_acquisition(m, s, e, best_label=b, kind=kind),
+             (*per_member, eps, best_label))
+
+    class Fixed:
+        def __init__(self, m, s):
+            self.m, self.s = m, s
+
+        def predict(self, query):
+            return self.m, self.s
+
+    both("MES", lambda m, s, uu: acquisitions.MaxValueEntropySearch.from_predictive(
+        Fixed(m, s), None, uu)(m, s, None), (mean, std, u))
+    print(f"gp-surface acquisitions at a pool of 50 on the card vs the CPU, worst |err| / "
+          f"({_ACQ_ATOL} + rtol |cpu|) (<= 1 passes): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    return worst
+
+
+def run_gp_surface_phase(kernels, lib):
+    """Phase 9: the GP designers' remaining single-objective surface at
+    bench.py's study (1000 trials x 20-D), through the designers' entry
+    points: PI, joint qEI, UCB-PE's set acquisition and prior_acquisition,
+    transfer priors, the Adam ARD optimizer, and predict/sample; then K1/K2
+    at every launch layout these steps made. Returns ({path: launches by
+    mode}, figures)."""
+    import copy
+
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch import surrogates
+    from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
+    from vizier_tpu_torch.designers.gp import acquisitions
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.models import multitask_gp
+    from vizier_tpu_torch.models import stacked_residual
+    from vizier_tpu_torch.optimizers import eagle as eagle_lib
+    from vizier_tpu_torch.optimizers import lbfgs
+    from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
+
+    problem, trials = _bench_problem(vz), _bench_trials(vz, _NUM_TRIALS, _DIM)
+    to_cpu = lambda state: _cpu_state(state, gp_lib, multitask_gp)  # noqa: E731
+    cpu_data = lambda data: _cpu_data(data, gp_lib, multitask_gp)  # noqa: E731
+    paths, figures = {}, {"steps": {}}
+    kernels.LAUNCH_SHAPES = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    phase_start = time.perf_counter()
+
+    def request(step, designer, count, kind, ns="gp_bandit"):
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        suggestions = designer.suggest(count=count)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        paths[f"gp_surface_{step}"] = counts = {
+            name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+        _check_suggestions(suggestions, f"gp-surface {step}")
+        kinds = [s.metadata.ns(ns).get("acquisition_kind", "ucb_pe") for s in suggestions]
+        values = [float(s.metadata.ns(ns)["acquisition"]) for s in suggestions]
+        print(f"gp-surface {step}: suggest(count={count}) {wall * 1e3:.1f} ms, kinds {kinds}, "
+              f"acquisition {values}, ard_train_counts {designer.ard_train_counts}, launches "
+              f"by mode {counts}")
+        if len(suggestions) != count or not all(math.isfinite(v) for v in values) or (
+                kind is not None and kinds != [kind] * count):
+            raise AssertionError(f"gp-surface {step}: {kinds} {values}")
+        figures["steps"][step] = dict(wall_ms=wall * 1e3, launches=counts, kinds=kinds)
+        return suggestions
+
+    # 1. PI.
+    pi = gp_bandit.VizierGPBandit(problem, acquisition="pi", rng_seed=0)
+    pi.update(vz.CompletedTrials(trials))
+    request("pi", pi, 1, "pi")
+
+    # 2. Joint qEI, with the service's surrogate config: the auto-switch
+    # flips the 1000-trial study sparse, and the q-batch stays exact.
+    qei = gp_bandit.VizierGPBandit(problem, acquisition="qei", rng_seed=0,
+                                   surrogate=surrogates.SurrogateConfig())
+    qei.update(vz.CompletedTrials(trials))
+    seeds = copy.deepcopy(qei._seed_stream)
+    batch = request("qei", qei, _COUNT, "qei_joint")
+    counts = paths["gp_surface_qei"]["matern52_ard_fwd"]
+    per_iteration = counts["cross"] / _QEI_ITERATIONS
+    state = qei._last_predictive.states
+    print(f"gp-surface qei: K1 launches per sweep iteration: k* (cross) {per_iteration:.3f}, "
+          f"all modes {sum(counts.values()) / _QEI_ITERATIONS:.3f} over {_QEI_ITERATIONS} "
+          f"iterations; surrogate_mode {qei.surrogate_mode}, surrogate_counts "
+          f"{qei.surrogate_counts}")
+    if (per_iteration != 1.0 or not isinstance(state, gp_lib.GPState)
+            or qei.surrogate_counts["sparse_suggests"] != 0):
+        raise AssertionError("gp-surface qei: not one k* launch per sweep iteration on the "
+                             "exact posterior")
+    # One more joint-qEI sweep over the trained posterior, profiled alone:
+    # its only factorizations are the [50, E, 5, 5] Choleskys.
+    from torch.profiler import ProfilerActivity, profile
+
+    vec_opt = vectorized_lib.VectorizedOptimizer(
+        eagle_lib.VectorizedEagleStrategy(num_continuous=_DIM * _COUNT, category_sizes=()),
+        device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        gp_bandit._maximize_q_batch(
+            vec_opt, state, acquisitions.get_best_labels(state.data.labels, state.data.row_mask),
+            acquisitions.TrustRegion.from_data(state.data),
+            torch.Generator(device="cuda").manual_seed(8), _COUNT, 16,
+            gp_bandit._prior_features_from_data(state.data))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    totals = _device_activity(prof)
+    busy = sum(us for _, us in totals.values())
+    chol = sum(us for name, (_, us) in totals.items() if "potrf" in name.lower()
+               or "chol" in name.lower())
+    figures["qei_sweep_profile"] = dict(
+        wall_ms=wall * 1e3, busy_ms=busy / 1e3, idle=1.0 - busy / 1e6 / wall,
+        cholesky_ms=chol / 1e3, launches=sum(n for n, _ in totals.values()))
+    print(f"gp-surface qei sweep alone, profiled (profiler on): {wall * 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms, idle share {figures['qei_sweep_profile']['idle']:.3f}, the "
+          f"[50, E, {_COUNT}, {_COUNT}] Choleskys {chol / 1e3:.1f} ms ({chol / max(busy, 1e-9):.3f} "
+          f"of busy), {figures['qei_sweep_profile']['launches']} device launches")
+    for name, (n, us) in sorted(totals.items(), key=lambda kv: kv[1][1], reverse=True)[:8]:
+        print(f"  {us / 1e3:9.2f} ms {n:7d}x  {name[:90]}")
+    # The winning batch's qEI on the CPU: the sweep's normals regenerated
+    # from the acquisition phase's seed (the second of the suggest's two).
+    seeds.integers(0, 2**62, dtype=np.int64)
+    acq_gen = torch.Generator(device="cuda").manual_seed(int(seeds.integers(0, 2**62,
+                                                                            dtype=np.int64)))
+    eps = torch.randn((16, state.alpha.shape[0], _COUNT), generator=acq_gen, device="cuda")
+    cpu_state = to_cpu(state)
+    winner = qei._encode_suggestions(batch)
+    query = kernels.MixedFeatures(winner.continuous.cpu()[None], winner.categorical.cpu()[None])
+    data = cpu_state.data
+    best = acquisitions.get_best_labels(data.labels, data.row_mask)
+    figures["qei_score_rel_err"] = _score_close("qei winning batch", float(
+        batch[0].metadata.ns("gp_bandit")["acquisition"]), float(gp_bandit.qei_joint_scores(
+            cpu_state, query, eps.cpu(), best, acquisitions.TrustRegion.from_data(data))[0]))
+    # A pool of 50 batches, half of them the best observed points jittered
+    # (non-zero improvement), half uniform: qEI and predict_joint on the
+    # card against the CPU plain path at the same factorization.
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    top = gp_bandit._prior_features_from_data(state.data).continuous[:_COUNT]
+    near = torch.clamp(top + 0.02 * torch.randn((25, _COUNT, _DIM), generator=gen,
+                                                device="cuda"), 0.0, 1.0)
+    pool = kernels.MixedFeatures(
+        torch.cat([near, torch.rand((25, _COUNT, _DIM), generator=gen, device="cuda")]),
+        torch.zeros((50, _COUNT, 0), dtype=torch.int32, device="cuda"))
+    host_pool = kernels.MixedFeatures(*(t.cpu() for t in pool))
+    card_qei = gp_bandit.qei_joint_scores(state, pool, eps, best.cuda(),
+                                          acquisitions.TrustRegion.from_data(state.data))
+    host_qei = gp_bandit.qei_joint_scores(cpu_state, host_pool, eps.cpu(), best,
+                                          acquisitions.TrustRegion.from_data(data))
+    qei_err = float(torch.max(torch.abs(card_qei.cpu() - host_qei)
+                              / torch.clamp(torch.abs(host_qei), min=1.0)))
+    figures["qei_pool_rel_err"] = qei_err
+    print(f"gp-surface qEI of a pool of 50 batches on the card vs the CPU: rel err {qei_err:.2e} "
+          f"(tol {_SURFACE_SCORE_TOL}); {int((host_qei > 0).sum())} of 50 positive, max "
+          f"{float(host_qei.max()):.4g}")
+    if not qei_err <= _SURFACE_SCORE_TOL:
+        raise AssertionError("gp-surface qEI scores on the card disagree with the CPU")
+    card = state.predict_joint(pool)
+    host = cpu_state.predict_joint(host_pool)
+    joint_err = max(float(torch.max(torch.abs(a.cpu() - b))) for a, b in zip(card, host))
+    figures["predict_joint_max_abs_err"] = joint_err
+    print(f"gp-surface predict_joint [50 candidates x {_COUNT}] on the card vs the CPU plain "
+          f"path at the trained parameters: max_abs_err {joint_err:.3e} (tol {_PREDICT_TOL})")
+    if not joint_err <= _PREDICT_TOL:
+        raise AssertionError("gp-surface predict_joint on the card disagrees with the CPU")
+    figures["acquisitions"] = _check_acquisitions_against_cpu(
+        acquisitions, kernels, qei._last_predictive,
+        acquisitions.get_best_labels(state.data.labels, state.data.row_mask))
+
+    # 7 (after 2). predict and sample at 100 suggestions: no retrain.
+    rng = np.random.default_rng(7)
+    points = [vz.TrialSuggestion(parameters={f"x{j}": float(v) for j, v in enumerate(row)})
+              for row in rng.uniform(size=(100, _DIM))]
+    trains = qei.ard_train_counts
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    prediction = qei.predict(points, rng=np.random.default_rng(0))
+    samples = qei.sample(points, rng=np.random.default_rng(1), num_samples=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    paths["gp_surface_predict"] = counts = {
+        name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    labels = np.array([t.final_measurement.metrics["obj"].value for t in trials])
+    print(f"gp-surface predict + sample(1000) at 100 suggestions: {wall * 1e3:.1f} ms, launches "
+          f"{counts}, mean of means {float(np.mean(prediction.mean)):.4f} (labels "
+          f"{labels.min():.3f}..{labels.max():.3f}), samples {samples.shape}")
+    if (counts["matern52_ard_fwd"]["gram"] or qei.ard_train_counts != trains
+            or prediction.mean.shape != (100,) or samples.shape != (1000, 100)
+            or not np.all(np.isfinite(samples))):
+        raise AssertionError("gp-surface predict/sample retrained or gave bad values")
+    figures["steps"]["predict"] = dict(wall_ms=wall * 1e3, launches=counts)
+
+    # 3. UCB-PE with the set acquisition: one pick, then a set of four.
+    config = gp_ucb_pe.UCBPEConfig(optimize_set_acquisition_for_exploration=True)
+    set_pe = gp_ucb_pe.VizierGPUCBPEBandit(problem, config=config, rng_seed=0)
+    set_pe.update(vz.CompletedTrials(trials), vz.ActiveTrials())
+    fresh = set_pe._has_new_completed_trials()
+    picks = request("set_pe", set_pe, _COUNT, None, ns="gp_ucb_pe")
+    values = [float(s.metadata.ns("gp_ucb_pe")["acquisition"]) for s in picks]
+    if not fresh or len(set(values[1:])) != 1:
+        raise AssertionError(f"gp-surface set_pe: not one pick and one set: {values}")
+    (state,), _ = set_pe._cached_states
+    cpu_state = to_cpu(state)
+    all_data = cpu_data(set_pe._all_points_data(_COUNT))
+    first = set_pe._encode_suggestions(picks[:1])
+    all_data = gp_ucb_pe._append_row(all_data, kernels.MixedFeatures(
+        first.continuous.cpu(), first.categorical.cpu()))
+    pe_params, _, threshold = gp_ucb_pe._pe_conditioning([cpu_state], all_data, config)
+    state_all = cpu_state.model.precompute_constrained(pe_params[0], all_data)
+    members = set_pe._encode_suggestions(picks[1:])
+    figures["set_pe_score_rel_err"] = _score_close("set-PE winning set", values[1], float(
+        gp_ucb_pe.set_pe_scores(
+            cpu_state, state_all, kernels.MixedFeatures(members.continuous.cpu()[None],
+                                                        members.categorical.cpu()[None]),
+            threshold[0], config, acquisitions.TrustRegion.from_data(all_data))[0]))
+
+    # 4. UCB-PE with a prior over the space.
+    prior = gp_ucb_pe.VizierGPUCBPEBandit(problem, prior_acquisition=_corner_prior, rng_seed=0)
+    prior.update(vz.CompletedTrials(trials), vz.ActiveTrials())
+    corner = request("prior_acquisition", prior, _COUNT, None, ns="gp_ucb_pe")
+    means = [float(np.mean([s.parameters.get_value(f"x{j}") for j in range(_DIM)]))
+             for s in corner]
+    print(f"gp-surface prior_acquisition: each suggestion's mean coordinate {means} (the prior's "
+          f"corner is 1)")
+    if not min(means) > 0.8:
+        raise AssertionError("gp-surface prior_acquisition: suggestions away from the corner")
+
+    # 5. Transfer: two 1000-trial prior studies under a 100-trial one.
+    current = _bench_trials(vz, 100, _DIM)
+    transfer = gp_bandit.VizierGPBandit(problem, rng_seed=0)
+    transfer.update(vz.CompletedTrials(current))
+    transfer.set_priors([_shifted_trials(vz, _NUM_TRIALS, seed) for seed in (11, 12)])
+    (pick,) = request("priors", transfer, 1, "ucb+priors")
+    stack = transfer._last_predictive
+    rows = [level.data.num_rows for level in stack.levels]
+    pad = transfer._converter.padding.pad_trials
+    if rows != [pad(_NUM_TRIALS)] * 2 + [pad(len(current))] or not all(bool(torch.isfinite(level.chol).all())
+                                            for level in stack.levels):
+        raise AssertionError(f"gp-surface priors: levels of {rows} rows, or a non-finite factor")
+    data = gp_lib.GPData.from_model_data(transfer._warped_model_data(), torch.device("cpu"))
+    scoring = acquisitions.ScoringFunction(
+        predictive=stacked_residual.StackedResidualGP(tuple(to_cpu(l) for l in stack.levels)),
+        acquisition=acquisitions.UCB(transfer.ucb_coefficient),
+        best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
+        trust_region=acquisitions.TrustRegion.from_data(data))
+    x = transfer._encode_suggestions([pick])
+    figures["stacked_score_rel_err"] = _score_close("stacked UCB winning point", float(
+        pick.metadata.ns("gp_bandit")["acquisition"]), float(scoring.score(
+            kernels.MixedFeatures(x.continuous.cpu(), x.categorical.cpu()))[0]))
+
+    # 6. The exact DEFAULT with Adam as its ARD optimizer.
+    adam = gp_ucb_pe.VizierGPUCBPEBandit(problem, rng_seed=0, ard_optimizer=lbfgs.AdamOptimizer())
+    adam.update(vz.CompletedTrials(trials), vz.ActiveTrials())
+    request("adam", adam, _COUNT, None, ns="gp_ucb_pe")
+    (state,), (data,) = adam._cached_states
+    nll = adam._model.neg_log_likelihood(
+        adam._model.param_collection().unconstrain(state.params), data)
+    print(f"gp-surface adam: trained NLL {float(nll[0]):.4f}, parameters "
+          f"{ {k: [round(float(x), 4) for x in v.reshape(-1)[:4]] for k, v in state.params.items()} }")
+    if not (bool(torch.isfinite(state.chol).all()) and math.isfinite(float(nll[0]))
+            and paths["gp_surface_adam"]["matern52_ard_bwd"]["gram"] >= 200):
+        raise AssertionError("gp-surface adam: non-finite fit, or fewer than 200 Adam steps")
+
+    figures["wall_s"] = time.perf_counter() - phase_start
+    figures["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - before
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded, "gp-surface phase")
+    print(f"gp-surface phase: {figures['wall_s']:.1f} s, peak device memory "
+          f"{figures['peak_memory_bytes']} B above the phase's baseline; {_card_line()}")
+    return paths, figures
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -2100,6 +2508,9 @@ def main() -> int:
     regret_paths, regret_figures = run_regret_phase(kernels, lib)
     print(f"[{time.perf_counter() - start:.1f} s] regret phase done")
     print(json.dumps({"regret": regret_figures}))
+    surface_paths, surface_figures = run_gp_surface_phase(kernels, lib)
+    print(f"[{time.perf_counter() - start:.1f} s] gp-surface phase done")
+    print(json.dumps({"gp_surface": surface_figures}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -2141,7 +2552,8 @@ def main() -> int:
                 "exact": by_mode[name], "sparse": sparse_by_mode[name],
                 **{path: modes[name] for path, modes in mo_paths.items()},
                 **{path: modes[name] for path, modes in serving_paths.items()},
-                **{path: modes[name] for path, modes in regret_paths.items()}},
+                **{path: modes[name] for path, modes in regret_paths.items()},
+                **{path: modes[name] for path, modes in surface_paths.items()}},
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -893,3 +893,109 @@ def test_every_layout_a_lockstep_round_launches_matches_plain(cuda_device):
     spec.loader.exec_module(chip_smoke)
     worst = chip_smoke.check_recorded_shapes(tk, native.library(), recorded, "lockstep round")
     assert worst["layouts"] == len({shape for _, shape in recorded})
+
+
+# -- the gp-surface layouts: joint qEI, set-PE, stacked residual, Adam --------
+
+# Joint qEI's and set-PE's k* over a pool of 50 candidate batches (the 250 /
+# 200 flattened points against the data rows), their K(q, q) blocks
+# (candidate p is group p of a [50·E] batch), and the stacked-residual
+# levels' Grams (4 restarts, noise diagonal) and sweeps at 1024 and 128 rows.
+_SURFACE_SHAPES = {
+    "qei_kstar_1_250x1024": dict(studies=1, group=1, n=250, m=1024, dc=20, ds=0, valid=1000),
+    "set_pe_kstar_1_200x1024": dict(studies=1, group=1, n=200, m=1024, dc=20, ds=0, valid=1006),
+    "qei_kqq_50_5x5": dict(studies=50, group=1, n=5, m=5, dc=20, ds=0, same=True),
+    "set_pe_kqq_50x2_4x4": dict(studies=50, group=2, n=4, m=4, dc=20, ds=0, same=True),
+    "stacked_gram_1x4_1024": dict(studies=1, group=4, n=1024, m=1024, dc=20, ds=0, same=True,
+                                  valid=1000, diag=1e-3),
+    "stacked_gram_1x4_128": dict(studies=1, group=4, n=128, m=128, dc=20, ds=0, same=True,
+                                 valid=100, diag=1e-3),
+    "stacked_sweep_1_50x128": dict(studies=1, group=1, n=50, m=128, dc=20, ds=0, valid=100),
+}
+
+
+@pytest.mark.parametrize("tile", [-1, 0, 1], ids=["chosen", "big", "tiny"])
+@pytest.mark.parametrize("shape", sorted(_SURFACE_SHAPES))
+def test_gp_surface_layouts_match_plain_at_every_tile(cuda_device, shape, tile):
+    from vizier_tpu_torch.ops import native
+
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        _check_grouped(cuda_device, _SURFACE_SHAPES[shape])
+    finally:
+        lib.matern52_force_tile(-1)
+
+
+def _surface_problem(dim=6):
+    problem = vz.ProblemStatement()
+    for j in range(dim):
+        problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    problem.metric_information.append(vz.MetricInformation(name="y"))
+    return problem
+
+
+def _surface_trials(n, dim=6, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        x = rng.uniform(size=dim)
+        t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[j]) for j in range(dim)})
+        t.complete(vz.Measurement(metrics={"y": float(-np.sum((x - 0.5) ** 2))}))
+        out.append(t)
+    return out
+
+
+def test_joint_qei_launches_one_kstar_per_sweep_iteration(cuda_device):
+    """A joint qEI suggest on the card: one masked k* launch per sweep
+    iteration (the pool's candidates share it), and the batch in bounds."""
+    from vizier_tpu_torch.designers import gp_bandit
+
+    designer = gp_bandit.VizierGPBandit(
+        _surface_problem(), acquisition="qei", max_acquisition_evaluations=2000)
+    designer.update(vz.CompletedTrials(_surface_trials(40)))
+    tk.reset_launch_counts()
+    suggestions = designer.suggest(4)
+    assert [s.metadata.ns("gp_bandit")["acquisition_kind"] for s in suggestions] == [
+        "qei_joint"] * 4
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["cross"] == 2000 // 50
+
+
+def test_every_layout_of_the_gp_surface_matches_plain(cuda_device):
+    """Joint qEI, set-PE, transfer priors and Adam on the card record their
+    launch layouts; chip_smoke's check holds K1/K2 to their plain versions at
+    each, at every tile."""
+    import importlib.util
+    import pathlib
+
+    from vizier_tpu_torch.designers import gp_bandit
+    from vizier_tpu_torch.ops import native
+    from vizier_tpu_torch.optimizers import lbfgs
+
+    kw = dict(max_acquisition_evaluations=500)
+    tk.LAUNCH_SHAPES = set()
+    try:
+        qei = gp_bandit.VizierGPBandit(_surface_problem(), acquisition="qei", **kw)
+        qei.update(vz.CompletedTrials(_surface_trials(30)))
+        qei.suggest(3)
+        set_pe = gp_ucb_pe.VizierGPUCBPEBandit(
+            _surface_problem(), ard_optimizer=lbfgs.AdamOptimizer(maxiter=20),
+            config=gp_ucb_pe.UCBPEConfig(optimize_set_acquisition_for_exploration=True), **kw)
+        set_pe.update(vz.CompletedTrials(_surface_trials(30)))
+        set_pe.suggest(3)
+        priors = gp_bandit.VizierGPBandit(_surface_problem(), **kw)
+        priors.update(vz.CompletedTrials(_surface_trials(10, seed=1)))
+        priors.set_priors([_surface_trials(40, seed=2)])
+        (pick,) = priors.suggest(1)
+        assert pick.metadata.ns("gp_bandit")["acquisition_kind"] == "ucb+priors"
+        recorded = tk.LAUNCH_SHAPES
+    finally:
+        tk.LAUNCH_SHAPES = None
+    # The K(q, q) blocks: each candidate batch a group of the launch.
+    assert any(shape.symmetric and shape.x1 == 50 and shape.n == 3 for _, shape in recorded)
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    worst = chip_smoke.check_recorded_shapes(tk, native.library(), recorded, "gp surface")
+    assert worst["layouts"] == len({shape for _, shape in recorded})

@@ -63,6 +63,7 @@ def _entry_points():
         "VizierGPBandit": lambda **kw: gp_bandit.VizierGPBandit(problem, **kw),
         "VizierGaussianProcess": lambda **kw: gp.VizierGaussianProcess(1, 0, **kw),
         "LbfgsOptimizer": lambda **kw: lbfgs.LbfgsOptimizer(**kw),
+        "AdamOptimizer": lambda **kw: lbfgs.AdamOptimizer(**kw),
         "VectorizedOptimizer": lambda **kw: vectorized.VectorizedOptimizer(strategy, **kw),
     }
 
@@ -70,7 +71,7 @@ def _entry_points():
 @pytest.mark.parametrize(
     "name",
     ["VizierGPUCBPEBandit", "VizierGPBandit", "VizierGaussianProcess", "LbfgsOptimizer",
-     "VectorizedOptimizer"],
+     "AdamOptimizer", "VectorizedOptimizer"],
 )
 def test_entry_point_without_device_raises_when_no_gpu(monkeypatch, name):
     make = _entry_points()[name]

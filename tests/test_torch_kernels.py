@@ -432,6 +432,9 @@ _LAYOUTS = {
     "gram_grouped": tk.LaunchShape(40, 16, 16, 2, 0, 8, 8, 8, 8, 8, 8, 1, True),
     "cross_grouped_both_masked": tk.LaunchShape(48, 40, 24, 3, 2, 8, 8, 8, 8, 8, 8, 0, False),
     "cross_member_x1": tk.LaunchShape(2, 30, 30, 8, 4, 2, 0, 0, 0, None, None, 0, False),
+    # Joint qEI's K(q, q): each of 50 candidate batches a group, no masks.
+    "gram_grouped_unmasked": tk.LaunchShape(50, 5, 5, 20, 0, 50, 50, 50, 50, None, None, 1,
+                                            False),
 }
 
 

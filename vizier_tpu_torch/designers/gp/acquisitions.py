@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Protocol, Sequence
+from typing import Optional, Protocol, Sequence, Union
 
 import torch
 
@@ -19,6 +19,11 @@ from vizier_tpu_torch.models import kernels
 Tensor = torch.Tensor
 
 _NORM_CONST = 0.3989422804014327  # 1/sqrt(2*pi)
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# Random numbers come from a generator, or are given (a test feeds the JAX
+# package's draws).
+Draws = Union[torch.Generator, Tensor]
 
 
 def _norm_pdf(z: Tensor) -> Tensor:
@@ -68,6 +73,17 @@ class UCB:
 
 
 @dataclasses.dataclass(frozen=True)
+class LCB:
+    """Lower confidence bound: mean − c·stddev."""
+
+    coefficient: float = 1.8
+
+    def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
+        del best_label
+        return mean - self.coefficient * stddev
+
+
+@dataclasses.dataclass(frozen=True)
 class EI:
     """Expected improvement over the best observed label."""
 
@@ -77,12 +93,101 @@ class EI:
 
 
 @dataclasses.dataclass(frozen=True)
+class LogEI:
+    """log(EI): the same argmax as EI, without its float32 underflow.
+
+    log(s·h(z)), h(z) = zΦ(z) + φ(z), in three regimes, each on a clipped
+    copy of z so the unused ones stay finite: directly for z > −1; for
+    −10 < z ≤ −1 as log φ(z) + log1p(zΦ(z)/φ(z)), the ratio formed in log
+    space through ``log_ndtr``; below −10 the asymptote h ≈ φ(z)(z²−3)/z⁴.
+    """
+
+    def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
+        z = (mean - best_label) / stddev
+        zd = torch.clamp(z, min=-1.5)
+        direct = torch.log(zd * _norm_cdf(zd) + _norm_pdf(zd))
+        zm = torch.clamp(z, -12.0, -0.5)
+        log_phi_m = -0.5 * zm * zm - _LOG_SQRT_2PI
+        t = torch.log(-zm) + torch.special.log_ndtr(zm) - log_phi_m
+        ratio = -torch.exp(torch.clamp(t, max=0.0))
+        mills = log_phi_m + torch.log1p(torch.clamp(ratio, min=-0.9999999))
+        zt = torch.clamp(z, max=-4.0)
+        tail = -0.5 * zt * zt - _LOG_SQRT_2PI + torch.log(zt * zt - 3.0) - 2.0 * torch.log(zt * zt)
+        return torch.where(z > -1.0, direct, torch.where(z > -10.0, mills, tail)) + torch.log(
+            stddev)
+
+
+@dataclasses.dataclass(frozen=True)
+class PI:
+    """Probability of improvement."""
+
+    def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
+        return _norm_cdf((mean - best_label) / stddev)
+
+
+@dataclasses.dataclass(frozen=True)
 class PE:
     """Pure exploration: maximize posterior stddev (GP-UCB-PE batches)."""
 
     def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
         del mean, best_label
         return stddev
+
+
+@dataclasses.dataclass(frozen=True)
+class Sample:
+    """Thompson sampling via one marginal posterior sample.
+
+    Every call draws the same standard normals: a generator seeded with
+    ``seed`` on the posterior's device.
+    """
+
+    seed: int = 0
+
+    def draws(self, shape, device: torch.device) -> Tensor:
+        generator = torch.Generator(device=device).manual_seed(self.seed)
+        return torch.randn(shape, generator=generator, device=device)
+
+    def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
+        del best_label
+        return self.apply(mean, stddev, self.draws(mean.shape, mean.device))
+
+    @staticmethod
+    def apply(mean: Tensor, stddev: Tensor, eps: Tensor) -> Tensor:
+        return mean + stddev * eps
+
+
+def _normals(draws: Draws, shape, like: Tensor) -> Tensor:
+    if isinstance(draws, torch.Generator):
+        return torch.randn(shape, generator=draws, dtype=like.dtype, device=like.device)
+    return draws.to(like.device, like.dtype)
+
+
+def q_acquisition(
+    per_member_means: Tensor,  # [E, M]
+    per_member_stddevs: Tensor,  # [E, M]
+    draws: Draws,
+    *,
+    best_label: Tensor,
+    num_samples: int = 32,
+    kind: str = "qei",
+) -> Tensor:
+    """Monte-Carlo q-style score per point over member × posterior draws.
+
+    ``draws`` is a generator or the [num_samples, E, M] standard normals.
+    Kinds: ``qei`` (mean improvement over ``best_label``), ``qpi`` (share of
+    draws above it), ``qucb`` (draw mean + 1.8 draw stddev).
+    """
+    e, m = per_member_means.shape
+    eps = _normals(draws, (num_samples, e, m), per_member_means)
+    samples = (per_member_means[None] + per_member_stddevs[None] * eps).reshape(-1, m)
+    if kind == "qei":
+        return torch.mean(torch.clamp(samples - best_label, min=0.0), dim=0)
+    if kind == "qpi":
+        return torch.mean((samples > best_label).to(samples.dtype), dim=0)
+    if kind == "qucb":
+        return torch.mean(samples, dim=0) + 1.8 * torch.std(samples, dim=0, unbiased=False)
+    raise ValueError(f"Unknown q-acquisition {kind!r}.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,3 +292,41 @@ class HVScalarizedScoring:
         if self.trust_region is not None:
             values = values - self.trust_region.penalty(query)
         return values
+
+
+@dataclasses.dataclass(frozen=True)
+class MaxValueEntropySearch:
+    """Max-value entropy search over Gumbel-sampled optimum values.
+
+    The optimum value y* is drawn from a Gumbel fitted to the posterior's
+    marginals at the observed points; the score is the mutual information
+    between a candidate's value and y*.
+    """
+
+    y_star_samples: Tensor  # [K] sampled optimum values
+
+    @classmethod
+    def from_predictive(
+        cls, predictive, observed: kernels.MixedFeatures, draws: Draws, *, num_samples: int = 16,
+    ) -> "MaxValueEntropySearch":
+        """``draws`` is a generator or the [num_samples] uniforms in
+        [float32 tiny, 1)."""
+        mean, stddev = predictive.predict(observed)
+        upper = torch.amax(mean + 3.0 * stddev)
+        lower = torch.amax(mean)
+        scale = torch.clamp((upper - lower) / 3.0, min=1e-3)
+        if isinstance(draws, torch.Generator):
+            tiny = torch.finfo(torch.float32).tiny
+            u = torch.rand((num_samples,), generator=draws, device=mean.device)
+            u = torch.clamp(u * (1.0 - tiny) + tiny, min=tiny)
+        else:
+            u = draws.to(mean.device, mean.dtype)
+        return cls(y_star_samples=lower - scale * torch.log(-torch.log(u)))
+
+    def __call__(self, mean: Tensor, stddev: Tensor, best_label: Tensor) -> Tensor:
+        del best_label
+        z = (self.y_star_samples[:, None] - mean[None, :]) / stddev[None, :]  # [K, Q]
+        pdf = _norm_pdf(z)
+        cdf = torch.clamp(_norm_cdf(z), 1e-9, 1.0 - 1e-9)
+        # MI ≈ E_y*[ z φ(z) / (2 Φ(z)) − log Φ(z) ].
+        return torch.mean(z * pdf / (2.0 * cdf) - torch.log(cdf), dim=0)

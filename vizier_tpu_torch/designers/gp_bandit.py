@@ -7,8 +7,12 @@ Counterpart of the JAX package's ``designers/gp_bandit.py:284``:
 - ARD via multi-restart L-BFGS, restarts batched on the device, with the
   previous suggest's optimum prepended as one more restart;
 - hyperparameter ensembles (top-k restarts) combined as a uniform mixture;
-- UCB/EI/PE acquisition with an L∞ trust region, maximized by the
-  vectorized Eagle strategy;
+- UCB/EI/PI/PE acquisition with an L∞ trust region, maximized by the
+  vectorized Eagle strategy; ``acquisition="qei"`` with ``count`` > 1 searches
+  whole batches jointly (``_maximize_q_batch``: Monte-Carlo qEI over the
+  joint posterior of each candidate's q points);
+- transfer learning (``set_priors``): a stacked-residual GP over the prior
+  studies and the current one (``models.stacked_residual``);
 - the sparse-surrogate auto-switch (``surrogate``): from the config's trial
   threshold up, with hysteresis, the single-objective suggest trains the SGPR
   inducing-point posterior (``surrogates.sparse_bandit``) instead of the
@@ -22,10 +26,10 @@ The single-objective suggest (exact or sparse) is a compute-IR program
 up to a bucket's worth of studies as one batch over a leading study axis,
 and the sequential ``suggest`` runs the same program on its study alone.
 Each suggest draws two seeds from the study's seed stream (train, then
-acquisition), so slot i of a flush draws what study i draws alone.
-
-Transfer priors, joint q-batches and mesh sharding are served by the JAX
-package only; see ROADMAP.md for their place in the port's queue.
+acquisition), so slot i of a flush draws what study i draws alone. Priors
+and joint q-batches run outside the programs, as in the JAX package; the
+designer is also a ``Predictor`` (``predict``/``sample``, unwarped to the
+metric's scale). Mesh sharding is served by the JAX package only.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ from vizier_tpu_torch.converters import padding as padding_lib
 from vizier_tpu_torch.designers import quasi_random
 from vizier_tpu_torch.designers.gp import acquisitions
 from vizier_tpu_torch.models import gp as gp_lib
+from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import output_warpers
+from vizier_tpu_torch.models import stacked_residual
 from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
@@ -68,7 +74,7 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 
 def _train_gp(
     model: gp_lib.VizierGaussianProcess,
-    optimizer: lbfgs_lib.LbfgsOptimizer,
+    optimizer: lbfgs_lib.Optimizer,
     data: gp_lib.GPData,
     generator: torch.Generator,
     num_restarts: int,
@@ -103,7 +109,7 @@ def _stack_restarts(blocks: Sequence[gp_lib.Params]) -> gp_lib.Params:
 
 def _train_gp_studies(
     model: gp_lib.VizierGaussianProcess,
-    optimizer: lbfgs_lib.LbfgsOptimizer,
+    optimizer: lbfgs_lib.Optimizer,
     data: gp_lib.GPData,
     generators: Sequence[torch.Generator],
     num_restarts: int,
@@ -182,7 +188,7 @@ def _slot_state(states, index: int, studies: int):
 
 def _train_gp_per_metric(
     model: gp_lib.VizierGaussianProcess,
-    optimizer: lbfgs_lib.LbfgsOptimizer,
+    optimizer: lbfgs_lib.Optimizer,
     datas: Sequence[gp_lib.GPData],
     generator: torch.Generator,
     num_restarts: int,
@@ -204,13 +210,95 @@ def _train_gp_per_metric(
 # One implementation for the exact and the sparse sweep.
 _prior_features_from_data = sparse_bandit._prior_features_from_data
 
+# Monte-Carlo draws per ensemble member of joint qEI.
+_QEI_SAMPLES = 16
+
+
+def qei_joint_scores(
+    states: gp_lib.GPState,
+    query: kernels.MixedFeatures,
+    eps: Tensor,
+    best_label: Tensor,
+    trust: Optional[acquisitions.TrustRegion] = None,
+) -> Tensor:
+    """[P] Monte-Carlo qEI of P candidate batches ``query`` [P, q, ...] under
+    the joint posterior of each member of ``states``.
+
+    ``eps`` [S, E, q] are the standard normals, the same for every candidate:
+    draw b of member e is mean + chol(cov)·eps[b, e]; the score is the mean
+    over draws and members of the batch maximum's improvement on
+    ``best_label``, less the trust-region penalty summed over the q points.
+    A candidate whose covariance does not factor scores −inf, as the JAX
+    package's NaN factor does in its sweep.
+    """
+    means, covs = states.predict_joint(query)  # [P, E, q], [P, E, q, q]
+    chols, info = torch.linalg.cholesky_ex(covs)
+    draws = means[:, None] + torch.einsum("peqr,ser->pseq", chols, eps)
+    batch_max = torch.amax(draws, dim=-1)  # [P, S, E]
+    qei = torch.mean(torch.clamp(batch_max - best_label, min=0.0), dim=(1, 2))
+    qei = torch.where(torch.any(info != 0, dim=-1), torch.full_like(qei, float("-inf")), qei)
+    if trust is not None:
+        qei = qei - torch.sum(trust.penalty(query), dim=-1)
+    return qei
+
+
+def _maximize_q_batch(
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    states: gp_lib.GPState,
+    best_label: Tensor,
+    trust: Optional[acquisitions.TrustRegion],
+    generator: torch.Generator,
+    q: int,
+    num_samples: int,
+    prior_features: Optional[kernels.MixedFeatures] = None,
+) -> vectorized_lib.VectorizedOptimizerResult:
+    """Joint q-batch qEI: each candidate is a whole batch, a point of the
+    (q·Dc)-space the strategy searches.
+
+    The [num_samples, E, q] normals are drawn once, before the sweep's own
+    draws, so every candidate of every iteration is scored on the same
+    draws. Each iteration scores its pool with one k* and one K(q, q)
+    launch (``GPState.predict_joint``'s candidate axis). The prior features
+    are tiled over the q slots, so the search starts at the incumbents.
+    """
+    dc = states.data.continuous.shape[-1]
+    ds = states.data.categorical.shape[-1]
+    eps = torch.randn((num_samples, states.alpha.shape[0], q), generator=generator,
+                      device=generator.device)
+
+    def score_fn(flat: kernels.MixedFeatures) -> Tensor:
+        pool = flat.continuous.shape[0]
+        query = kernels.MixedFeatures(
+            flat.continuous.reshape(pool, q, dc),
+            torch.zeros((pool, q, ds), dtype=torch.int32, device=flat.continuous.device),
+        )
+        return qei_joint_scores(states, query, eps, best_label, trust)
+
+    prior = None
+    if prior_features is not None:
+        k = prior_features.continuous.shape[0]
+        prior = kernels.MixedFeatures(
+            prior_features.continuous.repeat(1, q),
+            torch.zeros((k, 0), dtype=torch.int32, device=prior_features.continuous.device),
+        )
+    return vec_opt(score_fn, generator, count=1, prior_features=prior)
+
+
+def _sample_generator(rng, device: torch.device) -> torch.Generator:
+    """The Predictor's ``rng`` (None, a numpy Generator or a torch Generator
+    on ``device``) as a torch Generator on ``device``."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    seed = 0 if rng is None else int(rng.integers(0, 2**31 - 1))
+    return _generator(device, seed)
+
 
 @dataclasses.dataclass
-class VizierGPBandit(core_lib.Designer):
+class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
     """GP-UCB/EI designer over flat (non-conditional) search spaces."""
 
     problem: base_study_config.ProblemStatement
-    acquisition: str = "ucb"  # 'ucb' | 'ei' | 'pe'
+    acquisition: str = "ucb"  # 'ucb' | 'ei' | 'pi' | 'pe' | 'qei'
     ucb_coefficient: float = 1.8
     num_seed_trials: int = 2
     ard_restarts: int = lbfgs_lib.DEFAULT_RANDOM_RESTARTS
@@ -221,6 +309,9 @@ class VizierGPBandit(core_lib.Designer):
     padding: Optional[padding_lib.PaddingSchedule] = None
     metric_index: int = 0
     rng_seed: int = 0
+    # The ARD optimizer of every train (None: L-BFGS on the designer's
+    # device). It rides in the programs' bucket keys.
+    ard_optimizer: Optional[lbfgs_lib.Optimizer] = None
     # Carry the previous suggest's trained params into the next train as an
     # extra restart seed, once ``warm_start_min_trials`` trials are in.
     use_warm_start_ard: bool = True
@@ -249,7 +340,7 @@ class VizierGPBandit(core_lib.Designer):
             use_input_warping=self.use_input_warping,
             device=self.device,
         )
-        self._ard = lbfgs_lib.LbfgsOptimizer(device=self.device)
+        self._ard = self.ard_optimizer or lbfgs_lib.LbfgsOptimizer(device=self.device)
         # The acquisition optimizer works in the (possibly feature-padded)
         # model space; padded dims are masked out of the kernel and sliced
         # off at decode time.
@@ -268,6 +359,11 @@ class VizierGPBandit(core_lib.Designer):
             self.problem.search_space, seed=self.rng_seed
         )
         self._trials: List[trial_.Trial] = []
+        # Prior studies' trials for transfer learning, oldest first.
+        self._priors: List[List[trial_.Trial]] = []
+        self._warper_fitted = False
+        # The last single-objective posterior (``predict``/``sample`` read it).
+        self._last_predictive = None
         # The study's one source of randomness, on the host: each suggest
         # phase (train, acquisition sweep) seeds its own generator from it.
         self._seed_stream = np.random.default_rng(self.rng_seed)
@@ -402,6 +498,7 @@ class VizierGPBandit(core_lib.Designer):
                 _generator(self.device, self.rng_seed + 1 + self._surrogate_counts["crossovers"])
             )
             self._warm_is_trained = False
+            self._last_predictive = None
             self._last_sparse_state = None
         return mode
 
@@ -436,8 +533,26 @@ class VizierGPBandit(core_lib.Designer):
         """Encode + warp labels + pad. Labels leave here all-MAXIMIZE ~N(0,1)."""
         raw_labels = self._converter.metrics.encode(self._trials)  # [N, M]
         warped = self._warper(raw_labels[:, self.metric_index])
+        self._warper_fitted = raw_labels.shape[0] > 0
         features, n_pad = self._padded_features(self._trials, extra_rows)
         return types.ModelData(features=features, labels=self._padded_labels(warped, n_pad))
+
+    def _data_for_trials(self, trials: Sequence[trial_.Trial]) -> gp_lib.GPData:
+        """Encodes any trial set (a prior study's) with this designer's
+        converter and warper."""
+        raw = self._converter.metrics.encode(trials)
+        warped = self._warper(raw[:, self.metric_index])
+        self._warper_fitted = raw.shape[0] > 0
+        features, n_pad = self._padded_features(trials)
+        return gp_lib.GPData.from_model_data(
+            types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
+        )
+
+    def set_priors(self, prior_trials: Sequence[Sequence[trial_.Trial]]) -> None:
+        """Registers prior studies' trials for stacked-residual transfer
+        learning: one sequence per study, oldest first, over this search
+        space."""
+        self._priors = [list(p) for p in prior_trials]
 
     def _num_objectives(self) -> int:
         return sum(1 for m in self.problem.metric_information if not m.is_safety_metric)
@@ -450,10 +565,83 @@ class VizierGPBandit(core_lib.Designer):
             return self._seed_suggestions(count)
         if self._num_objectives() > 1:
             return self._suggest_multiobjective(count)
+        if self._priors:
+            return self._suggest_with_priors(count)
+        if self.acquisition == "qei" and count > 1:
+            # The sparse posterior has no joint covariance: joint qEI stays
+            # exact whatever the auto-switch says.
+            self._refresh_surrogate_mode()
+            return self._suggest_q_batch(count)
         # The single-objective suggest (exact or sparse, as the auto-switch
         # says): this study alone through its compute-IR program.
         program, _ = compute_registry.resolve(self, count)
         return program.run_alone(self, count)
+
+    def _train_exact(self, data: gp_lib.GPData) -> gp_lib.GPState:
+        """The single-objective exact train outside a program, with its warm
+        seed, counted as warm or cold, writing back the next warm seed."""
+        states = _train_gp(
+            self._model, self._ard, data, self._phase_generator(),
+            self._restarts(self.ensemble_size), self.ensemble_size, self._warm_params,
+        )
+        self._record_train()
+        if self._warm_update_allowed():
+            self._warm_params = self._unconstrained_best(states)
+            self._warm_is_trained = True
+        self._last_predictive = gp_lib.EnsemblePredictive(states)
+        return states
+
+    def _suggest_q_batch(self, count: int) -> List[trial_.TrialSuggestion]:
+        """Joint qEI: the ``count`` suggestions are one point of the
+        (count·Dc)-space, searched under the exact ensemble's joint posterior."""
+        if self._converter.encoder.num_categorical:
+            raise ValueError(
+                "acquisition='qei' joint batches support continuous spaces only; use "
+                "VizierGPUCBPEBandit for batch suggestions on mixed spaces."
+            )
+        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+        states = self._train_exact(data)
+        vec_opt = vectorized_lib.VectorizedOptimizer(
+            eagle_lib.VectorizedEagleStrategy(
+                num_continuous=self._cont_width * count, category_sizes=()),
+            max_evaluations=self.max_acquisition_evaluations, device=self.device,
+        )
+        result = _maximize_q_batch(
+            vec_opt, states, acquisitions.get_best_labels(data.labels, data.row_mask),
+            acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
+            self._phase_generator(), count, _QEI_SAMPLES, _prior_features_from_data(data),
+        )
+        rows = result.features.continuous[0].reshape(count, self._cont_width)
+        unrolled = vectorized_lib.VectorizedOptimizerResult(
+            kernels.MixedFeatures(rows, torch.zeros((count, 0), dtype=torch.int32,
+                                                    device=rows.device)),
+            result.scores[0].expand(count),
+        )
+        return self._decode_result(unrolled, count, kind="qei_joint")
+
+    def _suggest_with_priors(self, count: int) -> List[trial_.TrialSuggestion]:
+        """Transfer learning: a stacked-residual GP over the prior studies and
+        this one (always a cold train), then the acquisition sweep over it."""
+        datasets = [self._data_for_trials(p) for p in self._priors]
+        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+        datasets.append(data)
+        stack = stacked_residual.train_stacked_residual_gp(
+            self._model, self._ard, datasets, self._phase_generator(),
+            num_restarts=self.ard_restarts,
+        )
+        self._ard_train_counts["cold"] += 1
+        self._last_predictive = stack
+        scoring = acquisitions.ScoringFunction(
+            predictive=stack,
+            acquisition=self._make_acquisition(),
+            best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
+            trust_region=acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
+        )
+        result = self._vec_opt(
+            scoring.score, self._phase_generator(), count=count,
+            prior_features=_prior_features_from_data(data),
+        )
+        return self._decode_result(result, count, kind=f"{self.acquisition}+priors")
 
     def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
         """Random-hypervolume scalarized UCB over per-metric GPs, with each
@@ -516,8 +704,10 @@ class VizierGPBandit(core_lib.Designer):
     def _make_acquisition(self) -> acquisitions.Acquisition:
         if self.acquisition == "ucb":
             return acquisitions.UCB(self.ucb_coefficient)
-        if self.acquisition == "ei":
+        if self.acquisition in ("ei", "qei"):  # qei is EI at count 1
             return acquisitions.EI()
+        if self.acquisition == "pi":
+            return acquisitions.PI()
         if self.acquisition == "pe":
             return acquisitions.PE()
         raise ValueError(f"Unknown acquisition {self.acquisition!r}.")
@@ -530,6 +720,70 @@ class VizierGPBandit(core_lib.Designer):
             out.extend(self._seeder.suggest(count - len(out)))
         return out[:count]
 
+    # -- Predictor -----------------------------------------------------------
+
+    def sample(
+        self, suggestions: Sequence[trial_.TrialSuggestion], rng=None, num_samples: int = 1000,
+    ) -> np.ndarray:
+        """Posterior samples [num_samples, T] in the metric's own scale.
+
+        Drawn in the warped space the GP was trained in, then unwarped and
+        sign-restored (``metrics.decode_column``); before the warper has seen
+        a label they come back warped. ``rng`` is None, a numpy Generator or
+        a torch Generator on the designer's device.
+        """
+        if not suggestions:
+            return np.zeros((num_samples, 0))
+        eps = torch.randn((num_samples, len(suggestions)),
+                          generator=_sample_generator(rng, self.device), device=self.device)
+        return self._samples_from_draws(suggestions, eps)
+
+    def _samples_from_draws(
+        self, suggestions: Sequence[trial_.TrialSuggestion], eps: Tensor
+    ) -> np.ndarray:
+        """:meth:`sample` from given standard normals ``eps`` [num_samples, T]."""
+        mean, stddev = self._require_predictive().predict(self._encode_suggestions(suggestions))
+        warped = (mean[None] + stddev[None] * eps.to(mean.device)).cpu().numpy()
+        if not self._warper_fitted:
+            return warped
+        out = self._warper.unwarp(warped.reshape(-1, 1)).reshape(warped.shape)
+        return self._converter.metrics.decode_column(out, self.metric_index)
+
+    def predict(
+        self, suggestions: Sequence[trial_.TrialSuggestion], rng=None,
+        num_samples: Optional[int] = None,
+    ) -> core_lib.Prediction:
+        """Mean and stddev of :meth:`sample`'s unwarped samples."""
+        samples = self.sample(suggestions, rng=rng, num_samples=num_samples or 1000)
+        return core_lib.Prediction(mean=np.mean(samples, axis=0), stddev=np.std(samples, axis=0))
+
+    def _require_predictive(self):
+        """The last suggest's posterior, or a cold exact train when there is none."""
+        if self._last_predictive is None:
+            if len(self._trials) < max(self.num_seed_trials, 1):
+                raise ValueError("Not enough completed trials to predict.")
+            data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+            states = _train_gp(
+                self._model, self._ard, data, self._phase_generator(),
+                max(self.ard_restarts, self.ensemble_size), self.ensemble_size,
+            )
+            self._last_predictive = gp_lib.EnsemblePredictive(states)
+        return self._last_predictive
+
+    def _encode_suggestions(
+        self, suggestions: Sequence[trial_.TrialSuggestion]
+    ) -> kernels.MixedFeatures:
+        """Suggestions as model features, padded to the model's widths."""
+        trials = [s.to_trial(i + 1) for i, s in enumerate(suggestions)]
+        cont, cat = self._converter.encoder.encode(trials)
+        n = len(trials)
+        cont_p = np.zeros((n, self._cont_width), dtype=np.float32)
+        cont_p[:, : cont.shape[1]] = cont
+        cat_p = np.zeros((n, self._cat_width), dtype=np.int32)
+        cat_p[:, : cat.shape[1]] = cat
+        return kernels.MixedFeatures(
+            torch.as_tensor(cont_p, device=self.device), torch.as_tensor(cat_p, device=self.device))
+
 
 # -- compute-IR programs (vizier_tpu_torch.compute) ---------------------------
 #
@@ -540,11 +794,13 @@ class VizierGPBandit(core_lib.Designer):
 
 
 def _gp_bandit_unbatchable(designer: "VizierGPBandit", count: int) -> bool:
-    """Paths the programs do not cover (seeding, multi-objective): those run
-    the sequential suggest's own code."""
-    del count
+    """Paths the programs do not cover (seeding, multi-objective, transfer
+    priors, joint qEI): those run the sequential suggest's own code."""
     return bool(
-        len(designer._trials) < designer.num_seed_trials or designer._num_objectives() > 1
+        len(designer._trials) < designer.num_seed_trials
+        or designer._num_objectives() > 1
+        or designer._priors
+        or (designer.acquisition == "qei" and count > 1)
     )
 
 
@@ -606,6 +862,7 @@ def _gp_bandit_finalize(designer: "VizierGPBandit", item: dict, output: dict) ->
     if designer._warm_update_allowed():
         designer._warm_params = output["warm_next"]
         designer._warm_is_trained = True
+    designer._last_predictive = gp_lib.EnsemblePredictive(output["states"])
     kind = designer.acquisition
     if output["sparse"]:
         designer._last_sparse_state = output["states"]
@@ -615,7 +872,7 @@ def _gp_bandit_finalize(designer: "VizierGPBandit", item: dict, output: dict) ->
 
 
 class GPBanditProgram(compute_ir.DesignerProgram):
-    """Exact-GP single-objective flush: encode → multi-restart ARD → UCB/EI/PE
+    """Exact-GP single-objective flush: encode → multi-restart ARD → UCB/EI/PI/PE
     sweep, the studies of a bucket as one batch."""
 
     kind = "gp_bandit"

@@ -21,6 +21,12 @@ Pure Exploration"):
   with a learned task covariance); UCB hypervolume-scalarized along random
   directions (floored at the observed labels' scalarization), the PE
   penalty scalarized by union / intersection / average across metrics.
+- **Set acquisition** (``optimize_set_acquisition_for_exploration``, one
+  objective): after the UCB pick of fresh data, the exploration picks are
+  searched jointly as one set, scored by the log-determinant of their joint
+  all-points covariance (``_suggest_set_pe``).
+- **prior_acquisition**: a user callable over the candidates, added to every
+  pick's score (summed over the set in set-PE).
 
 Picks are written into spare padded rows, and each pick re-conditions the
 all-points posterior (one batched Cholesky over the ensemble) before its
@@ -40,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import operator
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +62,7 @@ from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import multitask_gp
 from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.ops import pareto as pareto_ops
+from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.parallel import batch_executor
 from vizier_tpu_torch.pyvizier import trial as trial_
@@ -89,6 +96,9 @@ class UCBPEConfig:
     # signal/noise variance ratio below which noise is considered high
     # (0 disables the high-noise behaviors).
     signal_to_noise_threshold: float = 0.7
+    # Search the exploration picks jointly, by the log-determinant of their
+    # joint covariance (single objective only).
+    optimize_set_acquisition_for_exploration: bool = False
     # Multimetric promising-region penalty: union | intersection | average.
     multimetric_promising_region_penalty_type: str = "average"
     # Random HV-scalarization directions for multimetric UCB, drawn per pick.
@@ -308,6 +318,17 @@ def _scalarize_penalty(penalty: Tensor, mode: str) -> Tensor:
     return torch.mean(penalty, dim=0)
 
 
+# A user's additive score over [Q] candidates: [Q, ...] features -> [Q].
+PriorAcquisition = Callable[[kernels.MixedFeatures], Tensor]
+
+
+def _prior_scores(prior_acquisition: PriorAcquisition, query: kernels.MixedFeatures) -> Tensor:
+    """The prior over queries [..., Q, ...], called once on the flattened
+    rows and given back the queries' leading shape."""
+    flat = kernels.MixedFeatures(*(t.flatten(0, -2) for t in query))
+    return prior_acquisition(flat).reshape(query.continuous.shape[:-1])
+
+
 def _score_fn(
     states_completed,
     states_all,
@@ -316,9 +337,11 @@ def _score_fn(
     threshold: Tensor,
     hv: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
     trust: Optional[acquisitions.TrustRegion] = None,
+    prior_acquisition: Optional[PriorAcquisition] = None,
 ):
     """One pick's acquisition over [Q] queries: UCB, or PE penalized outside
-    the promising region, less the trust-region penalty.
+    the promising region, plus the user's prior, less the trust-region
+    penalty.
 
     With one metric, UCB = mean(completed) + c·stddev(all) and PE =
     stddev(all) + penalty. With M > 1 (``hv`` = (inverse directions [K, M],
@@ -342,6 +365,8 @@ def _score_fn(
                 penalty, config.multimetric_promising_region_penalty_type
             )
         value = torch.where(use_ucb, ucb_score, pe_score)
+        if prior_acquisition is not None:
+            value = value + prior_acquisition(query)
         if trust is not None:
             value = value - trust.penalty(query)
         return value
@@ -364,6 +389,7 @@ def _suggest_batch(
     labels_mn: Optional[Tensor] = None,
     labels_mask: Optional[Tensor] = None,
     ref_point: Optional[Tensor] = None,
+    prior_acquisition: Optional[PriorAcquisition] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
     """The greedy multi-objective batch: per pick, UCB-or-PE with
     pending-point conditioning. (A single-objective suggest runs
@@ -414,7 +440,8 @@ def _suggest_batch(
             weights = pareto_ops.draw_directions(generator, config.num_scalarizations, num_metrics)
             inv_w = 1.0 / torch.clamp(weights, min=1e-6)
             hv = (inv_w, ref_point, _hv_floor(inv_w, ref_point, labels_mn, labels_mask))
-        score_fn = _score_fn(states_completed, states_all, config, use_ucb, threshold, hv, trust)
+        score_fn = _score_fn(
+            states_completed, states_all, config, use_ucb, threshold, hv, trust, prior_acquisition)
         result = vec_opt(score_fn, generator, count=1, prior_features=prior_features)
         x = kernels.MixedFeatures(
             result.features.continuous[:1], result.features.categorical[:1]
@@ -464,6 +491,7 @@ def _pe_conditioning_studies(states, all_data: gp_lib.GPData, config: UCBPEConfi
 def _score_fn_studies(
     states_completed, states_all, config: UCBPEConfig, use_ucb: Tensor, threshold: Tensor,
     trust: Optional[acquisitions.TrustRegion], studies: int,
+    prior_acquisition: Optional[PriorAcquisition] = None,
 ):
     """One pick's single-metric acquisition for each study of a flush:
     [S, Q] scores of [S, Q, ...] queries, as :func:`_score_fn` per study."""
@@ -477,6 +505,8 @@ def _score_fn_studies(
             explore_ucb - threshold[:, None], max=0.0
         )
         value = torch.where(use_ucb[:, None], ucb_score, std_all + penalty)
+        if prior_acquisition is not None:
+            value = value + _prior_scores(prior_acquisition, query)
         if trust is not None:
             value = value - trust.penalty(query)
         return value
@@ -496,6 +526,7 @@ def _suggest_batch_studies(
     config: UCBPEConfig,
     use_trust_region: bool = True,
     model=None,
+    prior_acquisition: Optional[PriorAcquisition] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
     """The greedy single-objective batch of S studies at once: the study axis
     of :func:`_suggest_batch` (the JAX package's ``_sweep_batched``).
@@ -533,7 +564,8 @@ def _suggest_batch_studies(
             first = ~(u < torch.where(noise_is_high, pe_prob_high, pe_prob))
             use_ucb = torch.where(first_has_new, first, use_ucb)
         score_fn = _score_fn_studies(
-            states_completed, states_all, config, use_ucb, threshold, trust, studies
+            states_completed, states_all, config, use_ucb, threshold, trust, studies,
+            prior_acquisition,
         )
         result = vec_opt.run_studies(score_fn, generators, count=1, prior_features=prior_features)
         x = kernels.MixedFeatures(result.features.continuous, result.features.categorical)
@@ -557,6 +589,89 @@ def _suggest_batch_studies(
         torch.cat([x.categorical for x in picks], dim=1),
     )
     return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores, dim=1)), out
+
+
+def set_pe_scores(
+    state: gp_lib.GPState,
+    state_all: gp_lib.GPState,
+    query: kernels.MixedFeatures,
+    threshold: Tensor,
+    config: UCBPEConfig,
+    trust: Optional[acquisitions.TrustRegion] = None,
+    prior_acquisition: Optional[PriorAcquisition] = None,
+) -> Tensor:
+    """[P] set-PE scores of P candidate sets ``query`` [P, q, ...].
+
+    The log-determinant of each set's covariance under the all-points
+    posterior ``state_all`` (its members' joint posteriors moment-matched
+    into one, plus 1e-6·I), plus the promising-region penalty of the
+    completed posterior ``state`` and the user's prior, less the trust-region
+    penalty, each summed over the set. A covariance that does not factor
+    scores −inf, as the JAX package's NaN log-determinant does.
+    """
+    means, covs = state_all.predict_joint(query)  # [P, E, q], [P, E, q, q]
+    mu = torch.mean(means, dim=1)
+    cov = (torch.mean(covs + means[..., :, None] * means[..., None, :], dim=1)
+           - mu[..., :, None] * mu[..., None, :])
+    q = cov.shape[-1]
+    chol, info = torch.linalg.cholesky_ex(
+        cov + 1e-6 * torch.eye(q, dtype=cov.dtype, device=cov.device))
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    logdet = torch.where(info != 0, torch.full_like(logdet, float("-inf")), logdet)
+    flat = kernels.MixedFeatures(*(t.flatten(0, -2) for t in query))
+    mean_c, std_c = gp_lib.EnsemblePredictive(state).predict(flat)
+    explore_ucb = (mean_c + config.explore_region_ucb_coefficient * std_c).reshape(mu.shape)
+    value = logdet + config.cb_violation_penalty_coefficient * torch.sum(
+        torch.clamp(explore_ucb - threshold, max=0.0), dim=-1)
+    if prior_acquisition is not None:
+        value = value + torch.sum(_prior_scores(prior_acquisition, query), dim=-1)
+    if trust is not None:
+        value = value - torch.sum(trust.penalty(query), dim=-1)
+    return value
+
+
+def _suggest_set_pe(
+    model: gp_lib.VizierGaussianProcess,
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    state: gp_lib.GPState,
+    all_data: gp_lib.GPData,
+    generator: torch.Generator,
+    q: int,
+    config: UCBPEConfig,
+    use_trust_region: bool = True,
+    prior_acquisition: Optional[PriorAcquisition] = None,
+) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
+    """The exploration set: q picks searched jointly as one point of the
+    (q·D)-space (``vec_opt``'s strategy), by :func:`set_pe_scores`.
+
+    ``state`` is the completed posterior (one objective), ``all_data`` the
+    all-points rows with any earlier pick appended. Returns the set's q
+    suggestions, each scored with the set's value, and their aux.
+    """
+    dc, ds = all_data.continuous.shape[-1], all_data.categorical.shape[-1]
+    pe_params, _, thresholds = _pe_conditioning([state], all_data, config)
+    state_all = model.precompute_constrained(pe_params[0], all_data)
+    trust = acquisitions.TrustRegion.from_data(all_data) if use_trust_region else None
+
+    def score_fn(flat: kernels.MixedFeatures) -> Tensor:
+        pool = flat.continuous.shape[0]
+        query = kernels.MixedFeatures(
+            flat.continuous.reshape(pool, q, dc), flat.categorical.reshape(pool, q, ds))
+        return set_pe_scores(
+            state, state_all, query, thresholds[0], config, trust, prior_acquisition)
+
+    result = vec_opt(score_fn, generator, count=1)
+    picks = kernels.MixedFeatures(
+        result.features.continuous[0].reshape(q, dc), result.features.categorical[0].reshape(q, ds))
+    mean_x, std_x = _mixture_predict([state], picks)  # [1, q]
+    _, std_all_x = _mixture_predict([state_all], picks)
+    aux = dict(
+        mean=mean_x.T, stddev=std_x.T, stddev_from_all=std_all_x.T,
+        use_ucb=torch.zeros((q,), dtype=torch.bool, device=mean_x.device),
+        trust_radius=(trust.trust_radius() if trust is not None
+                      else torch.tensor(float("inf"), device=mean_x.device)),
+    )
+    return vectorized_lib.VectorizedOptimizerResult(picks, result.scores[0].expand(q)), aux
 
 
 def _train_mt_gp(
@@ -591,6 +706,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
     #   _MIN_PICK_EVALUATIONS).
     # - "per_pick": every pick runs the full budget.
     acquisition_budget_policy: str = "first_pick_full"
+    # A user's additive score over the candidates ([Q, ...] features -> [Q],
+    # on the designer's device), added to every pick's UCB and PE scores.
+    prior_acquisition: Optional[PriorAcquisition] = None
 
     def __post_init__(self):
         super().__post_init__()
@@ -600,9 +718,13 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 f"'per_batch' | 'per_pick', got {self.acquisition_budget_policy!r}."
             )
         self._active_trials: List[trial_.Trial] = []
+        # Each objective's warper of the last train (``sample`` unwarps with them).
+        self._metric_warpers: List[output_warpers.WarperPipeline] = []
+        self._warpers_fitted = False
         # The trained (states, datas), reused until new data arrives.
         self._cached_states = None
         self._pick_opt_cache: Dict[int, vectorized_lib.VectorizedOptimizer] = {}
+        self._set_opt_cache: Dict[int, vectorized_lib.VectorizedOptimizer] = {}
         # Per-objective warm-start seeds of the independent-GP path, random
         # until a train has run. The multi-task trainer has no warm start.
         self._warm_params_me = self._random_warm_seeds(self.rng_seed + 2)
@@ -677,10 +799,14 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
 
     def _sparse_ucb_pe_eligible(self) -> bool:
         """Whether the sparse surrogate may serve this designer's suggests:
-        the single-objective greedy path only."""
+        the single-objective greedy path only, without set acquisition,
+        prior_acquisition or transfer priors."""
         cfg = self.surrogate
         return bool(
             cfg is not None and cfg.sparse and cfg.sparse_ucb_pe and self._num_objectives() == 1
+            and not self.config.optimize_set_acquisition_for_exploration
+            and self.prior_acquisition is None
+            and not self._priors
         )
 
     def _refresh_ucb_pe_surrogate_mode(self) -> str:
@@ -725,8 +851,12 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         raw = self._converter.metrics.encode(self._trials)  # [N, M_all], all-MAXIMIZE
         features, n_pad = self._padded_features(self._trials)
         datas = []
+        self._metric_warpers = []
+        self._warpers_fitted = raw.shape[0] > 0
         for j in self._objective_indices():
-            warped = output_warpers.create_default_warper()(raw[:, j]) if raw.shape[0] else raw[:, j]
+            warper = output_warpers.create_default_warper()
+            warped = warper(raw[:, j]) if raw.shape[0] else raw[:, j]
+            self._metric_warpers.append(warper)
             datas.append(gp_lib.GPData.from_model_data(
                 types.ModelData(features, self._padded_labels(warped, n_pad)), self.device
             ))
@@ -797,6 +927,8 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         count = count or 1
         if len(self._trials) + len(self._active_trials) < self.num_seed_trials:
             return self._seed_suggestions(count)
+        if self._priors:
+            return self._suggest_with_priors(count)
         resolved = compute_registry.resolve(self, count)
         if resolved is not None:
             # The single-objective suggest (exact or sparse) with no cached
@@ -811,10 +943,14 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         return self.acquisition_budget_policy == "first_pick_full" and count > 1
 
     def _suggest_over_cached_fit(self, count: int) -> List[trial_.TrialSuggestion]:
-        """A single-objective suggest with no new labels since the last
-        train: the program's sweeps over the cached fit, as a study axis of
-        one, with the acquisition phases seeded as the program seeds them."""
+        """A single-objective suggest outside the programs: over the cached
+        fit when no labels came since the last train, else over a fresh one
+        (set acquisition, ``prior_acquisition``). The program's sweeps run
+        as a study axis of one, seeded as the program seeds them; with set
+        acquisition and ``count`` > 1 the exploration picks are one set."""
         (state,), (data,) = self._train_states_me()
+        if self.config.optimize_set_acquisition_for_exploration and count > 1:
+            return self._suggest_with_set_acquisition(count, state, data)
         one = lambda tree: batch_executor.stack_pytrees([tree])  # noqa: E731
         sparse = isinstance(state, sparse_gp.SparseGPState)
         if sparse:
@@ -839,9 +975,53 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                 batch_executor.slice_pytree(result, 0), batch_executor.slice_pytree(aux, 0), n))
         return out
 
+    def _suggest_with_set_acquisition(
+        self, count: int, state: gp_lib.GPState, data: gp_lib.GPData
+    ) -> List[trial_.TrialSuggestion]:
+        """One UCB-or-PE pick when fresh labels came in, then the rest as one
+        jointly searched exploration set (``_suggest_set_pe``)."""
+        suggestions: List[trial_.TrialSuggestion] = []
+        all_data = self._all_points_data(count)
+        if self._has_new_completed_trials():
+            one = lambda tree: batch_executor.stack_pytrees([tree])  # noqa: E731
+            first, aux = _suggest_batch_studies(
+                self._vec_opt, dataclasses.replace(state, data=one(data)), one(all_data),
+                gp_bandit._prior_features_from_data(one(data)), [self._phase_generator()],
+                torch.tensor([True], device=self.device),
+                torch.tensor([bool(self._trials)], device=self.device), 1, self.config,
+                self.use_trust_region, prior_acquisition=self.prior_acquisition,
+            )
+            first, aux = batch_executor.slice_pytree((first, aux), 0)
+            suggestions.extend(self._decode_ucb_pe(first, aux, 1))
+            all_data = _append_row(all_data, first.features)
+        q = count - len(suggestions)
+        result, aux = _suggest_set_pe(
+            self._model, self._set_vec_opt(q), state, all_data, self._phase_generator(), q,
+            self.config, self.use_trust_region, self.prior_acquisition,
+        )
+        suggestions.extend(self._decode_ucb_pe(result, aux, q))
+        return suggestions
+
+    def _set_vec_opt(self, q: int) -> vectorized_lib.VectorizedOptimizer:
+        """The set search's optimizer: eagle over q copies of the space."""
+        opt = self._set_opt_cache.get(q)
+        if opt is None:
+            enc = self._converter.encoder
+            cat_sizes = tuple(enc.category_sizes) + (1,) * (self._cat_width - enc.num_categorical)
+            opt = vectorized_lib.VectorizedOptimizer(
+                eagle_lib.VectorizedEagleStrategy(
+                    num_continuous=self._cont_width * q, category_sizes=cat_sizes * q),
+                max_evaluations=self.max_acquisition_evaluations, device=self.device,
+            )
+            self._set_opt_cache[q] = opt
+        return opt
+
     def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
         """HV-scalarized UCB-PE over the per-metric (or multi-task) fit."""
         states, datas = self._train_states_me()
+        if self.config.optimize_set_acquisition_for_exploration:
+            raise ValueError(
+                "optimize_set_acquisition_for_exploration supports exactly one objective metric.")
         all_data = self._all_points_data(count)
         num_metrics = len(datas)
         labels_mn = torch.stack([d.labels for d in datas])  # [M, N1]
@@ -862,23 +1042,24 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         has_completed = bool(self._trials)
         prior = gp_bandit._prior_features_from_data(datas[0])
         args = (self.config, self.use_trust_region)
+        kw = dict(hv, prior_acquisition=self.prior_acquisition)
         if self._two_phase(count):
             # Full budget on the exploitation-critical first pick; one
             # further full budget split across the remaining picks.
             first, aux1 = _suggest_batch(
                 self._vec_opt, states, all_data, prior, self._phase_generator(),
-                first_has_new, has_completed, 1, *args, **hv,
+                first_has_new, has_completed, 1, *args, **kw,
             )
             all_data = append(all_data, first.features)
             rest, aux2 = _suggest_batch(
                 self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
-                False, has_completed, count - 1, *args, **hv,
+                False, has_completed, count - 1, *args, **kw,
             )
             results = [(first, aux1, 1), (rest, aux2, count - 1)]
         else:
             batch, aux = _suggest_batch(
                 self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
-                first_has_new, has_completed, count, *args, **hv,
+                first_has_new, has_completed, count, *args, **kw,
             )
             results = [(batch, aux, count)]
         out: List[trial_.TrialSuggestion] = []
@@ -912,6 +1093,42 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         return suggestions
 
 
+    # -- Predictor -----------------------------------------------------------
+
+    def sample(
+        self, suggestions: Sequence[trial_.TrialSuggestion], rng=None, num_samples: int = 1000,
+    ) -> np.ndarray:
+        """Posterior samples in each objective's own scale: [num_samples, T]
+        for one objective, [num_samples, T, M] for several. Drawn over the
+        cached fit (a train only when none is cached), then unwarped by each
+        objective's warper and sign-restored; warped when no label has been
+        seen. ``rng`` is None, a numpy Generator or a torch Generator on the
+        designer's device."""
+        if not suggestions:
+            return np.zeros((num_samples, 0))
+        shape = (num_samples, len(self._objective_indices()), len(suggestions))
+        eps = torch.randn(shape, generator=gp_bandit._sample_generator(rng, self.device),
+                          device=self.device)
+        return self._samples_from_draws(suggestions, eps)
+
+    def _samples_from_draws(
+        self, suggestions: Sequence[trial_.TrialSuggestion], eps: Tensor
+    ) -> np.ndarray:
+        """:meth:`sample` from given standard normals ``eps`` [num_samples, M, T]."""
+        states, _ = self._train_states_me()
+        mean, stddev = _mixture_predict(states, self._encode_suggestions(suggestions))  # [M, T]
+        warped = (mean[None] + stddev[None] * eps.to(mean.device)).cpu().numpy()
+        if self._warpers_fitted:
+            out = np.empty_like(warped)
+            for m, (warper, j) in enumerate(zip(self._metric_warpers, self._objective_indices())):
+                unwarped = warper.unwarp(warped[:, m, :].reshape(-1, 1)).reshape(
+                    warped.shape[0], -1)
+                out[:, m, :] = self._converter.metrics.decode_column(unwarped, j)
+            warped = out
+        out = np.moveaxis(warped, 1, 2)  # [S, T, M]
+        return out[:, :, 0] if out.shape[-1] == 1 else out
+
+
 # -- compute-IR programs (vizier_tpu_torch.compute) ---------------------------
 #
 # The batched compute of the service DEFAULT: one program per surrogate
@@ -921,13 +1138,17 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
 
 
 def _ucb_pe_unbatchable(designer: "VizierGPUCBPEBandit", count: int) -> bool:
-    """Paths the programs do not cover: the seeding stage, more than one
-    objective (independent or multi-task), and a cached fit (the sequential
-    suggest would skip training; re-training it in a flush would not)."""
+    """Paths the programs do not cover: the seeding stage, transfer priors,
+    more than one objective (independent or multi-task), set acquisition,
+    ``prior_acquisition``, and a cached fit (the sequential suggest would
+    skip training; re-training it in a flush would not)."""
     del count
     return bool(
         len(designer._trials) + len(designer._active_trials) < designer.num_seed_trials
+        or designer._priors
         or len(designer._objective_indices()) != 1
+        or designer.config.optimize_set_acquisition_for_exploration
+        or designer.prior_acquisition is not None
         or designer._cached_states is not None
     )
 
@@ -939,7 +1160,10 @@ def _ucb_pe_prepare(designer: "VizierGPUCBPEBandit", count: int, sparse: bool) -
     raw = designer._converter.metrics.encode(designer._trials)
     features, n_pad = designer._padded_features(designer._trials)
     j = designer._objective_indices()[0]
-    warped = output_warpers.create_default_warper()(raw[:, j]) if raw.shape[0] else raw[:, j]
+    warper = output_warpers.create_default_warper()
+    warped = warper(raw[:, j]) if raw.shape[0] else raw[:, j]
+    designer._metric_warpers = [warper]
+    designer._warpers_fitted = raw.shape[0] > 0
     return dict(
         designer=designer,
         count=count,
@@ -975,7 +1199,7 @@ def _ucb_pe_sweeps(
     else:
         pick_model = None
     prior = gp_bandit._prior_features_from_data(data)
-    args = (d0.config, d0.use_trust_region, pick_model)
+    args = (d0.config, d0.use_trust_region, pick_model, d0.prior_acquisition)
     if not d0._two_phase(count):
         batch, aux = _suggest_batch_studies(
             d0._pick_vec_opt(count), states, all_data, prior, generators[0],

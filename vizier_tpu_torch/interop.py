@@ -7,8 +7,9 @@ arrays (``np.asarray`` of a ``jax.Array`` works), so a caller can hand
 trained parameters across and have both packages compute one posterior.
 The sparse surrogate's ``SparseGPData`` (data, inducing rows, masks and
 indices) crosses the same way, so both packages can share one inducing set,
-and so do the multi-task GP's parameters and ``MultiTaskData`` and the
-per-metric posteriors of a multi-objective designer.
+and so do the multi-task GP's parameters and ``MultiTaskData``, the
+per-metric posteriors of a multi-objective designer, and a stacked-residual
+transfer stack (each level's parameters over its residual data).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import multitask_gp
+from vizier_tpu_torch.models import stacked_residual
 from vizier_tpu_torch.surrogates import sparse_gp
 
 _PARAM_NAMES = (
@@ -30,6 +32,7 @@ _PARAM_NAMES = (
     "categorical_length_scales",
     "warp_a",
     "warp_b",
+    "mean_scale",
     # The multi-task GP's task covariance.
     "task_chol_diag",
     "task_chol_offdiag",
@@ -119,3 +122,19 @@ def gp_states_from_numpy(
         )
         for j, data in enumerate(datas)
     ]
+
+
+def stacked_residual_from_numpy(
+    model: gp_lib.VizierGaussianProcess,
+    levels_params: Sequence[Mapping[str, Any]],
+    levels_data: Sequence[Any],
+) -> stacked_residual.StackedResidualGP:
+    """A stacked-residual stack from each level's constrained parameters (one
+    set, no batch axis: the JAX package's ``level.params``) and its residual
+    data (``level.data``), base level first, precomputed by ``model``."""
+    levels = []
+    for params, data in zip(levels_params, levels_data):
+        tensors = gp_params_from_numpy(params, model.device)
+        levels.append(model.precompute_constrained(
+            {k: v[None] for k, v in tensors.items()}, gp_data_from_numpy(data, model.device)))
+    return stacked_residual.StackedResidualGP(tuple(levels))

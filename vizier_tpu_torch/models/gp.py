@@ -134,6 +134,10 @@ class VizierGaussianProcess:
 
     num_continuous: int
     num_categorical: int
+    # Declares a ``mean_scale`` hyperparameter (trained and regularized) that
+    # no mean reads: the JAX package's model does the same, and the port
+    # keeps its NLL and init draws equal to it.
+    use_linear_mean: bool = False
     # HEBO-style learnable Kumaraswamy input warping of the [0,1] continuous
     # features: u -> 1-(1-u^a)^b with per-dimension a, b.
     use_input_warping: bool = False
@@ -179,6 +183,8 @@ class VizierGaussianProcess:
                         prior_mu=0.0, prior_sigma=0.5,
                     )
                 )
+        if self.use_linear_mean and self.num_continuous:
+            specs.append(spec("mean_scale", (), sc(1e-3, 10.0), 0.1, 1.0, prior_mu=0.0))
         return params_lib.ParameterCollection(tuple(specs))
 
     # -- kernel ------------------------------------------------------------
@@ -306,6 +312,46 @@ class GPState:
             var = var + (p["noise_stddev"] * p["noise_stddev"])[:, None]
         return mean, torch.sqrt(torch.clamp(var, min=1e-12))
 
+    def predict_joint(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+        """Posterior mean and full covariance over the query points.
+
+        ``query`` [Q, ...] gives ([B, Q], [B, Q, Q]). A leading candidate
+        axis, ``query`` [P, Q, ...], gives ([P, B, Q], [P, B, Q, Q]) from one
+        k* launch over all P·Q points ([B, P·Q, N]) and one K(q, q) launch in
+        which candidate p is group p of a [P·B] batch ([P·B, Q, Q]). The
+        covariance is symmetrized and gets 1e-6 on its diagonal, as the JAX
+        package's.
+        """
+        model, p, data = self.model, self.params, self.data
+        batch = p["amplitude"].shape[0]
+        q = query.continuous.shape[-2]
+        flat = kernels.MixedFeatures(*(t.flatten(0, -2) for t in query))
+        # [B, P·Q, N], zero on padded data rows.
+        k_star = model._kernel(p, flat, data.features(), data, row_mask2=data.row_mask)
+        if query.continuous.dim() == 3:
+            count = query.continuous.shape[0]
+            k_star = k_star.reshape(batch, count, q, -1).movedim(0, 1)
+            # Candidate p's K(q, q) is group p of a [P·B] batch.
+            p = {k: v.repeat((count,) + (1,) * (v.dim() - 1)) for k, v in p.items()}
+            if model.use_input_warping and model.num_continuous:
+                # Warped features are per member: one block per member.
+                query = kernels.MixedFeatures(
+                    *(torch.repeat_interleave(t, batch, dim=0) for t in query))
+            k_qq = model._kernel(p, query, query, data).reshape(count, batch, q, q)
+        else:
+            k_qq = model._kernel(p, query, query, data)
+        mean = matvec(k_star, self.alpha)
+        v = self.linv @ k_star.transpose(-1, -2)  # [(P,) B, N, Q]
+        cov = k_qq - v.transpose(-1, -2) @ v
+        eye = torch.eye(q, dtype=cov.dtype, device=cov.device)
+        return mean, 0.5 * (cov + cov.transpose(-1, -2)) + 1e-6 * eye
+
+    def sample(self, query: kernels.MixedFeatures, eps: Tensor) -> Tensor:
+        """Marginal posterior samples [num_samples, B, Q] (diagonal
+        covariance) from the standard normals ``eps`` [num_samples, B, Q]."""
+        mean, stddev = self.predict(query)
+        return mean[None] + stddev[None] * eps
+
 
 @dataclasses.dataclass(frozen=True)
 class EnsemblePredictive:
@@ -330,3 +376,7 @@ class EnsemblePredictive:
         second = torch.mean(stddevs**2 + means**2, dim=axis)
         var = torch.clamp(second - mean**2, min=1e-12)
         return mean, torch.sqrt(var)
+
+    def predict_per_member(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
+        """Each member's posterior mean and stddev ([B, Q], [B, Q])."""
+        return self.states.predict(query)

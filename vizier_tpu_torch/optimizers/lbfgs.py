@@ -1,4 +1,4 @@
-"""ARD hyperparameter optimizer: batched L-BFGS over restarts.
+"""ARD hyperparameter optimizers: batched L-BFGS (the default) and Adam.
 
 Counterpart of the JAX package's ``optimizers/lbfgs.py``. Bounds are handled by the
 soft-clip reparameterization (``models.params``), so plain L-BFGS suffices:
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Protocol, Tuple
 
 import torch
 
@@ -39,6 +39,20 @@ class OptimizeResult(NamedTuple):
     params: Params  # best (or top-k stacked) unconstrained params
     losses: Tensor  # [num_restarts] final losses
     best_loss: Tensor
+
+
+class Optimizer(Protocol):
+    """(loss_fn, batched inits) -> best unconstrained params + diagnostics.
+
+    ``groups`` S splits the restart rows into S studies' consecutive blocks,
+    each keeping its own ``best_n`` (a cross-study flush).
+    """
+
+    def __call__(
+        self, loss_fn: LossFn, init_batch: Params, *, best_n: Optional[int] = None,
+        groups: int = 1,
+    ) -> OptimizeResult:
+        ...
 
 
 def _two_loop_direction(
@@ -265,3 +279,50 @@ class LbfgsOptimizer:
             ftol_patience=self.ftol_patience,
         )
         return _select_best(unravel(x), f, best_n, groups)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamOptimizer:
+    """Adam over every restart at once, for a fixed ``maxiter`` steps.
+
+    optax's ``adam`` update at its defaults, written out: bias-corrected
+    first and second moments (b1 0.9, b2 0.999) and eps 1e-8 added outside
+    the square root. The loop reads nothing back to the host; each step is
+    one batched loss and gradient, and the final losses are taken at the
+    last parameters.
+    """
+
+    learning_rate: float = 5e-2
+    maxiter: int = 200
+    # "cuda" (the default) or "cpu"; CUDA raises when no GPU is present.
+    device: device_lib.DeviceLike = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", device_lib.resolve(self.device))
+
+    def __call__(
+        self, loss_fn: LossFn, init_batch: Params, *, best_n: Optional[int] = None,
+        groups: int = 1,
+    ) -> OptimizeResult:
+        x, unravel = _flatten(init_batch)
+        device_lib.check(x, self.device, "Adam inits")
+        x = x.detach()
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        mu = torch.zeros_like(x)
+        nu = torch.zeros_like(x)
+        for step in range(1, self.maxiter + 1):
+            with torch.enable_grad():
+                leaf = x.requires_grad_(True)
+                (g,) = torch.autograd.grad(loss_fn(unravel(leaf)).sum(), leaf)
+            mu = (1.0 - b1) * g + b1 * mu
+            nu = (1.0 - b2) * (g * g) + b2 * nu
+            mu_hat = mu / (1.0 - b1**step)
+            nu_hat = nu / (1.0 - b2**step)
+            x = x.detach() - self.learning_rate * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        with torch.no_grad():
+            losses = loss_fn(unravel(x))
+        return _select_best(unravel(x), losses, best_n, groups)
+
+
+def default_optimizer(device: device_lib.DeviceLike = "cuda") -> Optimizer:
+    return LbfgsOptimizer(device=device)

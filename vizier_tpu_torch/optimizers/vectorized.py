@@ -13,7 +13,7 @@ generator's draws, taken up front; one study alone is a study axis of one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Protocol, Sequence
+from typing import Callable, NamedTuple, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -142,3 +142,97 @@ class VectorizedOptimizer:
             best_cat = torch.take_along_dim(
                 torch.cat([best_cat, candidates.categorical], dim=1), idx[..., None], dim=1)
         return VectorizedOptimizerResult(kernels.MixedFeatures(best_cont, best_cat), best_scores)
+
+
+class RandomState(NamedTuple):
+    """Uniform random search keeps no state between iterations."""
+
+    @staticmethod
+    def stack(states) -> "RandomState":
+        del states
+        return RandomState()
+
+
+class RandomDraws(NamedTuple):
+    """Uniforms of one batch (``[P, D]``) or of a sweep (``[(S,) T, P, D]``):
+    the continuous features, and the draws that pick each category."""
+
+    continuous: Tensor
+    categorical: Tensor
+
+    @staticmethod
+    def stack(draws) -> "RandomDraws":
+        """S studies' sweeps with a leading study axis: [S, T, P, D]."""
+        return RandomDraws(*(torch.stack(t) for t in zip(*draws)))
+
+    def at(self, t: int) -> Tuple["RandomDraws", None]:
+        """Iteration t's draws of a stacked [S, T, P, D] sweep (no update draws)."""
+        return RandomDraws(self.continuous[:, t], self.categorical[:, t]), None
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomVectorizedStrategy:
+    """Uniform random search under the vectorized interface: every batch is
+    ``suggestion_batch_size`` fresh uniform points, category i drawn as
+    ``min(floor(u * size_i), size_i - 1)``."""
+
+    num_continuous: int
+    num_categorical: int
+    category_sizes: Tuple[int, ...]
+    suggestion_batch_size: int = 64
+
+    @property
+    def batch_size(self) -> int:
+        return self.suggestion_batch_size
+
+    def init_state(self, generator: torch.Generator, *, prior_features=None) -> RandomState:
+        del generator, prior_features
+        return RandomState()
+
+    def sweep_draws(self, generator: torch.Generator, iterations: int) -> RandomDraws:
+        """Every uniform of an ``iterations``-step sweep, drawn up front."""
+        shape = (iterations, self.suggestion_batch_size)
+        device = generator.device
+        cont = torch.rand(shape + (self.num_continuous,), generator=generator, device=device)
+        cat = (
+            torch.rand(shape + (self.num_categorical,), generator=generator, device=device)
+            if self.num_categorical
+            else torch.zeros(shape + (0,), device=device)
+        )
+        return RandomDraws(cont, cat)
+
+    def apply_suggest(self, state: RandomState, draws: RandomDraws) -> kernels.MixedFeatures:
+        del state
+        if not self.num_categorical:
+            cat = torch.zeros(draws.categorical.shape, dtype=torch.int32,
+                              device=draws.categorical.device)
+            return kernels.MixedFeatures(draws.continuous, cat)
+        sizes = torch.tensor(self.category_sizes, dtype=torch.int32,
+                             device=draws.categorical.device)
+        cat = torch.minimum((draws.categorical * sizes).to(torch.int32), sizes - 1)
+        return kernels.MixedFeatures(draws.continuous, cat)
+
+    def apply_update(self, state: RandomState, fresh, candidates, scores) -> RandomState:
+        del fresh, candidates, scores
+        return state
+
+
+def optimize_random(
+    score_fn: ScoreFn,
+    generator: torch.Generator,
+    *,
+    num_continuous: int,
+    category_sizes: Tuple[int, ...],
+    count: int = 1,
+    max_evaluations: int = 10_000,
+) -> VectorizedOptimizerResult:
+    """Random-search acquisition maximization on the generator's device."""
+    strategy = RandomVectorizedStrategy(
+        num_continuous=num_continuous,
+        num_categorical=len(category_sizes),
+        category_sizes=tuple(category_sizes),
+    )
+    optimizer = VectorizedOptimizer(
+        strategy, max_evaluations=max_evaluations, device=generator.device
+    )
+    return optimizer(score_fn, generator, count=count)
