@@ -28,9 +28,10 @@ Phases (any failure raises and exits non-zero):
    temporary directory and times its kernels the same way in the same run.
 4. The exact main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
-   synthetic completed trials and serves two ``suggest(count=5)`` requests
-   (``_REQUESTS``), completing the five suggestions between requests. Launch counts are reset
-   just before and read just after; both kernels, K1's Gram and cross modes
+   synthetic completed trials and serves one ``suggest(count=5)`` request
+   (``_EXACT_REQUESTS``; two before the algorithms phase joined the
+   script), completing the suggestions. Launch counts are reset just
+   before and read just after; both kernels, K1's Gram and cross modes
    and K2's Gram mode must have run. Suggestions finite and in bounds, every
    trained Cholesky finite, the trained posterior's predictions on the card
    against the port's plain CPU path at the same parameters (the trained
@@ -64,7 +65,7 @@ Phases (any failure raises and exits non-zero):
    study and 8 threads calling ``policy.suggest(SuggestRequest(count=5))``
    at once. serving-exact: 8 studies of bench.py's 20-D objective (seed =
    study index) with 480 + 2i completed trials (the 512-row bucket, below
-   the sparse threshold): one cold flush and two warm ones through
+   the sparse threshold): one cold flush and one warm one through
    ``UCBPEProgram``, the picks completed between rounds, then one
    GAUSSIAN_PROCESS_BANDIT round of ``suggest(count=1)`` through
    ``GPBanditProgram``. serving-sparse: the same at 1000 + 2i trials (the
@@ -72,7 +73,7 @@ Phases (any failure raises and exits non-zero):
    ``UCBPESparseProgram`` (two rounds) and ``GPBanditSparseProgram``. Each
    round must be one flush of occupancy 8 with no fallback and no slot
    error; suggestions finite and in bounds; every trained factor finite.
-   The first round is served again with batching off (the first 4 studies,
+   The first round is served again with batching off (the first 2 studies,
    ``_REFERENCE_STUDIES``, one after another): the throughput reference and
    the parity reference (each of those slots' trained NLL; every slot's
    posterior at unit-scale parameters computed in the stacked batch and
@@ -104,8 +105,8 @@ Phases (any failure raises and exits non-zero):
    memory above the phase's baseline. Then the runner entry point on one
    study (Branin2d seed 1 through ``BenchmarkState`` ->
    ``InRamDesignerPolicy`` -> ``BenchmarkRunner``, the same Branin gate),
-   and regret_suite.py's GAUSSIAN_PROCESS_BANDIT on Branin (seeds 1, 2:
-   each best below that seed's random best in ``regret_suite_r5.json``),
+   and regret_suite.py's GAUSSIAN_PROCESS_BANDIT on Branin (seed 1: its
+   best below that seed's random best in ``regret_suite_r5.json``),
    DEFAULT on the mixed space (above the reference-random median of
    ``regret_report_r4.json``) and the bandit on ZDT1 (final hypervolume
    finite and positive, printed beside the JAX run's). The kernel checks,
@@ -130,9 +131,35 @@ Phases (any failure raises and exits non-zero):
    1024 and 128 rows, the winning stacked UCB recomputed on the CPU); the
    exact DEFAULT with ``ard_optimizer=AdamOptimizer()``. Then K1/K2 at every
    launch layout the phase recorded, each tile forced in turn.
-10. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
-   run's; every path's, the gp-surface steps' included, by mode), the card
-   line again, and as the last line ``{"ok": true, "device": {...}}``.
+10. algorithms: the service's other algorithms and the wrappers, through
+   the entry points a user calls. The port's ``DefaultPolicyFactory`` with
+   an ``InRamPolicySupporter`` per route serves two ``SuggestRequest(count=5)``
+   (picks completed in between) for RANDOM_SEARCH, QUASI_RANDOM_SEARCH,
+   GRID_SEARCH, EAGLE_STRATEGY and CMA_ES on bench.py's study (1000 x 20-D),
+   SHUFFLED_GRID_SEARCH on a 6-D study of the same objective (at 20-D the
+   shuffled grid, 10^20 points, cannot be built, ROADMAP C12), NSGA2 on
+   phase 6's DTLZ2 study and BOCS and HARMONICA on a 20-bit study (100
+   trials of a seeded sparse quadratic); every suggestion feasible, and each
+   serializable route's second request loads the state the first wrote.
+   NSGA2's survival ranking over the DTLZ2 study's 1010 trials on the card
+   against the CPU plain path (layers, crowding bit for bit, the surviving
+   order). ``ScalarizingDesigner`` (Chebyshev, the GP bandit on the card) on
+   the DTLZ2 study: scalarized labels bit-identical to the CPU's, one
+   ``suggest(1)`` with its launches by mode, the inner posterior against the
+   CPU (unit-scale parameters within 5e-3, trained ones printed).
+   ``scheduled_gp_ucb_pe`` and ``UnsafeAsInfeasibleDesigner`` (the DEFAULT
+   inside, one safety metric) at 150 x 20-D, two ``suggest(5)`` each: the
+   scheduled values and rebuilds printed, the unsafe trials (and only they)
+   reaching the inner designer as infeasible. regret_suite.py's baselines
+   (Random/Branin, Eagle/Sphere20d and Rastrigin20d, NSGA2/ZDT1), seeds 1-5,
+   each held to ``regret_suite_baselines_5seed.json`` by the exact one-sided
+   rank test (fail at p < 0.01), each seed's value printed beside the
+   reference's. Then K1/K2 at every launch layout the phase recorded, each
+   tile forced in turn.
+11. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+   run's; every path's, the gp-surface and algorithms steps' included, by
+   mode), the card line again, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
 show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
@@ -979,6 +1006,9 @@ _DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
 # suggest(count=5) requests of each designer path (phases 4-6) before its
 # profiled one.
 _REQUESTS = 2
+# The exact path's: one since the algorithms phase joined the script (its
+# warm train runs in serving-exact's second round).
+_EXACT_REQUESTS = 1
 
 
 def _bench_problem(vz):
@@ -1054,7 +1084,7 @@ def _require_modes(by_mode, required, path: str):
 
 
 def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
-    """Phase 4: two suggest(count=5) requests at 1000 trials x 20-D."""
+    """Phase 4: ``_EXACT_REQUESTS`` suggest(count=5) at 1000 trials x 20-D."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
     states = []
 
@@ -1064,7 +1094,8 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
         if not bool(torch.isfinite(state.chol).all()):
             raise AssertionError(f"request {request}: non-finite Cholesky factor")
 
-    latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact")
+    latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact",
+                                         requests=_EXACT_REQUESTS)
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
@@ -1579,12 +1610,15 @@ def profile_request(designer, kind: str, count: int = 5, split_train: bool = Fal
 
 _SERVE_STUDIES = 8
 # Studies of round 0 served again with batching off (the throughput and
-# parity reference), one after another.
-_REFERENCE_STUDIES = 4
+# parity reference), one after another: 2 of the 8 since the algorithms
+# phase joined the script (4 before it).
+_REFERENCE_STUDIES = 2
 # Study i starts with base + 2i completed trials: all 8 share one padding
 # bucket (512 rows exact, below the 512-trial sparse threshold; 1024 sparse).
 _SERVE_TRIALS = {"exact": 480, "sparse": 1000}
-_SERVE_ROUNDS = {"exact": 3, "sparse": 2}
+# Batched rounds: cold, then warm (profiled); exact had a second warm round
+# before the algorithms phase joined the script.
+_SERVE_ROUNDS = {"exact": 2, "sparse": 2}
 # A study's trained NLL served in a flush against the same study served
 # alone (batching off): |flush - alone| <= _NLL_TOL * max(1, |alone|). Both
 # train from the same seeds; batched and single Choleskys round differently,
@@ -2042,7 +2076,9 @@ def run_regret_phase(kernels, lib):
     bandit = suite["branin_gp_ucb"]
     figures = {"branin_gp_ucb": [], "sequential": dict(regret=branin, wall_s=seq["wall_s"])}
     launches = []
-    for seed, ref_best, ref_random in zip((1, 2), bandit["best"], bandit["baseline_random"]):
+    # Seed 1 of the reference's two (seed 2 too before the algorithms phase
+    # joined the script).
+    for seed, ref_best, ref_random in zip((1,), bandit["best"], bandit["baseline_random"]):
         best, wall, counts = _path_launches(kernels, lambda: regret.branin_gp_ucb(seed))
         launches.append(counts)
         figures["branin_gp_ucb"].append(dict(seed=seed, best=best, wall_s=wall))
@@ -2435,6 +2471,320 @@ def run_gp_surface_phase(kernels, lib):
     return paths, figures
 
 
+# -- algorithms: the service's other algorithms, and the wrappers -------------
+
+# The binary study of BOCS and HARMONICA: 20 two-value categoricals, 100
+# completed trials of a seeded sparse quadratic (BOCS's paper's setting).
+_BITS, _BINARY_TRIALS = 20, 100
+# The regret phase's shape for the wrappers: 150 trials x 20-D.
+_WRAPPER_TRIALS = 150
+# At 20-D the shuffled grid would be a permutation of 10^20 points, which
+# neither package can build (ROADMAP C12): it runs on a 6-D study.
+_SHUFFLED_GRID_DIM = 6
+_ROUTES = ("RANDOM_SEARCH", "QUASI_RANDOM_SEARCH", "GRID_SEARCH", "SHUFFLED_GRID_SEARCH",
+           "EAGLE_STRATEGY", "CMA_ES", "NSGA2", "BOCS", "HARMONICA")
+_SERIALIZABLE_ROUTES = ("QUASI_RANDOM_SEARCH", "GRID_SEARCH", "SHUFFLED_GRID_SEARCH",
+                        "EAGLE_STRATEGY", "NSGA2")
+
+
+def _binary_study(vz):
+    """(problem, trials, complete(trial)): 20 two-value categoricals,
+    y = b'x + x'Qx with 20 seeded nonzero pair weights in Q, MINIMIZE."""
+    rng = np.random.default_rng(0)
+    linear = rng.normal(size=_BITS)
+    pairs = [tuple(sorted(rng.choice(_BITS, size=2, replace=False))) for _ in range(20)]
+    weights = rng.normal(size=len(pairs)) * 2.0
+    problem = vz.ProblemStatement()
+    for i in range(_BITS):
+        problem.search_space.root.add_categorical_param(f"b{i}", ["0", "1"])
+    problem.metric_information.append(
+        vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MINIMIZE))
+
+    def value(bits) -> float:
+        return float(linear @ bits + sum(w * bits[i] * bits[j] for (i, j), w in zip(pairs, weights)))
+
+    trials = []
+    for i, bits in enumerate(rng.integers(0, 2, size=(_BINARY_TRIALS, _BITS))):
+        t = vz.Trial(id=i + 1, parameters={f"b{j}": str(b) for j, b in enumerate(bits)})
+        t.complete(vz.Measurement(metrics={"obj": value(bits)}))
+        trials.append(t)
+    return problem, trials, lambda t: t.complete(vz.Measurement(metrics={"obj": value(np.array(
+        [int(t.parameters.get_value(f"b{j}")) for j in range(_BITS)]))}))
+
+
+def _route_study(vz, name: str):
+    """(problem, completed trials, complete(trial)) of a route."""
+    if name == "NSGA2":
+        problem, trials = _dtlz2_study(vz)
+        exp = _dtlz2_experimenter()
+        return problem, trials, lambda t: exp.evaluate([t])
+    if name in ("BOCS", "HARMONICA"):
+        return _binary_study(vz)
+    dim = _SHUFFLED_GRID_DIM if name == "SHUFFLED_GRID_SEARCH" else _DIM
+    problem = vz.ProblemStatement()
+    for j in range(dim):
+        problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    problem.metric_information.append(
+        vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    trials = _bench_trials(vz, _NUM_TRIALS, dim)
+    return problem, trials, lambda t: t.complete(vz.Measurement(metrics=_bench_objective(
+        np.array([t.parameters.get_value(f"x{j}") for j in range(dim)]))))
+
+
+def _serve_route(mods, kernels, name: str) -> dict:
+    """Two SuggestRequest(count=5) of one route through the factory, the
+    picks completed in between; the serializable routes must load, on the
+    second request, the state the first wrote into the study."""
+    from vizier_tpu_torch.benchmarks import regret
+
+    vz, sc, lps = mods["vz"], mods["study_config"], mods["lps"]
+    problem, trials, complete = _route_study(vz, name)
+    supporter = lps.InRamPolicySupporter(sc.StudyConfig.from_problem(problem))
+    supporter.AddTrials(trials)
+    factory = mods["policy_factory"].DefaultPolicyFactory(device="cuda")
+    policy = factory(problem, name, supporter, f"algorithms-{name}")
+    restored = []
+    if name in _SERIALIZABLE_ROUTES:
+        make = policy._make_or_restore_designer
+
+        def spy(p, state):
+            designer = make(p, state)
+            restored.append(state is not None)
+            return designer
+        policy._make_or_restore_designer = spy
+    walls = []
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        start = time.perf_counter()
+        new = supporter.SuggestTrials(policy, _COUNT)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        if len(new) != _COUNT:
+            raise AssertionError(f"algorithms {name}: {len(new)} suggestions, not {_COUNT}")
+        regret.check_suggestions(new, problem, f"algorithms {name}")
+        for t in new:
+            complete(t)
+    launches = {k: dict(v) for k, v in kernels.LAUNCHES_BY_MODE.items()}
+    state = supporter.GetStudyConfig().metadata.ns("designer_policy_v0").get("designer")
+    print(f"algorithms route {name} ({type(policy).__name__}): suggest(count={_COUNT}) x2 "
+          f"{[round(w * 1e3, 1) for w in walls]} ms over {len(trials)} completed trials; state "
+          f"restored on the second request: {restored or 'stateless'}; state "
+          f"{len(state or '')} chars; launches {launches}")
+    if name in _SERIALIZABLE_ROUTES and (restored != [False, True] or not state):
+        raise AssertionError(f"algorithms {name}: the second request did not load the state "
+                             f"the first wrote ({restored})")
+    return dict(wall_ms=[w * 1e3 for w in walls], policy=type(policy).__name__,
+                restored=restored, launches=launches, supporter=supporter, problem=problem)
+
+
+def run_algorithms_phase(kernels, lib, mods):
+    """Phase 10: the service's algorithms besides the GP bandits, through the
+    port's policy factory; NSGA2's survival on the card against the CPU; the
+    scalarizing, scheduled and safety wrappers around the GP designers; and
+    regret_suite.py's baselines against the JAX package's 5-seed runs. Then
+    K1/K2 at every launch layout the phase made. Returns ({path: launches by
+    mode}, figures)."""
+    from vizier_tpu_torch.benchmarks import regret
+    from vizier_tpu_torch.converters import core as converters
+    from vizier_tpu_torch.designers import evolution, gp_ucb_pe
+    from vizier_tpu_torch.designers import scalarizing_designer, scheduled_designer
+    from vizier_tpu_torch.designers import unsafe_as_infeasible_designer
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.models import multitask_gp
+
+    vz = mods["vz"]
+    paths, figures = {}, {"routes": {}}
+    kernels.LAUNCH_SHAPES = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    phase_start = time.perf_counter()
+
+    # 1. The factory's routes.
+    served = {}
+    for name in _ROUTES:
+        served[name] = _serve_route(mods, kernels, name)
+        paths[f"algorithms_{name.lower()}"] = served[name].pop("launches")
+        figures["routes"][name] = {k: served[name][k] for k in ("wall_ms", "policy", "restored")}
+
+    # 2. NSGA2's survival ranking on the card against the CPU plain path,
+    # over the DTLZ2 study's 1010 completed trials.
+    nsga2 = served["NSGA2"]
+    completed = nsga2["supporter"].GetTrials(status_matches=vz.TrialStatus.COMPLETED)
+    metrics = nsga2["problem"].metric_information
+    objectives = converters.MetricsEncoder(metrics).encode(completed)
+    evolution.survival_ranking(objectives, torch.device("cuda"))  # warm
+    start = time.perf_counter()
+    card_layers, card_crowding = evolution.survival_ranking(objectives, torch.device("cuda"))
+    card_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    cpu_layers, cpu_crowding = evolution.survival_ranking(objectives, torch.device("cpu"))
+    cpu_ms = (time.perf_counter() - start) * 1e3
+    same_order = bool(np.array_equal(np.lexsort((-card_crowding, card_layers)),
+                                     np.lexsort((-cpu_crowding, cpu_layers))))
+    figures["nsga2_survival"] = dict(
+        rows=len(completed), fronts=int(card_layers.max()) + 1, card_ms=card_ms, cpu_ms=cpu_ms,
+        layers_identical=bool(np.array_equal(card_layers, cpu_layers)),
+        crowding_bit_identical=card_crowding.tobytes() == cpu_crowding.tobytes(),
+        order_identical=same_order)
+    print(f"algorithms NSGA2 survival ranking over {len(completed)} DTLZ2 trials: "
+          f"{figures['nsga2_survival']['fronts']} fronts; card {card_ms:.2f} ms, CPU plain "
+          f"{cpu_ms:.2f} ms; layers identical {figures['nsga2_survival']['layers_identical']}, "
+          f"crowding bit-identical {figures['nsga2_survival']['crowding_bit_identical']}, "
+          f"surviving order identical {same_order}")
+    if not (figures["nsga2_survival"]["layers_identical"] and same_order
+            and figures["nsga2_survival"]["crowding_bit_identical"]):
+        raise AssertionError("algorithms: NSGA2's survival on the card differs from the CPU")
+
+    # 3. The scalarizing wrapper (default Chebyshev, the GP bandit inside) on
+    # the DTLZ2 study.
+    problem, trials = _dtlz2_study(vz)
+    wrapper = scalarizing_designer.ScalarizingDesigner(problem, seed=0, device="cuda")
+    wrapper.update(vz.CompletedTrials(trials))
+    rows = converters.MetricsEncoder(problem.metric_information).encode(trials)
+    card_labels = wrapper.scalarize(rows)
+    cpu_labels = wrapper.scalarization(torch.from_numpy(rows.astype(np.float32))).numpy()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    (pick,) = wrapper.suggest(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    paths["algorithms_scalarizing"] = counts = {
+        k: dict(v) for k, v in kernels.LAUNCHES_BY_MODE.items()}
+    _check_suggestions([pick], "algorithms scalarizing")
+    figures["scalarizing"] = dict(wall_ms=wall * 1e3, launches=counts,
+                                  labels_bit_identical=card_labels.tobytes() == cpu_labels.tobytes())
+    print(f"algorithms ScalarizingDesigner (Chebyshev over {len(trials)} DTLZ2 trials, inner "
+          f"VizierGPBandit on the card): suggest(1) {wall * 1e3:.1f} ms, launches by mode "
+          f"{counts}; scalarized labels on the card bit-identical to the CPU's "
+          f"{figures['scalarizing']['labels_bit_identical']}")
+    if not figures["scalarizing"]["labels_bit_identical"]:
+        raise AssertionError("algorithms: scalarized labels on the card differ from the CPU's")
+    _require_modes(counts, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                            ("matern52_ard_bwd", "gram")), "algorithms scalarizing")
+    _check_posterior_against_cpu("algorithms scalarizing inner GP",
+                                 wrapper._inner._last_predictive.states, kernels, gp_lib,
+                                 multitask_gp)
+
+    # 4. The scheduled DEFAULT and the safety wrapper at 150 x 20-D.
+    base = _bench_trials(vz, _WRAPPER_TRIALS, _DIM)
+
+    def two_requests(step, designer, evaluate):
+        """Two suggest(5), the picks completed in between; returns the walls,
+        the launches by mode and the completed picks."""
+        walls, done = [], []
+        kernels.reset_launch_counts()
+        tid = _WRAPPER_TRIALS
+        for _ in range(2):
+            start = time.perf_counter()
+            batch = designer.suggest(_COUNT)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            _check_suggestions(batch, f"algorithms {step}")
+            new = []
+            for s in batch:
+                tid += 1
+                t = s.to_trial(tid)
+                t.complete(vz.Measurement(metrics=evaluate(np.array(
+                    [t.parameters.get_value(f"x{j}") for j in range(_DIM)]))))
+                new.append(t)
+            designer.update(vz.CompletedTrials(new), vz.ActiveTrials())
+            done.extend(new)
+        paths[f"algorithms_{step}"] = counts = {
+            k: dict(v) for k, v in kernels.LAUNCHES_BY_MODE.items()}
+        return walls, counts, done
+
+    scheduled = scheduled_designer.scheduled_gp_ucb_pe(
+        _bench_problem(vz), expected_total_num_trials=2 * _WRAPPER_TRIALS, seed=0, device="cuda")
+    rebuilds = []
+    make = scheduled.designer_factory
+
+    def logged(p, **values):
+        rebuilds.append(dict(values))
+        return make(p, **values)
+    scheduled.designer_factory = logged
+    scheduled.update(vz.CompletedTrials(base), vz.ActiveTrials())
+    walls, counts, _ = two_requests("scheduled_gp_ucb_pe", scheduled, _bench_objective)
+    config = scheduled._designer.config
+    figures["scheduled_gp_ucb_pe"] = dict(wall_ms=[w * 1e3 for w in walls], rebuilds=rebuilds,
+                                          launches=counts)
+    print(f"algorithms scheduled_gp_ucb_pe at {_WRAPPER_TRIALS} x {_DIM}-D: suggest(count="
+          f"{_COUNT}) x2 {[round(w * 1e3, 1) for w in walls]} ms; rebuilds (scheduled values) "
+          f"{[{k: round(v, 4) for k, v in r.items()} for r in rebuilds]}; the designer's "
+          f"coefficients ucb {config.ucb_coefficient}, explore "
+          f"{config.explore_region_ucb_coefficient}; launches {counts}")
+    if not rebuilds or config.ucb_coefficient != round(rebuilds[-1]["ucb_coefficient"], 2):
+        raise AssertionError("algorithms scheduled_gp_ucb_pe: no rebuild, or coefficients off "
+                             "the schedule")
+
+    safe_problem = _bench_problem(vz)
+    safe_problem.metric_information.append(vz.MetricInformation(
+        name="safety", goal=vz.ObjectiveMetricGoal.MAXIMIZE, safety_threshold=0.0))
+    safe_metrics = lambda x: dict(_bench_objective(x), safety=float(x[0] - 0.2))  # noqa: E731
+    unsafe_base = []
+    for t in base:
+        x = np.array([t.parameters.get_value(f"x{j}") for j in range(_DIM)])
+        u = vz.Trial(id=t.id, parameters=t.parameters)
+        u.complete(vz.Measurement(metrics=safe_metrics(x)))
+        unsafe_base.append(u)
+    safety = unsafe_as_infeasible_designer.UnsafeAsInfeasibleDesigner(
+        safe_problem, designer_factory=lambda p, **kw: gp_ucb_pe.VizierGPUCBPEBandit(
+            p, rng_seed=0, device="cuda"))
+    seen = []
+    inner_update = safety._inner.update
+
+    def record(completed, all_active=vz.ActiveTrials()):
+        seen.extend(completed.trials)
+        inner_update(completed, all_active)
+    safety._inner.update = record
+    safety.update(vz.CompletedTrials(unsafe_base), vz.ActiveTrials())
+    walls, counts, picked = two_requests("unsafe_as_infeasible", safety, safe_metrics)
+    given = {t.id: t for t in unsafe_base + picked}
+    unsafe = {i for i, t in given.items() if t.final_measurement.metrics["safety"].value < 0.0}
+    infeasible = {t.id for t in seen if t.infeasible}
+    figures["unsafe_as_infeasible"] = dict(wall_ms=[w * 1e3 for w in walls], launches=counts,
+                                           trials=len(seen), unsafe=len(unsafe),
+                                           infeasible_seen=len(infeasible))
+    print(f"algorithms UnsafeAsInfeasibleDesigner (inner DEFAULT) at {_WRAPPER_TRIALS} x "
+          f"{_DIM}-D: suggest(count={_COUNT}) x2 {[round(w * 1e3, 1) for w in walls]} ms; the "
+          f"inner designer saw {len(seen)} trials, {len(infeasible)} of them infeasible, the "
+          f"{len(unsafe)} unsafe ones; launches {counts}")
+    if not unsafe or infeasible != unsafe or len(seen) != len(given):
+        raise AssertionError("algorithms: the unsafe trials, and only they, must reach the "
+                             "inner designer as infeasible")
+
+    # 5. regret_suite.py's baselines, seeds 1-5, against the JAX package's.
+    values, baseline_walls = {}, {}
+    for name, (run, _) in regret.BASELINES.items():
+        start = time.perf_counter()
+        values[name] = [run(seed, "cuda") for seed in (1, 2, 3, 4, 5)]
+        baseline_walls[name] = time.perf_counter() - start
+    parity = regret.baseline_parity(values)
+    failures = []
+    for name, row in parity.items():
+        print(f"algorithms baseline {name}: port {row['port']} vs reference {row['reference']}; "
+              f"largest |port - reference| {row['max_abs_diff']:.3g}; one-sided exact "
+              f"Mann-Whitney p {row['p']:.4f}; gate {row['gate']}: "
+              f"{'held' if row['passed'] else 'FAILED'}; {baseline_walls[name]:.1f} s")
+        if not row["passed"]:
+            failures.append(name)
+    figures["baselines"] = {name: dict(port=row["port"], p=row["p"], passed=row["passed"],
+                                       max_abs_diff=row["max_abs_diff"],
+                                       wall_s=baseline_walls[name])
+                            for name, row in parity.items()}
+    if failures:
+        raise AssertionError(f"algorithms baselines worse than the JAX reference: {failures}")
+
+    figures["wall_s"] = time.perf_counter() - phase_start
+    figures["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - before
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded,
+                                                        "algorithms phase")
+    print(f"algorithms phase: {figures['wall_s']:.1f} s, peak device memory "
+          f"{figures['peak_memory_bytes']} B above the phase's baseline; {_card_line()}")
+    return paths, figures
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -2511,6 +2861,9 @@ def main() -> int:
     surface_paths, surface_figures = run_gp_surface_phase(kernels, lib)
     print(f"[{time.perf_counter() - start:.1f} s] gp-surface phase done")
     print(json.dumps({"gp_surface": surface_figures}))
+    algorithm_paths, algorithm_figures = run_algorithms_phase(kernels, lib, mods)
+    print(f"[{time.perf_counter() - start:.1f} s] algorithms phase done")
+    print(json.dumps({"algorithms": algorithm_figures}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -2553,7 +2906,10 @@ def main() -> int:
                 **{path: modes[name] for path, modes in mo_paths.items()},
                 **{path: modes[name] for path, modes in serving_paths.items()},
                 **{path: modes[name] for path, modes in regret_paths.items()},
-                **{path: modes[name] for path, modes in surface_paths.items()}},
+                **{path: modes[name] for path, modes in surface_paths.items()},
+                **{path: modes[name] for path, modes in algorithm_paths.items()}},
+            "launches_algorithms_phase": sum(
+                sum(modes[name].values()) for modes in algorithm_paths.values()),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

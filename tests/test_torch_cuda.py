@@ -999,3 +999,49 @@ def test_every_layout_of_the_gp_surface_matches_plain(cuda_device):
     spec.loader.exec_module(chip_smoke)
     worst = chip_smoke.check_recorded_shapes(tk, native.library(), recorded, "gp surface")
     assert worst["layouts"] == len({shape for _, shape in recorded})
+
+
+# -- the algorithms slice: NSGA2's ranking, the scalarizations, the wrappers --
+
+
+def test_nsga2_survival_ranking_on_the_card_equals_the_cpu(cuda_device):
+    """Layers identical and crowding distances bit-identical (float32), ties
+    and non-finite rows included."""
+    from vizier_tpu_torch.designers import evolution
+
+    rng = np.random.default_rng(0)
+    objectives = rng.normal(size=(300, 2))
+    objectives[::9] = objectives[1::9][: len(objectives[::9])]
+    objectives[:, 0] = np.round(objectives[:, 0], 1)
+    objectives[4] = np.nan
+    card = evolution.survival_ranking(objectives, cuda_device)
+    cpu = evolution.survival_ranking(objectives, torch.device("cpu"))
+    np.testing.assert_array_equal(card[0], cpu[0])
+    assert card[1].tobytes() == cpu[1].tobytes()
+
+
+@pytest.mark.parametrize("name", ["LinearScalarization", "ChebyshevScalarization",
+                                  "HyperVolumeScalarization"])
+def test_scalarizations_on_the_card_are_bit_identical_to_the_cpu(cuda_device, name):
+    from vizier_tpu_torch.designers import scalarization
+
+    rows = torch.from_numpy(np.random.default_rng(1).normal(size=(1000, 3)).astype(np.float32))
+    fn = getattr(scalarization, name)(weights=(0.2, 0.5, 0.3))
+    assert fn(rows.to(cuda_device)).cpu().numpy().tobytes() == fn(rows).numpy().tobytes()
+
+
+def test_nsga2_route_serves_on_the_card(cuda_device):
+    from vizier_tpu_torch.pythia import local_policy_supporters
+    from vizier_tpu_torch.pyvizier import study_config
+    from vizier_tpu_torch.service import policy_factory
+
+    problem = _surface_problem()
+    problem.metric_information.append(vz.MetricInformation(name="z"))
+    supporter = local_policy_supporters.InRamPolicySupporter(
+        study_config.StudyConfig.from_problem(problem))
+    policy = policy_factory.DefaultPolicyFactory()(problem, "NSGA2", supporter, "nsga2")
+    for _ in range(3):
+        for t in supporter.SuggestTrials(policy, 8):
+            x = np.array([t.parameters.get_value(p.name) for p in problem.search_space.parameters])
+            t.complete(vz.Measurement(metrics={"y": float(np.sum(x)), "z": float(-np.sum(x))}))
+    assert len(supporter.GetTrials(status_matches=vz.TrialStatus.COMPLETED)) == 24

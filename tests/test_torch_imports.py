@@ -50,7 +50,8 @@ def test_sources_do_not_name_the_jax_package(path):
 
 def _entry_points():
     from vizier_tpu_torch import pyvizier as vz
-    from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
+    from vizier_tpu_torch.designers import evolution, gp_bandit, gp_ucb_pe
+    from vizier_tpu_torch.designers import scalarizing_designer, scheduled_designer
     from vizier_tpu_torch.models import gp
     from vizier_tpu_torch.optimizers import eagle, lbfgs, vectorized
 
@@ -65,13 +66,30 @@ def _entry_points():
         "LbfgsOptimizer": lambda **kw: lbfgs.LbfgsOptimizer(**kw),
         "AdamOptimizer": lambda **kw: lbfgs.AdamOptimizer(**kw),
         "VectorizedOptimizer": lambda **kw: vectorized.VectorizedOptimizer(strategy, **kw),
+        "NSGA2Designer": lambda **kw: evolution.NSGA2Designer(problem, **kw),
+        "ScalarizingDesigner": lambda **kw: scalarizing_designer.ScalarizingDesigner(
+            problem, designer_factory=lambda p: None, **kw),
+        "scheduled_gp_ucb_pe": lambda **kw: _Resolved(
+            scheduled_designer.scheduled_gp_ucb_pe(problem, **kw)),
+        "scheduled_gp_bandit": lambda **kw: _Resolved(
+            scheduled_designer.scheduled_gp_bandit(problem, **kw)),
     }
+
+
+class _Resolved:
+    """A scheduled designer's device: the one its factory builds on."""
+
+    def __init__(self, scheduled):
+        self.device = scheduled.designer_factory(
+            scheduled.problem, **{k: s(0.0) for k, s in scheduled.scheduled_params.items()}
+        ).device
 
 
 @pytest.mark.parametrize(
     "name",
     ["VizierGPUCBPEBandit", "VizierGPBandit", "VizierGaussianProcess", "LbfgsOptimizer",
-     "AdamOptimizer", "VectorizedOptimizer"],
+     "AdamOptimizer", "VectorizedOptimizer", "NSGA2Designer", "ScalarizingDesigner",
+     "scheduled_gp_ucb_pe", "scheduled_gp_bandit"],
 )
 def test_entry_point_without_device_raises_when_no_gpu(monkeypatch, name):
     make = _entry_points()[name]

@@ -62,7 +62,9 @@ from vizier_tpu_torch.benchmarks.analyzers import convergence_curve
 from vizier_tpu_torch.benchmarks.experimenters import base, experimenter_factory
 from vizier_tpu_torch.benchmarks.experimenters.synthetic import bbob, multiobjective
 from vizier_tpu_torch.benchmarks.runners import benchmark_runner, benchmark_state
-from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
+from vizier_tpu_torch.converters import core as converters
+from vizier_tpu_torch.designers import eagle_strategy, evolution, gp_bandit, gp_ucb_pe
+from vizier_tpu_torch.designers import random as random_designer
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.parallel import batch_executor
@@ -424,6 +426,89 @@ def zdt1_gp_hv_ucb(trials: int = 60, batch: int = 5, evals: int = 10_000, dimens
         list(exp.problem_statement().metric_information),
         reference_point=np.array([-1.1, -6.0], dtype=np.float32)).convert(completed)
     return float(curve.ys[0, -1]), completed
+
+
+# -- regret_suite.py's baselines: Random, Eagle and NSGA2 ---------------------
+#
+# Each with the seed passed to the designer (regret_suite.py fixes Eagle's and
+# NSGA2's at 0), held to the JAX package's 5-seed runs of the same configs,
+# ``BASELINES_REFERENCE``, by the same exact one-sided rank test.
+
+BASELINES_REFERENCE = pathlib.Path(__file__).resolve().parents[2] / (
+    "regret_suite_baselines_5seed.json")
+ZDT1_REFERENCE_POINT = (-1.1, -6.0)
+
+
+def branin_random(seed: int, trials: int = 32, batch: int = 2) -> float:
+    """RANDOM_SEARCH on Branin in the BBOB frame: the best value."""
+    exp = base.NumpyExperimenter(bbob.Branin, base.bbob_problem(2, metric_name=METRIC))
+    completed = _run_suite(exp, lambda p, seed=None: random_designer.RandomDesigner(
+        p.search_space, seed=seed), trials, batch, seed)
+    return min(t.final_measurement.metrics[METRIC].value for t in completed)
+
+
+def eagle_20d_bbob(fn: str, seed: int, trials: int = 200, batch: int = 10) -> float:
+    """EAGLE_STRATEGY on a 20-D BBOB function ("Sphere", "Rastrigin"): the
+    best value."""
+    exp = base.NumpyExperimenter(bbob.BBOB_FUNCTIONS[fn], base.bbob_problem(20))
+    completed = _run_suite(exp, lambda p, seed=None: eagle_strategy.EagleStrategyDesigner(
+        p, seed=seed), trials, batch, seed)
+    return min(t.final_measurement.metrics[METRIC].value for t in completed)
+
+
+def hypervolume_2d(points: np.ndarray, reference: Sequence[float]) -> float:
+    """The exact hypervolume of ``[N, 2]`` all-MAXIMIZE points above
+    ``reference`` (float64; rows not above it in both coordinates add
+    nothing)."""
+    shifted = np.asarray(points, np.float64) - np.asarray(reference, np.float64)
+    shifted = shifted[np.all(shifted > 0.0, axis=1)]
+    if not len(shifted):
+        return 0.0
+    order = np.argsort(-shifted[:, 0], kind="stable")
+    x = shifted[order, 0]
+    y = np.maximum.accumulate(shifted[order, 1])
+    widths = x - np.append(x[1:], 0.0)
+    return float(np.sum(widths * y))
+
+
+def zdt1_nsga2(seed: int, trials: int = 60, batch: int = 5, population_size: int = 20,
+               dimension: int = 6, device="cuda") -> Tuple[float, List[trial_.Trial]]:
+    """NSGA2 on ZDT1: the exact hypervolume of the completed trials' negated
+    objectives against ``ZDT1_REFERENCE_POINT``, and the completed trials."""
+    exp = multiobjective.MultiObjectiveExperimenter.zdt("zdt1", dimension=dimension)
+    completed = _run_suite(exp, lambda p, seed=None: evolution.NSGA2Designer(
+        p, population_size=population_size, seed=seed, device=device), trials, batch, seed)
+    metrics = base_study_config.MetricsConfig(exp.problem_statement().metric_information)
+    points = converters.MetricsEncoder(metrics).encode(completed)
+    return hypervolume_2d(points, ZDT1_REFERENCE_POINT), completed
+
+
+# The baselines of ``BASELINES_REFERENCE``: name -> (run(seed, device) ->
+# value, the direction in which the port's values would be worse).
+BASELINES = {
+    "branin_random": (lambda seed, device: branin_random(seed), "greater"),
+    "eagle_20d_bbob_Sphere": (lambda seed, device: eagle_20d_bbob("Sphere", seed), "greater"),
+    "eagle_20d_bbob_Rastrigin": (lambda seed, device: eagle_20d_bbob("Rastrigin", seed),
+                                 "greater"),
+    "zdt1_nsga2": (lambda seed, device: zdt1_nsga2(seed, device=device)[0], "less"),
+}
+
+
+def baseline_parity(values: Dict[str, List[float]],
+                    reference_path=BASELINES_REFERENCE) -> Dict[str, dict]:
+    """Each baseline's per-seed values against the reference's: the exact
+    one-sided Mann-Whitney p-value that the port's are worse (greater
+    regret, smaller hypervolume); ``passed`` when p >= ``P_LIMIT``."""
+    reference = json.loads(pathlib.Path(reference_path).read_text())
+    out = {}
+    for name, port in values.items():
+        worse = BASELINES[name][1]
+        ref = reference["configs"][name]["per_seed"]
+        p = float(scipy_stats.mannwhitneyu(port, ref, alternative=worse, method="exact").pvalue)
+        out[name] = dict(port=port, reference=ref, p=p, gate=f"p >= {P_LIMIT}",
+                         passed=p >= P_LIMIT,
+                         max_abs_diff=max(abs(a - b) for a, b in zip(port, ref)))
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from vizier_tpu_torch.algorithms import core as core_lib
+from vizier_tpu_torch.designers.random import unit_to_double
 from vizier_tpu_torch.pyvizier import base_study_config
 from vizier_tpu_torch.pyvizier import common
 from vizier_tpu_torch.pyvizier import parameter_config as pc
@@ -29,20 +30,6 @@ _PRIMES = [
     317, 331, 337, 347, 349, 353, 359, 367, 373, 379, 383, 389, 397, 401, 409,
     419, 421, 431, 433, 439, 443, 449, 457, 461, 463, 467, 479, 487, 491, 499,
 ]
-
-
-def unit_to_double(config: pc.ParameterConfig, u: float) -> float:
-    """Maps u ∈ [0, 1] to the parameter's range honoring its scale type
-    (copy of the JAX package's ``designers/random.py`` helper)."""
-    lo, hi = config.bounds
-    if hi <= lo:
-        return float(lo)
-    scale = config.scale_type
-    if scale == pc.ScaleType.LOG and lo > 0:
-        return float(np.exp(np.log(lo) + u * (np.log(hi) - np.log(lo))))
-    if scale == pc.ScaleType.REVERSE_LOG and lo > 0:
-        return float(hi + lo - np.exp(np.log(lo) + (1.0 - u) * (np.log(hi) - np.log(lo))))
-    return float(lo + u * (hi - lo))
 
 
 def _radical_inverse(index: int, base: int, perm: np.ndarray) -> float:

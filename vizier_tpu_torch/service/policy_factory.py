@@ -10,9 +10,13 @@ protobuf: ``PythiaServicer.Suggest`` calls
   with a serving runtime, through ``CachedDesignerStatePolicy`` (designer
   cache, warm-started ARD, the runtime's surrogate policy and batch
   executor), otherwise through the stateless ``DesignerPolicy``.
-- QUASI_RANDOM_SEARCH goes to the port's quasi-random designer.
-- Every other algorithm of the JAX package's factory is not ported yet and
-  raises an error that names it.
+- RANDOM_SEARCH goes to ``RandomPolicy``; QUASI_RANDOM_SEARCH,
+  GRID_SEARCH, SHUFFLED_GRID_SEARCH (shuffle seed 0), NSGA2 (its survival
+  ranking on the factory's device) and EAGLE_STRATEGY to the
+  ``PartiallySerializableDesignerPolicy`` (designer state in the study's
+  metadata); CMA_ES, BOCS and HARMONICA to the stateless ``DesignerPolicy``.
+  Each route has the JAX package's policy class.
+- PYGLOVE is not ported yet and raises an error that names it.
 """
 
 from __future__ import annotations
@@ -27,14 +31,16 @@ from vizier_tpu_torch.pyvizier import base_study_config
 _ALLOWED_BUDGET_POLICIES = ("first_pick_full", "per_batch", "per_pick")
 
 # The JAX package's factory serves these too; the port does not yet.
-NOT_PORTED = (
-    "RANDOM_SEARCH", "GRID_SEARCH", "SHUFFLED_GRID_SEARCH", "NSGA2", "EAGLE_STRATEGY",
-    "CMA_ES", "BOCS", "HARMONICA", "PYGLOVE",
+NOT_PORTED = ("PYGLOVE",)
+SERVED = (
+    "DEFAULT", "GP_UCB_PE", "ALGORITHM_UNSPECIFIED", "GAUSSIAN_PROCESS_BANDIT", "RANDOM_SEARCH",
+    "QUASI_RANDOM_SEARCH", "GRID_SEARCH", "SHUFFLED_GRID_SEARCH", "NSGA2", "EAGLE_STRATEGY",
+    "CMA_ES", "BOCS", "HARMONICA",
 )
 
 
 class AlgorithmNotPortedError(NotImplementedError):
-    """The algorithm is served by the JAX package only (ROADMAP A11)."""
+    """The algorithm is served by the JAX package only (ROADMAP A16)."""
 
 
 def _validated_acq_evals(problem_statement) -> int:
@@ -147,6 +153,10 @@ class DefaultPolicyFactory:
                 lambda p, **kw: gp_bandit.VizierGPBandit(p, **serving_kwargs),
                 study_name,
             )
+        if algorithm == "RANDOM_SEARCH":
+            from vizier_tpu_torch.algorithms import random_policy
+
+            return random_policy.RandomPolicy(policy_supporter)
         if algorithm == "QUASI_RANDOM_SEARCH":
             from vizier_tpu_torch.designers import quasi_random
 
@@ -154,10 +164,49 @@ class DefaultPolicyFactory:
                 policy_supporter,
                 lambda p, **kw: quasi_random.QuasiRandomDesigner(p.search_space),
             )
+        if algorithm in ("GRID_SEARCH", "SHUFFLED_GRID_SEARCH"):
+            from vizier_tpu_torch.designers import grid
+
+            shuffle = 0 if algorithm == "SHUFFLED_GRID_SEARCH" else None
+            return designer_policy.PartiallySerializableDesignerPolicy(
+                policy_supporter,
+                lambda p, **kw: grid.GridSearchDesigner(p.search_space, shuffle_seed=shuffle),
+            )
+        if algorithm == "NSGA2":
+            from vizier_tpu_torch.designers import evolution
+
+            return designer_policy.PartiallySerializableDesignerPolicy(
+                policy_supporter,
+                lambda p, **kw: evolution.NSGA2Designer(p, device=self._device),
+            )
+        if algorithm == "EAGLE_STRATEGY":
+            from vizier_tpu_torch.designers import eagle_strategy
+
+            return designer_policy.PartiallySerializableDesignerPolicy(
+                policy_supporter,
+                lambda p, **kw: eagle_strategy.EagleStrategyDesigner(p),
+            )
+        if algorithm == "CMA_ES":
+            from vizier_tpu_torch.designers import cmaes
+
+            return designer_policy.DesignerPolicy(
+                policy_supporter, lambda p, **kw: cmaes.CMAESDesigner(p)
+            )
+        if algorithm == "BOCS":
+            from vizier_tpu_torch.designers import bocs
+
+            return designer_policy.DesignerPolicy(
+                policy_supporter, lambda p, **kw: bocs.BOCSDesigner(p)
+            )
+        if algorithm == "HARMONICA":
+            from vizier_tpu_torch.designers import harmonica
+
+            return designer_policy.DesignerPolicy(
+                policy_supporter, lambda p, **kw: harmonica.HarmonicaDesigner(p)
+            )
         if algorithm in NOT_PORTED:
             raise AlgorithmNotPortedError(
                 f"Algorithm {algorithm!r} is served by the JAX package only; the port "
-                "serves DEFAULT, GP_UCB_PE, ALGORITHM_UNSPECIFIED, GAUSSIAN_PROCESS_BANDIT "
-                "and QUASI_RANDOM_SEARCH."
+                f"serves {', '.join(SERVED)}."
             )
         raise ValueError(f"Unknown algorithm: {algorithm!r}")
