@@ -156,9 +156,35 @@ Phases (any failure raises and exits non-zero):
    rank test (fail at p < 0.01), each seed's value printed beside the
    reference's. Then K1/K2 at every launch layout the phase recorded, each
    tile forced in turn.
-11. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
-   run's; every path's, the gp-surface and algorithms steps' included, by
-   mode), the card line again, and as the last line ``{"ok": true,
+11. algorithm extras: ``LBFGSBOptimizer()`` (16 restarts, 50 iterations)
+   maximizes the UCB with its trust region over the exact path's trained
+   DEFAULT (phase 4's cached fit, no retrain), its gradient with respect to
+   the query points through K2's feature kernel: points in [0, 1]^20, the 5
+   best scores recomputed on the CPU (5e-3 x max(1, |cpu|)), the loss
+   gradient at the 16 starting points against the CPU plain autograd
+   (1e-3 relative), K2's feature launches counted (``features`` mode) and
+   its layout held to the plain version and timed; the eagle sweep's best
+   UCB at the same state printed beside it. ``DesignerAsOptimizer`` with
+   the eagle designer over the same score (20 rounds x 10). The median and
+   regression early-stopping rules through ``InRamPolicySupporter`` on a
+   learning-curve study (300 trials x 100 steps, 8 parameters, 250
+   completed): the regression rule's second poll reuses its fit, every trial
+   it stops is predicted below the completed median, and a second run gives
+   the same decisions. The eagle meta-learning designer on bench.py's study
+   through INITIALIZE, TUNE and USE_BEST_PARAMS (6 rounds of
+   ``suggest(10)``). ``EnsembleDesigner`` (EXP3-IX) over Random, Eagle and
+   the DEFAULT on the regret cell's shifted Sphere20d at 150 trials (4
+   rounds of ``suggest(5)``, the arms and the DEFAULT arm's launches
+   printed). Then K1/K2 at every launch layout the phase recorded. Phase 4's
+   request and phase 5's GAUSSIAN_PROCESS_BANDIT ``suggest(1)`` run under
+   ``utils/profiler.collect_events()``; their phase timers are printed and
+   must hold the JAX designers' names (the DEFAULT: train_gp,
+   acquisition_optimizer, best_candidates_to_trials; the bandit also
+   convert_trials).
+12. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+   run's; every path's, the gp-surface, algorithms and algorithm-extras
+   steps' included, by mode; K2's ``feature_gradient`` at the L-BFGS-B
+   layout), the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
 
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
@@ -409,10 +435,14 @@ _SET_PE_KSTAR = "gp-surface set-PE k* cross B=1 N=200 M=1024 (1006 valid) Dc=20"
 _SET_PE_KQQ = "gp-surface set-PE K(q,q) gram B=50 grouped N=M=4 unmasked Dc=20"
 _STACK_GRAM = "gp-surface stacked level gram B=4 N=M=128 (100 valid) Dc=20"
 _STACK_SWEEP = "gp-surface stacked level sweep cross B=1 N=50 M=128 (100 valid) Dc=20"
+# The algorithm-extras phase's L-BFGS-B: its 16 restarts' query points
+# against the exact path's data rows, whose gradient is K2's feature side.
+_LBFGSB_FEATURES = "lbfgsb features cross B=1 N=16 M=1024 (1000 valid) Dc=20"
 _SURFACE_CROSS_CASES = [
     (_QEI_KSTAR, dict(b=1, n=250, m=1024, dc=20, ds=0, valid=1000)),
     (_SET_PE_KSTAR, dict(b=1, n=200, m=1024, dc=20, ds=0, valid=1006)),
     (_STACK_SWEEP, dict(b=1, n=50, m=128, dc=20, ds=0, valid=100)),
+    (_LBFGSB_FEATURES, dict(b=1, n=16, m=1024, dc=20, ds=0, valid=1000)),
 ]
 _SURFACE_CASES = _SURFACE_CROSS_CASES + [
     (_QEI_KQQ, dict(b=50, n=5, m=5, dc=20, ds=0, same=True, studies=50)),
@@ -1077,6 +1107,28 @@ def _serve(vz, kernels, designer, check_state, kind: str, requests: int = _REQUE
     return latencies, by_mode, torch.cuda.max_memory_allocated() - before, picks
 
 
+# The JAX package's phase timers (utils/profiler.timeit) of the GP designers'
+# single-objective suggest: the DEFAULT times its ARD train, its sweeps and
+# its decode; GAUSSIAN_PROCESS_BANDIT times its encode as well.
+_UCB_PE_PHASES = ("train_gp", "acquisition_optimizer", "best_candidates_to_trials")
+_BANDIT_PHASES = ("convert_trials",) + _UCB_PE_PHASES
+
+
+def _phase_timers(events, required, label: str) -> dict:
+    """{phase: [ms, ...]} of the events a request recorded; raises unless
+    each required phase is there."""
+    from vizier_tpu_torch.utils import profiler
+
+    latencies = {name: [d.total_seconds() * 1e3 for d in durations]
+                 for name, durations in profiler.get_latencies_dict(events).items()}
+    print(f"{label} phase timers (ms): "
+          f"{ {name: [round(ms, 1) for ms in v] for name, v in latencies.items()} }")
+    missing = [name for name in required if name not in latencies]
+    if missing:
+        raise AssertionError(f"{label}: phase timers {missing} missing from {sorted(latencies)}")
+    return latencies
+
+
 def _require_modes(by_mode, required, path: str):
     for name, mode in required:
         if by_mode[name][mode] <= 0:
@@ -1094,8 +1146,12 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
         if not bool(torch.isfinite(state.chol).all()):
             raise AssertionError(f"request {request}: non-finite Cholesky factor")
 
-    latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact",
-                                         requests=_EXACT_REQUESTS)
+    from vizier_tpu_torch.utils import profiler
+
+    with profiler.collect_events() as events:
+        latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact",
+                                             requests=_EXACT_REQUESTS)
+    timers = _phase_timers(events, _UCB_PE_PHASES, "exact request")
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
           f"peak_memory_bytes={peak} launches={launches} by_mode={by_mode}")
@@ -1108,7 +1164,7 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
                              ("matern52_ard_bwd", "gram")), "main path")
     _check_posterior_against_cpu("exact", states[-1], kernels, gp_lib, multitask_gp,
                                  hold_trained=True)
-    return designer, launches, by_mode
+    return designer, launches, by_mode, timers
 
 
 def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
@@ -1157,10 +1213,15 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
         use_warm_start_ard=True, warm_ard_restarts=1,
     )
     bandit.update(vz.CompletedTrials(_bench_trials(vz, _NUM_TRIALS, _DIM)))
-    start = time.perf_counter()
-    (suggestion,) = bandit.suggest(count=1)
-    torch.cuda.synchronize()
-    bandit_s = time.perf_counter() - start
+    from vizier_tpu_torch.utils import profiler
+
+    with profiler.collect_events() as events:
+        start = time.perf_counter()
+        (suggestion,) = bandit.suggest(count=1)
+        torch.cuda.synchronize()
+        bandit_s = time.perf_counter() - start
+    timers = _phase_timers(
+        events, _BANDIT_PHASES, "GAUSSIAN_PROCESS_BANDIT sparse suggest(count=1)")
     values = np.array([suggestion.parameters.get_value(f"x{j}") for j in range(_DIM)], float)
     if (bandit.surrogate_mode != "sparse" or bandit.surrogate_counts["sparse_suggests"] != 1
             or not np.all((values >= 0.0) & (values <= 1.0))):
@@ -1169,7 +1230,7 @@ def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
     print(f"GAUSSIAN_PROCESS_BANDIT sparse suggest(count=1): {bandit_s * 1e3:.1f} ms, "
           f"kind {suggestion.metadata.ns('gp_bandit')['acquisition_kind']}, "
           f"ard_train_counts={bandit.ard_train_counts}")
-    return designer, launches, by_mode
+    return designer, launches, by_mode, timers
 
 
 def _dtlz2_experimenter():
@@ -2163,10 +2224,10 @@ def _corner_prior(query):
 
 def _score_close(label: str, card: float, cpu: float) -> float:
     err = abs(card - cpu) / max(1.0, abs(cpu))
-    print(f"gp-surface {label}: card {card:.6g}, recomputed on the CPU {cpu:.6g} "
+    print(f"{label}: card {card:.6g}, recomputed on the CPU {cpu:.6g} "
           f"(rel {err:.2e}, tol {_SURFACE_SCORE_TOL})")
     if not err <= _SURFACE_SCORE_TOL:
-        raise AssertionError(f"gp-surface {label}: the card's score disagrees with the CPU")
+        raise AssertionError(f"{label}: the card's score disagrees with the CPU")
     return err
 
 
@@ -2330,7 +2391,7 @@ def run_gp_surface_phase(kernels, lib):
     query = kernels.MixedFeatures(winner.continuous.cpu()[None], winner.categorical.cpu()[None])
     data = cpu_state.data
     best = acquisitions.get_best_labels(data.labels, data.row_mask)
-    figures["qei_score_rel_err"] = _score_close("qei winning batch", float(
+    figures["qei_score_rel_err"] = _score_close("gp-surface qei winning batch", float(
         batch[0].metadata.ns("gp_bandit")["acquisition"]), float(gp_bandit.qei_joint_scores(
             cpu_state, query, eps.cpu(), best, acquisitions.TrustRegion.from_data(data))[0]))
     # A pool of 50 batches, half of them the best observed points jittered
@@ -2409,7 +2470,8 @@ def run_gp_surface_phase(kernels, lib):
     pe_params, _, threshold = gp_ucb_pe._pe_conditioning([cpu_state], all_data, config)
     state_all = cpu_state.model.precompute_constrained(pe_params[0], all_data)
     members = set_pe._encode_suggestions(picks[1:])
-    figures["set_pe_score_rel_err"] = _score_close("set-PE winning set", values[1], float(
+    figures["set_pe_score_rel_err"] = _score_close(
+        "gp-surface set-PE winning set", values[1], float(
         gp_ucb_pe.set_pe_scores(
             cpu_state, state_all, kernels.MixedFeatures(members.continuous.cpu()[None],
                                                         members.categorical.cpu()[None]),
@@ -2445,7 +2507,7 @@ def run_gp_surface_phase(kernels, lib):
         best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
         trust_region=acquisitions.TrustRegion.from_data(data))
     x = transfer._encode_suggestions([pick])
-    figures["stacked_score_rel_err"] = _score_close("stacked UCB winning point", float(
+    figures["stacked_score_rel_err"] = _score_close("gp-surface stacked UCB winning point", float(
         pick.metadata.ns("gp_bandit")["acquisition"]), float(scoring.score(
             kernels.MixedFeatures(x.continuous.cpu(), x.categorical.cpu()))[0]))
 
@@ -2785,6 +2847,361 @@ def run_algorithms_phase(kernels, lib, mods):
     return paths, figures
 
 
+# -- the algorithm extras: L-BFGS-B, early stopping, ensemble, meta-learning ----
+
+# The learning-curve study of the early-stopping rules: 8 parameters, 100
+# steps, 250 of 300 trials completed, 50 active at 10-90% of their steps.
+_CURVE_PARAMS, _CURVE_STEPS, _CURVE_TRIALS, _CURVE_DONE = 8, 100, 300, 250
+# The eagle meta-learning run on bench.py's study: one 10-trial tuning
+# round from 1010 completed trials, the best coefficients from 1040.
+_META_ROUNDS, _META_COUNT = 6, 10
+_META_STATES = ["INITIALIZE", "TUNE", "TUNE", "TUNE", "USE_BEST_PARAMS", "USE_BEST_PARAMS"]
+# The ensemble's study: the regret cell's shifted Sphere20d (seed 1) at 150
+# uniformly drawn trials; 4 rounds of suggest(5).
+_ENSEMBLE_TRIALS, _ENSEMBLE_ROUNDS = 150, 4
+# The L-BFGS-B loss gradient on the card against the CPU plain autograd:
+# max |card - cpu| over max |cpu|.
+_LBFGSB_GRAD_TOL = 1e-3
+
+
+def _features_work(args, masks, grad):
+    """(bytes, operations) of K2 with the first side's feature gradient:
+    _work's parameter gradients, plus the feature output written once and,
+    per (pair, dim), a subtract and two multiply-adds."""
+    x1, inv = args[0], args[5]
+    _, (nbytes, ops) = _work(args, masks, grad)
+    b, n, m, dc = inv.shape[0], x1.shape[-2], args[2].shape[-2], inv.shape[1]
+    return nbytes + x1.numel() * 4, ops + b * n * m * 3 * dc
+
+
+def _curve_study(vz):
+    """(problem, trials): y_t = f(x)·(1 − e^(−t/τ(x))) + 0.01·noise over
+    _CURVE_STEPS steps, f and τ seeded functions of the parameters; the
+    first _CURVE_DONE trials completed, the others active."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(_CURVE_TRIALS, _CURVE_PARAMS))
+    final = 1.0 - 4.0 * np.mean((x - 0.4) ** 2, axis=1)
+    tau = 5.0 + 30.0 * x[:, 1]
+    progress = np.linspace(0.1, 0.9, _CURVE_TRIALS - _CURVE_DONE)
+    noise = 0.01 * rng.normal(size=(_CURVE_TRIALS, _CURVE_STEPS))
+    problem = vz.ProblemStatement()
+    for j in range(_CURVE_PARAMS):
+        problem.search_space.root.add_float_param(f"p{j}", 0.0, 1.0)
+    problem.metric_information.append(
+        vz.MetricInformation(name="acc", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    trials = []
+    for i in range(_CURVE_TRIALS):
+        t = vz.Trial(id=i + 1, parameters={f"p{j}": float(x[i, j]) for j in range(_CURVE_PARAMS)})
+        steps = (_CURVE_STEPS if i < _CURVE_DONE
+                 else max(1, int(progress[i - _CURVE_DONE] * _CURVE_STEPS)))
+        for step in range(1, steps + 1):
+            value = final[i] * (1.0 - np.exp(-step / tau[i])) + noise[i, step - 1]
+            t.measurements.append(vz.Measurement(metrics={"acc": float(value)}, steps=step))
+        if i < _CURVE_DONE:
+            t.complete(vz.Measurement(
+                metrics={"acc": t.measurements[-1].metrics["acc"].value}, steps=_CURVE_STEPS))
+        trials.append(t)
+    return problem, trials
+
+
+def _early_stop_rules(mods):
+    """Both rules polled through an InRamPolicySupporter each, on a fresh
+    copy of the curve study, the regression rule twice (its second poll
+    must reuse its fit and decide the same). Returns ({rule: decisions},
+    {rule: poll walls in s}, (the regression policy, its study's trials))."""
+    from vizier_tpu_torch.algorithms import early_stopping
+
+    vz, sc, lps = mods["vz"], mods["study_config"], mods["lps"]
+    rules = {
+        "median": lambda s: early_stopping.MedianEarlyStopPolicy(s, use_steps=True,
+                                                                 min_num_trials=5),
+        "regression": lambda s: early_stopping.RegressionEarlyStopPolicy(s, min_num_trials=10),
+    }
+    decisions, walls = {}, {}
+    for rule, make in rules.items():
+        problem, trials = _curve_study(vz)
+        supporter = lps.InRamPolicySupporter(sc.StudyConfig.from_problem(problem))
+        supporter.AddTrials(trials)
+        policy = make(supporter)
+        polls, fits = [], []
+        for _ in range(2 if rule == "regression" else 1):
+            start = time.perf_counter()
+            result = supporter.EarlyStopTrials(policy)
+            walls.setdefault(rule, []).append(time.perf_counter() - start)
+            polls.append([(d.id, d.should_stop) for d in result.decisions])
+            fits.append(getattr(policy, "_regressor", None))
+        if polls[-1] != polls[0] or fits[-1] is not fits[0]:
+            raise AssertionError(f"algorithm extras: the {rule} rule's second poll did not "
+                                 f"reuse its fit or changed its decisions")
+        decisions[rule] = polls[0]
+    return decisions, walls, (policy, supporter.GetTrials())
+
+
+def run_algorithm_extras_phase(kernels, lib, mods, designer):
+    """Phase 11: the algorithm layer's last modules on the card. L-BFGS-B
+    over the exact path's trained DEFAULT (``designer``'s cached fit, no
+    retrain) through K1 and K2's feature gradient, held to the CPU;
+    ``DesignerAsOptimizer`` with the eagle designer over the same score; the
+    median and regression early-stopping rules on a learning-curve study;
+    the eagle meta-learning designer on bench.py's study; the ensemble
+    designer over Random, Eagle and the DEFAULT. Then K1/K2 at every launch
+    layout the phase made. Returns ({path: launches by mode}, figures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vizier_tpu_torch.benchmarks import regret
+    from vizier_tpu_torch.benchmarks.experimenters import experimenter_factory
+    from vizier_tpu_torch.designers import eagle_meta_learning, eagle_strategy, ensemble
+    from vizier_tpu_torch.designers import gp_ucb_pe, meta_learning
+    from vizier_tpu_torch.designers import random as random_designer
+    from vizier_tpu_torch.designers.gp import acquisitions
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.models import multitask_gp
+    from vizier_tpu_torch.optimizers import lbfgsb_optimizer
+
+    vz = mods["vz"]
+    paths, figures = {}, {}
+    kernels.LAUNCH_SHAPES = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    phase_start = time.perf_counter()
+
+    # 1. L-BFGS-B over the DEFAULT's UCB with its trust region, on the fit
+    # the exact path's last (profiled) request cached.
+    if designer._cached_states is None:
+        raise AssertionError("algorithm extras: the exact path left no trained fit")
+    (state,), (data,) = designer._cached_states
+
+    def scoring_on(st, dt):
+        return acquisitions.ScoringFunction(
+            predictive=gp_lib.EnsemblePredictive(st),
+            acquisition=acquisitions.UCB(designer.config.ucb_coefficient),
+            best_label=acquisitions.get_best_labels(dt.labels, dt.row_mask),
+            trust_region=acquisitions.TrustRegion.from_data(dt))
+
+    scoring = scoring_on(state, data)
+    cpu_state = _cpu_state(state, gp_lib, multitask_gp)
+    cpu_scoring = scoring_on(cpu_state, cpu_state.data)
+    opt = lbfgsb_optimizer.LBFGSBOptimizer()
+    z0 = opt.restart_draws(torch.Generator(device="cuda").manual_seed(0), _DIM)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = opt(scoring.score, num_continuous=_DIM, count=_COUNT, z0=z0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    paths["algorithm_extras_lbfgsb"] = counts = {
+        k: dict(v) for k, v in kernels.LAUNCHES_BY_MODE.items()}
+    points = result.features.continuous.cpu()
+    if not (bool(torch.isfinite(points).all()) and bool(((points >= 0) & (points <= 1)).all())):
+        raise AssertionError(f"algorithm extras: L-BFGS-B points outside [0, 1]^{_DIM}")
+    cpu_scores = cpu_scoring.score(kernels.MixedFeatures(
+        points, torch.zeros((_COUNT, 0), dtype=torch.int32)))
+    score_errs = [_score_close(f"algorithm extras L-BFGS-B point {i}", float(card), float(cpu))
+                  for i, (card, cpu) in enumerate(zip(result.scores.cpu(), cpu_scores))]
+    grads = {}
+    for where, fn, z in (("card", scoring.score, z0), ("cpu", cpu_scoring.score, z0.cpu())):
+        zz = z.clone().requires_grad_(True)
+        (grads[where],) = torch.autograd.grad(opt.loss_fn(fn)(zz).sum(), zz)
+    grad_rel, grad_err = _rel_err(grads["card"].cpu(), grads["cpu"])
+    print(f"algorithm extras L-BFGS-B loss gradient at the {opt.num_restarts} starting points, "
+          f"card vs CPU plain autograd: max_abs_err={grad_err:.3e} max_rel_err={grad_rel:.3e} "
+          f"(tol {_LBFGSB_GRAD_TOL})")
+    if not grad_rel <= _LBFGSB_GRAD_TOL:
+        raise AssertionError("algorithm extras: the L-BFGS-B gradient on the card disagrees "
+                             "with the CPU plain path")
+    if counts["matern52_ard_bwd"]["features"] <= 0:
+        raise AssertionError("algorithm extras: L-BFGS-B did not launch K2's feature kernel")
+    # One more run, profiled: eager launches and the device time of each of
+    # K2's kernels (the parameter kernel also writes w, which the feature
+    # kernel reads; its parameter sums and their reduction go unused here).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt(scoring.score, num_continuous=_DIM, count=_COUNT, z0=z0)
+        torch.cuda.synchronize()
+    totals = _device_activity(prof)
+    k2_ms = {name: round(us / 1e3, 4) for name, (_, us) in totals.items()
+             if "matern52_bwd" in name}
+    busy_ms = sum(us for _, us in totals.values()) / 1e3
+    eager = sum(n for n, _ in totals.values())
+    # The eagle sweep's best UCB at the same state, for comparison only.
+    start = time.perf_counter()
+    sweep = designer._vec_opt(scoring.score, torch.Generator(device="cuda").manual_seed(0),
+                              count=1)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - start
+    figures["lbfgsb"] = dict(
+        wall_ms=wall * 1e3, launches=counts, scores=[float(v) for v in result.scores],
+        max_score_err=max(score_errs), grad_max_rel_err=grad_rel, eager_launches=eager,
+        device_busy_ms=busy_ms, k2_kernels_ms=k2_ms, eagle_best_ucb=float(sweep.scores[0]),
+        eagle_wall_ms=sweep_wall * 1e3)
+    print(f"algorithm extras L-BFGS-B ({opt.num_restarts} restarts, maxiter {opt.maxiter}) over "
+          f"the exact path's trained UCB: {wall * 1e3:.1f} ms, best {_COUNT} scores "
+          f"{[round(v, 5) for v in figures['lbfgsb']['scores']]}, launches by mode {counts}; "
+          f"profiled: {eager} device launches, device busy {busy_ms:.1f} ms, K2's kernels (ms) "
+          f"{k2_ms}; eagle sweep's best UCB at the same state {float(sweep.scores[0]):.5f} "
+          f"({sweep_wall * 1e3:.1f} ms)")
+
+    # K2 at the L-BFGS-B layout: with the feature gradient (what the path
+    # launches), parameters only, and the plain version.
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    mask2 = state.data.row_mask
+    args = (torch.rand((opt.num_restarts, _DIM), generator=gen, device="cuda"),
+            torch.zeros((opt.num_restarts, 0), dtype=torch.int32, device="cuda"),
+            state.data.continuous, state.data.categorical,
+            state.params["amplitude"].contiguous(),
+            (1.0 / state.params["continuous_length_scales"]).contiguous(),
+            torch.zeros((1, 0), device="cuda"))
+    masks = (None, mask2, None)
+    grad = torch.randn((1, opt.num_restarts, mask2.shape[0]), generator=gen, device="cuda")
+    got = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], need_x1=True)
+    want = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
+    rel, feat_err = _rel_err(got[3], want[3])
+    if not rel <= _BWD_TOL:
+        raise AssertionError(f"K2's feature gradient disagrees with its plain version at "
+                             f"{_LBFGSB_FEATURES}")
+    nbytes, ops = _features_work(args, masks, grad)
+    figures["k2_features"] = dict(
+        shape=_LBFGSB_FEATURES, launches=counts["matern52_ard_bwd"]["features"],
+        max_abs_err=feat_err,
+        ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2],
+                                                            need_x1=True)),
+        params_only_ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args,
+                                                                        *masks[:2])),
+        plain_ms=_device_ms(lambda: kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2]), 3, 2),
+        bound=_bound(nbytes, ops), library_ms=None)
+    k2f = figures["k2_features"]
+    print(f"matern52_ard_bwd with feature gradient [{_LBFGSB_FEATURES}]: device {k2f['ms']:.5f} "
+          f"ms/launch (parameters only {k2f['params_only_ms']:.5f}), plain "
+          f"{k2f['plain_ms']:.4f} ms, library none, bound {k2f['bound'][0]:.6f} ms by "
+          f"{k2f['bound'][1]}; feature gradient max_abs_err {feat_err:.3e} (rel {rel:.3e}, tol "
+          f"{_BWD_TOL}); {k2f['launches']} launches on the L-BFGS-B path")
+
+    # 2. DesignerAsOptimizer: the eagle designer's mini-study over the score.
+    def score_suggestions(suggestions):
+        return [float(v) for v in scoring.score(designer._encode_suggestions(suggestions)).cpu()]
+
+    as_opt = lbfgsb_optimizer.DesignerAsOptimizer(
+        lambda p: eagle_strategy.EagleStrategyDesigner(p, seed=0))
+    start = time.perf_counter()
+    best = as_opt.optimize(score_suggestions, designer.problem, count=_COUNT)
+    as_wall = time.perf_counter() - start
+    regret.check_suggestions(best, designer.problem, "algorithm extras DesignerAsOptimizer")
+    figures["designer_as_optimizer"] = dict(
+        wall_ms=as_wall * 1e3, best_score=score_suggestions(best[:1])[0],
+        evaluations=as_opt.num_rounds * as_opt.batch_size + 1)
+    print(f"algorithm extras DesignerAsOptimizer (EagleStrategyDesigner, {as_opt.num_rounds} "
+          f"rounds x {as_opt.batch_size}): {as_wall * 1e3:.1f} ms, best UCB "
+          f"{figures['designer_as_optimizer']['best_score']:.5f}")
+
+    # 3. The early-stopping rules, twice each on fresh supporters.
+    decisions, walls, (policy, trials) = _early_stop_rules(mods)
+    again, _, _ = _early_stop_rules(mods)
+    if again != decisions:
+        raise AssertionError("algorithm extras: the early-stopping decisions differ between "
+                             "two runs of the same rules")
+    completed = [t for t in trials if t.is_completed]
+    median = float(np.median([t.final_measurement.metrics["acc"].value for t in completed]))
+    stopped = {tid for tid, stop in decisions["regression"] if stop}
+    for t in trials:
+        if t.id in stopped and not policy._regressor.predict(t) < median:
+            raise AssertionError(f"algorithm extras: trial {t.id} stopped with a predicted "
+                                 f"final at or above the completed median {median}")
+    figures["early_stopping"] = {
+        rule: dict(polled=len(d), stopped=sum(stop for _, stop in d),
+                   poll_ms=[w * 1e3 for w in walls[rule]]) for rule, d in decisions.items()}
+    print(f"algorithm extras early stopping ({_CURVE_DONE} completed and "
+          f"{_CURVE_TRIALS - _CURVE_DONE} active trials x {_CURVE_STEPS} steps): "
+          f"{figures['early_stopping']}; regression's second poll reused its fit; both rules' "
+          f"decisions equal on a second run")
+
+    # 4. Eagle meta-learning on bench.py's study.
+    meta = eagle_meta_learning.eagle_meta_learning_designer(
+        _bench_problem(vz), config=meta_learning.MetaLearningConfig(
+            tuning_interval=10, tuning_min_num_trials=_NUM_TRIALS + 10,
+            tuning_max_num_trials=_NUM_TRIALS + 40), seed=0)
+    meta.update(vz.CompletedTrials(_bench_trials(vz, _NUM_TRIALS, _DIM)), vz.ActiveTrials())
+    states, meta_walls, next_id = [], [], _NUM_TRIALS + 1
+    for _ in range(_META_ROUNDS):
+        states.append(meta.state)
+        start = time.perf_counter()
+        batch = meta.suggest(_META_COUNT)
+        meta_walls.append(time.perf_counter() - start)
+        _check_suggestions(batch, "algorithm extras meta-learning")
+        done = []
+        for s in batch:
+            t = s.to_trial(next_id)
+            next_id += 1
+            t.complete(vz.Measurement(metrics=_bench_objective(np.array(
+                [t.parameters.get_value(f"x{j}") for j in range(_DIM)]))))
+            done.append(t)
+        meta.update(vz.CompletedTrials(done), vz.ActiveTrials())
+    figures["meta_learning"] = dict(states=states, wall_ms=[w * 1e3 for w in meta_walls],
+                                    meta_trials=len(meta._meta_trials))
+    print(f"algorithm extras eagle meta-learning: states {states}, suggest({_META_COUNT}) walls "
+          f"{[round(w * 1e3, 1) for w in meta_walls]} ms, {len(meta._meta_trials)} scored "
+          f"coefficient sets")
+    if states != _META_STATES:
+        raise AssertionError(f"algorithm extras: meta-learning states {states}, not "
+                             f"{_META_STATES}")
+
+    # 5. The ensemble over Random, Eagle and the DEFAULT on shifted Sphere20d.
+    exp = experimenter_factory.shifted_bbob_instance("Sphere", 1, dim=_DIM)
+    problem = exp.problem_statement()
+    rng = np.random.default_rng(1)
+    base = []
+    for i in range(_ENSEMBLE_TRIALS):
+        base.append(vz.Trial(id=i + 1, parameters={
+            c.name: float(rng.uniform(*c.bounds)) for c in problem.search_space.parameters}))
+    exp.evaluate(base)
+    # The DEFAULT is arm 0: while no pick beats the incumbent the arms stay
+    # equally likely, and seed 0's first four draws are arms 1, 0, 0, 0 (with
+    # Random first, the DEFAULT would never be drawn).
+    arms = {"default": gp_ucb_pe.VizierGPUCBPEBandit(problem, rng_seed=1),
+            "random": random_designer.RandomDesigner(problem.search_space, seed=1),
+            "eagle": eagle_strategy.EagleStrategyDesigner(problem, seed=1)}
+    ens = ensemble.EnsembleDesigner(problem, designers=arms, seed=0)
+    ens.update(vz.CompletedTrials(base), vz.ActiveTrials())
+    sequence, ens_walls, gp_counts, next_id = [], [], {}, _ENSEMBLE_TRIALS + 1
+    for _ in range(_ENSEMBLE_ROUNDS):
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        batch = ens.suggest(_COUNT)
+        torch.cuda.synchronize()
+        ens_walls.append(time.perf_counter() - start)
+        arm = batch[0].metadata.ns("ensemble")["expert"]
+        sequence.append(arm)
+        if arm == "default":
+            for name, modes in kernels.LAUNCHES_BY_MODE.items():
+                for mode, n in modes.items():
+                    gp_counts.setdefault(name, {}).setdefault(mode, 0)
+                    gp_counts[name][mode] += n
+        done = [s.to_trial(next_id + i) for i, s in enumerate(batch)]
+        next_id += len(done)
+        regret.check_suggestions(done, problem, f"algorithm extras ensemble arm {arm}")
+        exp.evaluate(done)
+        ens.update(vz.CompletedTrials(done), vz.ActiveTrials())
+    paths["algorithm_extras_ensemble_gp_arm"] = gp_counts or {
+        k: {m: 0 for m in v} for k, v in kernels.LAUNCHES_BY_MODE.items()}
+    figures["ensemble"] = dict(arms=sequence, wall_ms=[w * 1e3 for w in ens_walls],
+                               gp_arm_launches=gp_counts,
+                               probabilities=[float(p) for p in ens.design.probabilities])
+    print(f"algorithm extras EnsembleDesigner (EXP3-IX, seed 0) on shifted Sphere20d at "
+          f"{_ENSEMBLE_TRIALS} trials: arms {sequence}, suggest({_COUNT}) walls "
+          f"{[round(w * 1e3, 1) for w in ens_walls]} ms, the DEFAULT arm's launches "
+          f"{gp_counts}, final arm probabilities "
+          f"{[round(p, 4) for p in figures['ensemble']['probabilities']]}")
+
+    figures["wall_s"] = time.perf_counter() - phase_start
+    figures["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - before
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded,
+                                                        "algorithm extras phase")
+    print(f"algorithm extras phase: {figures['wall_s']:.1f} s, peak device memory "
+          f"{figures['peak_memory_bytes']} B above the phase's baseline; {_card_line()}")
+    return paths, figures
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -2834,11 +3251,12 @@ def main() -> int:
     if opts.baseline_source:
         baseline = time_baseline(kernels, _load_baseline(opts.baseline_source), timed)
     print(f"[{time.perf_counter() - start:.1f} s] kernel timing done")
-    designer, launches, by_mode = run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp)
+    designer, launches, by_mode, exact_timers = run_main_path(vz, gp_ucb_pe, kernels, gp_lib,
+                                                              multitask_gp)
     print(f"[{time.perf_counter() - start:.1f} s] main path done")
     profile_request(designer, "exact")
     print(f"[{time.perf_counter() - start:.1f} s] profiled request done")
-    sparse_designer, sparse_launches, sparse_by_mode = run_sparse_path(
+    sparse_designer, sparse_launches, sparse_by_mode, bandit_timers = run_sparse_path(
         vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates)
     print(f"[{time.perf_counter() - start:.1f} s] sparse path done")
     profile_request(sparse_designer, "sparse")
@@ -2864,6 +3282,11 @@ def main() -> int:
     algorithm_paths, algorithm_figures = run_algorithms_phase(kernels, lib, mods)
     print(f"[{time.perf_counter() - start:.1f} s] algorithms phase done")
     print(json.dumps({"algorithms": algorithm_figures}))
+    extras_paths, extras_figures = run_algorithm_extras_phase(kernels, lib, mods, designer)
+    print(f"[{time.perf_counter() - start:.1f} s] algorithm extras phase done")
+    extras_figures["phase_timers_ms"] = {"exact_request": exact_timers,
+                                         "gp_bandit_sparse_suggest": bandit_timers}
+    print(json.dumps({"algorithm_extras": extras_figures}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -2907,15 +3330,25 @@ def main() -> int:
                 **{path: modes[name] for path, modes in serving_paths.items()},
                 **{path: modes[name] for path, modes in regret_paths.items()},
                 **{path: modes[name] for path, modes in surface_paths.items()},
-                **{path: modes[name] for path, modes in algorithm_paths.items()}},
+                **{path: modes[name] for path, modes in algorithm_paths.items()},
+                **{path: modes[name] for path, modes in extras_paths.items()}},
             "launches_algorithms_phase": sum(
                 sum(modes[name].values()) for modes in algorithm_paths.values()),
+            "launches_algorithm_extras_phase": sum(
+                sum(modes[name].values()) for modes in extras_paths.values()),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{
                     tile: row[tile][f"{key}_ms"] for tile in _TILE_KINDS.values()}}
                 for shape, row in tiles.items()},
         })
+    # K2's feature side, which only L-BFGS-B's path launches, at its layout.
+    k2f = extras_figures["k2_features"]
+    rows[1]["feature_gradient"] = {
+        "shape": k2f["shape"], "launches": k2f["launches"], "ms": k2f["ms"],
+        "params_only_ms": k2f["params_only_ms"], "plain_ms": k2f["plain_ms"],
+        "bound_ms": k2f["bound"][0], "bound_by": k2f["bound"][1], "library_ms": None,
+        "max_abs_err": k2f["max_abs_err"]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

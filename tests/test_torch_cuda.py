@@ -1045,3 +1045,73 @@ def test_nsga2_route_serves_on_the_card(cuda_device):
             x = np.array([t.parameters.get_value(p.name) for p in problem.search_space.parameters])
             t.complete(vz.Measurement(metrics={"y": float(np.sum(x)), "z": float(-np.sum(x))}))
     assert len(supporter.GetTrials(status_matches=vz.TrialStatus.COMPLETED)) == 24
+
+
+# -- the algorithm extras: L-BFGS-B through K2's feature gradient --------------
+
+
+def test_feature_gradient_at_the_lbfgsb_layout_matches_plain(cuda_device):
+    """K2's feature side at L-BFGS-B's layout: 16 restarts' query points
+    against 1024 data rows (1000 real), B = 1, Dc = 20. The query side's
+    gradient (side 0) and the parameter gradients against the plain
+    version; the launch counts as "features"."""
+    args = _args(cuda_device, 1, 16, 1024, 20, 0)
+    _, mask2, _ = _masks(cuda_device, 1, 16, 1024, None, 1000)
+    grad = torch.randn((1, 16, 1024), generator=torch.Generator(device=cuda_device).manual_seed(5),
+                       device=cuda_device)
+    tk.reset_launch_counts()
+    got = tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True)
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["features"] == 1
+    assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_bwd"].values()) == 1
+    want = tk.matern52_ard_bwd_plain(grad, *args, None, mask2)
+    assert got[4] is None
+    _assert_grads_close(got[:4], want[:4])
+    _assert_params_within_rounding(got, grad, args, None, mask2)
+
+
+def _lbfgsb_score(device, n=1000, n_pad=1024, dim=20):
+    """A UCB ScoringFunction with its trust region over a posterior of n
+    random rows (unit-scale parameters), on ``device``."""
+    from vizier_tpu_torch.designers.gp import acquisitions
+    from vizier_tpu_torch.models import gp as gp_lib
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((n_pad, dim), generator=gen)
+    labels = torch.sin(3 * x).sum(-1) + 0.1 * torch.randn(n_pad, generator=gen)
+    mask = torch.arange(n_pad) < n
+    data = gp_lib.GPData(
+        continuous=x.to(device), categorical=torch.zeros((n_pad, 0), dtype=torch.int32,
+                                                         device=device),
+        labels=torch.where(mask, labels, torch.zeros_like(labels)).to(device),
+        row_mask=mask.to(device), cont_dim_mask=torch.ones(dim, dtype=torch.bool, device=device),
+        cat_dim_mask=torch.ones(0, dtype=torch.bool, device=device))
+    model = gp_lib.VizierGaussianProcess(num_continuous=dim, num_categorical=0, device=device)
+    params = {"amplitude": torch.ones(1, device=device),
+              "noise_stddev": torch.full((1,), 0.1, device=device),
+              "continuous_length_scales": torch.ones((1, dim), device=device)}
+    state = model.precompute_constrained(params, data)
+    return acquisitions.ScoringFunction(
+        predictive=gp_lib.EnsemblePredictive(state), acquisition=acquisitions.UCB(1.8),
+        best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
+        trust_region=acquisitions.TrustRegion.from_data(data))
+
+
+def test_lbfgsb_step_gradient_on_the_card_matches_the_cpu(cuda_device):
+    """The L-BFGS-B loss's gradient at 16 restarts' starting points through
+    K1/K2 on the card against the plain autograd on the CPU, within 1e-3
+    relative to its largest entry; K2's feature kernel ran once."""
+    from vizier_tpu_torch.optimizers import lbfgsb_optimizer
+
+    z0 = 2.0 * torch.randn((16, 20), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for device in (cuda_device, torch.device("cpu")):
+        opt = lbfgsb_optimizer.LBFGSBOptimizer(device=device)
+        z = z0.to(device).requires_grad_(True)
+        tk.reset_launch_counts()
+        loss = opt.loss_fn(_lbfgsb_score(device).score)(z)
+        (grads[device.type],) = torch.autograd.grad(loss.sum(), z)
+        if device.type == "cuda":
+            assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["features"] == 1
+    want = grads["cpu"]
+    torch.testing.assert_close(grads["cuda"].cpu(), want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))

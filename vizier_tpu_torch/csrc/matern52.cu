@@ -628,8 +628,9 @@ __global__ void matern52_bwd_reduce_kernel(const float* __restrict__ partials, i
 //   side 1: gx2[bx, m, d] = sum_{b, n} w[b, n, m] * 2 (x2 - x1)[d] * inv[b, d]^2
 // where bx runs over the groups when that side is batched (then b runs over
 // group bx's members), and is a single slot summing over every b when the
-// side is shared. w is zero on masked pairs. Serves input warping only (off
-// on the main path).
+// side is shared. w is zero on masked pairs. Serves the gradient of an
+// acquisition with respect to its query points (side 0: LBFGSBOptimizer's
+// restarts against the data rows) and input warping.
 __global__ void matern52_bwd_features_kernel(Inputs in, const float* __restrict__ w, int side,
                                              float* __restrict__ gx) {
   const int self_count = side == 0 ? in.N : in.M;

@@ -64,8 +64,17 @@ from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
 from vizier_tpu_torch.surrogates import sparse_bandit
 from vizier_tpu_torch.surrogates import sparse_gp
+from vizier_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
+
+
+def _synchronize(device: torch.device) -> None:
+    """Waits for the kernels queued on a CUDA ``device``, so that a phase
+    timer around their launch covers their device time, as the JAX package
+    blocks on its results inside its timers."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -599,8 +608,10 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
                 "acquisition='qei' joint batches support continuous spaces only; use "
                 "VizierGPUCBPEBandit for batch suggestions on mixed spaces."
             )
-        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
-        states = self._train_exact(data)
+        with profiler.timeit("convert_trials"):
+            data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+        with profiler.timeit("train_gp"):
+            states = self._train_exact(data)
         vec_opt = vectorized_lib.VectorizedOptimizer(
             eagle_lib.VectorizedEagleStrategy(
                 num_continuous=self._cont_width * count, category_sizes=()),
@@ -622,13 +633,15 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
     def _suggest_with_priors(self, count: int) -> List[trial_.TrialSuggestion]:
         """Transfer learning: a stacked-residual GP over the prior studies and
         this one (always a cold train), then the acquisition sweep over it."""
-        datasets = [self._data_for_trials(p) for p in self._priors]
-        data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
-        datasets.append(data)
-        stack = stacked_residual.train_stacked_residual_gp(
-            self._model, self._ard, datasets, self._phase_generator(),
-            num_restarts=self.ard_restarts,
-        )
+        with profiler.timeit("convert_trials"):
+            datasets = [self._data_for_trials(p) for p in self._priors]
+            data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+            datasets.append(data)
+        with profiler.timeit("train_gp"):
+            stack = stacked_residual.train_stacked_residual_gp(
+                self._model, self._ard, datasets, self._phase_generator(),
+                num_restarts=self.ard_restarts,
+            )
         self._ard_train_counts["cold"] += 1
         self._last_predictive = stack
         scoring = acquisitions.ScoringFunction(
@@ -637,11 +650,14 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
             trust_region=acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
         )
-        result = self._vec_opt(
-            scoring.score, self._phase_generator(), count=count,
-            prior_features=_prior_features_from_data(data),
-        )
-        return self._decode_result(result, count, kind=f"{self.acquisition}+priors")
+        with profiler.timeit("acquisition_optimizer"):
+            result = self._vec_opt(
+                scoring.score, self._phase_generator(), count=count,
+                prior_features=_prior_features_from_data(data),
+            )
+            _synchronize(self.device)
+        with profiler.timeit("best_candidates_to_trials"):
+            return self._decode_result(result, count, kind=f"{self.acquisition}+priors")
 
     def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
         """Random-hypervolume scalarized UCB over per-metric GPs, with each
@@ -660,9 +676,10 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             refs.append(acquisitions.get_reference_point(
                 labels, torch.ones(labels.shape, dtype=torch.bool, device=self.device)
             ))
-        states = _train_gp_per_metric(
-            self._model, self._ard, datas, self._phase_generator(), self.ard_restarts
-        )
+        with profiler.timeit("train_gp"):
+            states = _train_gp_per_metric(
+                self._model, self._ard, datas, self._phase_generator(), self.ard_restarts
+            )
         acquisition_generator = self._phase_generator()
         # Cold by definition: GP-UCB-PE owns the warm multi-objective path.
         self._ard_train_counts["cold"] += 1
@@ -675,11 +692,14 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
                 acquisitions.TrustRegion.from_data(datas[0]) if self.use_trust_region else None
             ),
         )
-        result = self._vec_opt(
-            scoring.score, acquisition_generator, count=count,
-            prior_features=_prior_features_from_data(datas[0]),
-        )
-        return self._decode_result(result, count, kind="hv_scalarized_ucb")
+        with profiler.timeit("acquisition_optimizer"):
+            result = self._vec_opt(
+                scoring.score, acquisition_generator, count=count,
+                prior_features=_prior_features_from_data(datas[0]),
+            )
+            _synchronize(self.device)
+        with profiler.timeit("best_candidates_to_trials"):
+            return self._decode_result(result, count, kind="hv_scalarized_ucb")
 
     def _decode_result(
         self, result: vectorized_lib.VectorizedOptimizerResult, count: int, *, kind: str
@@ -807,10 +827,12 @@ def _gp_bandit_unbatchable(designer: "VizierGPBandit", count: int) -> bool:
 def _gp_bandit_prepare(designer: "VizierGPBandit", count: int, sparse: bool) -> dict:
     """Host-side half of a suggest: encode + warp + the phase seeds (train,
     then acquisition), in the sequential order. Issues no device work."""
+    with profiler.timeit("convert_trials"):
+        md = designer._warped_model_data()
     return dict(
         designer=designer,
         count=count,
-        md=designer._warped_model_data(),
+        md=md,
         seed_train=designer._next_seed(),
         seed_acq=designer._next_seed(),
         warm=designer._warm_params,
@@ -826,24 +848,27 @@ def _gp_bandit_flush(items: Sequence[dict], pad_to: Optional[int], sparse: bool)
     d0: VizierGPBandit = items[0]["designer"]
     stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
     device = d0.device
-    data = gp_lib.GPData.from_model_data(stack("md"), device)
-    studies = data.num_studies
-    train_args = (
-        d0._ard, data, _generators(device, stack("seed_train")), items[0]["restarts"],
-        d0.ensemble_size, stack("warm"),
-    )
-    if sparse:
-        model = d0._sparse_model()
-        states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
-    else:
-        model = d0._model
-        states = _train_gp_studies(model, *train_args)
-    warm_next = _warm_next_batched(model, states, studies)
-    result = _sweep_studies(
-        d0._vec_opt, d0._make_acquisition(), states, data,
-        _generators(device, stack("seed_acq")), items[0]["count"], d0.use_trust_region,
-    )
-    result = batch_executor.to_host(result)
+    with profiler.timeit("train_gp"):
+        data = gp_lib.GPData.from_model_data(stack("md"), device)
+        studies = data.num_studies
+        train_args = (
+            d0._ard, data, _generators(device, stack("seed_train")), items[0]["restarts"],
+            d0.ensemble_size, stack("warm"),
+        )
+        if sparse:
+            model = d0._sparse_model()
+            states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
+        else:
+            model = d0._model
+            states = _train_gp_studies(model, *train_args)
+        warm_next = _warm_next_batched(model, states, studies)
+        _synchronize(device)
+    with profiler.timeit("acquisition_optimizer"):
+        result = _sweep_studies(
+            d0._vec_opt, d0._make_acquisition(), states, data,
+            _generators(device, stack("seed_acq")), items[0]["count"], d0.use_trust_region,
+        )
+        result = batch_executor.to_host(result)
     return [
         dict(
             states=_slot_state(states, i, studies),
@@ -868,7 +893,8 @@ def _gp_bandit_finalize(designer: "VizierGPBandit", item: dict, output: dict) ->
         designer._last_sparse_state = output["states"]
         designer._surrogate_counts["sparse_suggests"] += 1
         kind = f"{kind}+sparse"
-    return designer._decode_result(output["result"], item["count"], kind=kind)
+    with profiler.timeit("best_candidates_to_trials"):
+        return designer._decode_result(output["result"], item["count"], kind=kind)
 
 
 class GPBanditProgram(compute_ir.DesignerProgram):

@@ -69,6 +69,7 @@ from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
 from vizier_tpu_torch.surrogates import sparse_bandit
 from vizier_tpu_torch.surrogates import sparse_gp
+from vizier_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
 
@@ -948,7 +949,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         (set acquisition, ``prior_acquisition``). The program's sweeps run
         as a study axis of one, seeded as the program seeds them; with set
         acquisition and ``count`` > 1 the exploration picks are one set."""
-        (state,), (data,) = self._train_states_me()
+        with profiler.timeit("train_gp"):
+            (state,), (data,) = self._train_states_me()
+            gp_bandit._synchronize(self.device)
         if self.config.optimize_set_acquisition_for_exploration and count > 1:
             return self._suggest_with_set_acquisition(count, state, data)
         one = lambda tree: batch_executor.stack_pytrees([tree])  # noqa: E731
@@ -962,17 +965,23 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             first_has_new=torch.tensor([self._has_new_completed_trials()], device=self.device),
             has_completed=torch.tensor([bool(self._trials)], device=self.device),
         )
-        segments, rows = _ucb_pe_sweeps(
-            self, states, one(data), gp_lib.GPData.from_model_data(
-                one(self._all_points_model_data(count)), self.device),
-            [gp_bandit._generators(self.device, seed) for seed in seeds], count, sparse, **flags,
-        )
+        all_data = gp_lib.GPData.from_model_data(
+            one(self._all_points_model_data(count)), self.device)
+        with profiler.timeit("acquisition_optimizer"):
+            segments, rows = _ucb_pe_sweeps(
+                self, states, one(data), all_data,
+                [gp_bandit._generators(self.device, seed) for seed in seeds], count, sparse,
+                **flags,
+            )
+            segments = batch_executor.to_host(segments)
         if sparse:
             self._surrogate_counts["sparse_suggests"] += 1
         out: List[trial_.TrialSuggestion] = []
-        for (result, aux), n in zip(batch_executor.to_host(segments), rows):
-            out.extend(self._decode_ucb_pe(
-                batch_executor.slice_pytree(result, 0), batch_executor.slice_pytree(aux, 0), n))
+        with profiler.timeit("best_candidates_to_trials"):
+            for (result, aux), n in zip(segments, rows):
+                out.extend(self._decode_ucb_pe(
+                    batch_executor.slice_pytree(result, 0), batch_executor.slice_pytree(aux, 0),
+                    n))
         return out
 
     def _suggest_with_set_acquisition(
@@ -984,22 +993,27 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         all_data = self._all_points_data(count)
         if self._has_new_completed_trials():
             one = lambda tree: batch_executor.stack_pytrees([tree])  # noqa: E731
-            first, aux = _suggest_batch_studies(
-                self._vec_opt, dataclasses.replace(state, data=one(data)), one(all_data),
-                gp_bandit._prior_features_from_data(one(data)), [self._phase_generator()],
-                torch.tensor([True], device=self.device),
-                torch.tensor([bool(self._trials)], device=self.device), 1, self.config,
-                self.use_trust_region, prior_acquisition=self.prior_acquisition,
-            )
+            with profiler.timeit("acquisition_optimizer"):
+                first, aux = _suggest_batch_studies(
+                    self._vec_opt, dataclasses.replace(state, data=one(data)), one(all_data),
+                    gp_bandit._prior_features_from_data(one(data)), [self._phase_generator()],
+                    torch.tensor([True], device=self.device),
+                    torch.tensor([bool(self._trials)], device=self.device), 1, self.config,
+                    self.use_trust_region, prior_acquisition=self.prior_acquisition,
+                )
+                gp_bandit._synchronize(self.device)
             first, aux = batch_executor.slice_pytree((first, aux), 0)
             suggestions.extend(self._decode_ucb_pe(first, aux, 1))
             all_data = _append_row(all_data, first.features)
         q = count - len(suggestions)
-        result, aux = _suggest_set_pe(
-            self._model, self._set_vec_opt(q), state, all_data, self._phase_generator(), q,
-            self.config, self.use_trust_region, self.prior_acquisition,
-        )
-        suggestions.extend(self._decode_ucb_pe(result, aux, q))
+        with profiler.timeit("set_acquisition_optimizer"):
+            result, aux = _suggest_set_pe(
+                self._model, self._set_vec_opt(q), state, all_data, self._phase_generator(), q,
+                self.config, self.use_trust_region, self.prior_acquisition,
+            )
+            gp_bandit._synchronize(self.device)
+        with profiler.timeit("best_candidates_to_trials"):
+            suggestions.extend(self._decode_ucb_pe(result, aux, q))
         return suggestions
 
     def _set_vec_opt(self, q: int) -> vectorized_lib.VectorizedOptimizer:
@@ -1018,7 +1032,8 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
 
     def _suggest_multiobjective(self, count: int) -> List[trial_.TrialSuggestion]:
         """HV-scalarized UCB-PE over the per-metric (or multi-task) fit."""
-        states, datas = self._train_states_me()
+        with profiler.timeit("train_gp"):
+            states, datas = self._train_states_me()
         if self.config.optimize_set_acquisition_for_exploration:
             raise ValueError(
                 "optimize_set_acquisition_for_exploration supports exactly one objective metric.")
@@ -1043,28 +1058,31 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         prior = gp_bandit._prior_features_from_data(datas[0])
         args = (self.config, self.use_trust_region)
         kw = dict(hv, prior_acquisition=self.prior_acquisition)
-        if self._two_phase(count):
-            # Full budget on the exploitation-critical first pick; one
-            # further full budget split across the remaining picks.
-            first, aux1 = _suggest_batch(
-                self._vec_opt, states, all_data, prior, self._phase_generator(),
-                first_has_new, has_completed, 1, *args, **kw,
-            )
-            all_data = append(all_data, first.features)
-            rest, aux2 = _suggest_batch(
-                self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
-                False, has_completed, count - 1, *args, **kw,
-            )
-            results = [(first, aux1, 1), (rest, aux2, count - 1)]
-        else:
-            batch, aux = _suggest_batch(
-                self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
-                first_has_new, has_completed, count, *args, **kw,
-            )
-            results = [(batch, aux, count)]
+        with profiler.timeit("acquisition_optimizer"):
+            if self._two_phase(count):
+                # Full budget on the exploitation-critical first pick; one
+                # further full budget split across the remaining picks.
+                first, aux1 = _suggest_batch(
+                    self._vec_opt, states, all_data, prior, self._phase_generator(),
+                    first_has_new, has_completed, 1, *args, **kw,
+                )
+                all_data = append(all_data, first.features)
+                rest, aux2 = _suggest_batch(
+                    self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
+                    False, has_completed, count - 1, *args, **kw,
+                )
+                results = [(first, aux1, 1), (rest, aux2, count - 1)]
+            else:
+                batch, aux = _suggest_batch(
+                    self._pick_vec_opt(count), states, all_data, prior, self._phase_generator(),
+                    first_has_new, has_completed, count, *args, **kw,
+                )
+                results = [(batch, aux, count)]
+            gp_bandit._synchronize(self.device)
         out: List[trial_.TrialSuggestion] = []
-        for result, aux, rows in results:
-            out.extend(self._decode_ucb_pe(result, aux, rows))
+        with profiler.timeit("best_candidates_to_trials"):
+            for result, aux, rows in results:
+                out.extend(self._decode_ucb_pe(result, aux, rows))
         return out
 
     def _decode_ucb_pe(
@@ -1239,20 +1257,23 @@ def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool) -> List[dict]:
         d0._ard, data, generators("seed_train"), items[0]["restarts"],
         max(d0.ensemble_size, 1), stack("warm"),
     )
-    if sparse:
-        model = d0._sparse_model()
-        states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
-    else:
-        model = d0._model
-        states = gp_bandit._train_gp_studies(model, *train_args)
-    warm_next = gp_bandit._warm_next_batched(model, states, studies)
+    with profiler.timeit("train_gp"):
+        if sparse:
+            model = d0._sparse_model()
+            states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
+        else:
+            model = d0._model
+            states = gp_bandit._train_gp_studies(model, *train_args)
+        warm_next = gp_bandit._warm_next_batched(model, states, studies)
+        gp_bandit._synchronize(device)
     phases = ["seed_acq", "seed_rest"] if d0._two_phase(count) else ["seed_acq"]
-    segments, rows = _ucb_pe_sweeps(
-        d0, states, data, all_data, [generators(name) for name in phases], count, sparse,
-        first_has_new=torch.as_tensor(stack("first_has_new"), device=device),
-        has_completed=torch.as_tensor(stack("has_completed"), device=device),
-    )
-    segments = batch_executor.to_host(segments)
+    with profiler.timeit("acquisition_optimizer"):
+        segments, rows = _ucb_pe_sweeps(
+            d0, states, data, all_data, [generators(name) for name in phases], count, sparse,
+            first_has_new=torch.as_tensor(stack("first_has_new"), device=device),
+            has_completed=torch.as_tensor(stack("has_completed"), device=device),
+        )
+        segments = batch_executor.to_host(segments)
     return [
         dict(
             states=gp_bandit._slot_state(states, i, studies),
@@ -1281,8 +1302,9 @@ def _ucb_pe_finalize(designer: "VizierGPUCBPEBandit", item: dict, output: dict) 
         designer._last_sparse_state = states
         designer._surrogate_counts["sparse_suggests"] += 1
     out: List[trial_.TrialSuggestion] = []
-    for result, aux, rows in output["segments"]:
-        out.extend(designer._decode_ucb_pe(result, aux, rows))
+    with profiler.timeit("best_candidates_to_trials"):
+        for result, aux, rows in output["segments"]:
+            out.extend(designer._decode_ucb_pe(result, aux, rows))
     return out
 
 

@@ -39,11 +39,13 @@ _DIRECT_DIST_MAX_DIM = 64
 
 # Launches of each CUDA wrapper, one per call that launched its kernels, by
 # mode: "gram" (both sides the same tensors: _masked_gram), "cross"
-# (row-masked cross kernel: predict) and "other" (neither). A wrapper's total
-# is the sum over its modes.
+# (row-masked cross kernel: predict) and "other" (neither). A K2 launch that
+# also runs its feature-gradient kernel (an acquisition's gradient with
+# respect to its query points, input warping) counts as "features" instead.
+# A wrapper's total is the sum over its modes.
 LAUNCHES_BY_MODE: Dict[str, Dict[str, int]] = {
-    name: {"gram": 0, "cross": 0, "other": 0}
-    for name in ("matern52_ard_fwd", "matern52_ard_bwd")
+    "matern52_ard_fwd": {"gram": 0, "cross": 0, "other": 0},
+    "matern52_ard_bwd": {"gram": 0, "cross": 0, "other": 0, "features": 0},
 }
 
 
@@ -53,8 +55,9 @@ def reset_launch_counts() -> None:
             modes[mode] = 0
 
 
-def _count_launch(name: str, symmetric: int, masked: bool) -> None:
-    LAUNCHES_BY_MODE[name]["gram" if symmetric else "cross" if masked else "other"] += 1
+def _count_launch(name: str, symmetric: int, masked: bool, features: bool = False) -> None:
+    mode = "features" if features else "gram" if symmetric else "cross" if masked else "other"
+    LAUNCHES_BY_MODE[name][mode] += 1
 
 
 class LaunchShape(NamedTuple):
@@ -423,7 +426,8 @@ def matern52_ard_bwd_cuda(
             torch.cuda.current_stream(device).cuda_stream,
         )
         native.check(status, "matern52_ard_bwd")
-    _count_launch("matern52_ard_bwd", c.symmetric, mask1 is not None or mask2 is not None)
+    _count_launch("matern52_ard_bwd", c.symmetric, mask1 is not None or mask2 is not None,
+                  features=need_w)
     _record_shape("matern52_ard_bwd", c, x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2, None)
     return grads[:, 0], grads[:, 1 : 1 + dc], grads[:, 1 + dc :], gx1, gx2
 
