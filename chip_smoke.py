@@ -29,8 +29,8 @@ Phases (any failure raises and exits non-zero):
 4. The exact main path through the designer entry points: a
    ``VizierGPUCBPEBandit`` on a 20-D float space takes bench.py's 1000
    synthetic completed trials and serves one ``suggest(count=5)`` request
-   (``_EXACT_REQUESTS``; two before the algorithms phase joined the
-   script), completing the suggestions. Launch counts are reset just
+   (``_REQUESTS``; two before the algorithms phase joined the script),
+   completing the suggestions. Launch counts are reset just
    before and read just after; both kernels, K1's Gram and cross modes
    and K2's Gram mode must have run. Suggestions finite and in bounds, every
    trained Cholesky finite, the trained posterior's predictions on the card
@@ -38,18 +38,20 @@ Phases (any failure raises and exits non-zero):
    ones and unit-scale ones). Then profiles one more request.
 5. The service-configured DEFAULT: the same designer with
    ``surrogate=SurrogateConfig()``, ``warm_ard_restarts=1`` on the same study
-   serves two ``suggest(count=5)`` through the sparse SGPR surrogate (one
-   cold train, then a warm one), with its own launch counts (K1 and K2 in
-   both their Gram and cross modes), the same output checks, k-center picks
-   and predictions against the CPU plain path, the k-center loop's launches
-   and time, and one more profiled request. Then one sparse
+   serves one ``suggest(count=5)`` through the sparse SGPR surrogate (a
+   cold train; two requests before the service-reliability phase joined the
+   script), with its own launch counts (K1 and K2 in both their Gram and
+   cross modes), the same output checks, k-center picks and predictions
+   against the CPU plain path, the k-center loop's launches and time, and
+   one more profiled request (a warm train). Then one sparse
    ``suggest(count=1)`` of ``VizierGPBandit`` (GAUSSIAN_PROCESS_BANDIT).
 6. Multi-objective studies: DTLZ2 with two objectives (both MINIMIZE; the
    port's ``MultiObjectiveExperimenter.dtlz``, its study's checksum printed)
    at 1000 completed trials drawn uniformly from [0, 1]^20 with seed 0. The
    DEFAULT as the service builds it (``SurrogateConfig()``,
-   ``warm_ard_restarts=1``) serves two ``suggest(count=5)``, one GP per
-   objective (one cold train, then a warm one), with its launch counts (K1
+   ``warm_ard_restarts=1``) serves one ``suggest(count=5)``, one GP per
+   objective (a cold train; two requests before the service-reliability
+   phase joined the script), with its launch counts (K1
    Gram and cross, K2 Gram), the mode staying exact, every per-metric
    Cholesky finite, each metric's predictions and the pick's HV-scalarized
    and PE scores against the CPU plain path, and one profiled request. Then
@@ -181,7 +183,18 @@ Phases (any failure raises and exits non-zero):
    must hold the JAX designers' names (the DEFAULT: train_gp,
    acquisition_optimizer, best_candidates_to_trials; the bandit also
    convert_trials).
-12. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+12. service-reliability: the serving runtime's coalescer, circuit breakers,
+   deadline and quasi-random fallback (``ServingRuntime.guarded_suggest``,
+   the order the gRPC Pythia servicer serves in, without protobuf) around
+   the DEFAULT on the card at bench.py's study: 8 threads coalesced onto one
+   designer computation with 8 equal answers; a study whose computation is
+   made to raise 3 times opens its breaker, is served stamped fallbacks equal
+   to the host's for the same study name and frontier, and a half-open probe
+   (the DEFAULT on the card) closes it; an expired deadline is refused before
+   dispatch. The fallback and short-circuit counters must equal the injected
+   cases, and every other request must be served by the designer. Then
+   K1/K2 at every launch layout the phase recorded.
+13. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms and algorithm-extras
    steps' included, by mode; K2's ``feature_gradient`` at the L-BFGS-B
    layout), the card line again, and as the last line ``{"ok": true,
@@ -1034,11 +1047,11 @@ def _bench_trials(vz, num_trials: int, dim: int):
 
 _DIM, _NUM_TRIALS, _COUNT = 20, 1000, 5
 # suggest(count=5) requests of each designer path (phases 4-6) before its
-# profiled one.
-_REQUESTS = 2
-# The exact path's: one since the algorithms phase joined the script (its
-# warm train runs in serving-exact's second round).
-_EXACT_REQUESTS = 1
+# profiled one: one each. The exact path's was two before the algorithms
+# phase joined the script (its warm train runs in serving-exact's second
+# round), the sparse and multi-objective paths' two before the
+# service-reliability phase did (their profiled request is their warm one).
+_REQUESTS = 1
 
 
 def _bench_problem(vz):
@@ -1136,7 +1149,7 @@ def _require_modes(by_mode, required, path: str):
 
 
 def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
-    """Phase 4: ``_EXACT_REQUESTS`` suggest(count=5) at 1000 trials x 20-D."""
+    """Phase 4: ``_REQUESTS`` suggest(count=5) at 1000 trials x 20-D."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
     states = []
 
@@ -1149,8 +1162,7 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
     from vizier_tpu_torch.utils import profiler
 
     with profiler.collect_events() as events:
-        latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact",
-                                             requests=_EXACT_REQUESTS)
+        latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "exact")
     timers = _phase_timers(events, _UCB_PE_PHASES, "exact request")
     launches = {name: sum(modes.values()) for name, modes in by_mode.items()}
     print(f"main path: latencies_ms={[round(t * 1e3, 1) for t in latencies]} "
@@ -1169,9 +1181,10 @@ def run_main_path(vz, gp_ucb_pe, kernels, gp_lib, multitask_gp):
 
 def run_sparse_path(vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates):
     """Phase 5: the service-configured DEFAULT (``SurrogateConfig()``, warm
-    ARD with one warm restart) serves two suggest(count=5) requests on the
-    same study, which is past the 512-trial threshold: one cold sparse train,
-    then a warm one. Then GAUSSIAN_PROCESS_BANDIT's sparse suggest."""
+    ARD with one warm restart) serves ``_REQUESTS`` suggest(count=5) on the
+    same study, which is past the 512-trial threshold: one cold sparse train
+    (the profiled request after it is the warm one). Then
+    GAUSSIAN_PROCESS_BANDIT's sparse suggest."""
     designer = gp_ucb_pe.VizierGPUCBPEBandit(
         _bench_problem(vz), rng_seed=0, surrogate=surrogates.SurrogateConfig(),
         use_warm_start_ard=True, warm_ard_restarts=1,
@@ -1453,9 +1466,9 @@ def _check_pareto(pareto, trials, names):
 def run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates, acquisitions,
                             multitask_gp, pareto):
     """Phase 6: DTLZ2 with two objectives at 1000 trials x 20-D. The DEFAULT
-    as the service builds it serves two suggest(count=5) (one cold train,
-    then a warm one; the mode stays exact: multi-objective studies do not go
-    sparse), then the SEPARABLE multi-task variant and
+    as the service builds it serves ``_REQUESTS`` suggest(count=5) (one cold
+    train, and the profiled request after it a warm one; the mode stays
+    exact: multi-objective studies do not go sparse), then the SEPARABLE multi-task variant and
     GAUSSIAN_PROCESS_BANDIT serve one request each on the same study, and the
     Pareto ops run over its completed trials. Returns {path: launches by
     mode}."""
@@ -3202,6 +3215,239 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
 
 
 
+# The service-reliability phase: the objects the port's serving runtime owns
+# since the service layer was ported (the coalescer, the per-study circuit
+# breakers, the deadline and the seeded quasi-random fallback), driven without
+# protobuf around the DEFAULT policy on the card, through the same runtime and
+# factory path as the serving phases, at bench.py's study (1000 trials x 20
+# floats, so the runtime's SurrogateConfig puts the DEFAULT on its sparse
+# path). The gRPC servicers that wrap them are held to the JAX package on the
+# CPU only: the GPU machine has neither grpc nor protobuf.
+_SVC_THREADS = 8
+_SVC_FAILURES = 3  # ReliabilityConfig().breaker_failure_threshold
+_SVC_COOLDOWN_S = 1.0
+# Trial data seeds of the two studies (_serving_trials' rng seed).
+_SVC_SEEDS = {"coalesced": 101, "breaker": 102}
+
+
+def run_service_reliability_phase(kernels, lib, mods):
+    """Phase 12: the serving runtime's reliability objects on the card.
+
+    1. Coalescing: 8 threads ask one study's DEFAULT policy for
+       ``suggest(5)`` at one frontier through ``runtime.coalescer.coalesce``,
+       keyed as the Pythia servicer keys (``coalescer.suggest_key``), each
+       computation through ``runtime.guarded_suggest`` as the servicer's.
+       Exactly one designer computation (1 leader, 7 followers) and 8 equal
+       suggestion sets, none stamped as a fallback.
+    2. Breaker and fallback: a second study's computation is made to raise
+       ``_SVC_FAILURES`` times (each degrades to 5 stamped quasi-random
+       suggestions); the breaker opens; the next request is short-circuited
+       without a computation and served 5 stamped suggestions equal, value for
+       value, to ``suggest_fallback`` recomputed on the host for the same
+       study name and frontier; after the cooldown a half-open probe runs the
+       real DEFAULT on the card and closes the breaker.
+    3. Deadline: a budget shorter than the wait before dispatch raises the
+       typed error at ``check`` and ends the request before dispatch, with no
+       computation and no kernel launch.
+    The fallback, short-circuit, failure and deadline counters must equal the
+    injected cases exactly, and every request not meant to fail must be
+    served by the designer: a DEFAULT that fails on the device fails the run.
+    Then K1/K2 at every launch layout the phase recorded. Returns ({path:
+    launches by mode}, figures)."""
+    from vizier_tpu_torch import reliability
+    from vizier_tpu_torch.serving import coalescer as coalescer_lib
+
+    vz, serving, policy_lib = mods["vz"], mods["serving"], mods["policy"]
+    paths, figures = {}, {}
+    kernels.LAUNCH_SHAPES = set()
+    phase_start = time.perf_counter()
+    runtime = serving.ServingRuntime(
+        serving.ServingConfig(),
+        reliability=reliability.ReliabilityConfig(breaker_cooldown_secs=_SVC_COOLDOWN_S))
+    factory = mods["policy_factory"].DefaultPolicyFactory(runtime, device="cuda")
+    computations = []
+
+    def study(kind):
+        name = f"owners/smoke/studies/service-{kind}"
+        config = _serving_config(mods["study_config"], vz, "DEFAULT")
+        supporter = mods["lps"].InRamPolicySupporter(config, study_guid=name)
+        supporter.AddTrials(_serving_trials(vz, _SVC_SEEDS[kind], _NUM_TRIALS))
+        return name, config, supporter
+
+    def request(name, config, supporter, *, inject=False, deadline=None):
+        """One suggest(5) as the Pythia servicer computes it."""
+        descriptor = supporter.study_descriptor()
+
+        def compute():
+            computations.append(name)
+            if inject:
+                raise RuntimeError("injected designer failure")
+            policy = factory(config, config.algorithm, supporter, name)
+            return policy.suggest(
+                policy_lib.SuggestRequest(study_descriptor=descriptor, count=_COUNT))
+
+        def fallback(reason):
+            return reliability.suggest_fallback(
+                config.to_problem(), _COUNT, study_name=name,
+                max_trial_id=descriptor.max_trial_id, reason=reason)
+
+        return runtime.guarded_suggest(name, compute, fallback, deadline)
+
+    def served(outcome, label):
+        """The designer's suggestions; raises on an error or a fallback."""
+        if outcome.error is not None or outcome.decision is None:
+            raise AssertionError(f"service-reliability {label}: not served by the designer: "
+                                 f"error {outcome.error!r}, {len(outcome.fallbacks)} fallbacks")
+        suggestions = outcome.decision.suggestions
+        if len(suggestions) != _COUNT:
+            raise AssertionError(f"service-reliability {label}: {len(suggestions)} suggestions")
+        _check_suggestions(suggestions, f"service-reliability {label}")
+        if any(reliability.is_fallback_suggestion(s.metadata) for s in suggestions):
+            raise AssertionError(f"service-reliability {label}: a fallback stamp")
+        return suggestions
+
+    def values(suggestions):
+        return [[s.parameters.get_value(f"x{j}") for j in range(_DIM)] for s in suggestions]
+
+    # 1. Coalescing.
+    coalesced_study = study("coalesced")
+    name, config, supporter = coalesced_study
+    key = coalescer_lib.suggest_key(
+        name, hashlib.sha1(repr(config.search_space.parameter_names()).encode()).hexdigest()[:16],
+        config.algorithm, supporter.study_descriptor().max_trial_id, _COUNT)
+    outs, errors = [None] * _SVC_THREADS, []
+    barrier = threading.Barrier(_SVC_THREADS)
+
+    def run(i):
+        try:
+            barrier.wait()
+            outs[i] = runtime.coalescer.coalesce(
+                key, lambda: request(name, config, supporter), span_name="pythia.suggest_compute")
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    def coalesced():
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(_SVC_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    before = runtime.stats.snapshot()
+    _, wall, launches = _path_launches(kernels, coalesced)
+    if errors:
+        raise errors[0]
+    after = runtime.stats.snapshot()
+    delta = {k: after[k] - before[k] for k in ("coalesced_requests", "coalesced_computations",
+                                               "cold_trains", "warm_trains")}
+    sets = [values(served(out, f"coalesced request {i}")) for i, out in enumerate(outs)]
+    if computations != [name] or delta["coalesced_requests"] != _SVC_THREADS - 1 or (
+            delta["coalesced_computations"] != 1):
+        raise AssertionError(f"service-reliability: {_SVC_THREADS} coalesced requests made "
+                             f"computations {computations}, counters {delta}")
+    if any(v != sets[0] for v in sets):
+        raise AssertionError("service-reliability: the coalesced answers differ")
+    paths["service_reliability_coalesced"] = launches
+    figures["coalesced"] = dict(wall_ms=wall * 1e3, counters=delta, launches=launches)
+    print(f"service-reliability coalescing: {_SVC_THREADS} threads, suggest(count={_COUNT}) at "
+          f"{_NUM_TRIALS} trials x {_DIM}-D, wall {wall * 1e3:.1f} ms, 1 designer computation "
+          f"(leader 1, followers {delta['coalesced_requests']}), trains cold "
+          f"{delta['cold_trains']} warm {delta['warm_trains']}, {_SVC_THREADS} equal answers, no "
+          f"fallback stamp; the leader's launches {launches}")
+
+    # 2. Breaker and fallback.
+    name, config, supporter = study("breaker")
+    breaker = runtime.breakers.get(name)
+    transitions = [breaker.state]
+    before = runtime.stats.snapshot()
+    computations.clear()
+    for k in range(_SVC_FAILURES):
+        out = request(name, config, supporter, inject=True)
+        transitions.append(breaker.state)
+        if out.error is not None or len(out.fallbacks) != _COUNT or not all(
+                s.metadata.ns("reliability").get("fallback_reason") == "designer_error:RuntimeError"
+                for s in out.fallbacks):
+            raise AssertionError(f"service-reliability: injected failure {k} was not degraded "
+                                 f"to {_COUNT} stamped fallbacks: {out}")
+    if breaker.state != "open" or len(computations) != _SVC_FAILURES:
+        raise AssertionError(f"service-reliability: after {_SVC_FAILURES} failures the breaker "
+                             f"is {breaker.state}, computations {len(computations)}")
+    out = request(name, config, supporter)
+    max_id = supporter.study_descriptor().max_trial_id
+    host = reliability.suggest_fallback(config.to_problem(), _COUNT, study_name=name,
+                                        max_trial_id=max_id, reason="circuit_open")
+    if len(computations) != _SVC_FAILURES or out.decision is not None or not all(
+            reliability.is_fallback_suggestion(s.metadata) for s in out.fallbacks) or (
+            values(out.fallbacks) != values(host)):
+        raise AssertionError("service-reliability: the open circuit did not short-circuit to "
+                             "the host's stamped fallback suggestions")
+    time.sleep(_SVC_COOLDOWN_S)
+    probe, probe_wall, probe_launches = _path_launches(kernels, lambda: request(
+        name, config, supporter))
+    transitions.append(breaker.state)
+    served(probe, "half-open probe")
+    after = runtime.stats.snapshot()
+    counters = {k: after[k] - before[k] for k in (
+        "designer_failures", "fallbacks", "breaker_short_circuits", "breaker_open_transitions",
+        "breaker_half_open_transitions", "breaker_close_transitions")}
+    want = {"designer_failures": _SVC_FAILURES, "fallbacks": (_SVC_FAILURES + 1) * _COUNT,
+            "breaker_short_circuits": 1, "breaker_open_transitions": 1,
+            "breaker_half_open_transitions": 1, "breaker_close_transitions": 1}
+    if counters != want or breaker.state != "closed":
+        raise AssertionError(f"service-reliability: breaker counters {counters}, want {want}; "
+                             f"state {breaker.state}")
+    coalesced_total = sum(sum(m.values()) for m in launches.values())
+    probe_total = sum(sum(m.values()) for m in probe_launches.values())
+    if not 0 < coalesced_total <= 1.5 * probe_total:
+        raise AssertionError(f"service-reliability: the coalesced run launched {coalesced_total} "
+                             f"kernels against one request's {probe_total}")
+    paths["service_reliability_probe"] = probe_launches
+    figures["breaker"] = dict(transitions=transitions, counters=counters,
+                              probe_wall_ms=probe_wall * 1e3, probe_launches=probe_launches,
+                              fallback_values_equal_host=True)
+    print(f"service-reliability breaker: states {transitions}; counters {counters}; the open "
+          f"circuit served {_COUNT} stamped fallbacks equal to the host's at max_trial_id "
+          f"{max_id}; the half-open probe (the DEFAULT on the card) {probe_wall * 1e3:.1f} ms, "
+          f"launches {probe_launches}; K1+K2 launches coalesced {coalesced_total} vs one "
+          f"request {probe_total}")
+
+    # 3. Deadline.
+    name, config, supporter = coalesced_study
+    deadline = reliability.Deadline.from_budget(0.05)
+    time.sleep(0.1)
+    try:
+        deadline.check("smoke")
+        raise AssertionError("service-reliability: an expired deadline did not raise at check")
+    except reliability.DeadlineExceededError:
+        pass
+    before = runtime.stats.snapshot()
+    computations.clear()
+    out, _, dl_launches = _path_launches(kernels, lambda: request(
+        name, config, supporter, deadline=deadline))
+    after = runtime.stats.snapshot()
+    dispatched = sum(sum(m.values()) for m in dl_launches.values())
+    if not isinstance(out.error, reliability.DeadlineExceededError) or computations or dispatched or (
+            after["deadline_exceeded"] - before["deadline_exceeded"] != 1) or out.fallbacks:
+        raise AssertionError(f"service-reliability: the expired deadline was not refused before "
+                             f"dispatch: {out}, computations {computations}, launches {dispatched}")
+    figures["deadline"] = dict(error=str(out.error).splitlines()[0])
+    print(f"service-reliability deadline: {str(out.error).splitlines()[0]} (no computation, no "
+          f"launch)")
+
+    # Nothing else was served by the fallback: only the injected cases.
+    totals = runtime.snapshot()
+    if totals["fallbacks"] != (_SVC_FAILURES + 1) * _COUNT or totals["designer_failures"] != (
+            _SVC_FAILURES) or totals["breaker_short_circuits"] != 1:
+        raise AssertionError(f"service-reliability: fallbacks beyond the injected cases: {totals}")
+    runtime.shutdown()
+    figures["wall_s"] = time.perf_counter() - phase_start
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded,
+                                                        "service-reliability phase")
+    print(f"service-reliability phase: {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -3287,6 +3533,9 @@ def main() -> int:
     extras_figures["phase_timers_ms"] = {"exact_request": exact_timers,
                                          "gp_bandit_sparse_suggest": bandit_timers}
     print(json.dumps({"algorithm_extras": extras_figures}))
+    service_paths, service_figures = run_service_reliability_phase(kernels, lib, mods)
+    print(f"[{time.perf_counter() - start:.1f} s] service-reliability phase done")
+    print(json.dumps({"service_reliability": service_figures}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -3331,7 +3580,8 @@ def main() -> int:
                 **{path: modes[name] for path, modes in regret_paths.items()},
                 **{path: modes[name] for path, modes in surface_paths.items()},
                 **{path: modes[name] for path, modes in algorithm_paths.items()},
-                **{path: modes[name] for path, modes in extras_paths.items()}},
+                **{path: modes[name] for path, modes in extras_paths.items()},
+                **{path: modes[name] for path, modes in service_paths.items()}},
             "launches_algorithms_phase": sum(
                 sum(modes[name].values()) for modes in algorithm_paths.values()),
             "launches_algorithm_extras_phase": sum(

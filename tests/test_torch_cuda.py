@@ -1115,3 +1115,76 @@ def test_lbfgsb_step_gradient_on_the_card_matches_the_cpu(cuda_device):
     want = grads["cpu"]
     torch.testing.assert_close(grads["cuda"].cpu(), want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))
+
+
+def test_the_runtimes_coalescer_and_fallback_around_a_small_default(cuda_device):
+    """The serving runtime's coalescer, breaker and quasi-random fallback
+    around the DEFAULT on the card (no protobuf): 4 coalesced requests make
+    one computation with no fallback stamp; a failing computation degrades
+    to stamped points; the breaker opens after 3 failures and a probe on the
+    card closes it."""
+    import threading
+    import time
+
+    from vizier_tpu_torch import reliability
+    from vizier_tpu_torch.pythia import local_policy_supporters, policy as policy_lib
+    from vizier_tpu_torch.service import policy_factory
+    from vizier_tpu_torch.serving import coalescer as coalescer_lib
+    from vizier_tpu_torch.serving import config as serving_config
+    from vizier_tpu_torch.serving import runtime as runtime_lib
+
+    rt = runtime_lib.ServingRuntime(
+        serving_config.ServingConfig(batching=False),
+        reliability=reliability.ReliabilityConfig(breaker_cooldown_secs=0.2))
+    factory = policy_factory.DefaultPolicyFactory(rt, device="cuda")
+    config = vz.StudyConfig(algorithm="DEFAULT")
+    for j in range(4):
+        config.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    config.metric_information.append(vz.MetricInformation(name="obj"))
+    config.metadata.ns("gp_ucb_pe")["max_acquisition_evaluations"] = "500"
+    supporter = local_policy_supporters.InRamPolicySupporter(config, study_guid="s")
+    rng = np.random.default_rng(0)
+    for _ in range(12):
+        t = vz.Trial(parameters={f"x{j}": float(rng.uniform()) for j in range(4)})
+        t.complete(vz.Measurement(metrics={"obj": float(rng.normal())}))
+        supporter.AddTrials([t])
+    calls = []
+
+    def request(fail=False):
+        descriptor = supporter.study_descriptor()
+
+        def compute():
+            calls.append(fail)
+            if fail:
+                raise RuntimeError("injected")
+            return factory(config, "DEFAULT", supporter, "s").suggest(
+                policy_lib.SuggestRequest(study_descriptor=descriptor, count=2))
+
+        return rt.guarded_suggest("s", compute, lambda reason: reliability.suggest_fallback(
+            config.to_problem(), 2, study_name="s", max_trial_id=descriptor.max_trial_id,
+            reason=reason))
+
+    key = coalescer_lib.suggest_key("s", "h", "DEFAULT", 12, 2)
+    outs = [None] * 4
+    barrier = threading.Barrier(4)
+
+    def run(i):
+        barrier.wait()
+        outs[i] = rt.coalescer.coalesce(key, request)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert calls == [False] and all(o is outs[0] for o in outs)
+    assert len(outs[0].decision.suggestions) == 2 and not any(
+        reliability.is_fallback_suggestion(s.metadata) for s in outs[0].decision.suggestions)
+    for _ in range(3):
+        out = request(fail=True)
+        assert len(out.fallbacks) == 2 and reliability.is_fallback_suggestion(out.fallbacks[0].metadata)
+    assert rt.breakers.get("s").state == "open"
+    assert request().fallbacks and len(calls) == 4
+    time.sleep(0.25)
+    assert request().decision is not None and rt.breakers.get("s").state == "closed"
+    rt.shutdown()

@@ -97,3 +97,50 @@ def test_entry_point_without_device_raises_when_no_gpu(monkeypatch, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+def _fresh(code: str) -> str:
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=300,
+        check=True,
+    )
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_the_cards_imports_need_neither_grpc_nor_protobuf():
+    """The GPU machine has neither ``grpc`` nor ``protobuf``: with both
+    blocked, ``chip_smoke`` and the packages it drives (the policy factory,
+    the serving runtime with its coalescer and breakers, the reliability
+    layer) still import, and none of them loads either module."""
+    code = """
+import importlib, json, sys
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+for name in ("vizier_tpu_torch", "vizier_tpu_torch.service", "vizier_tpu_torch.service.policy_factory",
+             "vizier_tpu_torch.serving", "vizier_tpu_torch.serving.runtime",
+             "vizier_tpu_torch.serving.coalescer", "vizier_tpu_torch.reliability", "chip_smoke"):
+    importlib.import_module(name)
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] == "grpc" or m.startswith("google.protobuf")))
+print(json.dumps(loaded))
+"""
+    assert json.loads(_fresh(code)) == []
+
+
+def test_the_ports_messages_come_from_its_own_package():
+    """The port's message classes live in ``vizier_tpu_torch.service.protos``
+    under ``package vizier_tpu_torch``, and importing the port alone loads no
+    flat top-level ``*_pb2`` module (the JAX package's are flat)."""
+    code = """
+import json, sys
+from vizier_tpu_torch.service import clients, vizier_server
+from vizier_tpu_torch.service.protos import study_pb2, pythia_service_pb2
+print(json.dumps([study_pb2.Trial.__module__, study_pb2.Trial.DESCRIPTOR.full_name,
+                  study_pb2.DESCRIPTOR.name, pythia_service_pb2.DESCRIPTOR.package,
+                  sorted(m for m in sys.modules if m.endswith("_pb2") and "." not in m)]))
+"""
+    module, full_name, file_name, package, flat = json.loads(_fresh(code))
+    assert module == "vizier_tpu_torch.service.protos.study_pb2"
+    assert full_name == "vizier_tpu_torch.Trial"
+    assert file_name == "vizier_tpu_torch/service/protos/study.proto"
+    assert package == "vizier_tpu_torch" and flat == []

@@ -1,7 +1,8 @@
-"""PyVizier facade of the port: the data model the designers use.
+"""PyVizier facade of the port: the shared data model.
 
 Copies of the JAX package's JAX-free ``pyvizier`` modules, so that the port
-imports nothing of the JAX package.
+imports nothing of the JAX package; the facade exports what the JAX
+package's does.
 """
 
 from vizier_tpu_torch.pyvizier.base_study_config import (
@@ -14,6 +15,7 @@ from vizier_tpu_torch.pyvizier.base_study_config import (
 from vizier_tpu_torch.pyvizier.common import Metadata, MetadataValue, Namespace
 from vizier_tpu_torch.pyvizier.parameter_config import (
     ExternalType,
+    FidelityConfig,
     InvalidParameterError,
     ParameterConfig,
     ParameterType,
@@ -22,25 +24,44 @@ from vizier_tpu_torch.pyvizier.parameter_config import (
     SearchSpace,
     SearchSpaceSelector,
 )
+from vizier_tpu_torch.pyvizier.context import Context
+from vizier_tpu_torch.pyvizier.study import (
+    ProblemAndTrials,
+    StudyDescriptor,
+    StudyState,
+    StudyStateInfo,
+)
+from vizier_tpu_torch.pyvizier.study_config import (
+    Algorithm,
+    AutomatedStoppingConfig,
+    ObservationNoise,
+    StudyConfig,
+)
 from vizier_tpu_torch.pyvizier.trial import (
     ActiveTrials,
     CompletedTrials,
     Measurement,
+    MetadataDelta,
     Metric,
     ParameterDict,
     ParameterValue,
     Trial,
+    TrialFilter,
     TrialStatus,
     TrialSuggestion,
 )
 
 __all__ = [
     "ActiveTrials",
+    "Algorithm",
+    "AutomatedStoppingConfig",
     "CompletedTrials",
     "ExternalType",
+    "FidelityConfig",
     "InvalidParameterError",
     "Measurement",
     "Metadata",
+    "MetadataDelta",
     "MetadataValue",
     "Metric",
     "MetricInformation",
@@ -48,6 +69,7 @@ __all__ = [
     "MetricsConfig",
     "Namespace",
     "ObjectiveMetricGoal",
+    "ObservationNoise",
     "ParameterConfig",
     "ParameterDict",
     "ParameterType",
@@ -57,7 +79,12 @@ __all__ = [
     "ScaleType",
     "SearchSpace",
     "SearchSpaceSelector",
+    "StudyConfig",
+    "StudyDescriptor",
+    "StudyState",
+    "StudyStateInfo",
     "Trial",
+    "TrialFilter",
     "TrialStatus",
     "TrialSuggestion",
 ]

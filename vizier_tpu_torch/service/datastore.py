@@ -1,0 +1,159 @@
+"""DataStore ABC + custom errors.
+
+A copy of the JAX package's ``service/datastore.py`` (19 abstract methods
+over studies/trials/operations/metadata, and the custom errors). Implementations: ``ram_datastore`` (dict-based)
+and ``sql_datastore`` (stdlib sqlite3; the environment has no SQLAlchemy —
+plain SQL keeps the dependency surface zero and the semantics identical).
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Callable, Iterable, List, Optional
+
+from vizier_tpu_torch.service.protos import study_pb2, vizier_service_pb2
+
+
+class NotFoundError(KeyError):
+    """Resource does not exist."""
+
+
+class AlreadyExistsError(ValueError):
+    """Resource already exists."""
+
+
+class DataStore(abc.ABC):
+    """Storage interface for the Vizier service."""
+
+    # -- studies -----------------------------------------------------------
+
+    @abc.abstractmethod
+    def create_study(self, study: study_pb2.Study) -> str:
+        """Stores a new study; returns its resource name."""
+
+    @abc.abstractmethod
+    def load_study(self, study_name: str) -> study_pb2.Study:
+        ...
+
+    @abc.abstractmethod
+    def update_study(self, study: study_pb2.Study) -> str:
+        ...
+
+    @abc.abstractmethod
+    def delete_study(self, study_name: str) -> None:
+        """Deletes the study and all its trials/operations."""
+
+    @abc.abstractmethod
+    def list_studies(self, owner_name: str) -> List[study_pb2.Study]:
+        ...
+
+    # -- trials ------------------------------------------------------------
+
+    @abc.abstractmethod
+    def create_trial(self, trial: study_pb2.Trial) -> str:
+        ...
+
+    @abc.abstractmethod
+    def get_trial(self, trial_name: str) -> study_pb2.Trial:
+        ...
+
+    @abc.abstractmethod
+    def update_trial(self, trial: study_pb2.Trial) -> str:
+        ...
+
+    @abc.abstractmethod
+    def delete_trial(self, trial_name: str) -> None:
+        ...
+
+    @abc.abstractmethod
+    def list_trials(
+        self, study_name: str, *, states: Optional[tuple] = None
+    ) -> List[study_pb2.Trial]:
+        """Trials of a study, id order.
+
+        ``states`` (a tuple of ``study_pb2.Trial.State`` values) filters at
+        the STORAGE layer: the suggest hot path needs only
+        ACTIVE/REQUESTED rows, and copying a long study's completed
+        history per suggest is a measured linear slowdown.
+        """
+        ...
+
+    @abc.abstractmethod
+    def max_trial_id(self, study_name: str) -> int:
+        ...
+
+    # -- suggestion operations --------------------------------------------
+
+    @abc.abstractmethod
+    def create_suggestion_operation(
+        self, operation: vizier_service_pb2.Operation
+    ) -> str:
+        ...
+
+    @abc.abstractmethod
+    def get_suggestion_operation(
+        self, operation_name: str
+    ) -> vizier_service_pb2.Operation:
+        ...
+
+    @abc.abstractmethod
+    def update_suggestion_operation(
+        self, operation: vizier_service_pb2.Operation
+    ) -> str:
+        ...
+
+    @abc.abstractmethod
+    def list_suggestion_operations(
+        self,
+        study_name: str,
+        client_id: str,
+        filter_fn: Optional[Callable[[vizier_service_pb2.Operation], bool]] = None,
+        *,
+        done: Optional[bool] = None,
+    ) -> List[vizier_service_pb2.Operation]:
+        """Ops for (study, client), oldest first.
+
+        ``done`` pre-filters on completion status at the STORAGE layer —
+        the hot dedup check (``done=False``) must not deserialize/copy a
+        session's whole operation history. ``filter_fn`` runs afterwards
+        for arbitrary predicates.
+
+        CONTRACT (all implementations): ``filter_fn`` may be invoked on
+        live storage-owned records while the implementation's internal
+        (possibly non-reentrant) lock is held. It must be a pure
+        predicate: it must NOT mutate its argument and must NOT call back
+        into this datastore — violating either corrupts stored state or
+        deadlocks. Implementations are free to copy records only AFTER
+        filtering (the RAM datastore does, measured 2.3x dedup-throughput
+        difference at 200 trials).
+        """
+        ...
+
+    @abc.abstractmethod
+    def max_suggestion_operation_number(self, study_name: str, client_id: str) -> int:
+        ...
+
+    # -- early stopping operations ----------------------------------------
+
+    @abc.abstractmethod
+    def create_early_stopping_operation(self, operation) -> str:
+        """operation: an EarlyStoppingOperation record (see ram_datastore)."""
+
+    @abc.abstractmethod
+    def get_early_stopping_operation(self, operation_name: str):
+        ...
+
+    @abc.abstractmethod
+    def update_early_stopping_operation(self, operation) -> str:
+        ...
+
+    # -- metadata ----------------------------------------------------------
+
+    @abc.abstractmethod
+    def update_metadata(
+        self,
+        study_name: str,
+        study_metadata: Iterable,
+        trial_metadata: Iterable,  # iterable of (trial_id, KeyValue)
+    ) -> None:
+        """Merges metadata into the stored study spec and trials."""

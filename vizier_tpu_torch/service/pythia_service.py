@@ -1,0 +1,352 @@
+"""PythiaServicer: hosts suggestion policies.
+
+A copy of the JAX package's ``service/pythia_service.py``: builds a
+``ServicePolicySupporter`` for the study, asks the policy factory for the
+algorithm's policy, converts proto⇄pythia types, and captures policy errors
+into the response. Around the live computation it keeps the JAX servicer's
+order: request coalescing, then the study's circuit breaker, the deadline
+check before dispatch, the designer, the deadline check after it, and the
+seeded quasi-random fallback on a designer failure or an open circuit. That
+order lives in the proto-free ``ServingRuntime.guarded_suggest``, which the
+GPU smoke run drives too.
+
+``device`` is where the default factory's designers run: CUDA unless the
+caller asks for the CPU, and the servicer raises at construction when CUDA
+is asked for and no GPU is present. The JAX servicer's speculative
+pre-compute binding, its admission gate and compile prewarm are not ported:
+the serving runtime refuses their configs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import logging
+import time
+import traceback
+
+from vizier_tpu_torch import device as device_lib
+from vizier_tpu_torch.observability import tracing as tracing_lib
+from vizier_tpu_torch.pythia import policy as policy_lib
+from vizier_tpu_torch.reliability import deadline as deadline_lib
+from vizier_tpu_torch.reliability import errors as errors_lib
+from vizier_tpu_torch.reliability import fallback as fallback_lib
+from vizier_tpu_torch.service import policy_factory as policy_factory_lib
+from vizier_tpu_torch.service import proto_converters as pc
+from vizier_tpu_torch.service import pyvizier as vz
+from vizier_tpu_torch.service import service_policy_supporter
+from vizier_tpu_torch.service.protos import pythia_service_pb2
+from vizier_tpu_torch.serving import coalescer as coalescer_lib
+from vizier_tpu_torch.serving import runtime as serving_runtime_lib
+
+_logger = logging.getLogger(__name__)
+
+
+def _config_hash(request) -> str:
+    """The request's StudySpec hash: the identity of one config incarnation."""
+    spec_bytes = request.study_descriptor.config.SerializeToString()
+    return hashlib.sha1(spec_bytes).hexdigest()[:16]
+
+
+class PythiaServicer:
+    def __init__(
+        self,
+        vizier_service=None,
+        policy_factory=None,
+        serving_config=None,
+        reliability_config=None,
+        surrogate_config=None,
+        mesh_config=None,
+        admission_config=None,
+        *,
+        device: device_lib.DeviceLike = "cuda",
+    ):
+        self._vizier = vizier_service
+        self.device = device_lib.resolve(device)
+        # The stateful serving runtime (designer cache + coalescer + stats +
+        # per-study circuit breakers); ``serving_config`` and
+        # ``reliability_config`` disable parts or all of it;
+        # ``surrogate_config`` sets the exact↔sparse auto-switch every GP
+        # designer shares. ``mesh_config`` and ``admission_config`` name
+        # planes the port does not have: the runtime refuses them. None ->
+        # defaults with env-var overrides.
+        self._serving = serving_runtime_lib.ServingRuntime(
+            serving_config,
+            reliability=reliability_config,
+            surrogates=surrogate_config,
+            mesh=mesh_config,
+            admission=admission_config,
+        )
+        self._policy_factory = policy_factory or policy_factory_lib.DefaultPolicyFactory(
+            serving_runtime=self._serving, device=self.device
+        )
+        # Cache for policies that declare should_be_cached, keyed by
+        # (study_name, algorithm, config_hash).
+        self._policy_cache = {}
+        # study_name -> (config hash, parsed StudyConfig). The hash (over
+        # the serialized StudySpec) catches metadata updates and the
+        # delete/recreate turnover, so the hot path skips a proto->pyvizier
+        # parse per suggest without ever serving a stale search space.
+        self._config_cache = {}
+        # Early-stopping policies cached per study (the regression rule
+        # holds a trained boosted-tree regressor; see EarlyStop).
+        self._stopping_policies = {}
+
+    @property
+    def serving_runtime(self) -> serving_runtime_lib.ServingRuntime:
+        return self._serving
+
+    def serving_stats(self) -> dict:
+        """Snapshot of the serving counters + current cache population."""
+        return self._serving.snapshot()
+
+    def shutdown(self) -> None:
+        """Drains the serving runtime's batch executor (idempotent)."""
+        self._serving.shutdown()
+
+    def invalidate_study(self, study_name: str) -> None:
+        """Drops every piece of per-study serving state (study deleted)."""
+        self._serving.invalidate_study(study_name)
+        self._stopping_policies.pop(study_name, None)
+        self._config_cache.pop(study_name, None)
+        for key in [k for k in self._policy_cache if k[0] == study_name]:
+            del self._policy_cache[key]
+
+    def _parsed_study_config(self, request) -> vz.StudyConfig:
+        """The request's StudyConfig, cached by (study name, config hash).
+
+        On a hash turnover (the same resource name with other config bytes:
+        a delete/recreate through another frontend, or a metadata update,
+        which can change policy construction) every per-study cache pinned
+        to the previous incarnation is dropped: the parsed config, the
+        policy cache, the stopping policies and, through the runtime, the
+        designer-state cache and the breaker.
+        """
+        config_hash = _config_hash(request)
+        study_name = request.study_name
+        cached = self._config_cache.get(study_name)
+        if cached is not None and cached[0] == config_hash:
+            return cached[1]
+        if cached is not None:
+            self._stopping_policies.pop(study_name, None)
+            for key in [k for k in self._policy_cache if k[0] == study_name]:
+                del self._policy_cache[key]
+        config = pc.study_config_from_proto(request.study_descriptor.config)
+        if study_name:
+            self._config_cache[study_name] = (config_hash, config)
+            self._serving.note_study_config(study_name, config_hash)
+        return config
+
+    def _get_policy(
+        self,
+        study_config: vz.StudyConfig,
+        algorithm: str,
+        study_name: str,
+        config_hash: str = "",
+    ) -> policy_lib.Policy:
+        supporter = service_policy_supporter.ServicePolicySupporter(study_name, self._vizier)
+        # Keyed by (study, algorithm, config hash): a cached policy must
+        # die with the config incarnation it was constructed from.
+        key = (study_name, algorithm, config_hash)
+        cached = self._policy_cache.get(key)
+        if cached is not None:
+            return cached
+        policy = self._policy_factory(study_config.to_problem(), algorithm, supporter, study_name)
+        if policy.should_be_cached:
+            self._policy_cache[key] = policy
+        return policy
+
+    def Suggest(
+        self, request: pythia_service_pb2.PythiaSuggestRequest, context=None
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
+        # Trace parentage comes from the request's wire context, not the
+        # ambient contextvar: the deadline-bounded dispatch runs this method
+        # on a fresh worker thread, and a remote stub crosses a process.
+        tracer = tracing_lib.get_tracer()
+        parent = tracing_lib.parse_context(request.trace_context)
+        t0 = time.perf_counter()
+        with tracer.span(
+            "pythia.suggest",
+            parent=parent,
+            study=request.study_name,
+            algorithm=request.algorithm,
+            count=int(request.count),
+            deadline_remaining_secs=float(request.deadline_secs),
+        ) as span:
+            response = self._suggest_coalesced(request)
+            if response.error:
+                span.set_attribute("error", response.error.splitlines()[0][:200])
+            trace_id = getattr(span, "trace_id", None)
+        self._serving.observe_suggest_latency("pythia", time.perf_counter() - t0, trace_id=trace_id)
+        return response
+
+    def _suggest_coalesced(
+        self, request: pythia_service_pb2.PythiaSuggestRequest
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
+        if not self._serving.config.coalescing:
+            return self._suggest_compute(request)
+        # Compute-level request coalescing: concurrent suggests against the
+        # same study state (name, config incarnation, algorithm, trial
+        # frontier, count) collapse onto one designer computation;
+        # followers receive their own copy of the response (protos are
+        # mutable and cross servicer threads).
+        key = coalescer_lib.suggest_key(
+            request.study_name,
+            _config_hash(request),
+            request.algorithm,
+            int(request.study_descriptor.max_trial_id),
+            int(request.count),
+        )
+
+        def clone(resp):
+            out = pythia_service_pb2.PythiaSuggestResponse()
+            out.CopyFrom(resp)
+            return out
+
+        return self._serving.coalescer.coalesce(
+            key,
+            lambda: self._suggest_compute(request),
+            clone=clone,
+            span_name="pythia.suggest_compute",
+        )
+
+    def _suggest_compute(
+        self, request: pythia_service_pb2.PythiaSuggestRequest
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
+        response = pythia_service_pb2.PythiaSuggestResponse()
+        # Config parsing and policy construction fail hard: an invalid
+        # search space or unknown algorithm is permanent, and retrying or
+        # falling back would serve a misconfigured study forever.
+        try:
+            config = self._parsed_study_config(request)
+            algorithm = request.algorithm or config.algorithm
+            if algorithm != config.algorithm:
+                # The cached config is shared across requests (and threads):
+                # a per-request algorithm override goes on a shallow copy so
+                # it never leaks into later requests for the same study.
+                config = dataclasses.replace(config, algorithm=algorithm)
+            policy = self._get_policy(config, algorithm, request.study_name, _config_hash(request))
+            descriptor = vz.StudyDescriptor(
+                config=config,
+                guid=request.study_descriptor.guid,
+                max_trial_id=int(request.study_descriptor.max_trial_id),
+            )
+        except Exception as e:
+            _logger.warning("Pythia Suggest setup failed: %s", traceback.format_exc())
+            response.error = errors_lib.format_op_error(e)
+            return response
+
+        # from_wire, not from_budget: a negative wire budget means the
+        # caller's deadline already expired at the sender, and the dispatch
+        # check then sheds before any designer computation runs.
+        deadline = (
+            deadline_lib.Deadline.from_wire(request.deadline_secs)
+            if self._serving.reliability.deadlines_on
+            else deadline_lib.Deadline.none()
+        )
+        outcome = self._serving.guarded_suggest(
+            request.study_name,
+            lambda: policy.suggest(
+                policy_lib.SuggestRequest(study_descriptor=descriptor, count=int(request.count))
+            ),
+            lambda reason: fallback_lib.suggest_fallback(
+                config.to_problem(),
+                max(1, int(request.count)),
+                study_name=request.study_name,
+                max_trial_id=int(request.study_descriptor.max_trial_id),
+                reason=reason,
+            ),
+            deadline,
+        )
+        if outcome.error is not None:
+            response.error = errors_lib.format_op_error(outcome.error)
+            return response
+        if outcome.decision is None:
+            for s in outcome.fallbacks:
+                response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
+            return response
+        for s in outcome.decision.suggestions:
+            response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
+        self._append_metadata_deltas(response, outcome.decision.metadata)
+        return response
+
+    def EarlyStop(
+        self, request: pythia_service_pb2.PythiaEarlyStopRequest, context=None
+    ) -> pythia_service_pb2.PythiaEarlyStopResponse:
+        response = pythia_service_pb2.PythiaEarlyStopResponse()
+        try:
+            # Through the parse cache: EarlyStop polls ride the same (study,
+            # config-hash) identity as Suggest, so a turnover also drops the
+            # cached stopping policies below.
+            config = self._parsed_study_config(request)
+            if config.automated_stopping_config is not None:
+                # Studies with a stopping spec pick their rule (median curve
+                # or curve regression); otherwise the algorithm's own policy
+                # decides.
+                from vizier_tpu_torch.algorithms import early_stopping
+
+                stopping = config.automated_stopping_config
+                supporter = service_policy_supporter.ServicePolicySupporter(
+                    request.study_name, self._vizier
+                )
+                if stopping.rule == "regression":
+                    # Cached per study: the policy holds a trained regressor
+                    # that repeated polls between completions must reuse.
+                    policy = self._stopping_policies.get(request.study_name)
+                    if policy is None:
+                        policy = early_stopping.RegressionEarlyStopPolicy(
+                            supporter=supporter, min_num_trials=stopping.min_num_trials
+                        )
+                        self._stopping_policies[request.study_name] = policy
+                else:
+                    policy = early_stopping.MedianEarlyStopPolicy(
+                        supporter=supporter,
+                        use_steps=stopping.use_steps,
+                        min_num_trials=stopping.min_num_trials,
+                    )
+            else:
+                policy = self._get_policy(
+                    config,
+                    request.algorithm or config.algorithm,
+                    request.study_name,
+                    _config_hash(request),
+                )
+            descriptor = vz.StudyDescriptor(
+                config=config,
+                guid=request.study_descriptor.guid,
+                max_trial_id=int(request.study_descriptor.max_trial_id),
+            )
+            decisions = policy.early_stop(
+                policy_lib.EarlyStopRequest(
+                    study_descriptor=descriptor,
+                    trial_ids=frozenset(int(i) for i in request.trial_ids),
+                )
+            )
+            for d in decisions.decisions:
+                dp = response.decisions.add()
+                dp.id = d.id
+                dp.should_stop = d.should_stop
+                dp.reason = d.reason
+        except Exception as e:
+            _logger.warning("Pythia EarlyStop failed: %s", traceback.format_exc())
+            response.error = errors_lib.format_op_error(e)
+        return response
+
+    def Ping(
+        self, request: pythia_service_pb2.PingRequest, context=None
+    ) -> pythia_service_pb2.PingResponse:
+        return pythia_service_pb2.PingResponse()
+
+    @staticmethod
+    def _append_metadata_deltas(
+        response: pythia_service_pb2.PythiaSuggestResponse, delta: vz.MetadataDelta
+    ) -> None:
+        if delta.on_study.namespaces():
+            dp = response.metadata_deltas.add()
+            dp.trial_id = 0
+            dp.key_values.extend(pc.metadata_to_key_values(delta.on_study))
+        for trial_id, md in delta.on_trials.items():
+            if md.namespaces():
+                dp = response.metadata_deltas.add()
+                dp.trial_id = trial_id
+                dp.key_values.extend(pc.metadata_to_key_values(md))

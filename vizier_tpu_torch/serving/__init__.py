@@ -1,8 +1,9 @@
-"""Stateful serving runtime of the port: designer cache, stats and the
-cross-study batch executor (own copies of the JAX package's ``serving``
-modules; the planes that are off by default there, and the request
-coalescer that only the gRPC servicer calls, are not ported)."""
+"""Stateful serving runtime of the port: designer cache, request coalescing,
+circuit breakers, stats and the cross-study batch executor (own copies of
+the JAX package's ``serving`` modules; the planes that are off by default
+there, admission and speculative pre-compute among them, are not ported)."""
 
+from vizier_tpu_torch.serving.coalescer import RequestCoalescer
 from vizier_tpu_torch.serving.config import ServingConfig
 from vizier_tpu_torch.serving.designer_cache import CachedDesignerEntry, DesignerStateCache
 from vizier_tpu_torch.serving.policy import CachedDesignerStatePolicy
@@ -13,6 +14,7 @@ __all__ = [
     "CachedDesignerEntry",
     "CachedDesignerStatePolicy",
     "DesignerStateCache",
+    "RequestCoalescer",
     "ServingConfig",
     "ServingRuntime",
     "ServingStats",

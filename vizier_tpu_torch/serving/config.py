@@ -36,8 +36,8 @@ class ServingConfig:
     # Inject the previous suggest's trained params as an extra restart and
     # shrink the restart budget to ``warm_ard_restarts``.
     warm_start: bool = True
-    # Collapse concurrent identical suggest computations. Read by the gRPC
-    # servicer's coalescer, which the port does not have yet.
+    # Collapse concurrent identical suggest computations (the Pythia
+    # servicer's coalescer, ``ServingRuntime.coalescer``).
     coalescing: bool = True
     # Cache sizing: LRU beyond max_entries, TTL on idle entries.
     cache_max_entries: int = 64

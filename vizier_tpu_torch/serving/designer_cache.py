@@ -96,6 +96,15 @@ class DesignerStateCache:
         self._entries: "collections.OrderedDict[str, CachedDesignerEntry]" = (
             collections.OrderedDict()
         )
+        # study name -> last-seen StudyConfig hash (note_config_hash).
+        # Bounded independently of the entry map: the hash is what DETECTS
+        # a delete/recreate turnover, so it must outlive the entry's own
+        # TTL/LRU eviction, but million-study churn must not grow it
+        # without bound.
+        self._config_hashes: "collections.OrderedDict[str, str]" = (
+            collections.OrderedDict()
+        )
+        self._max_hashes = max(1024, 16 * max_entries)
 
     @property
     def stats(self) -> stats_lib.ServingStats:
@@ -204,6 +213,33 @@ class DesignerStateCache:
             self._stats.increment("cache_evictions_ttl")
             return None
         return entry
+
+    def note_config_hash(self, study_name: str, config_hash: str) -> bool:
+        """Pins the study's cached designer state to one config incarnation.
+
+        A shared compute tier serves many frontends: a study can be deleted
+        and recreated (same resource name, different search space) through a
+        frontend whose ``DeleteStudy`` invalidation never reaches this
+        process, since the Pythia surface has no invalidation RPC. The
+        servicer calls this with the request's parsed-config hash on every
+        suggest; a hash turnover (a different hash for a name seen before)
+        drops the stale entry so the next lookup builds a designer for the
+        current incarnation. Returns True when a turnover was detected.
+        """
+        turned_over = False
+        removed = None
+        with self._lock:
+            previous = self._config_hashes.get(study_name)
+            self._config_hashes[study_name] = config_hash
+            self._config_hashes.move_to_end(study_name)
+            while len(self._config_hashes) > self._max_hashes:
+                self._config_hashes.popitem(last=False)
+            if previous is not None and previous != config_hash:
+                turned_over = True
+                removed = self._entries.pop(study_name, None)
+        if removed is not None:
+            self._stats.increment("cache_invalidations_config")
+        return turned_over
 
     def invalidate(self, study_name: str) -> bool:
         """Drops the study's entry (study deleted / state known stale)."""
