@@ -150,8 +150,8 @@ Phases (any failure raises and exits non-zero):
    ``suggest(1)`` with its launches by mode, the inner posterior against the
    CPU (unit-scale parameters within 5e-3, trained ones printed).
    ``scheduled_gp_ucb_pe`` and ``UnsafeAsInfeasibleDesigner`` (the DEFAULT
-   inside, one safety metric) at 150 x 20-D, two ``suggest(5)`` each: the
-   scheduled values and rebuilds printed, the unsafe trials (and only they)
+   inside, one safety metric) at 150 x 20-D, two ``suggest(5)`` each, the
+   picks completed and fed back: the scheduled values and rebuilds printed, the unsafe trials (and only they)
    reaching the inner designer as infeasible. regret_suite.py's baselines
    (Random/Branin, Eagle/Sphere20d and Rastrigin20d, NSGA2/ZDT1), seeds 1-5,
    each held to ``regret_suite_baselines_5seed.json`` by the exact one-sided
@@ -194,11 +194,33 @@ Phases (any failure raises and exits non-zero):
    dispatch. The fallback and short-circuit counters must equal the injected
    cases, and every other request must be served by the designer. Then
    K1/K2 at every launch layout the phase recorded.
-13. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
-   run's; every path's, the gp-surface, algorithms and algorithm-extras
-   steps' included, by mode; K2's ``feature_gradient`` at the L-BFGS-B
+13. service-planes: the serving runtime's opt-in planes armed together in one
+   ``ServingRuntime`` around the DEFAULT on the card at bench.py's study
+   (``run_service_planes_phase``, protobuf-free as phase 12): tenant a's live
+   ``suggest(5)`` admitted at ``max_inflight=1`` while tenant b is shed with
+   its retry-after hint, the state machine escalating to DEGRADED and a
+   low-weight tenant served stamped quasi-random points (no launch, counters
+   equal to the injected cases); the completion's speculative job on the
+   executor's deferrable lane parks exactly one batch (a failed, dropped or
+   empty job fails the run), the next ``suggest(5)`` is served from it stamped
+   ``speculative=hit`` with 0 launches under 50 ms, and a moved frontier
+   refuses the slot; an SLO breach's black-box dump with exemplar traces, the
+   flight recorder's events in order, the ``vizier_slo_*`` / speculative /
+   admission series, a fleet dump read back. Then K1/K2 at every launch
+   layout of its two designer computations.
+14. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+   run's; every path's, the gp-surface, algorithms, algorithm-extras,
+   service-reliability and service-planes steps' included, by mode; K2's ``feature_gradient`` at the L-BFGS-B
    layout), the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
+
+The phases are host-bound, so phases 7-9 run in two worker processes on
+the same card (``_WORKER_PHASES``: this script with ``--worker``), started
+once phases 2-3 have checked and timed the kernels on an idle card, beside
+the main process's phases 4-6 and 10-13. The main process prints each
+worker's log when its own phases are done and times phase 11's K2 feature
+layout after the workers end. A worker that fails, or runs past
+``_WORKER_LIMIT_S``, fails the run.
 
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
 show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
@@ -2553,6 +2575,9 @@ def run_gp_surface_phase(kernels, lib):
 _BITS, _BINARY_TRIALS = 20, 100
 # The regret phase's shape for the wrappers: 150 trials x 20-D.
 _WRAPPER_TRIALS = 150
+# suggest(5) requests of the scheduled and safety wrappers, each request's
+# picks completed and fed back.
+_WRAPPER_REQUESTS = 2
 # At 20-D the shuffled grid would be a permutation of 10^20 points, which
 # neither package can build (ROADMAP C12): it runs on a 6-D study.
 _SHUFFLED_GRID_DIM = 6
@@ -2744,13 +2769,14 @@ def run_algorithms_phase(kernels, lib, mods):
     # 4. The scheduled DEFAULT and the safety wrapper at 150 x 20-D.
     base = _bench_trials(vz, _WRAPPER_TRIALS, _DIM)
 
-    def two_requests(step, designer, evaluate):
-        """Two suggest(5), the picks completed in between; returns the walls,
-        the launches by mode and the completed picks."""
+    def requests(step, designer, evaluate):
+        """``_WRAPPER_REQUESTS`` suggest(5), each one's picks completed and fed
+        back through ``update``; returns the walls, the launches by mode and
+        the completed picks."""
         walls, done = [], []
         kernels.reset_launch_counts()
         tid = _WRAPPER_TRIALS
-        for _ in range(2):
+        for _ in range(_WRAPPER_REQUESTS):
             start = time.perf_counter()
             batch = designer.suggest(_COUNT)
             torch.cuda.synchronize()
@@ -2779,12 +2805,13 @@ def run_algorithms_phase(kernels, lib, mods):
         return make(p, **values)
     scheduled.designer_factory = logged
     scheduled.update(vz.CompletedTrials(base), vz.ActiveTrials())
-    walls, counts, _ = two_requests("scheduled_gp_ucb_pe", scheduled, _bench_objective)
+    walls, counts, _ = requests("scheduled_gp_ucb_pe", scheduled, _bench_objective)
     config = scheduled._designer.config
     figures["scheduled_gp_ucb_pe"] = dict(wall_ms=[w * 1e3 for w in walls], rebuilds=rebuilds,
                                           launches=counts)
     print(f"algorithms scheduled_gp_ucb_pe at {_WRAPPER_TRIALS} x {_DIM}-D: suggest(count="
-          f"{_COUNT}) x2 {[round(w * 1e3, 1) for w in walls]} ms; rebuilds (scheduled values) "
+          f"{_COUNT}) x{_WRAPPER_REQUESTS} {[round(w * 1e3, 1) for w in walls]} ms; rebuilds "
+          f"(scheduled values) "
           f"{[{k: round(v, 4) for k, v in r.items()} for r in rebuilds]}; the designer's "
           f"coefficients ucb {config.ucb_coefficient}, explore "
           f"{config.explore_region_ucb_coefficient}; launches {counts}")
@@ -2813,7 +2840,7 @@ def run_algorithms_phase(kernels, lib, mods):
         inner_update(completed, all_active)
     safety._inner.update = record
     safety.update(vz.CompletedTrials(unsafe_base), vz.ActiveTrials())
-    walls, counts, picked = two_requests("unsafe_as_infeasible", safety, safe_metrics)
+    walls, counts, picked = requests("unsafe_as_infeasible", safety, safe_metrics)
     given = {t.id: t for t in unsafe_base + picked}
     unsafe = {i for i, t in given.items() if t.final_measurement.metrics["safety"].value < 0.0}
     infeasible = {t.id for t in seen if t.infeasible}
@@ -2821,7 +2848,8 @@ def run_algorithms_phase(kernels, lib, mods):
                                            trials=len(seen), unsafe=len(unsafe),
                                            infeasible_seen=len(infeasible))
     print(f"algorithms UnsafeAsInfeasibleDesigner (inner DEFAULT) at {_WRAPPER_TRIALS} x "
-          f"{_DIM}-D: suggest(count={_COUNT}) x2 {[round(w * 1e3, 1) for w in walls]} ms; the "
+          f"{_DIM}-D: suggest(count={_COUNT}) x{_WRAPPER_REQUESTS} "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; the "
           f"inner designer saw {len(seen)} trials, {len(infeasible)} of them infeasible, the "
           f"{len(unsafe)} unsafe ones; launches {counts}")
     if not unsafe or infeasible != unsafe or len(seen) != len(given):
@@ -2958,7 +2986,8 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
     median and regression early-stopping rules on a learning-curve study;
     the eagle meta-learning designer on bench.py's study; the ensemble
     designer over Random, Eagle and the DEFAULT. Then K1/K2 at every launch
-    layout the phase made. Returns ({path: launches by mode}, figures)."""
+    layout the phase made. Returns ({path: launches by mode}, figures, a function that
+    times K2's feature gradient at the L-BFGS-B layout into the figures)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vizier_tpu_torch.benchmarks import regret
@@ -3075,19 +3104,24 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
     nbytes, ops = _features_work(args, masks, grad)
     figures["k2_features"] = dict(
         shape=_LBFGSB_FEATURES, launches=counts["matern52_ard_bwd"]["features"],
-        max_abs_err=feat_err,
-        ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2],
-                                                            need_x1=True)),
-        params_only_ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args,
-                                                                        *masks[:2])),
-        plain_ms=_device_ms(lambda: kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2]), 3, 2),
-        bound=_bound(nbytes, ops), library_ms=None)
-    k2f = figures["k2_features"]
-    print(f"matern52_ard_bwd with feature gradient [{_LBFGSB_FEATURES}]: device {k2f['ms']:.5f} "
-          f"ms/launch (parameters only {k2f['params_only_ms']:.5f}), plain "
-          f"{k2f['plain_ms']:.4f} ms, library none, bound {k2f['bound'][0]:.6f} ms by "
-          f"{k2f['bound'][1]}; feature gradient max_abs_err {feat_err:.3e} (rel {rel:.3e}, tol "
-          f"{_BWD_TOL}); {k2f['launches']} launches on the L-BFGS-B path")
+        max_abs_err=feat_err, bound=_bound(nbytes, ops), library_ms=None)
+
+    def time_features():
+        """Times K2 at this layout; called once the worker processes have
+        ended, so the card runs nothing else."""
+        k2f = figures["k2_features"]
+        k2f.update(
+            ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2],
+                                                                need_x1=True)),
+            params_only_ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args,
+                                                                            *masks[:2])),
+            plain_ms=_device_ms(lambda: kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2]),
+                                3, 2))
+        print(f"matern52_ard_bwd with feature gradient [{_LBFGSB_FEATURES}]: device "
+              f"{k2f['ms']:.5f} ms/launch (parameters only {k2f['params_only_ms']:.5f}), plain "
+              f"{k2f['plain_ms']:.4f} ms, library none, bound {k2f['bound'][0]:.6f} ms by "
+              f"{k2f['bound'][1]}; feature gradient max_abs_err {feat_err:.3e} (rel {rel:.3e}, "
+              f"tol {_BWD_TOL}); {k2f['launches']} launches on the L-BFGS-B path")
 
     # 2. DesignerAsOptimizer: the eagle designer's mini-study over the score.
     def score_suggestions(suggestions):
@@ -3211,7 +3245,7 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
                                                         "algorithm extras phase")
     print(f"algorithm extras phase: {figures['wall_s']:.1f} s, peak device memory "
           f"{figures['peak_memory_bytes']} B above the phase's baseline; {_card_line()}")
-    return paths, figures
+    return paths, figures, time_features
 
 
 
@@ -3448,6 +3482,462 @@ def run_service_reliability_phase(kernels, lib, mods):
     return paths, figures
 
 
+# The service-planes phase: the serving runtime's opt-in planes, armed
+# together in one ServingRuntime around the DEFAULT on the card, at the
+# service-reliability phase's study shape (bench.py's 1000 trials x 20 floats
+# from _serving_trials, so SurrogateConfig() puts the DEFAULT on its sparse
+# path), through the protobuf-free entries the gRPC Pythia servicer adapts.
+# Two designer computations in all: tenant a's cold live request and the
+# speculative job that parks its next batch.
+_PLANES_SEED = 103
+_PLANES_STUDY = "owners/a/studies/service-planes"
+_PLANES_SHED_STUDY = "owners/b/studies/service-planes"
+_PLANES_LOW_STUDY = "owners/low/studies/service-planes"
+# Tenant b is shed while a holds the only slot: three sheds escalate the
+# overload state machine to DEGRADED (min_decisions 4, degrade_rate 0.5),
+# then "low" (weight 0.5, under the degraded floor 1.0) is served the stamped
+# quasi-random fallback, b is shed once more, and "low" is degraded once more
+# after a's computation, with its launches counted.
+_PLANES_SHEDS_BEFORE, _PLANES_SHEDS_AFTER = 3, 1
+_PLANES_HIT_WALL_S = 0.05
+_PLANES_SLO_P99_MS = 1000.0
+
+
+def run_service_planes_phase(kernels, lib, mods):
+    """Phase 13: admission, speculative pre-compute, the SLO engine and the
+    flight recorder on the card, through one ``ServingRuntime`` and
+    ``DefaultPolicyFactory(device="cuda")``.
+
+    1. Admission (``max_inflight=1``): tenant a's live ``suggest(5)`` is
+       admitted; while it holds the slot, tenant b's requests are shed with
+       ``AdmissionShedError`` and its retry-after hint, three sheds escalate
+       the state machine to DEGRADED, and the low-weight tenant is served 5
+       stamped quasi-random points equal to the host's. No shed or degraded
+       request computes or launches a kernel; every counter equals the
+       injected cases.
+    2. Speculation: the 5 picks are completed and the completion enqueues one
+       speculative job, which runs on the executor's deferrable lane (a warm
+       sparse computation on the card). After ``wait_idle`` exactly one batch
+       is parked and none failed, was superseded or dropped: a speculative
+       failure fails the run. The next ``suggest(5)`` at that frontier is
+       served from the slot, stamped ``speculative=hit``, equal to the parked
+       batch, with 0 launches and a host wall under 50 ms. The served batch
+       is parked again and one more completion moves the frontier:
+       ``try_serve`` refuses the stale slot and drops it.
+    3. SLO and recorder: a p99 objective of 1 s, which the cold request
+       misses, breaches; the black-box dump holds the exemplar trace ids with
+       their spans, the recorder rings and a metrics snapshot. The recorder
+       holds, in time order, the suggest served, the job's ``batch_flush``,
+       the speculation parked and the speculation served.
+       ``prometheus_text()`` holds the ``vizier_slo_*``, speculative and
+       admission series; ``fleet.dump_process`` writes the three files and
+       ``fleet.load_fleet_dir`` reads them back.
+    Then K1/K2 at every launch layout the phase recorded. Returns ({path:
+    launches by mode}, figures)."""
+    from vizier_tpu_torch import reliability
+    from vizier_tpu_torch.observability import fleet
+    from vizier_tpu_torch.observability import flight_recorder
+    from vizier_tpu_torch.observability import slo
+    from vizier_tpu_torch.observability import tracing
+    from vizier_tpu_torch.serving import admission
+    from vizier_tpu_torch.serving import runtime as runtime_lib
+    from vizier_tpu_torch.serving import speculative
+
+    vz, serving, policy_lib = mods["vz"], mods["serving"], mods["policy"]
+    paths, figures = {}, {}
+    kernels.LAUNCH_SHAPES = set()
+    phase_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="service-planes-")
+    # The recorder switch, as a deployment sets it; restored at the end.
+    switch = os.environ.get("VIZIER_TORCH_FLIGHT_RECORDER")
+    os.environ["VIZIER_TORCH_FLIGHT_RECORDER"] = "1"
+    previous_recorder = flight_recorder.set_recorder(None)
+    recorder = flight_recorder.get_recorder()
+    tracer = tracing.get_tracer()
+    runtime = serving.ServingRuntime(
+        serving.ServingConfig(),
+        # The first request crosses exact -> sparse, and the crossover
+        # forgets the study's recent counts: the job speculates the
+        # default count, the client's.
+        speculative=speculative.SpeculativeConfig(speculative=True, default_count=_COUNT),
+        admission=admission.AdmissionConfig(
+            enabled=True, max_inflight=1, tenant_inflight=1, weights=(("low", 0.5),),
+            window_s=600.0, min_decisions=4),
+        slo=slo.SloConfig(enabled=True, windows=(60.0,), eval_interval_s=0.0,
+                          suggest_p99_ms=_PLANES_SLO_P99_MS, min_samples=1,
+                          dump_dir=os.path.join(workdir, "blackbox")))
+    if not (recorder.enabled and runtime.flight_recorder is recorder and runtime.admission
+            and runtime.speculative_engine and runtime.slo_engine):
+        raise AssertionError("service-planes: a plane was not built")
+    factory = mods["policy_factory"].DefaultPolicyFactory(runtime, device="cuda")
+    config = _serving_config(mods["study_config"], vz, "DEFAULT")
+    supporter = mods["lps"].InRamPolicySupporter(config, study_guid=_PLANES_STUDY)
+    supporter.AddTrials(_serving_trials(vz, _PLANES_SEED, _NUM_TRIALS))
+    spec_bytes = repr(config).encode()
+    injected, computations = [], []
+
+    def fallback_for(name):
+        def fallback(reason):
+            return reliability.suggest_fallback(
+                config.to_problem(), _COUNT, study_name=name,
+                max_trial_id=supporter.study_descriptor().max_trial_id, reason=reason)
+        return fallback
+
+    def refused(name):
+        def live():
+            raise AssertionError(f"service-planes: {name} was computed past the admission gate")
+        return live
+
+    def inject(tenant_study, times):
+        for _ in range(times):
+            injected.append((tenant_study, runtime.admitted_suggest(
+                tenant_study, refused(tenant_study), fallback_for(tenant_study))))
+
+    def compute(count):
+        """Tenant a's designer computation; the live request's first injects
+        the other tenants' requests while it holds the admission slot."""
+        if not speculative.in_speculative_compute() and not injected:
+            before = sum(sum(m.values()) for m in kernels.LAUNCHES_BY_MODE.values())
+            inject(_PLANES_SHED_STUDY, _PLANES_SHEDS_BEFORE)
+            inject(_PLANES_LOW_STUDY, 1)
+            inject(_PLANES_SHED_STUDY, _PLANES_SHEDS_AFTER)
+            torch.cuda.synchronize()
+            figures["launches_while_gated"] = sum(
+                sum(m.values()) for m in kernels.LAUNCHES_BY_MODE.values()) - before
+        computations.append("speculative" if speculative.in_speculative_compute() else "live")
+        descriptor = supporter.study_descriptor()
+        return factory(config, config.algorithm, supporter, _PLANES_STUDY).suggest(
+            policy_lib.SuggestRequest(study_descriptor=descriptor, count=count))
+
+    def live(count=_COUNT):
+        """The Pythia servicer's order below the speculative check."""
+        fallback = fallback_for(_PLANES_STUDY)
+        return runtime.admitted_suggest(_PLANES_STUDY, lambda: runtime.guarded_suggest(
+            _PLANES_STUDY, lambda: compute(count), fallback), fallback)
+
+    def frontier():
+        trials = supporter.GetTrials()
+        return speculative.make_fingerprint(
+            spec_bytes, [t.id for t in trials if t.status == vz.TrialStatus.COMPLETED],
+            [t.id for t in trials if t.status == vz.TrialStatus.ACTIVE])
+
+    runtime.bind_speculative(
+        lambda study: (frontier(), supporter.study_descriptor().max_trial_id),
+        lambda study, count, max_trial_id: live(count), runtime_lib.accept_guarded)
+
+    def request():
+        """One Pythia suggest: its span, the speculative check, its latency
+        observation and the service hop's recorder event."""
+        start = time.perf_counter()
+        with tracer.span("pythia.suggest", study=_PLANES_STUDY, count=_COUNT) as span:
+            out = runtime.speculative_suggest(
+                _PLANES_STUDY, _COUNT, frontier, live, runtime_lib.stamp_speculative_hit,
+                lambda o: o.error is None)
+            trace_id = getattr(span, "trace_id", None)
+        elapsed = time.perf_counter() - start
+        runtime.observe_suggest_latency("pythia", elapsed, trace_id=trace_id)
+        recorder.record(_PLANES_STUDY, "suggest", trace_id=trace_id, duration_secs=round(
+            elapsed, 6), error=out.error is not None)
+        return out
+
+    def complete(suggestions):
+        for s in suggestions:
+            t = s.to_trial()
+            x = np.array([s.parameters.get_value(f"x{j}") for j in range(_DIM)])
+            t.complete(vz.Measurement(metrics=_bench_objective(x)))
+            supporter.AddTrials([t])
+
+    def launches_total(launches):
+        return sum(sum(m.values()) for m in launches.values())
+
+    # 1. Admission around the live request.
+    cold, cold_wall, cold_launches = _path_launches(kernels, request)
+    if cold.error is not None or cold.decision is None or len(cold.suggestions) != _COUNT:
+        raise AssertionError(f"service-planes: the live request was not served: {cold.error!r}")
+    _check_suggestions(cold.suggestions, "service-planes live")
+    if any(reliability.is_fallback_suggestion(s.metadata) for s in cold.suggestions):
+        raise AssertionError("service-planes: the live request carries a fallback stamp")
+    sheds = [o for n, o in injected if n == _PLANES_SHED_STUDY]
+    low = [o for n, o in injected if n == _PLANES_LOW_STUDY]
+    late_low, late_wall, late_launches = _path_launches(kernels, lambda: runtime.admitted_suggest(
+        _PLANES_LOW_STUDY, refused(_PLANES_LOW_STUDY), fallback_for(_PLANES_LOW_STUDY)))
+    low.append(late_low)
+    host = reliability.suggest_fallback(config.to_problem(), _COUNT, study_name=_PLANES_LOW_STUDY,
+                                        max_trial_id=supporter.study_descriptor().max_trial_id,
+                                        reason="admission_degraded")
+    for out in sheds:
+        if not isinstance(out.error, admission.AdmissionShedError) or (
+                "retry_after_ms=50" not in str(out.error)) or out.fallbacks:
+            raise AssertionError(f"service-planes: tenant b was not shed: {out}")
+    for out in low:
+        if out.error is not None or [s.parameters.as_dict() for s in out.fallbacks] != [
+                s.parameters.as_dict() for s in host] or not all(
+                s.metadata.ns(admission.ADMISSION_NAMESPACE).get(admission.ADMISSION_KEY)
+                == admission.ADMISSION_VALUE and reliability.is_fallback_suggestion(s.metadata)
+                for s in out.fallbacks):
+            raise AssertionError(f"service-planes: the low tenant was not degraded: {out}")
+    snapshot = runtime.admission_snapshot()
+    want_sheds = _PLANES_SHEDS_BEFORE + _PLANES_SHEDS_AFTER
+    counters = runtime.snapshot()
+    if computations != ["live"] or figures["launches_while_gated"] or launches_total(
+            late_launches) or snapshot["sheds_by_tenant"] != {"b": {"inflight_total": want_sheds}} or (
+            snapshot["degraded_by_tenant"] != {"low": 2}) or snapshot["admits_by_tenant"] != {"a": 1} or (
+            snapshot["state"] != "degraded") or [(t["from"], t["to"]) for t in snapshot[
+                "transitions"]] != [("healthy", "shedding"), ("shedding", "degraded")] or (
+            counters["admission_sheds"] != want_sheds) or counters["admission_degraded"] != 2 or (
+            counters["fallbacks"] != 2 * _COUNT) or counters["designer_failures"]:
+        raise AssertionError(f"service-planes: admission counters {snapshot}, {counters}, "
+                             f"computations {computations}, launches while gated "
+                             f"{figures['launches_while_gated']}, late degrade "
+                             f"{launches_total(late_launches)}")
+    _require_modes(cold_launches, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                   ("matern52_ard_bwd", "gram")), "service-planes live request")
+    paths["service_planes_live"] = cold_launches
+    figures["admission"] = dict(
+        live_wall_ms=cold_wall * 1e3, live_launches=cold_launches, sheds=want_sheds,
+        degraded=2, retry_after=str(sheds[0].error).splitlines()[0],
+        transitions=snapshot["transitions"], degraded_launches=launches_total(late_launches))
+    print(f"service-planes admission: tenant a's live suggest(count={_COUNT}) at {_NUM_TRIALS} "
+          f"trials x {_DIM}-D {cold_wall * 1e3:.1f} ms, launches {cold_launches}; while it held "
+          f"the only slot tenant b was shed {want_sheds} times ({str(sheds[0].error).splitlines()[0]}"
+          f"), states {[t['to'] for t in snapshot['transitions']]}, the low tenant degraded "
+          f"twice to {_COUNT} stamped points equal to the host's; launches while gated "
+          f"{figures['launches_while_gated']}, late degrade {launches_total(late_launches)}")
+
+    # 2. Speculation.
+    complete(cold.suggestions)
+    engine = runtime.speculative_engine
+
+    def speculate():
+        runtime.notify_trial_event(_PLANES_STUDY)
+        return engine.wait_idle(600.0)
+
+    idle, spec_wall, spec_launches = _path_launches(kernels, speculate)
+    counters = runtime.snapshot()
+    events = runtime.metrics.get("vizier_speculative_events").series_values()
+    stored = events.get((("outcome", "stored"),), 0.0)
+    entry = runtime.designer_cache.peek(_PLANES_STUDY, touch=False)
+    parked = getattr(entry, "speculative", None)
+    if not idle or parked is None or computations != ["live", "speculative"] or (
+            counters["speculative_precomputes"] != 1) or counters["speculative_errors"] or (
+            counters["speculative_cancelled"]) or stored != 1 or parked.count != _COUNT or (
+            parked.fingerprint != frontier()) or runtime_lib.accept_guarded(parked.response) != _COUNT:
+        raise AssertionError(f"service-planes: the speculative job did not park exactly one "
+                             f"batch of {_COUNT} at the current frontier: idle {idle}, parked "
+                             f"{parked and (parked.count, parked.fingerprint == frontier())}, "
+                             f"computations {computations}, counters {counters}, events {events}")
+    _check_suggestions(parked.response.suggestions, "service-planes speculative")
+    _require_modes(spec_launches, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                   ("matern52_ard_bwd", "gram")), "service-planes speculative job")
+    hit, hit_wall, hit_launches = _path_launches(kernels, request)
+    served = [s.parameters.as_dict() for s in hit.suggestions]
+    if hit.error is not None or launches_total(hit_launches) or hit_wall >= _PLANES_HIT_WALL_S or (
+            served != [s.parameters.as_dict() for s in parked.response.suggestions]) or not all(
+            s.metadata.ns(speculative.SPECULATIVE_NAMESPACE).get(speculative.SPECULATIVE_KEY)
+            == speculative.SPECULATIVE_HIT_VALUE for s in hit.suggestions) or (
+            runtime.snapshot()["speculative_hits"] != 1) or computations != ["live", "speculative"]:
+        raise AssertionError(f"service-planes: the next suggest was not a stamped hit with no "
+                             f"launch under {_PLANES_HIT_WALL_S * 1e3:.0f} ms: wall "
+                             f"{hit_wall * 1e3:.2f} ms, launches {hit_launches}")
+    # Re-park the served batch (the engine's slot swap), then move the
+    # frontier by one completion: the serve-time fingerprint check refuses it.
+    with engine._serve_lock:
+        entry.speculative = parked
+    complete(hit.suggestions[:1])
+    stale, outcome = engine.try_serve(_PLANES_STUDY, _COUNT, frontier())
+    if stale is not None or outcome != "miss" or entry.speculative is not None:
+        raise AssertionError(f"service-planes: the stale slot was served ({outcome})")
+    paths["service_planes_speculative"] = spec_launches
+    figures["speculative"] = dict(
+        job_wall_ms=spec_wall * 1e3, job_launches=spec_launches, hit_wall_ms=hit_wall * 1e3,
+        hit_launches=launches_total(hit_launches), stale_outcome=outcome,
+        counters={k: v for k, v in runtime.snapshot().items() if k.startswith("speculative_")})
+    print(f"service-planes speculation: the completion's job ran on the deferrable lane "
+          f"{spec_wall * 1e3:.1f} ms (notify to idle), launches {spec_launches}, parked 1 batch "
+          f"of {parked.count}; the next suggest was a stamped hit in {hit_wall * 1e3:.3f} ms "
+          f"with {launches_total(hit_launches)} launches, equal to the parked batch; after one "
+          f"more completion try_serve gave {outcome!r} and dropped the slot; counters "
+          f"{figures['speculative']['counters']}")
+
+    # 3. SLO, recorder, metrics, fleet dump.
+    report = runtime.slo_report()
+    breaching = report["breaching"]
+    if "suggest_p99:pythia" not in breaching or not report["dumps"]:
+        raise AssertionError(f"service-planes: the p99 objective did not breach: {report}")
+    with open(report["dumps"][0]) as f:
+        dump = json.load(f)
+    trace_ids = sorted(dump["exemplar_traces"])
+    if not trace_ids or not all(dump["exemplar_traces"][t] for t in trace_ids) or not dump[
+            "flight_recorder"].get(_PLANES_STUDY) or "vizier_suggest_latency_seconds" not in dump[
+            "metrics"]:
+        raise AssertionError(f"service-planes: the black-box dump is missing parts: "
+                             f"{sorted(dump)}, exemplar traces {trace_ids}")
+    timeline = [e for e in recorder.events() if (e["study"] == _PLANES_STUDY and e["kind"] in (
+        "suggest", "speculation")) or e["kind"] == "batch_flush"]
+    marks = [("suggest", None), ("batch_flush", None), ("speculation", "stored"),
+             ("speculation", "hit")]
+    position = 0
+    for e in timeline:
+        kind, outcome = marks[position]
+        if e["kind"] == kind and (outcome is None or e.get("attributes", {}).get(
+                "outcome") == outcome):
+            position += 1
+            if position == len(marks):
+                break
+    if position != len(marks):
+        raise AssertionError(f"service-planes: the recorder's events are out of order: "
+                             f"{[(e['kind'], e.get('attributes', {}).get('outcome')) for e in timeline]}")
+    text = runtime.prometheus_text()
+    series = ("vizier_slo_burn_rate", "vizier_slo_breached", "vizier_speculative_events_total",
+              "vizier_speculative_suggest_latency_seconds", "vizier_serving_speculative_hits_total",
+              "vizier_admission_decisions_total", "vizier_admission_state",
+              "vizier_serving_admission_sheds_total")
+    missing = [name for name in series if name not in text]
+    written = fleet.dump_process(os.path.join(workdir, "fleet"), "card", tracer=tracer,
+                                 registry=runtime.metrics, recorder=recorder)
+    loaded = fleet.load_fleet_dir(os.path.join(workdir, "fleet"))
+    report_fleet = fleet.fleet_report(os.path.join(workdir, "fleet"))
+    if missing or sorted(written) != ["metrics", "recorder", "spans"] or not loaded["spans"].get(
+            "card") or len(loaded["recorder"].get("card", [])) != len(recorder.events()) or (
+            "vizier_slo_burn_rate" not in report_fleet["slo"]):
+        raise AssertionError(f"service-planes: metrics or fleet dump incomplete: missing "
+                             f"{missing}, written {sorted(written)}")
+    figures["slo"] = dict(breaching=breaching, dump_keys=sorted(dump),
+                          exemplar_traces=len(trace_ids),
+                          exemplar_spans=sum(len(v) for v in dump["exemplar_traces"].values()))
+    figures["recorder"] = dict(events=len(recorder.events()), studies=recorder.studies(),
+                               fleet_files=sorted(written), fleet_spans=report_fleet["spans"])
+    print(f"service-planes SLO: breaching {breaching}; black-box dump with "
+          f"{len(trace_ids)} exemplar traces ({figures['slo']['exemplar_spans']} spans), the "
+          f"recorder's {len(dump['flight_recorder'])} rings and a metrics snapshot; recorder "
+          f"{len(recorder.events())} events in order suggest, batch_flush, parked, served; "
+          f"fleet dump {sorted(written)} read back ({report_fleet['spans']} spans)")
+
+    runtime.shutdown()
+    flight_recorder.set_recorder(previous_recorder)
+    if switch is None:
+        os.environ.pop("VIZIER_TORCH_FLIGHT_RECORDER", None)
+    else:
+        os.environ["VIZIER_TORCH_FLIGHT_RECORDER"] = switch
+    figures["wall_s"] = time.perf_counter() - phase_start
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded_layouts"] = check_recorded_shapes(kernels, lib, recorded,
+                                                        "service-planes phase")
+    print(f"service-planes phase: {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
+# -- worker processes ----------------------------------------------------------
+
+# The phases are host-bound (PERF.md §5): the card idles while one Python
+# thread feeds it. So once the kernels are built, checked and timed on an
+# otherwise idle card, the phases that need nothing of the main path run in
+# worker processes on the same card, this script again with ``--worker``,
+# beside the main process's phases. A worker resets and reads its own launch
+# counts around each path, as the main process does, writes its lines to a log
+# the main process prints when it has finished, and its paths and figures to a
+# JSON file. A worker that fails fails the run.
+_WORKER_PHASES = {
+    "regret": ("regret",),
+    "serving": ("serving_exact", "serving_sparse", "gp_surface"),
+}
+# Seconds from the phases' start after which a worker still running is
+# stopped and the run fails, inside the script's 1 200 s limit.
+_WORKER_LIMIT_S = 1050.0
+
+
+def _mark(start: float, label: str) -> None:
+    print(f"[{time.time() - start:.1f} s] {label}", flush=True)
+
+
+def _phase_modules() -> dict:
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch import serving
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.pythia import local_policy_supporters
+    from vizier_tpu_torch.pythia import policy as policy_lib
+    from vizier_tpu_torch.pyvizier import study_config
+    from vizier_tpu_torch.service import policy_factory
+
+    return dict(vz=vz, study_config=study_config, lps=local_policy_supporters,
+                policy_factory=policy_factory, policy=policy_lib, serving=serving,
+                batch_executor=batch_executor, gp=gp_lib)
+
+
+def _run_worker_phase(phase: str, kernels, lib, mods):
+    """(launches by mode, figures) of one of ``_WORKER_PHASES``' phases."""
+    if phase.startswith("serving_"):
+        return run_serving_phase(phase.split("_", 1)[1], mods, kernels)
+    if phase == "regret":
+        return run_regret_phase(kernels, lib)
+    if phase == "gp_surface":
+        return run_gp_surface_phase(kernels, lib)
+    raise ValueError(f"unknown phase {phase!r}")
+
+
+def run_worker(name: str, result: str, start: float) -> int:
+    """A worker process: runs ``_WORKER_PHASES[name]`` and writes
+    {phase: {"paths": ..., "figures": ...}} to ``result``."""
+    from vizier_tpu_torch import device as device_lib
+    from vizier_tpu_torch.models import kernels
+    from vizier_tpu_torch.ops import native
+
+    device_lib.resolve("cuda")
+    lib = native.library()  # built by the main process: loaded as it is
+    mods = _phase_modules()
+    out = {}
+    for phase in _WORKER_PHASES[name]:
+        paths, figures = _run_worker_phase(phase, kernels, lib, mods)
+        out[phase] = dict(paths=paths, figures=figures)
+        _mark(start, f"{phase.replace('_', '-')} phase done (worker {name})")
+    pathlib.Path(result).write_text(json.dumps(out))
+    return 0
+
+
+def _start_workers(tmp: str, start: float) -> dict:
+    workers = {}
+    for name in _WORKER_PHASES:
+        files = {kind: os.path.join(tmp, f"{name}.{kind}") for kind in ("out", "err", "json")}
+        with open(files["out"], "w") as out, open(files["err"], "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker", name,
+                 "--result", files["json"], "--start", repr(start)],
+                stdout=out, stderr=err, stdin=subprocess.DEVNULL)
+        workers[name] = (proc, files)
+    return workers
+
+
+def _join_workers(workers: dict, start: float) -> dict:
+    """Waits for every worker, prints its log, and returns {phase: {"paths",
+    "figures"}} over all of them; raises if one failed or ran out of time."""
+    results, failed = {}, []
+    for name, (proc, files) in workers.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, start + _WORKER_LIMIT_S - time.time()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = f"stopped after {_WORKER_LIMIT_S:.0f} s"
+        print(f"-- worker {name} ({', '.join(_WORKER_PHASES[name])}): exit {rc} --")
+        print(pathlib.Path(files["out"]).read_text(), end="", flush=True)
+        sys.stderr.write(pathlib.Path(files["err"]).read_text())
+        if rc != 0:
+            failed.append(f"{name}: exit {rc}")
+            continue
+        results.update(json.loads(pathlib.Path(files["json"]).read_text()))
+    if failed:
+        raise AssertionError(f"worker processes failed: {failed}")
+    return results
+
+
+def _stop_workers(workers: dict) -> None:
+    for proc, _ in workers.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-source", default=None,
@@ -3455,13 +3945,19 @@ def main() -> int:
     parser.add_argument("--previous-source", default=None,
                         help="commit 997e03e's matern52.cu: today's shared-input launches must "
                              "give its floats bit for bit")
+    parser.add_argument("--worker", choices=sorted(_WORKER_PHASES), default=None,
+                        help="run as one of the main process's worker processes")
+    parser.add_argument("--result", default=None, help="a worker's JSON result file")
+    parser.add_argument("--start", type=float, default=None,
+                        help="the main process's phase clock (time.time()) for a worker's marks")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if opts.worker:
+        return run_worker(opts.worker, opts.result, opts.start)
     from vizier_tpu_torch import device as device_lib
-    from vizier_tpu_torch import pyvizier as vz
     from vizier_tpu_torch import surrogates
     from vizier_tpu_torch.designers import gp_bandit, gp_ucb_pe
     from vizier_tpu_torch.designers.gp import acquisitions
@@ -3470,12 +3966,6 @@ def main() -> int:
     from vizier_tpu_torch.models import multitask_gp
     from vizier_tpu_torch.ops import native
     from vizier_tpu_torch.ops import pareto
-    from vizier_tpu_torch.parallel import batch_executor
-    from vizier_tpu_torch.pythia import local_policy_supporters
-    from vizier_tpu_torch.pythia import policy as policy_lib
-    from vizier_tpu_torch.pyvizier import study_config
-    from vizier_tpu_torch import serving
-    from vizier_tpu_torch.service import policy_factory
     from vizier_tpu_torch.surrogates import sparse_gp
 
     card = _card_line()
@@ -3486,56 +3976,65 @@ def main() -> int:
     print(f"kernel build: {lib.build_seconds:.1f} s")
     print(lib.build_log.strip())
 
-    start = time.perf_counter()
+    start = time.time()
     timed = check_kernels(kernels, lib)
     if opts.previous_source:
         check_previous_bit_identity(kernels, _load_previous(opts.previous_source))
     tiles = compare_tiles(kernels, lib)
-    print(f"[{time.perf_counter() - start:.1f} s] kernel checks done")
+    _mark(start, "kernel checks done")
     timing = time_kernels(kernels, timed)
     baseline = None
     if opts.baseline_source:
         baseline = time_baseline(kernels, _load_baseline(opts.baseline_source), timed)
-    print(f"[{time.perf_counter() - start:.1f} s] kernel timing done")
-    designer, launches, by_mode, exact_timers = run_main_path(vz, gp_ucb_pe, kernels, gp_lib,
-                                                              multitask_gp)
-    print(f"[{time.perf_counter() - start:.1f} s] main path done")
-    profile_request(designer, "exact")
-    print(f"[{time.perf_counter() - start:.1f} s] profiled request done")
-    sparse_designer, sparse_launches, sparse_by_mode, bandit_timers = run_sparse_path(
-        vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates)
-    print(f"[{time.perf_counter() - start:.1f} s] sparse path done")
-    profile_request(sparse_designer, "sparse")
-    print(f"[{time.perf_counter() - start:.1f} s] profiled sparse request done")
-    mo_paths = run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib, surrogates,
-                                       acquisitions, multitask_gp, pareto)
-    print(f"[{time.perf_counter() - start:.1f} s] multi-objective path done")
-    mods = dict(vz=vz, study_config=study_config, lps=local_policy_supporters,
-                policy_factory=policy_factory, policy=policy_lib, serving=serving,
-                batch_executor=batch_executor, gp=gp_lib)
+    _mark(start, "kernel timing done")
+
+    mods = _phase_modules()
+    vz = mods["vz"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as tmp:
+        workers = _start_workers(tmp, start)
+        try:
+            designer, launches, by_mode, exact_timers = run_main_path(
+                vz, gp_ucb_pe, kernels, gp_lib, multitask_gp)
+            _mark(start, "main path done")
+            profile_request(designer, "exact")
+            _mark(start, "profiled request done")
+            sparse_designer, sparse_launches, sparse_by_mode, bandit_timers = run_sparse_path(
+                vz, gp_ucb_pe, gp_bandit, kernels, sparse_gp, surrogates)
+            _mark(start, "sparse path done")
+            profile_request(sparse_designer, "sparse")
+            _mark(start, "profiled sparse request done")
+            mo_paths = run_multiobjective_path(vz, gp_ucb_pe, gp_bandit, kernels, gp_lib,
+                                               surrogates, acquisitions, multitask_gp, pareto)
+            _mark(start, "multi-objective path done")
+            algorithm_paths, algorithm_figures = run_algorithms_phase(kernels, lib, mods)
+            _mark(start, "algorithms phase done")
+            print(json.dumps({"algorithms": algorithm_figures}))
+            extras_paths, extras_figures, time_features = run_algorithm_extras_phase(
+                kernels, lib, mods, designer)
+            _mark(start, "algorithm extras phase done")
+            extras_figures["phase_timers_ms"] = {"exact_request": exact_timers,
+                                                 "gp_bandit_sparse_suggest": bandit_timers}
+            service_paths, service_figures = run_service_reliability_phase(kernels, lib, mods)
+            _mark(start, "service-reliability phase done")
+            print(json.dumps({"service_reliability": service_figures}))
+            planes_paths, planes_figures = run_service_planes_phase(kernels, lib, mods)
+            _mark(start, "service-planes phase done")
+            print(json.dumps({"service_planes": planes_figures}))
+            done = _join_workers(workers, start)
+        finally:
+            _stop_workers(workers)
+    _mark(start, "worker phases done")
+    time_features()
+    print(json.dumps({"algorithm_extras": extras_figures}))
     serving_paths, serving_figures = {}, {}
     for kind in ("exact", "sparse"):
-        serving_paths[f"serving_{kind}"], serving_figures[kind] = run_serving_phase(
-            kind, mods, kernels)
-        print(f"[{time.perf_counter() - start:.1f} s] serving-{kind} phase done")
+        serving_paths[f"serving_{kind}"] = done[f"serving_{kind}"]["paths"]
+        serving_figures[kind] = done[f"serving_{kind}"]["figures"]
     print(json.dumps({"serving": serving_figures}))
-    regret_paths, regret_figures = run_regret_phase(kernels, lib)
-    print(f"[{time.perf_counter() - start:.1f} s] regret phase done")
+    regret_paths, regret_figures = done["regret"]["paths"], done["regret"]["figures"]
     print(json.dumps({"regret": regret_figures}))
-    surface_paths, surface_figures = run_gp_surface_phase(kernels, lib)
-    print(f"[{time.perf_counter() - start:.1f} s] gp-surface phase done")
-    print(json.dumps({"gp_surface": surface_figures}))
-    algorithm_paths, algorithm_figures = run_algorithms_phase(kernels, lib, mods)
-    print(f"[{time.perf_counter() - start:.1f} s] algorithms phase done")
-    print(json.dumps({"algorithms": algorithm_figures}))
-    extras_paths, extras_figures = run_algorithm_extras_phase(kernels, lib, mods, designer)
-    print(f"[{time.perf_counter() - start:.1f} s] algorithm extras phase done")
-    extras_figures["phase_timers_ms"] = {"exact_request": exact_timers,
-                                         "gp_bandit_sparse_suggest": bandit_timers}
-    print(json.dumps({"algorithm_extras": extras_figures}))
-    service_paths, service_figures = run_service_reliability_phase(kernels, lib, mods)
-    print(f"[{time.perf_counter() - start:.1f} s] service-reliability phase done")
-    print(json.dumps({"service_reliability": service_figures}))
+    surface_paths = done["gp_surface"]["paths"]
+    print(json.dumps({"gp_surface": done["gp_surface"]["figures"]}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -3581,7 +4080,8 @@ def main() -> int:
                 **{path: modes[name] for path, modes in surface_paths.items()},
                 **{path: modes[name] for path, modes in algorithm_paths.items()},
                 **{path: modes[name] for path, modes in extras_paths.items()},
-                **{path: modes[name] for path, modes in service_paths.items()}},
+                **{path: modes[name] for path, modes in service_paths.items()},
+                **{path: modes[name] for path, modes in planes_paths.items()}},
             "launches_algorithms_phase": sum(
                 sum(modes[name].values()) for modes in algorithm_paths.values()),
             "launches_algorithm_extras_phase": sum(

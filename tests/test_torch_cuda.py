@@ -1188,3 +1188,92 @@ def test_the_runtimes_coalescer_and_fallback_around_a_small_default(cuda_device)
     time.sleep(0.25)
     assert request().decision is not None and rt.breakers.get("s").state == "closed"
     rt.shutdown()
+
+
+def test_a_speculative_hit_and_a_shed_on_the_card(cuda_device):
+    """The runtime's speculative engine and admission gate around a small
+    DEFAULT on the card, through the protobuf-free entries: a completion
+    parks one batch computed on the card by the engine's worker, the next
+    suggest at that frontier is served from it stamped ``speculative=hit``
+    with no kernel launch, and while one tenant's computation holds the only
+    admission slot another tenant is shed with a retry-after hint."""
+    from vizier_tpu_torch import reliability
+    from vizier_tpu_torch.pythia import local_policy_supporters, policy as policy_lib
+    from vizier_tpu_torch.service import policy_factory
+    from vizier_tpu_torch.serving import admission, speculative
+    from vizier_tpu_torch.serving import config as serving_config
+    from vizier_tpu_torch.serving import runtime as runtime_lib
+
+    rt = runtime_lib.ServingRuntime(
+        serving_config.ServingConfig(),
+        speculative=speculative.SpeculativeConfig(speculative=True, default_count=2),
+        admission=admission.AdmissionConfig(enabled=True, max_inflight=1))
+    factory = policy_factory.DefaultPolicyFactory(rt, device="cuda")
+    config = vz.StudyConfig(algorithm="DEFAULT")
+    for j in range(4):
+        config.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    config.metric_information.append(vz.MetricInformation(name="obj"))
+    config.metadata.ns("gp_ucb_pe")["max_acquisition_evaluations"] = "500"
+    name = "owners/a/studies/s"
+    supporter = local_policy_supporters.InRamPolicySupporter(config, study_guid=name)
+    rng = np.random.default_rng(0)
+    for _ in range(12):
+        t = vz.Trial(parameters={f"x{j}": float(rng.uniform()) for j in range(4)})
+        t.complete(vz.Measurement(metrics={"obj": float(rng.normal())}))
+        supporter.AddTrials([t])
+    shed = []
+
+    def fallback(reason):
+        return reliability.suggest_fallback(config.to_problem(), 2, study_name=name,
+                                            max_trial_id=supporter.study_descriptor().max_trial_id,
+                                            reason=reason)
+
+    def live(count=2):
+        descriptor = supporter.study_descriptor()
+
+        def compute():
+            if not speculative.in_speculative_compute():
+                shed.append(rt.admitted_suggest("owners/b/studies/s", None, fallback))
+            return factory(config, "DEFAULT", supporter, name).suggest(
+                policy_lib.SuggestRequest(study_descriptor=descriptor, count=count))
+
+        return rt.admitted_suggest(name, lambda: rt.guarded_suggest(name, compute, fallback),
+                                   fallback)
+
+    def frontier():
+        trials = supporter.GetTrials()
+        return speculative.make_fingerprint(
+            b"config", [t.id for t in trials if t.status == vz.TrialStatus.COMPLETED],
+            [t.id for t in trials if t.status == vz.TrialStatus.ACTIVE])
+
+    rt.bind_speculative(lambda study: (frontier(), supporter.study_descriptor().max_trial_id),
+                        lambda study, count, max_id: live(count), runtime_lib.accept_guarded)
+
+    def suggest():
+        return rt.speculative_suggest(name, 2, frontier, live, runtime_lib.stamp_speculative_hit,
+                                      lambda out: out.error is None)
+
+    try:
+        first = suggest()
+        assert first.decision is not None and len(first.suggestions) == 2
+        assert isinstance(shed[0].error, admission.AdmissionShedError)
+        assert "retry_after_ms=" in str(shed[0].error)
+        for s in first.suggestions:
+            t = s.to_trial()
+            t.complete(vz.Measurement(metrics={"obj": 0.5}))
+            supporter.AddTrials([t])
+        rt.notify_trial_event(name)
+        assert rt.speculative_engine.wait_idle(120.0)
+        parked = rt.designer_cache.peek(name).speculative
+        assert parked is not None and len(shed) == 1
+        tk.reset_launch_counts()
+        hit = suggest()
+        assert sum(sum(m.values()) for m in tk.LAUNCHES_BY_MODE.values()) == 0
+        assert all(s.metadata.ns("serving").get("speculative") == "hit" for s in hit.suggestions)
+        assert [s.parameters.as_dict() for s in hit.suggestions] == [
+            s.parameters.as_dict() for s in parked.response.suggestions]
+        counters = rt.snapshot()
+        assert counters["speculative_hits"] == 1 and counters["speculative_errors"] == 0
+        assert counters["admission_sheds"] == 1
+    finally:
+        rt.shutdown()

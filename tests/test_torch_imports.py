@@ -110,15 +110,21 @@ def _fresh(code: str) -> str:
 def test_the_cards_imports_need_neither_grpc_nor_protobuf():
     """The GPU machine has neither ``grpc`` nor ``protobuf``: with both
     blocked, ``chip_smoke`` and the packages it drives (the policy factory,
-    the serving runtime with its coalescer and breakers, the reliability
-    layer) still import, and none of them loads either module."""
+    the serving runtime with its coalescer and breakers, its opt-in planes —
+    admission, speculative pre-compute, the SLO engine, the flight recorder,
+    fleet dumps — the batch executor, the reliability layer) still import,
+    and none of them loads either module."""
     code = """
 import importlib, json, sys
 sys.modules["grpc"] = None
 sys.modules["google.protobuf"] = None
 for name in ("vizier_tpu_torch", "vizier_tpu_torch.service", "vizier_tpu_torch.service.policy_factory",
              "vizier_tpu_torch.serving", "vizier_tpu_torch.serving.runtime",
-             "vizier_tpu_torch.serving.coalescer", "vizier_tpu_torch.reliability", "chip_smoke"):
+             "vizier_tpu_torch.serving.coalescer", "vizier_tpu_torch.serving.admission",
+             "vizier_tpu_torch.serving.speculative", "vizier_tpu_torch.serving.policy",
+             "vizier_tpu_torch.observability.slo", "vizier_tpu_torch.observability.flight_recorder",
+             "vizier_tpu_torch.observability.fleet", "vizier_tpu_torch.parallel.batch_executor",
+             "vizier_tpu_torch.surrogates.config", "vizier_tpu_torch.reliability", "chip_smoke"):
     importlib.import_module(name)
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
     m.split(".")[0] == "grpc" or m.startswith("google.protobuf")))

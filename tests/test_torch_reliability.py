@@ -394,10 +394,22 @@ def test_config_turnover_and_invalidation_drop_the_breaker_and_designer():
 
 
 def test_planes_the_port_does_not_have_are_refused(monkeypatch):
-    for plane in ("speculative", "mesh", "slo", "admission"):
-        with pytest.raises(NotImplementedError):
-            runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False),
-                                       **{plane: object()})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False), mesh=object())
+    with pytest.raises(NotImplementedError, match="batching_prewarm"):
+        serving_config.ServingConfig(batching_prewarm=True)
+    with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
+        serving_config.ServingConfig(compilation_cache_dir="/tmp/cache")
+    # The flight recorder is ported: the switch builds a working recorder.
     monkeypatch.setenv("VIZIER_TORCH_FLIGHT_RECORDER", "1")
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False))
+    from vizier_tpu_torch.observability import flight_recorder
+
+    previous = flight_recorder.set_recorder(None)
+    try:
+        rt = runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False))
+        assert rt.flight_recorder.enabled
+        rt.flight_recorder.record("s", "probe")
+        assert [e["kind"] for e in rt.flight_recorder.ring("s")] == ["probe"]
+        rt.shutdown()
+    finally:
+        flight_recorder.set_recorder(previous)

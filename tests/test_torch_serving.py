@@ -245,14 +245,29 @@ def test_planes_that_are_not_ported_raise():
     with pytest.raises(NotImplementedError):
         BatchExecutor(mesh=object())
     with pytest.raises(NotImplementedError):
-        BatchExecutor(admission=object())
-    with pytest.raises(NotImplementedError):
         serving_config.ServingConfig(batching_prewarm=True)
     with pytest.raises(NotImplementedError):
         serving_config.ServingConfig(compilation_cache_dir="/tmp/cache")
     with pytest.raises(NotImplementedError):
         serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=False),
-                                       speculative=object())
+                                       mesh=object())
+    # The ported planes build: an executor with fair-share admission, and a
+    # runtime with speculation, admission and the SLO engine armed.
+    from vizier_tpu_torch.observability import slo as slo_lib
+    from vizier_tpu_torch.serving import admission as admission_lib
+    from vizier_tpu_torch.serving import speculative as speculative_lib
+
+    controller = admission_lib.AdmissionController(admission_lib.AdmissionConfig(enabled=True))
+    BatchExecutor(admission=controller).close()
+    rt = serving_runtime.ServingRuntime(
+        serving_config.ServingConfig(batching=False),
+        speculative=speculative_lib.SpeculativeConfig(speculative=True),
+        admission=admission_lib.AdmissionConfig(enabled=True),
+        slo=slo_lib.SloConfig(enabled=True, eval_interval_s=0.0),
+    )
+    assert rt.speculative_engine is not None and rt.admission is not None
+    assert rt.slo_engine is not None and rt.slo_report()["armed"]
+    rt.shutdown()
 
 
 # -- config and stats against the JAX package ------------------------------------

@@ -501,8 +501,12 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             return self._surrogate_mode
         mode = cfg.mode_for(len(self._trials), current=self._surrogate_mode)
         if mode != self._surrogate_mode:
+            old_mode = self._surrogate_mode
             self._surrogate_mode = mode
             self._surrogate_counts["crossovers"] += 1
+            # Serving-tier observers (speculative pre-compute) invalidate
+            # their derived state the moment the flip happens.
+            surrogate_config_lib.fire_crossover_hook(self, old_mode, mode)
             self._warm_params = self._model.param_collection().random_init_unconstrained(
                 _generator(self.device, self.rng_seed + 1 + self._surrogate_counts["crossovers"])
             )

@@ -28,26 +28,42 @@ every slot back to its own sequential ``suggest``, one after another, and
 counts it (``batch_fallbacks``); a slot whose decoded suggestions hold non-finite
 parameters gets a typed ``TRANSIENT:`` error (``batch_slot_errors``).
 
-Each bucket is one FIFO. The JAX package's QoS lanes (the deferrable
-speculative lane and its starvation cap) serve its speculative plane, which
-the port does not have, so they are left out. Its mesh placements,
-fair-share admission and compile prewarm are not part of the port; asking
-for them raises.
+Two lanes: slots submitted with ``speculative=True`` (the serving tier's
+background pre-compute, ``serving.speculative``) ride a live flush that is
+forming anyway, but a bucket holding only speculative slots is deferrable:
+it never becomes due while a live slot is queued in any bucket, up to
+:data:`SPECULATIVE_STARVATION_CAP_SECS`; due live batches run before due
+speculative ones. ``queue_depth()`` / ``live_pending()`` expose per-lane
+occupancy, the speculative engine's admission gate.
+
+Weighted fair share (with an admission controller attached,
+``VIZIER_TORCH_ADMISSION=1``): inside the live lane, slots carry the tenant
+the admission gate admitted (``serving.admission.current_tenant()``), and
+when a bucket holds more queued work than one flush, deficit round robin
+across tenants (quantum = the tenant's weight) decides who flushes first
+instead of FIFO; due batches of one lane are ordered by weighted
+served-slot counts across buckets. Without a controller (the default) no
+tenant is attached and every bucket is one FIFO, as before.
+
+The JAX package's mesh placements and compile prewarm are not part of the
+port; asking for the mesh raises.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vizier_tpu_torch.compute import ir as compute_ir
 from vizier_tpu_torch.compute import registry as compute_registry
+from vizier_tpu_torch.observability import flight_recorder as recorder_lib
 from vizier_tpu_torch.observability import metrics as metrics_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
 from vizier_tpu_torch.reliability import errors as errors_lib
@@ -57,6 +73,12 @@ BucketKey = compute_ir.BucketKey
 
 class BatchSlotError(errors_lib.TransientError):
     """A batched slot produced an invalid result (isolated to its study)."""
+
+
+# How long a speculative-only bucket defers to queued live slots before it
+# flushes anyway ("spec_starved"): it bounds the wait of a live request
+# coalesced onto an in-flight speculative compute.
+SPECULATIVE_STARVATION_CAP_SECS = 0.25
 
 
 # -- pytrees ----------------------------------------------------------------
@@ -171,10 +193,11 @@ class _Slot:
 
     __slots__ = (
         "designer", "program", "count", "enqueued_at", "event", "error",
-        "item", "output", "action", "span",
+        "item", "output", "action", "span", "speculative", "tenant",
     )
 
-    def __init__(self, designer, program, count: int, now: float, span):
+    def __init__(self, designer, program, count: int, now: float, span,
+                 speculative: bool = False, tenant: Optional[str] = None):
         self.designer = designer
         self.program = program
         self.count = count
@@ -185,6 +208,13 @@ class _Slot:
         self.output: Any = None
         self.action: str = "alone"
         self.span = span
+        # Speculative lane: the slot may ride a live flush that is forming
+        # anyway, but a bucket holding only speculative slots defers to
+        # queued live traffic.
+        self.speculative = speculative
+        # Fair-share identity (admission on only): who this computation
+        # bills to inside the live lane's deficit round robin.
+        self.tenant = tenant
 
 
 class BatchExecutor:
@@ -205,16 +235,25 @@ class BatchExecutor:
         metrics: Optional[metrics_lib.MetricsRegistry] = None,
         time_fn: Callable[[], float] = time.monotonic,
         mesh: Optional[Any] = None,
-        admission: Optional[Any] = None,
+        admission: Optional[Any] = None,  # serving.admission.AdmissionController
     ):
         if max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {max_batch_size}")
         if mesh is not None and getattr(mesh, "enabled", True):
             raise NotImplementedError("The port's batch executor has no mesh placements.")
-        if admission is not None:
-            raise NotImplementedError("The port's batch executor has no fair-share admission.")
         self.max_batch_size = max_batch_size
         self.max_wait_secs = max(max_wait_ms, 0.0) / 1000.0
+        # Weighted fair share across tenants: with a controller attached,
+        # live-lane selection is deficit round robin by tenant; None keeps
+        # every bucket FIFO.
+        self._admission = admission
+        # DRR state, guarded by _cond: per-tenant deficit credits, the stable
+        # round-robin ring and cursor, and weighted served-slot totals (the
+        # cross-bucket ordering key).
+        self._drr_deficit: Dict[str, float] = {}
+        self._drr_ring: List[str] = []
+        self._drr_cursor = 0
+        self._tenant_served: Dict[str, float] = {}
         self.pad_partial = pad_partial
         self._stats = stats
         self._time = time_fn
@@ -239,19 +278,33 @@ class BatchExecutor:
 
     # -- submission ---------------------------------------------------------
 
-    def suggest(self, designer: Any, count: Optional[int] = None) -> List[Any]:
+    def suggest(
+        self,
+        designer: Any,
+        count: Optional[int] = None,
+        *,
+        speculative: bool = False,
+    ) -> List[Any]:
         """Routes one study's suggest through the batching engine.
 
         Unbatchable paths (no program covers the designer's state) run
-        inline on the caller's thread, as with batching off.
+        inline on the caller's thread, as with batching off. ``speculative``
+        puts the slot on the deferrable lane: a bucket of speculative slots
+        never flushes while live slots are queued (see :meth:`_take_due`).
         """
         count = count or 1
         resolved = compute_registry.resolve(designer, count)
         if resolved is None or self._closed:
             return designer.suggest(count)
         program, key = resolved
+        tenant = None
+        if self._admission is not None:
+            from vizier_tpu_torch.serving import admission as admission_lib
+
+            tenant = admission_lib.current_tenant()
         slot = _Slot(
-            designer, program, count, self._time(), tracing_lib.get_tracer().current_span()
+            designer, program, count, self._time(), tracing_lib.get_tracer().current_span(),
+            speculative=speculative, tenant=tenant,
         )
         # Joining a non-empty bucket: this slot will (very likely) ride a
         # batched flush, so prepare it HERE, on the caller's thread, while
@@ -304,6 +357,17 @@ class BatchExecutor:
         with self._cond:
             return {k.label(): len(v) for k, v in self._queues.items() if v}
 
+    def queue_depth(self) -> Dict[str, int]:
+        """Queued slots by lane — the speculative admission gate's view of
+        whether live traffic is saturating the flush buckets."""
+        with self._cond:
+            queued = [slot.speculative for slots in self._queues.values() for slot in slots]
+        return {"live": queued.count(False), "speculative": queued.count(True)}
+
+    def live_pending(self) -> int:
+        """Queued live (non-speculative) slots across all buckets."""
+        return self.queue_depth()["live"]
+
     # -- scheduling ---------------------------------------------------------
 
     def _ensure_scheduler(self) -> None:
@@ -313,29 +377,155 @@ class BatchExecutor:
             )
             self._thread.start()
 
+    @staticmethod
+    def _deferrable(slots: List[_Slot]) -> bool:
+        """A bucket of speculative slots only; one live slot makes the
+        bucket live (the speculative ones ride its flush)."""
+        return all(s.speculative for s in slots)
+
+    def _live_queued(self) -> bool:
+        return any(not s.speculative for slots in self._queues.values() for s in slots)
+
+    def _fair_order(self, slots: List[_Slot]) -> List[_Slot]:
+        """Deficit round robin across tenants, FIFO within a tenant.
+
+        Quantum = the tenant's admission weight. Persistent ring, cursor and
+        deficit state (caller holds ``_cond``) make the rotation fair across
+        flushes, not just within one: a light tenant's first queued slot is
+        selected within one DRR round, i.e. delayed by at most the sum of
+        the other tenants' quanta. Single-tenant (or tenantless) input
+        returns FIFO unchanged.
+        """
+        by_tenant: Dict[str, Deque[_Slot]] = collections.OrderedDict()
+        for slot in slots:
+            by_tenant.setdefault(slot.tenant or "", collections.deque()).append(slot)
+        if len(by_tenant) <= 1:
+            return slots
+        for tenant in by_tenant:
+            if tenant not in self._drr_ring:
+                self._drr_ring.append(tenant)
+        weight = self._admission.weight
+        out: List[_Slot] = []
+        remaining = len(slots)
+        ring = self._drr_ring
+        while remaining:
+            self._drr_cursor %= len(ring)
+            tenant = ring[self._drr_cursor]
+            self._drr_cursor += 1
+            queue = by_tenant.get(tenant)
+            if not queue:
+                # Classic DRR: an idle tenant banks no credit.
+                self._drr_deficit.pop(tenant, None)
+                continue
+            quantum = max(1.0, float(weight(tenant)))
+            credit = self._drr_deficit.get(tenant, 0.0) + quantum
+            while credit >= 1.0 and queue:
+                out.append(queue.popleft())
+                remaining -= 1
+                credit -= 1.0
+            self._drr_deficit[tenant] = credit if queue else 0.0
+        return out
+
+    def _order_due(
+        self, due: List[Tuple[BucketKey, List[_Slot], str]]
+    ) -> List[Tuple[BucketKey, List[_Slot], str]]:
+        """Cross-bucket fairness: stable-sort one lane's due batches by
+        their tenants' weighted served-slot totals (least served first),
+        then bill the selection — every flush is billed, even a lone one.
+        No-op without an admission controller."""
+        if self._admission is None:
+            return due
+        weight = self._admission.weight
+        if len(due) > 1:
+
+            def served_key(batch):
+                _key, slots, _reason = batch
+                return min(
+                    self._tenant_served.get(s.tenant or "", 0.0) / max(1.0, float(weight(s.tenant)))
+                    for s in slots
+                )
+
+            due = sorted(due, key=served_key)
+        for _key, slots, _reason in due:
+            for slot in slots:
+                self._tenant_served[slot.tenant or ""] = (
+                    self._tenant_served.get(slot.tenant or "", 0.0) + 1.0
+                )
+        return due
+
     def _take_due(self) -> List[Tuple[BucketKey, List[_Slot], str]]:
-        """Pops every due (key, slots, reason) batch. Caller holds the lock."""
+        """Pops every due (key, slots, reason) batch. Caller holds the lock.
+
+        Lane rules: a live bucket flushes on the ordinary full/timeout
+        rules. A speculative-only bucket defers while any live slot is
+        queued anywhere, flushing only once the queues are clear of live
+        work, or after :data:`SPECULATIVE_STARVATION_CAP_SECS`
+        ("spec_starved"). Due live batches come back before due speculative
+        ones; within a lane, batches are ordered by the weighted fair-share
+        credit when admission is on.
+        """
         now = self._time()
-        due: List[Tuple[BucketKey, List[_Slot], str]] = []
+        # Index 0: live (and drained) batches; index 1: speculative ones.
+        due_by_lane: Tuple[List, List] = ([], [])
+        deferred: List[Tuple[BucketKey, List[_Slot]]] = []
+        live_queued = self._live_queued()
         for key, slots in self._queues.items():
             if not slots:
                 continue
             if self._closed:
-                due.append((key, slots[:], "drain"))
+                due_by_lane[0].append((key, slots[:], "drain"))
                 slots.clear()
                 continue
-            while len(slots) >= self.max_batch_size:
-                due.append((key, slots[: self.max_batch_size], "full"))
-                del slots[: self.max_batch_size]
+            deferrable = self._deferrable(slots)
+            if deferrable and live_queued:
+                deferred.append((key, slots))
+                continue
+            bucket_due = due_by_lane[int(deferrable)]
+            if len(slots) >= self.max_batch_size:
+                ordered = (
+                    self._fair_order(slots)
+                    if self._admission is not None and not deferrable
+                    else slots
+                )
+                while len(ordered) >= self.max_batch_size:
+                    bucket_due.append((key, ordered[: self.max_batch_size], "full"))
+                    del ordered[: self.max_batch_size]
+                slots[:] = ordered
+            # Oldest by enqueue time, not position: a DRR-reordered
+            # remainder is no longer FIFO.
             if slots and now - min(s.enqueued_at for s in slots) >= self.max_wait_secs:
-                due.append((key, slots[:], "timeout"))
+                bucket_due.append((key, slots[:], "timeout"))
                 slots.clear()
-        return due
+        for key, slots in deferred:
+            if now - slots[0].enqueued_at < SPECULATIVE_STARVATION_CAP_SECS:
+                continue
+            # A deferred bucket may have grown past the batch size: flush in
+            # max-size chunks so the batch shape stays the bucket's.
+            bucket_due = due_by_lane[1]
+            while len(slots) > self.max_batch_size:
+                bucket_due.append((key, slots[: self.max_batch_size], "full"))
+                del slots[: self.max_batch_size]
+            bucket_due.append((key, slots[:], "spec_starved"))
+            slots.clear()
+        return self._order_due(due_by_lane[0]) + self._order_due(due_by_lane[1])
 
     def _next_deadline(self) -> Optional[float]:
         """Seconds until the next queued bucket becomes due (lock held)."""
-        due_at = [s.enqueued_at for slots in self._queues.values() for s in slots]
-        return max(min(due_at) + self.max_wait_secs - self._time(), 0.0) if due_at else None
+        live_queued = self._live_queued()
+        deadline = None
+        for slots in self._queues.values():
+            if not slots:
+                continue
+            if live_queued and self._deferrable(slots):
+                window = SPECULATIVE_STARVATION_CAP_SECS
+            else:
+                window = self.max_wait_secs
+            due_at = min(s.enqueued_at for s in slots) + window
+            if deadline is None or due_at < deadline:
+                deadline = due_at
+        if deadline is None:
+            return None
+        return max(deadline - self._time(), 0.0)
 
     def _scheduler_loop(self) -> None:
         while True:
@@ -364,6 +554,19 @@ class BatchExecutor:
             for slot in slots:
                 self._queue_wait.observe(now - slot.enqueued_at, bucket=label)
         self._increment("batch_flushes")
+        recorder = recorder_lib.get_recorder()
+        if recorder.enabled:
+            # Flush membership: the member suggests' trace ids tie this
+            # fleet-scoped event back to each study's own ring.
+            recorder.record(
+                None,
+                "batch_flush",
+                bucket=label,
+                occupancy=len(slots),
+                reason=reason,
+                device=None,
+                members=[s.span.trace_id for s in slots if s.span is not None],
+            )
 
     def _execute(self, key: BucketKey, slots: List[_Slot], reason: str) -> None:
         self._observe_flush(key, slots, reason)

@@ -1,8 +1,8 @@
 """Per-study circuit breaker over the designer computation.
 
-A copy of the JAX package's ``reliability/breaker.py``. The JAX package also
-stamps each transition on its flight recorder, a plane the port does not
-have; the transition lands on the active span and in the serving stats.
+A copy of the JAX package's ``reliability/breaker.py``. Each transition
+lands on the active span, on the study's flight-recorder ring and in the
+serving stats.
 
 Classic closed → open → half-open automaton with a sliding failure window:
 ``failure_threshold`` designer failures within ``window_secs`` open the
@@ -147,12 +147,17 @@ class CircuitBreakerRegistry:
         if self._stats is not None:
             self._stats.increment(_TRANSITION_COUNTERS[new])
         # Transitions fire inside the suggest computation that tripped (or
-        # probed) the breaker — stamp them on that span (a leaf sink). Lazy
-        # import: reliability must stay importable without the serving stack.
+        # probed) the breaker — stamp them on that span, and on the study's
+        # flight-recorder ring (both leaf sinks). Lazy import: reliability
+        # must stay importable without the serving stack.
+        from vizier_tpu_torch.observability import flight_recorder as recorder_lib
         from vizier_tpu_torch.observability import tracing as tracing_lib
 
         tracing_lib.add_current_event(
             "breaker.transition", study=study_name, from_state=old, to_state=new
+        )
+        recorder_lib.get_recorder().record(
+            study_name, "breaker_transition", from_state=old, to_state=new
         )
 
     def get(self, study_name: str) -> CircuitBreaker:

@@ -78,6 +78,17 @@ class DataStore(abc.ABC):
         """
         ...
 
+    def trial_states(self, study_name: str) -> List[tuple]:
+        """``(trial_id, state)`` pairs for every trial of a study, id order.
+
+        The frontier-fingerprint read shape (``serving.speculative``): the
+        speculative serve check needs only ids and states, not proto copies
+        of a long study's measurement history. This default derives it from
+        :meth:`list_trials`; stores with a cheaper index (the RAM store)
+        override it copy-free.
+        """
+        return [(t.id, t.state) for t in self.list_trials(study_name)]
+
     @abc.abstractmethod
     def max_trial_id(self, study_name: str) -> int:
         ...

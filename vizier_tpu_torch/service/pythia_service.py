@@ -6,15 +6,20 @@ algorithm's policy, converts proto⇄pythia types, and captures policy errors
 into the response. Around the live computation it keeps the JAX servicer's
 order: request coalescing, then the study's circuit breaker, the deadline
 check before dispatch, the designer, the deadline check after it, and the
-seeded quasi-random fallback on a designer failure or an open circuit. That
-order lives in the proto-free ``ServingRuntime.guarded_suggest``, which the
-GPU smoke run drives too.
+seeded quasi-random fallback on a designer failure or an open circuit.
+Before that come the runtime's opt-in planes: the speculative serve check
+(a parked batch computed after the last completion, served stamped
+``speculative=hit`` when the frontier still matches) and the admission gate
+(admit, shed with a retry-after hint, or serve a low-priority tenant the
+stamped quasi-random fallback). Each of those orders lives in the proto-free
+``ServingRuntime`` (``speculative_suggest``, ``admitted_suggest``,
+``guarded_suggest``), which the GPU smoke run drives too; this servicer only
+adapts protos to them.
 
 ``device`` is where the default factory's designers run: CUDA unless the
 caller asks for the CPU, and the servicer raises at construction when CUDA
-is asked for and no GPU is present. The JAX servicer's speculative
-pre-compute binding, its admission gate and compile prewarm are not ported:
-the serving runtime refuses their configs.
+is asked for and no GPU is present. The JAX servicer's compile prewarm and
+its ``connect_to_vizier`` (the fleet's late binding) are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import hashlib
 import logging
 import time
 import traceback
+from typing import Optional
 
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
@@ -35,9 +41,11 @@ from vizier_tpu_torch.service import policy_factory as policy_factory_lib
 from vizier_tpu_torch.service import proto_converters as pc
 from vizier_tpu_torch.service import pyvizier as vz
 from vizier_tpu_torch.service import service_policy_supporter
-from vizier_tpu_torch.service.protos import pythia_service_pb2
+from vizier_tpu_torch.service.protos import pythia_service_pb2, study_pb2
+from vizier_tpu_torch.service.protos import vizier_service_pb2
 from vizier_tpu_torch.serving import coalescer as coalescer_lib
 from vizier_tpu_torch.serving import runtime as serving_runtime_lib
+from vizier_tpu_torch.serving import speculative as speculative_lib
 
 _logger = logging.getLogger(__name__)
 
@@ -67,9 +75,10 @@ class PythiaServicer:
         # per-study circuit breakers); ``serving_config`` and
         # ``reliability_config`` disable parts or all of it;
         # ``surrogate_config`` sets the exact↔sparse auto-switch every GP
-        # designer shares. ``mesh_config`` and ``admission_config`` name
-        # planes the port does not have: the runtime refuses them. None ->
-        # defaults with env-var overrides.
+        # designer shares; ``admission_config`` arms the multi-tenant
+        # overload-protection plane (off = the path without admission).
+        # ``mesh_config`` names a plane the port does not have: the runtime
+        # refuses it. None -> defaults with env-var overrides.
         self._serving = serving_runtime_lib.ServingRuntime(
             serving_config,
             reliability=reliability_config,
@@ -91,6 +100,16 @@ class PythiaServicer:
         # Early-stopping policies cached per study (the regression rule
         # holds a trained boosted-tree regressor; see EarlyStop).
         self._stopping_policies = {}
+        self._bind_speculative()
+
+    def _bind_speculative(self) -> None:
+        """Connects the runtime's speculative engine to this servicer's
+        compute path (needs a Vizier service to read frontiers from)."""
+        if self._vizier is None:
+            return
+        self._serving.bind_speculative(
+            self._speculative_fingerprint, self._speculative_compute, self._speculative_accept
+        )
 
     @property
     def serving_runtime(self) -> serving_runtime_lib.ServingRuntime:
@@ -99,6 +118,10 @@ class PythiaServicer:
     def serving_stats(self) -> dict:
         """Snapshot of the serving counters + current cache population."""
         return self._serving.snapshot()
+
+    def prometheus_text(self) -> str:
+        """Serving counters + latency histograms, Prometheus text format."""
+        return self._serving.prometheus_text()
 
     def shutdown(self) -> None:
         """Drains the serving runtime's batch executor (idempotent)."""
@@ -210,10 +233,163 @@ class PythiaServicer:
             span_name="pythia.suggest_compute",
         )
 
+    # -- speculative pre-compute (serving.speculative) ------------------------
+
+    def notify_trial_event(self, study_name: str) -> None:
+        """A completion or measurement moved the study's frontier: drop the
+        parked batch and enqueue a pre-compute for the new frontier."""
+        self._serving.notify_trial_event(study_name)
+
+    def _trial_frontier(self, study_name: str):
+        """``(completed_ids, active_ids, max_trial_id)`` via the connected
+        Vizier service (copy-free when in-process)."""
+        frontier = getattr(self._vizier, "trial_frontier", None)
+        if frontier is not None:
+            return frontier(study_name)
+        listing = self._vizier.ListTrials(vizier_service_pb2.ListTrialsRequest(parent=study_name))
+        completed, active, max_id = [], [], 0
+        for t in listing.trials:
+            max_id = max(max_id, int(t.id))
+            if t.state in (study_pb2.Trial.SUCCEEDED, study_pb2.Trial.INFEASIBLE):
+                completed.append(int(t.id))
+            elif t.state == study_pb2.Trial.ACTIVE:
+                active.append(int(t.id))
+        return completed, active, max_id
+
+    def _speculative_fingerprint(self, study_name: str):
+        """Job-side frontier read: the fingerprint the parked batch will be
+        served under, captured before the compute (anything landing after
+        this point makes the slot a serve-time mismatch)."""
+        study = self._vizier.GetStudy(vizier_service_pb2.GetStudyRequest(name=study_name))
+        completed, active, max_id = self._trial_frontier(study_name)
+        fingerprint = speculative_lib.make_fingerprint(
+            study.study_spec.SerializeToString(), completed, active
+        )
+        return fingerprint, max_id
+
+    def _request_fingerprint(self, request) -> speculative_lib.FrontierFingerprint:
+        """Serve-side frontier read: the request's config and the study's
+        current completed and active sets."""
+        completed, active, _ = self._trial_frontier(request.study_name)
+        return speculative_lib.make_fingerprint(
+            request.study_descriptor.config.SerializeToString(), completed, active
+        )
+
+    def _speculative_compute(
+        self, study_name: str, count: int, max_trial_id: int
+    ) -> Optional[pythia_service_pb2.PythiaSuggestResponse]:
+        """Runs one speculative job through the exact live suggest path
+        (coalescer → policy → designer cache → batch executor), so a hit is
+        the live compute run early: the same designer state mutations, the
+        same draws, the same buckets (on the deferrable lane, through the
+        speculative-scope thread flag the engine sets)."""
+        study = self._vizier.GetStudy(vizier_service_pb2.GetStudyRequest(name=study_name))
+        if study.state != study_pb2.Study.ACTIVE:
+            return None
+        preq = pythia_service_pb2.PythiaSuggestRequest(
+            count=count, algorithm=study.study_spec.algorithm, study_name=study_name
+        )
+        preq.study_descriptor.config.CopyFrom(study.study_spec)
+        preq.study_descriptor.guid = study_name
+        preq.study_descriptor.max_trial_id = max_trial_id
+        return self._suggest_coalesced(preq)
+
+    @staticmethod
+    def _speculative_accept(response: pythia_service_pb2.PythiaSuggestResponse) -> Optional[int]:
+        """The runtime's vetting rule (``speculative_batch_size``) over a
+        proto response: its batch size when it may be parked, else None."""
+        if response is None or response.error:
+            return None
+        return serving_runtime_lib.speculative_batch_size(
+            pc.metadata_from_key_values(s.metadata) for s in response.suggestions
+        )
+
+    @staticmethod
+    def _stamp_speculative(
+        response: pythia_service_pb2.PythiaSuggestResponse, count: int
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
+        """A private copy of the parked response, reconciled to ``count``
+        (the batch prefix when the client asked for fewer) and stamped
+        by ``speculative.stamp_hit``, as the runtime's
+        ``stamp_speculative_hit`` stamps a protobuf-free one."""
+        out = pythia_service_pb2.PythiaSuggestResponse()
+        out.CopyFrom(response)
+        if count < len(out.suggestions):
+            del out.suggestions[count:]
+        stamp = vz.Metadata()
+        speculative_lib.stamp_hit(stamp)
+        key_values = pc.metadata_to_key_values(stamp)
+        for suggestion in out.suggestions:
+            suggestion.metadata.extend(key_values)
+        return out
+
     def _suggest_compute(
         self, request: pythia_service_pb2.PythiaSuggestRequest
     ) -> pythia_service_pb2.PythiaSuggestResponse:
+        """The speculative serve check around the admitted live compute
+        (``ServingRuntime.speculative_suggest``; a direct call of the live
+        compute with no engine, the default)."""
+        return self._serving.speculative_suggest(
+            request.study_name,
+            max(1, int(request.count)),
+            lambda: self._request_fingerprint(request),
+            lambda: self._suggest_compute_admitted(request),
+            self._stamp_speculative,
+            lambda response: not response.error,
+        )
+
+    # -- multi-tenant admission (serving.admission) ---------------------------
+
+    def _suggest_compute_admitted(
+        self, request: pythia_service_pb2.PythiaSuggestRequest
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
+        """The admission gate around the live designer computation
+        (``ServingRuntime.admitted_suggest``; a direct call with no
+        controller, the default). A shed completes the op with the typed
+        ``TRANSIENT: RESOURCE_EXHAUSTED`` error and its retry-after hint; a
+        degraded low-priority tenant gets the stamped quasi-random
+        fallback; a config that fails to parse is a permanent error there,
+        as on the live path."""
+        outcome = self._serving.admitted_suggest(
+            request.study_name,
+            lambda: self._suggest_compute_live(request),
+            lambda reason: self._fallback_suggestions(
+                self._parsed_study_config(request), request, reason
+            ),
+            float(request.deadline_secs),
+            setup=lambda: self._parsed_study_config(request),
+        )
+        return self._response(outcome)
+
+    @staticmethod
+    def _fallback_suggestions(config, request, reason: str):
+        return fallback_lib.suggest_fallback(
+            config.to_problem(),
+            max(1, int(request.count)),
+            study_name=request.study_name,
+            max_trial_id=int(request.study_descriptor.max_trial_id),
+            reason=reason,
+        )
+
+    def _response(
+        self, outcome: serving_runtime_lib.GuardedSuggestion
+    ) -> pythia_service_pb2.PythiaSuggestResponse:
         response = pythia_service_pb2.PythiaSuggestResponse()
+        if outcome.error is not None:
+            response.error = errors_lib.format_op_error(outcome.error)
+            return response
+        if outcome.decision is None:
+            for s in outcome.fallbacks:
+                response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
+            return response
+        for s in outcome.decision.suggestions:
+            response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
+        self._append_metadata_deltas(response, outcome.decision.metadata)
+        return response
+
+    def _suggest_compute_live(
+        self, request: pythia_service_pb2.PythiaSuggestRequest
+    ) -> serving_runtime_lib.GuardedSuggestion:
         # Config parsing and policy construction fail hard: an invalid
         # search space or unknown algorithm is permanent, and retrying or
         # falling back would serve a misconfigured study forever.
@@ -233,8 +409,7 @@ class PythiaServicer:
             )
         except Exception as e:
             _logger.warning("Pythia Suggest setup failed: %s", traceback.format_exc())
-            response.error = errors_lib.format_op_error(e)
-            return response
+            return serving_runtime_lib.GuardedSuggestion(error=e)
 
         # from_wire, not from_budget: a negative wire budget means the
         # caller's deadline already expired at the sender, and the dispatch
@@ -244,31 +419,14 @@ class PythiaServicer:
             if self._serving.reliability.deadlines_on
             else deadline_lib.Deadline.none()
         )
-        outcome = self._serving.guarded_suggest(
+        return self._serving.guarded_suggest(
             request.study_name,
             lambda: policy.suggest(
                 policy_lib.SuggestRequest(study_descriptor=descriptor, count=int(request.count))
             ),
-            lambda reason: fallback_lib.suggest_fallback(
-                config.to_problem(),
-                max(1, int(request.count)),
-                study_name=request.study_name,
-                max_trial_id=int(request.study_descriptor.max_trial_id),
-                reason=reason,
-            ),
+            lambda reason: self._fallback_suggestions(config, request, reason),
             deadline,
         )
-        if outcome.error is not None:
-            response.error = errors_lib.format_op_error(outcome.error)
-            return response
-        if outcome.decision is None:
-            for s in outcome.fallbacks:
-                response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
-            return response
-        for s in outcome.decision.suggestions:
-            response.suggestions.add().CopyFrom(pc.trial_suggestion_to_proto(s))
-        self._append_metadata_deltas(response, outcome.decision.metadata)
-        return response
 
     def EarlyStop(
         self, request: pythia_service_pb2.PythiaEarlyStopRequest, context=None

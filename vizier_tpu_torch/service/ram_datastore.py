@@ -145,6 +145,14 @@ class NestedDictRAMDataStore(datastore.DataStore):
             if r.trial_id == node.max_trial:
                 node.max_trial = max(node.trials.keys(), default=0)
 
+    def trial_states(self, study_name: str) -> List[tuple]:
+        """Copy-free ``(id, state)`` scan — the speculative fingerprint read
+        stays O(n) integer pairs even when trials carry long measurement
+        histories."""
+        with self._lock:
+            node = self._node(study_name)
+            return [(tid, t.state) for tid, t in sorted(node.trials.items())]
+
     def list_trials(
         self, study_name: str, *, states: Optional[tuple] = None
     ) -> List[study_pb2.Trial]:

@@ -14,10 +14,11 @@ contract:
 - completed trials and completed studies are immutable;
 - early-stopping ops are recycled after ``early_stop_recycle_period``.
 
-The JAX servicer also stamps every request on its flight recorder, feeds the
-speculative engine on each completion and splits its latency series per
-tenant when admission is armed; those planes are not ported (off by default
-there), and ``VIZIER_TORCH_FLIGHT_RECORDER=1`` is refused.
+Every suggest, completion and expired ingress lands on the study's
+flight-recorder ring (``VIZIER_TORCH_FLIGHT_RECORDER=1``; a no-op otherwise);
+each completion or measurement tells an in-process Pythia that the study's
+frontier moved, the speculative engine's trigger; and with admission armed
+the service hop's latency series is split per tenant.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from vizier_tpu_torch.observability import flight_recorder as recorder_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
 from vizier_tpu_torch.reliability import config as reliability_config_lib
 from vizier_tpu_torch.reliability import deadline as deadline_lib
@@ -42,7 +44,7 @@ from vizier_tpu_torch.service import resources
 from vizier_tpu_torch.service import sql_datastore
 from vizier_tpu_torch.service.protos import pythia_service_pb2
 from vizier_tpu_torch.service.protos import study_pb2, vizier_service_pb2
-from vizier_tpu_torch.serving import runtime as serving_runtime_lib
+from vizier_tpu_torch.serving import admission as admission_lib
 
 _logger = logging.getLogger(__name__)
 
@@ -58,7 +60,6 @@ class VizierServicer:
         early_stop_recycle_period: datetime.timedelta = datetime.timedelta(seconds=60),
         reliability_config: Optional[reliability_config_lib.ReliabilityConfig] = None,
     ):
-        serving_runtime_lib.refuse_flight_recorder()
         # An injected datastore wins over ``database_url``.
         if datastore is not None:
             if database_url is not None:
@@ -103,6 +104,46 @@ class VizierServicer:
         stats = self._serving_stats_sink()
         if stats is not None:
             stats.increment("retries", amount)
+
+    def prometheus_text(self) -> str:
+        """Delegates to the in-process Pythia's metric dump ('' if remote)."""
+        dump = getattr(self._pythia, "prometheus_text", None)
+        return dump() if dump is not None else ""
+
+    def trial_frontier(self, study_name: str) -> Tuple[List[int], List[int], int]:
+        """``(completed_ids, active_ids, max_trial_id)`` for a study.
+
+        The designer-visible frontier identity, read as bare id/state pairs
+        (no proto copies): completed = SUCCEEDED|INFEASIBLE (what the policy
+        feeds ``designer.update``), active = ACTIVE (the pending points batch
+        designers condition on). The speculative pre-compute fingerprints
+        this to decide whether a parked suggestion batch still matches.
+        """
+        completed: List[int] = []
+        active: List[int] = []
+        max_id = 0
+        for trial_id, state in self.datastore.trial_states(study_name):
+            trial_id = int(trial_id)
+            max_id = max(max_id, trial_id)
+            if state in (study_pb2.Trial.SUCCEEDED, study_pb2.Trial.INFEASIBLE):
+                completed.append(trial_id)
+            elif state == study_pb2.Trial.ACTIVE:
+                active.append(trial_id)
+        return completed, active, max_id
+
+    def _notify_trial_event(self, study_name: str) -> None:
+        """Tells the in-process Pythia the study's frontier moved, so it can
+        invalidate and re-speculate the next suggestion batch. Called outside
+        the study lock (the engine's enqueue takes its own queue lock).
+        Best-effort: a remote Pythia stub has no trigger surface and relies
+        on the serve-time fingerprint check alone."""
+        notify = getattr(self._pythia, "notify_trial_event", None)
+        if notify is None:
+            return
+        try:
+            notify(study_name)
+        except Exception as e:  # completion must not fail on speculation
+            _logger.warning("Speculative trigger failed for %s: %s", study_name, e)
 
     # -- studies -----------------------------------------------------------
 
@@ -180,11 +221,20 @@ class VizierServicer:
             if op.error:
                 span.set_attribute("error", op.error.splitlines()[0][:200])
             trace_id = getattr(span, "trace_id", None)
+        elapsed = time.perf_counter() - t0
+        recorder_lib.get_recorder().record(
+            request.parent, "suggest", trace_id=trace_id,
+            operation=op.name, duration_secs=round(elapsed, 6), error=bool(op.error),
+        )
         runtime = getattr(self._pythia, "serving_runtime", None)
         if runtime is not None:
-            runtime.observe_suggest_latency(
-                "service", time.perf_counter() - t0, trace_id=trace_id
-            )
+            # Per-tenant latency series (admission armed only, so the metric
+            # series stay as they were with it off): feeds the SLO engine's
+            # per-tenant p99 objective.
+            tenant = None
+            if getattr(runtime, "admission", None) is not None:
+                tenant = admission_lib.tenant_of(request.parent)
+            runtime.observe_suggest_latency("service", elapsed, trace_id=trace_id, tenant=tenant)
         return op
 
     def _suggest_trials(
@@ -205,6 +255,10 @@ class VizierServicer:
                 stats.increment("deadline_exceeded")
             tracing_lib.add_current_event(
                 "deadline.exceeded", at="service_ingress"
+            )
+            recorder_lib.get_recorder().record(
+                study_name, "deadline_expired_at_ingress",
+                budget_secs=float(request.deadline_secs),
             )
             op = vizier_service_pb2.Operation(
                 name=(
@@ -527,15 +581,26 @@ class VizierServicer:
                 raise ValueError(f"Trial {request.trial_name} is already completed.")
             trial.measurements.add().CopyFrom(request.measurement)
             self.datastore.update_trial(trial)
+        self._notify_trial_event(study_name)
         return trial
 
     def CompleteTrial(
         self, request: vizier_service_pb2.CompleteTrialRequest, context=None
     ) -> study_pb2.Trial:
         study_name = resources.TrialResource.from_name(request.name).study_resource.name
+        # The completion gets a span of its own: it is the trigger edge of
+        # the speculative pre-compute, and the precompute span links back
+        # here — "this completion set that compute in motion".
         tracer = tracing_lib.get_tracer()
-        with tracer.span("service.complete_trial", study=study_name, trial=request.name):
-            return self._complete_trial(request, study_name)
+        with tracer.span("service.complete_trial", study=study_name, trial=request.name) as span:
+            trial = self._complete_trial(request, study_name)
+            self._notify_trial_event(study_name)
+            trace_id = getattr(span, "trace_id", None)
+        recorder_lib.get_recorder().record(
+            study_name, "complete", trace_id=trace_id, trial=request.name,
+            state=study_pb2.Trial.State.Name(trial.state),
+        )
+        return trial
 
     def _complete_trial(
         self, request: vizier_service_pb2.CompleteTrialRequest, study_name: str

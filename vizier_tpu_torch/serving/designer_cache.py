@@ -52,6 +52,12 @@ class CachedDesignerEntry:
         # state along with everything else.
         self.surrogate_mode: Any = None
         self.sparse_state: Any = None
+        # Speculative pre-compute slot (serving.speculative): a parked
+        # next-suggestion batch for one exact frontier fingerprint, swapped
+        # atomically under the engine's serve lock (never under this entry's
+        # designer lock — a slot pop must not wait behind an in-flight live
+        # compute). Dies with the entry on invalidation.
+        self.speculative: Any = None
         # Completed-trial ids already fed to the designer (incremental
         # updates only hand over the delta).
         self.incorporated_trial_ids: Set[int] = set()
@@ -193,8 +199,10 @@ class DesignerStateCache:
     ) -> Optional[CachedDesignerEntry]:
         """The study's live entry, or None — never constructs a designer.
 
-        ``touch`` refreshes TTL/LRU (a served hit is a real use);
-        ``touch=False`` is a pure inspection read.
+        The speculative engine's lookup shape: parking or popping a
+        pre-computed batch must not build designer state for a study nobody
+        is serving. ``touch`` refreshes TTL/LRU (a served hit is a real
+        use); ``touch=False`` is a pure inspection read.
         """
         now = self._time()
         with self._lock:

@@ -5,7 +5,8 @@ rebuilt per Pythia request (cheap), while the designer, its trained ARD
 params and the incorporated-trial-id set live in the process-wide
 :class:`~vizier_tpu_torch.serving.designer_cache.DesignerStateCache`. Each
 suggest hands the designer to the runtime's batch executor (when batching
-is on), so concurrent same-bucket studies share one batched program.
+is on), so concurrent same-bucket studies share one batched program; a
+speculative job's compute rides the executor's deferrable lane.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 from vizier_tpu_torch.algorithms import core as core_lib
 from vizier_tpu_torch.algorithms import designer_policy
+from vizier_tpu_torch.observability import flight_recorder as recorder_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
 from vizier_tpu_torch.pythia import policy as policy_lib
 from vizier_tpu_torch.pythia import policy_supporter as supporter_lib
@@ -22,6 +24,8 @@ from vizier_tpu_torch.pyvizier import base_study_config
 from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.serving import designer_cache as cache_lib
 from vizier_tpu_torch.serving import runtime as runtime_lib
+from vizier_tpu_torch.serving import speculative as speculative_lib
+from vizier_tpu_torch.surrogates import config as surrogate_config_lib
 
 _logger = logging.getLogger(__name__)
 
@@ -61,6 +65,13 @@ class CachedDesignerStatePolicy(policy_lib.Policy):
         problem = request.study_config.to_problem()
         cache = self._runtime.designer_cache
         entry = cache.get_or_create(self._study_name, lambda: self._designer_factory(problem))
+        # Surrogate-crossover invalidation: a parked speculative batch
+        # predates the crossover's warm/posterior reset, so the designer
+        # reports the flip straight into the engine the moment it happens.
+        if self._runtime.speculative_engine is not None:
+            surrogate_config_lib.install_crossover_listener(
+                entry.designer, self._on_surrogate_crossover
+            )
         with entry.lock:
             try:
                 return self._update_and_suggest(entry, count)
@@ -96,13 +107,26 @@ class CachedDesignerStatePolicy(policy_lib.Policy):
             # unbatchable paths inline.
             executor = self._runtime.batch_executor
             if executor is not None:
-                suggestions = list(executor.suggest(designer, count))
+                # A speculative job's compute rides the deferrable lane: it
+                # shares a flush with live traffic when one is forming, but
+                # never delays a live flush.
+                suggestions = list(executor.suggest(
+                    designer, count, speculative=speculative_lib.in_speculative_compute()
+                ))
             else:
                 suggestions = list(designer.suggest(count))
         self._account(before, self._counts(designer, "ard_train_counts"),
                       {"warm": "warm_trains", "cold": "cold_trains"})
-        self._account(surrogate_before, self._counts(designer, "surrogate_counts"),
+        surrogate_after = self._counts(designer, "surrogate_counts")
+        self._account(surrogate_before, surrogate_after,
                       {"sparse_suggests": "sparse_suggests", "crossovers": "surrogate_crossovers"})
+        if surrogate_before is not None and surrogate_after is not None:
+            crossed = surrogate_after.get("crossovers", 0) - surrogate_before.get("crossovers", 0)
+            if crossed > 0:
+                recorder_lib.get_recorder().record(
+                    self._study_name, "surrogate_crossover", count=crossed,
+                    mode=surrogate_after.get("mode"),
+                )
         # Mirror the trained unconstrained ARD params into the entry: the
         # inspection surface for "what would seed the next train".
         get_state = getattr(designer, "warm_start_state", None)
@@ -113,6 +137,12 @@ class CachedDesignerStatePolicy(policy_lib.Policy):
         entry.sparse_state = get_sparse() if get_sparse is not None else None
         entry.num_suggests += 1
         return suggestions
+
+    def _on_surrogate_crossover(self, old_mode: str, new_mode: str) -> None:
+        """The designer's exact↔sparse flip invalidates the parked batch."""
+        self._runtime.speculative_invalidate(
+            self._study_name, reason=f"crossover:{old_mode}->{new_mode}"
+        )
 
     @staticmethod
     def _counts(designer: Any, attribute: str) -> Optional[dict]:

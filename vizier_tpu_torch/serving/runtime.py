@@ -7,44 +7,67 @@ the real cache. The reliability layer (per-study circuit breakers and its
 config) lives here too, so breaker transitions land in the same stats sink
 and study invalidation drops the breaker along with the designer state. One
 metrics registry backs the serving counters and the latency histograms
-(cache lookups, coalescer waits, per-hop suggest latency).
+(cache lookups, coalescer waits, per-hop suggest latency), all dumped
+together by :meth:`prometheus_text`.
 
 The runtime owns the cross-study batch executor
 (``parallel.batch_executor``) when batching is on, and the exact↔sparse
 surrogate policy every GP designer the factory builds shares.
 
-The JAX runtime's planes that are off by default are not ported: the
-admission controller, the speculative pre-compute engine, the SLO engine,
-the flight recorder, the mesh execution plane, the compilation cache and
-compile prewarm. Asking for one raises.
+The JAX runtime's opt-in planes, each off by default as there:
+
+- ``admission`` (``serving.admission``): fair-share admission, load
+  shedding and degradation at the Pythia dispatch boundary, and the
+  executor's weighted fair share (``VIZIER_TORCH_ADMISSION*``);
+- ``speculative`` (``serving.speculative``): the next suggestion batch
+  computed after each completion on the executor's deferrable lane and
+  served from the designer-cache entry (``VIZIER_TORCH_SPECULATIVE*``);
+- ``slo`` (``observability.slo``): windowed objectives over this runtime's
+  registry with black-box dumps on a breach (``VIZIER_TORCH_SLO*``);
+- the process-global flight recorder (``observability.flight_recorder``,
+  ``VIZIER_TORCH_FLIGHT_RECORDER=1``).
+
+With all of them off the request path is the one without them, bit for bit:
+no engine object, no threads, no reordering, no tenant labels. The servicer's
+order around each plane lives here without protobuf
+(:meth:`guarded_suggest`, :meth:`admitted_suggest`,
+:meth:`speculative_suggest`), so the card drives the same code the gRPC
+servicer adapts. The mesh execution plane, the compilation cache and compile
+prewarm are not ported; asking for one raises.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import threading
+import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, TypeVar
 
 from vizier_tpu_torch.observability import config as obs_config_lib
+from vizier_tpu_torch.observability import flight_recorder as recorder_lib
 from vizier_tpu_torch.observability import metrics as metrics_lib
+from vizier_tpu_torch.observability import slo as slo_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
 from vizier_tpu_torch.parallel import batch_executor as batch_executor_lib
 from vizier_tpu_torch.reliability import breaker as breaker_lib
 from vizier_tpu_torch.reliability import config as reliability_config_lib
 from vizier_tpu_torch.reliability import deadline as deadline_lib
 from vizier_tpu_torch.reliability import errors as errors_lib
+from vizier_tpu_torch.reliability import fallback as fallback_lib
+from vizier_tpu_torch.serving import admission as admission_lib
 from vizier_tpu_torch.serving import coalescer as coalescer_lib
 from vizier_tpu_torch.serving import config as config_lib
 from vizier_tpu_torch.serving import designer_cache as cache_lib
+from vizier_tpu_torch.serving import speculative as speculative_lib
 from vizier_tpu_torch.serving import stats as stats_lib
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
-from vizier_tpu_torch.utils import env as env_lib
 
 _logger = logging.getLogger(__name__)
 
-_NOT_PORTED = ("speculative", "mesh", "slo", "admission")
+R = TypeVar("R")
 
 
 @dataclasses.dataclass
@@ -57,15 +80,43 @@ class GuardedSuggestion:
     fallbacks: List[Any] = dataclasses.field(default_factory=list)
     error: Optional[BaseException] = None
 
+    @property
+    def suggestions(self) -> List[Any]:
+        """The served suggestions (the decision's, else the fallbacks)."""
+        return list(self.decision.suggestions) if self.decision is not None else self.fallbacks
 
-def refuse_flight_recorder() -> None:
-    """Raises when ``VIZIER_TORCH_FLIGHT_RECORDER`` asks for the JAX
-    package's flight recorder, a plane the port does not have (off by
-    default there too)."""
-    if env_lib.env_on("VIZIER_TORCH_FLIGHT_RECORDER", default="0"):
-        raise NotImplementedError(
-            "The flight recorder plane of the JAX package's serving runtime is not ported."
-        )
+
+def speculative_batch_size(metadatas: Iterable[Any]) -> Optional[int]:
+    """The speculative engine's vetting rule over the metadata of a
+    successful response's suggestions: the batch size when it may be
+    parked, else None. No suggestions, or a reliability fallback stamp on
+    any, is never parked: serving cached quasi-random picks when a live
+    compute might succeed would silently degrade the study."""
+    metadatas = list(metadatas)
+    if not metadatas or any(fallback_lib.is_fallback_suggestion(m) for m in metadatas):
+        return None
+    return len(metadatas)
+
+
+def accept_guarded(outcome: Optional[GuardedSuggestion]) -> Optional[int]:
+    """:func:`speculative_batch_size` of a protobuf-free response; an error
+    or a fallback-only outcome is never parked."""
+    if outcome is None or outcome.error is not None or outcome.decision is None:
+        return None
+    return speculative_batch_size(s.metadata for s in outcome.suggestions)
+
+
+def stamp_speculative_hit(outcome: GuardedSuggestion, count: int) -> GuardedSuggestion:
+    """A private copy of a parked protobuf-free response, reconciled to
+    ``count`` (the batch prefix when the client asked for fewer), each
+    suggestion stamped by :func:`speculative.stamp_hit`."""
+    suggestions = []
+    for s in outcome.suggestions[:count]:
+        s = copy.deepcopy(s)
+        speculative_lib.stamp_hit(s.metadata)
+        suggestions.append(s)
+    decision = dataclasses.replace(outcome.decision, suggestions=suggestions)
+    return GuardedSuggestion(decision=decision)
 
 
 class ServingRuntime:
@@ -78,16 +129,15 @@ class ServingRuntime:
         reliability: Optional[reliability_config_lib.ReliabilityConfig] = None,
         observability: Optional[obs_config_lib.ObservabilityConfig] = None,
         surrogates: Optional[surrogate_config_lib.SurrogateConfig] = None,
-        **planes: Any,
+        speculative: Optional[speculative_lib.SpeculativeConfig] = None,
+        mesh: Optional[Any] = None,
+        slo: Optional[slo_lib.SloConfig] = None,
+        admission: Optional[admission_lib.AdmissionConfig] = None,
     ):
-        for name, value in planes.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"Unknown ServingRuntime argument {name!r}.")
-            if value is not None and getattr(value, "enabled", True):
-                raise NotImplementedError(
-                    f"The {name} plane of the JAX package's serving runtime is not ported."
-                )
-        refuse_flight_recorder()
+        if mesh is not None and getattr(mesh, "enabled", True):
+            raise NotImplementedError(
+                "The mesh plane of the JAX package's serving runtime is not ported."
+            )
         self.config = config or config_lib.ServingConfig.from_env()
         self.observability = observability or obs_config_lib.ObservabilityConfig.from_env()
         # The exact↔sparse auto-switch threaded into every GP designer the
@@ -117,6 +167,24 @@ class ServingRuntime:
             "vizier_suggest_latency_seconds",
             help="SuggestTrials wall time per hop (service, pythia).",
         )
+        metrics = self.metrics if self.observability.metrics_on else None
+        # The process-global flight recorder (the stateless no-op unless
+        # VIZIER_TORCH_FLIGHT_RECORDER=1).
+        self.flight_recorder = recorder_lib.get_recorder()
+        # Multi-tenant overload protection at the Pythia dispatch boundary,
+        # and the weighted fair share inside the batch executor. Off by
+        # default: no controller.
+        admission_config = admission or admission_lib.AdmissionConfig.from_env()
+        self.admission: Optional[admission_lib.AdmissionController] = None
+        if admission_config.enabled:
+            self.admission = admission_lib.AdmissionController(
+                admission_config,
+                stats=self.stats,
+                metrics=metrics,
+                recorder=self.flight_recorder,
+                compute_p50_fn=lambda: self._suggest_latency.percentile(50, hop="pythia"),
+                queue_depth_fn=self._live_queue_depth,
+            )
         # Cross-study batch executor: concurrent same-bucket designer
         # computations share one batched program. None = batching off: the
         # per-study path.
@@ -127,19 +195,55 @@ class ServingRuntime:
                 max_wait_ms=self.config.batch_max_wait_ms,
                 pad_partial=self.config.batch_pad_partial,
                 stats=self.stats,
-                metrics=self.metrics if self.observability.metrics_on else None,
+                metrics=metrics,
+                admission=self.admission,
             )
+        # Speculative pre-compute: after each completion the next suggestion
+        # batch is computed in the background and served from the
+        # designer-cache entry. Needs the cache (the slot lives on its
+        # entries). Off by default: no engine.
+        self.speculative = speculative or speculative_lib.SpeculativeConfig.from_env()
+        self.speculative_engine: Optional[speculative_lib.SpeculativeEngine] = None
+        if self.speculative.speculative and self.config.designer_cache:
+            self.speculative_engine = speculative_lib.SpeculativeEngine(
+                config=self.speculative,
+                cache=self.designer_cache,
+                stats=self.stats,
+                metrics=metrics,
+                executor=self.batch_executor,
+            )
+        # The SLO engine over this runtime's registry, with breach-triggered
+        # black-box dumps. Off by default: no engine, no thread.
+        self.slo = slo or slo_lib.SloConfig.from_env()
+        self.slo_engine: Optional[slo_lib.SloEngine] = None
+        if self.slo.enabled:
+            self.slo_engine = slo_lib.SloEngine(
+                config=self.slo, registry=self.metrics, recorder=self.flight_recorder
+            )
+            self.slo_engine.start()
         self._lock = threading.Lock()
         self._closed = False
 
     def shutdown(self) -> None:
-        """Drains and stops the batch executor. Idempotent."""
+        """Stops the SLO evaluator, cancels speculative jobs and joins their
+        workers, then drains the batch executor — in that order, so no
+        speculative job can submit into a closing executor. Idempotent."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+        if self.slo_engine is not None:
+            self.slo_engine.close()
+        if self.speculative_engine is not None:
+            self.speculative_engine.close()
         if self.batch_executor is not None:
             self.batch_executor.close()
+
+    def _live_queue_depth(self) -> int:
+        """Queued live executor slots (0 with batching off) — the admission
+        controller's deadline-shed wait estimator input."""
+        executor = self.batch_executor
+        return 0 if executor is None else executor.live_pending()
 
     def guarded_suggest(
         self,
@@ -227,6 +331,7 @@ class ServingRuntime:
             ))
         self.stats.increment("fallbacks", len(suggestions))
         tracing_lib.add_current_event("fallback.served", reason=reason, count=len(suggestions))
+        self.flight_recorder.record(study_name, "fallback", reason=reason, count=len(suggestions))
         _logger.warning(
             "Serving %d quasi-random fallback suggestion(s) for %s (%s).",
             len(suggestions),
@@ -235,17 +340,181 @@ class ServingRuntime:
         )
         return GuardedSuggestion(fallbacks=suggestions)
 
+    def admitted_suggest(
+        self,
+        study_name: str,
+        live: Callable[[], GuardedSuggestion],
+        fallback: Callable[[str], List[Any]],
+        deadline_secs: float = 0.0,
+        setup: Optional[Callable[[], Any]] = None,
+    ) -> GuardedSuggestion:
+        """The admission gate around one live designer computation.
+
+        The JAX Pythia servicer's ``_suggest_compute_admitted`` without
+        protobuf. With no controller (the default), and inside a speculative
+        job's own compute (the engine has its own executor-backed gate, and
+        a background pre-compute must never take a live in-flight slot),
+        this is a direct call of ``live()``. A SHED verdict returns the
+        typed ``TRANSIENT: RESOURCE_EXHAUSTED`` error with its retry-after
+        hint (an :class:`~admission.AdmissionShedError`) without touching
+        the study's circuit breaker or computing anything. A DEGRADE verdict
+        (sustained overload, low-priority tenant) serves ``fallback``'s
+        seeded quasi-random suggestions, stamped ``ns "admission":
+        degraded=quasi_random`` next to the reliability stamp; ``setup``
+        (the live path's config parsing) runs first, and its exception
+        completes the op as it is, a permanent error, since a misconfigured
+        study served fallbacks would stay misconfigured. An ADMIT
+        holds the in-flight slot for ``live()``'s duration, with the tenant
+        on the contextvar the batch executor's fair share reads.
+        """
+        admission = self.admission
+        if admission is None or speculative_lib.in_speculative_compute():
+            return live()
+        tenant = admission_lib.tenant_of(study_name)
+        decision = admission.decide(tenant, deadline_secs=deadline_secs, study=study_name)
+        if decision.outcome == admission_lib.SHED:
+            tracing_lib.add_current_event("admission.shed", tenant=tenant, reason=decision.reason)
+            return GuardedSuggestion(error=decision.error())
+        if decision.outcome == admission_lib.DEGRADE:
+            tracing_lib.add_current_event("admission.degraded", tenant=tenant)
+            if setup is not None:
+                try:
+                    setup()
+                except Exception as e:
+                    return GuardedSuggestion(error=e)
+            out = self._fallback(study_name, fallback, "admission_degraded")
+            for suggestion in out.fallbacks:
+                admission_lib.stamp_degraded(suggestion.metadata)
+            return out
+        with admission.in_flight(decision):
+            return live()
+
+    # -- speculative pre-compute ---------------------------------------------
+
+    def bind_speculative(
+        self,
+        fingerprint_fn: Callable[[str], Any],
+        compute_fn: Callable[[str, int, int], Any],
+        accept_fn: Callable[[Any], Optional[int]],
+    ) -> bool:
+        """Connects the speculative engine to a compute path (no-op without
+        an engine); see :class:`~speculative.SpeculativeEngine` for the
+        three callables. Returns True when an engine was bound."""
+        engine = self.speculative_engine
+        if engine is None:
+            return False
+        engine.bind(fingerprint_fn=fingerprint_fn, compute_fn=compute_fn, accept_fn=accept_fn)
+        return True
+
+    def notify_trial_event(self, study_name: str) -> None:
+        """A completion or measurement moved the study's frontier: drop the
+        parked batch and enqueue a pre-compute for the new frontier."""
+        engine = self.speculative_engine
+        if engine is not None and engine.bound:
+            engine.notify_completion(study_name)
+
+    def speculative_suggest(
+        self,
+        study_name: str,
+        count: int,
+        fingerprint: Callable[[], speculative_lib.FrontierFingerprint],
+        live: Callable[[], R],
+        stamp: Callable[[R, int], R],
+        succeeded: Callable[[R], bool],
+    ) -> R:
+        """The speculative serve check around the live compute.
+
+        The JAX Pythia servicer's ``_suggest_compute`` without protobuf.
+        With no bound engine, and inside a speculative job's own compute (a
+        job must compute, not serve itself), this is a direct call of
+        ``live()``. Otherwise the parked batch is popped when the request's
+        frontier (``fingerprint()``: the current completed and active sets
+        and the config hash) matches the one it was computed for, and
+        returned through ``stamp(parked, count)``; any failure of that check
+        decays to ``live()``. A live response that ``succeeded`` fires the
+        opt-in post-fill trigger.
+        """
+        engine = self.speculative_engine
+        if engine is None or not engine.bound or speculative_lib.in_speculative_compute():
+            return live()
+        t0 = time.perf_counter()
+        served = None
+        if study_name:
+            try:
+                engine.note_live_suggest(study_name, count)
+                served, _ = engine.try_serve(study_name, count, fingerprint())
+            except Exception:
+                _logger.warning(
+                    "Speculative serve check failed for %s; computing live.",
+                    study_name,
+                    exc_info=True,
+                )
+                served = None
+        if served is not None:
+            served = stamp(served, count)
+            engine.observe_suggest_latency("hit", time.perf_counter() - t0)
+            return served
+        response = live()
+        engine.observe_suggest_latency("miss", time.perf_counter() - t0)
+        if succeeded(response):
+            # The live compute just refreshed the designer entry; with
+            # speculate_on_fill, pre-compute the batch a second client at
+            # the post-suggest frontier would receive.
+            engine.notify_fill(study_name)
+        return response
+
+    def speculative_invalidate(self, study_name: str, reason: str = "") -> None:
+        """Drops only the study's speculative slot and job (frontier
+        surgery, surrogate crossover); the designer entry itself stays."""
+        if self.speculative_engine is not None:
+            self.speculative_engine.invalidate(study_name, reason=reason)
+
+    # -- observability -------------------------------------------------------
+
     def observe_suggest_latency(
-        self, hop: str, seconds: float, trace_id: Optional[str] = None
+        self,
+        hop: str,
+        seconds: float,
+        trace_id: Optional[str] = None,
+        tenant: Optional[str] = None,
     ) -> None:
         """Records one suggest's wall time at a hop (no-op when metrics are
-        off). ``trace_id`` makes the observation an exemplar candidate."""
+        off). ``trace_id`` makes the observation an exemplar candidate.
+        ``tenant`` (set by the service hop only while admission is armed)
+        splits the series per tenant so the SLO engine can hold a per-tenant
+        p99 objective; None keeps the series as without admission."""
         if self.observability.metrics_on:
-            self._suggest_latency.observe(seconds, trace_id=trace_id, hop=hop)
+            labels = {"hop": hop}
+            if tenant is not None:
+                labels["tenant"] = tenant
+            self._suggest_latency.observe(seconds, trace_id=trace_id, **labels)
+
+    def slo_report(self) -> Dict[str, Any]:
+        """Evaluates the armed SLOs now and returns the JSON-ready report
+        (``{"armed": False}`` when the SLO engine is off)."""
+        if self.slo_engine is None:
+            return {"armed": False}
+        return self.slo_engine.report()
+
+    def admission_snapshot(self) -> Dict[str, Any]:
+        """The admission controller's JSON-ready state (per-tenant sheds and
+        admits, overload state, transitions); ``{"enabled": False}`` with
+        the plane off."""
+        if self.admission is None:
+            return {"enabled": False}
+        return self.admission.snapshot()
+
+    def prometheus_text(self) -> str:
+        """Every serving counter and latency histogram, Prometheus format."""
+        return self.metrics.prometheus_text()
 
     def invalidate_study(self, study_name: str) -> bool:
-        """Drops the study's designer state and breaker (study deleted)."""
+        """Drops the study's designer state, breaker, speculative job and
+        recorder ring (study deleted)."""
         self.breakers.invalidate(study_name)
+        if self.speculative_engine is not None:
+            self.speculative_engine.invalidate(study_name, reason="delete_study")
+        self.flight_recorder.invalidate(study_name)
         return self.designer_cache.invalidate(study_name)
 
     def note_study_config(self, study_name: str, config_hash: str) -> bool:
@@ -255,13 +524,17 @@ class ServingRuntime:
         hash turnover (a study deleted and recreated through another
         frontend, whose ``DeleteStudy`` invalidation cannot reach this
         process, or a metadata update) everything trained against the
-        previous incarnation (designer entry, breaker) is dropped so it is
-        never served again. Returns True when a turnover was detected.
+        previous incarnation (designer entry, breaker, speculative slot) is
+        dropped so it is never served again. The flight-recorder ring
+        survives: it is history keyed by time, not derived state. Returns
+        True when a turnover was detected.
         """
         changed = self.designer_cache.note_config_hash(study_name, config_hash)
         if changed:
             # note_config_hash already dropped the designer entry itself.
             self.breakers.invalidate(study_name)
+            if self.speculative_engine is not None:
+                self.speculative_engine.invalidate(study_name, reason="config_turnover")
         return changed
 
     def snapshot(self) -> Dict[str, int]:

@@ -11,18 +11,51 @@ decision is made per suggest from the study's completed-trial count:
   boundary cannot flap between the two surrogates on alternate suggests.
 
 ``from_env`` reads the port's ``VIZIER_TORCH_SPARSE*`` switches for the
-serving runtime. The JAX package's crossover listener serves only its
-speculative pre-compute plane, which the port does not have.
+serving runtime.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 from vizier_tpu_torch.utils import env as env_lib
 
+_logger = logging.getLogger(__name__)
+
 MODE_EXACT = "exact"
 MODE_SPARSE = "sparse"
+
+# -- crossover invalidation hook ---------------------------------------------
+# A crossover drops the designer's warm seed and cached posterior; anything
+# the serving tier derived from pre-crossover state (the speculative
+# pre-computed suggestion batch) is equally stale. Listeners are installed as
+# a plain designer attribute (the config object stays a frozen hashable
+# value) and fired best-effort from inside the designer's mode switch, so
+# invalidation happens the moment the flip occurs rather than after the
+# compute returns.
+
+_CROSSOVER_ATTR = "_surrogate_crossover_listener"
+
+
+def install_crossover_listener(designer, listener) -> None:
+    """Attaches ``listener(old_mode, new_mode)`` to ``designer`` (replacing
+    any previous listener; idempotent re-installs are the common case)."""
+    setattr(designer, _CROSSOVER_ATTR, listener)
+
+
+def fire_crossover_hook(designer, old_mode: str, new_mode: str) -> None:
+    """Invokes the installed crossover listener, swallowing its errors — a
+    broken observer must never fail the designer's own compute."""
+    listener = getattr(designer, _CROSSOVER_ATTR, None)
+    if listener is None:
+        return
+    try:
+        listener(old_mode, new_mode)
+    except Exception:
+        _logger.warning(
+            "Surrogate crossover listener failed (%s -> %s).", old_mode, new_mode, exc_info=True
+        )
 
 
 @dataclasses.dataclass(frozen=True)
