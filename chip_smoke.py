@@ -13,10 +13,13 @@ Phases (any failure raises and exits non-zero):
    row masks; 6 and 3 restarts), Kmm (diagonal value 1e-4, which must give
    amp^2 + 1e-4 bit for bit), per-pick Knm and Kmm over 133 ragged slots and
    its predict shapes, ragged shapes, masked dims with batched x1, Dc=0 with
-   Ds>0, and Dc=80. K2 must give bit-identical gradients on repeated calls
-   and the Gram's two triangles must be bit-identical. Then every tile shape
-   is forced in turn at each cross shape of both paths, checked the same way
-   and timed, so no tile that either path can take goes unchecked.
+   Ds>0, and Dc=80. K2 runs in each mode (parameters with both sides'
+   feature gradients; the feature kernel alone; a Gram's parameters alone),
+   each twice with bit-identical results, the feature kernel giving the same
+   floats with and without the parameters; the Gram's two triangles must be
+   bit-identical. Then every tile shape is forced in turn at each cross
+   shape of both paths, checked the same way and timed, so no tile that
+   either path can take goes unchecked.
 3. Times each kernel at the Gram and the cross shapes of both paths by device
    time (CUDA events around the replay of a CUDA graph of back-to-back
    launches, so the host's enqueue rate drops out), beside the wrapper's host
@@ -164,9 +167,12 @@ Phases (any failure raises and exits non-zero):
    the query points through K2's feature kernel: points in [0, 1]^20, the 5
    best scores recomputed on the CPU (5e-3 x max(1, |cpu|)), the loss
    gradient at the 16 starting points against the CPU plain autograd
-   (1e-3 relative), K2's feature launches counted (``features`` mode) and
-   its layout held to the plain version and timed; the eagle sweep's best
-   UCB at the same state printed beside it. ``DesignerAsOptimizer`` with
+   (1e-3 relative), every K2 launch the feature kernel alone
+   (``features_only`` mode: the GP's parameters are constants), its layout
+   held to the plain version in both K2 modes and timed alone, with the
+   parameters and parameters only, beside the plain versions, the library
+   form (``torch.cdist`` + ``torch.baddbmm``) and both bounds; the eagle
+   sweep's best UCB at the same state printed beside it. ``DesignerAsOptimizer`` with
    the eagle designer over the same score (20 rounds x 10). The median and
    regression early-stopping rules through ``InRamPolicySupporter`` on a
    learning-curve study (300 trials x 100 steps, 8 parameters, 250
@@ -210,9 +216,10 @@ Phases (any failure raises and exits non-zero):
    layout of its two designer computations.
 14. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
-   service-reliability and service-planes steps' included, by mode; K2's ``feature_gradient`` at the L-BFGS-B
-   layout), the card line again, and as the last line ``{"ok": true,
-   "device": {...}}``.
+   service-reliability and service-planes steps' included, by mode; K2's
+   ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
+   with the parameters, its library form and bounds), the card line again,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 The phases are host-bound, so phases 7-9 run in two worker processes on
 the same card (``_WORKER_PHASES``: this script with ``--worker``), started
@@ -225,7 +232,10 @@ layout after the workers end. A worker that fails, or runs past
 With ``--previous-source FILE`` (the kernel source of commit 997e03e, ``git
 show 997e03e:vizier_tpu_torch/csrc/matern52.cu``), it also builds that file
 and checks that today's shared-input launches give the same floats, bit for
-bit, as that source's at every ungrouped case of phase 2.
+bit, as that source's at every ungrouped case of phase 2 (K1, and K2's
+parameter gradients with and without the feature gradients); the feature
+gradients, whose pair sums the redesigned feature kernel takes in another
+order, are held to that source's within the K2 tolerance.
 
 Exits non-zero without a result when no GPU is visible or when run outside a
 checkout of the repository.
@@ -254,6 +264,7 @@ import torch
 # tensor cores. A card set below 700 W runs slower; its limit is printed.
 _HBM_BYTES_PER_S = 3.35e12
 _FP32_FLOPS = 67e12
+_SQRT5 = 2.2360679774997896
 
 # Tolerances of the kernel checks. K1 and K2's feature gradients: max
 # |kernel - plain| over max |plain| of each output; the >64-D plain forward
@@ -644,9 +655,20 @@ def _param_term_sums(kernels, grad, args, masks):
             kernels.matern52_ard_bwd_plain(torch.abs(grad), *args, *masks[:2])[:3]]
 
 
+# K2's modes in _check_case: parameters and both sides' features (the
+# parameter kernel on all ordered pairs, then the feature kernel), the
+# feature kernel alone (parameters held constant), and for a Gram the
+# parameters alone (the symmetric path).
+_K2_RUNS = {"features": dict(need_x1=True, need_x2=True),
+            "features only": dict(need_params=False, need_x1=True, need_x2=True),
+            "symmetric": dict()}
+
+
 def _check_case(kernels, gen, name, args, masks, *, same, dc, verbose=True):
     """K1 and K2 against their plain versions at one input; raises on a
-    disagreement. Returns (incoming gradient, K1 max abs err, K2 max abs err)."""
+    disagreement. Each K2 mode runs twice and must give the same floats both
+    times, and the feature kernel the same floats with and without the
+    parameters. Returns (incoming gradient, K1 max abs err, K2 max abs err)."""
     say = print if verbose else (lambda *_: None)
     got = kernels.matern52_ard_fwd_cuda(*args, *masks)
     want = kernels.matern52_ard_fwd_plain(*args, *masks)
@@ -661,13 +683,17 @@ def _check_case(kernels, gen, name, args, masks, *, same, dc, verbose=True):
     grad = torch.randn(got.shape, generator=gen, device="cuda")
     want_g = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
     term_sums = _param_term_sums(kernels, grad, args, masks)
-    # Feature gradients take the all-pairs path; without them a Gram takes
-    # the symmetric one. Both are held to the plain version.
-    runs = [dict(need_x1=True, need_x2=True)] + ([dict()] if same else [])
     bwd_err = 0.0
-    for run in runs:
+    outputs = {}
+    for mode, run in _K2_RUNS.items():
+        if mode == "symmetric" and not same:
+            continue
         got_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)
+        again = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)
         torch.cuda.synchronize()
+        if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got_g, again)):
+            raise AssertionError(f"K2 ({mode}) is not deterministic at {name}")
+        outputs[mode] = got_g
         worst_rel = 0.0
         for i, (label, a, b) in enumerate(
                 zip(("amp", "inv_cont", "inv_sq_cat", "x1", "x2"), got_g, want_g)):
@@ -681,13 +707,15 @@ def _check_case(kernels, gen, name, args, masks, *, same, dc, verbose=True):
                 r, e = _rel_err(a, b)
                 measure = "rel"
             worst_rel, bwd_err = max(worst_rel, r), max(bwd_err, e)
-            say(f"K2 {name} {'features' if run else 'symmetric'} d/{label}: "
+            say(f"K2 {name} {mode} d/{label}: "
                   f"max_abs_err={e:.3e} max_{measure}_err={r:.3e} (tol {_BWD_TOL})")
         if not worst_rel <= _BWD_TOL:
-            raise AssertionError(f"K2 disagrees with its plain version at {name}")
-    again = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **runs[-1])
-    if not all(torch.equal(a, b) for a, b in zip(got_g[:3], again[:3])):
-        raise AssertionError(f"K2 is not deterministic at {name}")
+            raise AssertionError(f"K2 ({mode}) disagrees with its plain version at {name}")
+    alone, full = outputs["features only"], outputs["features"]
+    if any(g is not None for g in alone[:3]) or not all(
+            torch.equal(a, b) for a, b in zip(full[3:], alone[3:])):
+        raise AssertionError(f"K2's feature kernel differs with and without the parameters at "
+                             f"{name}")
     return grad, fwd_err, bwd_err
 
 
@@ -724,7 +752,8 @@ def check_kernels(kernels, lib):
             _check_kmm_diagonal(kernels, name, args, masks, spec["valid"])
         if name in _TIMED:
             timed[name] = (args, masks, grad, fwd_err, bwd_err)
-    print("K2 repeated calls bit-identical at every shape; Gram triangles bit-identical")
+    print("K2 repeated calls bit-identical in every mode at every shape; Gram triangles "
+          "bit-identical")
     return timed
 
 
@@ -1015,10 +1044,13 @@ def _load_previous(path: str):
 def check_previous_bit_identity(kernels, lib):
     """Every ungrouped case of phase 2 through the previous source's kernels
     and today's: K1's output and K2's parameter gradients must be the same
-    floats, bit for bit (the group strides are 0 and the group size 1)."""
+    floats, bit for bit (the group strides are 0 and the group size 1), with
+    and without the feature gradients. The feature gradients sum their pairs
+    in another order since the feature kernel's redesign, so they are held to
+    the previous source's within _BWD_TOL of their largest entry."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    checked = 0
+    checked, worst = 0, 0.0
     for name, spec in _CASES:
         args, masks = _case(gen, **spec)
         if _grouped(args, masks):
@@ -1036,22 +1068,50 @@ def check_previous_bit_identity(kernels, lib):
             raise RuntimeError(f"previous K1: CUDA error {status}")
         now = kernels.matern52_ard_fwd_cuda(*args, *masks)
         grad = torch.randn((b, n, m), generator=gen, device="cuda")
-        blocks = lib.matern52_bwd_num_blocks(b, n, m, sym)
-        grads = torch.empty((b, 1 + dc + ds), device="cuda")
-        partials = torch.empty((b, max(blocks, 1), 1 + dc + ds), device="cuda")
-        status = lib.matern52_ard_bwd(grad.data_ptr(), *(ptr(t) for t in args + masks[:2]), s1, s2,
-                                      b, n, m, dc, ds, sym, grads.data_ptr(), partials.data_ptr(),
-                                      None, None, None, stream)
-        if status:
-            raise RuntimeError(f"previous K2: CUDA error {status}")
-        now_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2])
-        same = torch.equal(out, now) and torch.equal(grads[:, 0], now_g[0]) and torch.equal(
-            grads[:, 1 : 1 + dc], now_g[1]) and torch.equal(grads[:, 1 + dc:], now_g[2])
-        print(f"previous vs today's kernels [{name}]: {'bit-identical' if same else 'DIFFERENT'}")
+
+        def previous_bwd(features: bool):
+            """The previous source's K2: (grads, gx1, gx2); with features on
+            all ordered pairs through its [B, N, M] scratch."""
+            tiles = 0 if features else sym
+            blocks = lib.matern52_bwd_num_blocks(b, n, m, tiles)
+            grads = torch.empty((b, 1 + dc + ds), device="cuda")
+            partials = torch.empty((b, max(blocks, 1), 1 + dc + ds), device="cuda")
+            w, gx1, gx2 = ((torch.empty((b, n, m), device="cuda"), torch.empty_like(x1),
+                            torch.empty_like(x2)) if features else (None, None, None))
+            status = lib.matern52_ard_bwd(grad.data_ptr(), *(ptr(t) for t in args + masks[:2]),
+                                          s1, s2, b, n, m, dc, ds, tiles, grads.data_ptr(),
+                                          partials.data_ptr(), ptr(w), ptr(gx1), ptr(gx2), stream)
+            if status:
+                raise RuntimeError(f"previous K2: CUDA error {status}")
+            return grads, gx1, gx2
+
+        def params_equal(grads, now_g):
+            return (torch.equal(grads[:, 0], now_g[0])
+                    and torch.equal(grads[:, 1 : 1 + dc], now_g[1])
+                    and torch.equal(grads[:, 1 + dc:], now_g[2]))
+
+        grads, _, _ = previous_bwd(False)
+        same = torch.equal(out, now) and params_equal(
+            grads, kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2]))
+        feature_errs = []
+        if dc > 0:
+            grads, gx1, gx2 = previous_bwd(True)
+            now_g = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], need_x1=True,
+                                                  need_x2=True)
+            same = same and params_equal(grads, now_g)
+            feature_errs = [_rel_err(now_g[3], gx1)[0], _rel_err(now_g[4], gx2)[0]]
+            worst = max(worst, *feature_errs)
+        print(f"previous vs today's kernels [{name}]: K1 and K2's parameters "
+              f"{'bit-identical' if same else 'DIFFERENT'}; feature gradients' max rel err "
+              f"{[f'{e:.3e}' for e in feature_errs]} (tol {_BWD_TOL})")
         if not same:
             raise AssertionError(f"today's shared-input launch differs from 997e03e's at {name}")
+        if not all(e <= _BWD_TOL for e in feature_errs):
+            raise AssertionError(f"today's feature gradients disagree with 997e03e's at {name}")
         checked += 1
-    print(f"today's shared-input K1/K2 launches bit-identical to 997e03e's at {checked} cases")
+    print(f"today's shared-input K1 and K2 parameter launches bit-identical to 997e03e's at "
+          f"{checked} cases, with and without features; feature gradients within {_BWD_TOL} "
+          f"(worst {worst:.3e})")
 
 
 def _bench_trials(vz, num_trials: int, dim: int):
@@ -2915,6 +2975,40 @@ def _features_work(args, masks, grad):
     return nbytes + x1.numel() * 4, ops + b * n * m * 3 * dc
 
 
+def _features_only_work(args, masks, grad):
+    """(bytes, operations) of K2's feature kernel alone for the first side:
+    every input and the incoming gradient read once, the feature output
+    written once; per pair and continuous dim a subtract, a multiply and an
+    FMA for r^2 and a multiply and an FMA for the sum (5), per categorical
+    dim a compare and an add (2), ~17 for r, the Matern factor and the
+    mask."""
+    x1, z1, x2, z2, amp, inv, inv_sq = args
+    b, n, m, dc, ds = amp.shape[0], x1.shape[-2], x2.shape[-2], inv.shape[1], inv_sq.shape[1]
+    nbytes = _nbytes(args + masks[:2] + (grad,)) + x1.numel() * 4
+    return nbytes, b * n * m * (5 * dc + 2 * ds + 17)
+
+
+def _library_features_fn(args, masks, grad):
+    """The feature gradient of the first side in PyTorch calls, for a shared
+    x1 at B=1 with x2's rows masked (L-BFGS-B's layout): r by torch.cdist with
+    exact differences, dL/d(r^2) elementwise, then the expansion
+    2 inv^2 (x1 sum_m w - w @ x2) as one torch.baddbmm. The port never calls
+    it (the kernel keeps exact differences, ROADMAP C2)."""
+    x1, _, x2, _, amp, inv, _ = args
+    mask2 = masks[1]
+
+    def library():
+        r = torch.cdist((x1 * inv)[None], (x2 * inv)[None],
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        a2 = (amp * amp)[:, None, None]
+        w = grad * a2 * (-5.0 / 6.0) * (1.0 + _SQRT5 * r) * torch.exp(-_SQRT5 * r)
+        w = torch.where(mask2[None, None, :], w, torch.zeros_like(w))
+        gx = torch.baddbmm(x1[None] * w.sum(-1, keepdim=True), w, x2[None], alpha=-1)
+        return (gx * (2.0 * inv * inv)[:, None, :])[0]
+
+    return library
+
+
 def _curve_study(vz):
     """(problem, trials): y_t = f(x)·(1 − e^(−t/τ(x))) + 0.01·noise over
     _CURVE_STEPS steps, f and τ seeded functions of the parameters; the
@@ -3052,11 +3146,14 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
     if not grad_rel <= _LBFGSB_GRAD_TOL:
         raise AssertionError("algorithm extras: the L-BFGS-B gradient on the card disagrees "
                              "with the CPU plain path")
-    if counts["matern52_ard_bwd"]["features"] <= 0:
-        raise AssertionError("algorithm extras: L-BFGS-B did not launch K2's feature kernel")
+    # The GP's parameters are constants here: every K2 launch must be the
+    # feature kernel alone.
+    k2_modes = counts["matern52_ard_bwd"]
+    if k2_modes["features_only"] <= 0 or sum(k2_modes.values()) != k2_modes["features_only"]:
+        raise AssertionError(f"algorithm extras: L-BFGS-B's K2 launches were not all the "
+                             f"feature kernel alone: {k2_modes}")
     # One more run, profiled: eager launches and the device time of each of
-    # K2's kernels (the parameter kernel also writes w, which the feature
-    # kernel reads; its parameter sums and their reduction go unused here).
+    # K2's kernels (the feature kernel only, on this path).
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         opt(scoring.score, num_continuous=_DIM, count=_COUNT, z0=z0)
         torch.cuda.synchronize()
@@ -3083,8 +3180,9 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
           f"{k2_ms}; eagle sweep's best UCB at the same state {float(sweep.scores[0]):.5f} "
           f"({sweep_wall * 1e3:.1f} ms)")
 
-    # K2 at the L-BFGS-B layout: with the feature gradient (what the path
-    # launches), parameters only, and the plain version.
+    # K2 at the L-BFGS-B layout: the feature kernel alone (what the path
+    # launches), with the parameters, parameters only, the plain versions and
+    # the library form.
     gen = torch.Generator(device="cuda").manual_seed(6)
     mask2 = state.data.row_mask
     args = (torch.rand((opt.num_restarts, _DIM), generator=gen, device="cuda"),
@@ -3095,33 +3193,60 @@ def run_algorithm_extras_phase(kernels, lib, mods, designer):
             torch.zeros((1, 0), device="cuda"))
     masks = (None, mask2, None)
     grad = torch.randn((1, opt.num_restarts, mask2.shape[0]), generator=gen, device="cuda")
-    got = kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], need_x1=True)
-    want = kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2])
-    rel, feat_err = _rel_err(got[3], want[3])
-    if not rel <= _BWD_TOL:
-        raise AssertionError(f"K2's feature gradient disagrees with its plain version at "
-                             f"{_LBFGSB_FEATURES}")
+    want = kernels.matern52_ard_features_plain(grad, *args, *masks[:2], need_x2=False)[0]
+    feature_errs = {}
+    for mode, run in (("features", dict(need_x1=True)),
+                      ("features only", dict(need_params=False, need_x1=True))):
+        got, again = (kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2], **run)[3]
+                      for _ in range(2))
+        rel, feature_errs[mode] = _rel_err(got, want)
+        print(f"K2 ({mode}) feature gradient at {_LBFGSB_FEATURES}: max_abs_err "
+              f"{feature_errs[mode]:.3e} (rel {rel:.3e}, tol {_BWD_TOL}), repeat "
+              f"{'bit-identical' if torch.equal(got, again) else 'DIFFERENT'}")
+        if not (rel <= _BWD_TOL and torch.equal(got, again)):
+            raise AssertionError(f"K2's feature gradient ({mode}) disagrees with its plain "
+                                 f"version or between runs at {_LBFGSB_FEATURES}")
+    library = _library_features_fn(args, masks, grad)
+    library_rel, library_err = _rel_err(library(), want)
+    if not library_rel <= _FWD_WIDE_TOL:
+        raise AssertionError(f"the library form of the feature gradient disagrees with the "
+                             f"plain version at {_LBFGSB_FEATURES}: rel {library_rel:.3e}")
     nbytes, ops = _features_work(args, masks, grad)
+    only_bytes, only_ops = _features_only_work(args, masks, grad)
     figures["k2_features"] = dict(
-        shape=_LBFGSB_FEATURES, launches=counts["matern52_ard_bwd"]["features"],
-        max_abs_err=feat_err, bound=_bound(nbytes, ops), library_ms=None)
+        shape=_LBFGSB_FEATURES, launches=k2_modes["features_only"],
+        max_abs_err=feature_errs["features only"],
+        max_abs_err_with_params=feature_errs["features"], library_max_abs_err=library_err,
+        bound=_bound(nbytes, ops), features_only_bound=_bound(only_bytes, only_ops))
 
     def time_features():
         """Times K2 at this layout; called once the worker processes have
         ended, so the card runs nothing else."""
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: the library form would not be float32")
         k2f = figures["k2_features"]
         k2f.update(
+            features_only_ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(
+                grad, *args, *masks[:2], need_params=False, need_x1=True)),
             ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args, *masks[:2],
                                                                 need_x1=True)),
             params_only_ms=_device_ms(lambda: kernels.matern52_ard_bwd_cuda(grad, *args,
                                                                             *masks[:2])),
+            library_ms=_device_ms(library),
+            features_only_plain_ms=_device_ms(lambda: kernels.matern52_ard_features_plain(
+                grad, *args, *masks[:2], need_x2=False), 3, 2),
             plain_ms=_device_ms(lambda: kernels.matern52_ard_bwd_plain(grad, *args, *masks[:2]),
                                 3, 2))
-        print(f"matern52_ard_bwd with feature gradient [{_LBFGSB_FEATURES}]: device "
-              f"{k2f['ms']:.5f} ms/launch (parameters only {k2f['params_only_ms']:.5f}), plain "
-              f"{k2f['plain_ms']:.4f} ms, library none, bound {k2f['bound'][0]:.6f} ms by "
-              f"{k2f['bound'][1]}; feature gradient max_abs_err {feat_err:.3e} (rel {rel:.3e}, "
-              f"tol {_BWD_TOL}); {k2f['launches']} launches on the L-BFGS-B path")
+        (bound, by), (only_bound, only_by) = k2f["bound"], k2f["features_only_bound"]
+        print(f"matern52_ard_bwd feature kernel alone [{_LBFGSB_FEATURES}]: device "
+              f"{k2f['features_only_ms']:.5f} ms/launch, plain "
+              f"{k2f['features_only_plain_ms']:.4f} ms, library (cdist + baddbmm) "
+              f"{k2f['library_ms']:.5f} ms, bound {only_bound:.6f} ms by {only_by} "
+              f"({k2f['features_only_ms'] / only_bound:.0f}x); {k2f['launches']} launches on the "
+              f"L-BFGS-B path")
+        print(f"matern52_ard_bwd with parameters and feature gradient [{_LBFGSB_FEATURES}]: "
+              f"device {k2f['ms']:.5f} ms/launch (parameters only {k2f['params_only_ms']:.5f}), "
+              f"plain {k2f['plain_ms']:.4f} ms, bound {bound:.6f} ms by {by}")
 
     # 2. DesignerAsOptimizer: the eagle designer's mini-study over the score.
     def score_suggestions(suggestions):
@@ -4092,13 +4217,17 @@ def main() -> int:
                     tile: row[tile][f"{key}_ms"] for tile in _TILE_KINDS.values()}}
                 for shape, row in tiles.items()},
         })
-    # K2's feature side, which only L-BFGS-B's path launches, at its layout.
+    # K2's feature kernel, which L-BFGS-B's path launches alone, at its
+    # layout ("ms", "plain_ms", "bound_ms": that launch); beside it K2 with
+    # the parameters too, and parameters only.
     k2f = extras_figures["k2_features"]
     rows[1]["feature_gradient"] = {
-        "shape": k2f["shape"], "launches": k2f["launches"], "ms": k2f["ms"],
-        "params_only_ms": k2f["params_only_ms"], "plain_ms": k2f["plain_ms"],
-        "bound_ms": k2f["bound"][0], "bound_by": k2f["bound"][1], "library_ms": None,
-        "max_abs_err": k2f["max_abs_err"]}
+        "shape": k2f["shape"], "launches": k2f["launches"], "ms": k2f["features_only_ms"],
+        "plain_ms": k2f["features_only_plain_ms"], "bound_ms": k2f["features_only_bound"][0],
+        "bound_by": k2f["features_only_bound"][1], "library_ms": k2f["library_ms"],
+        "max_abs_err": k2f["max_abs_err"], "with_params_ms": k2f["ms"],
+        "with_params_plain_ms": k2f["plain_ms"], "with_params_bound_ms": k2f["bound"][0],
+        "with_params_bound_by": k2f["bound"][1], "params_only_ms": k2f["params_only_ms"]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

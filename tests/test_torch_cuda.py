@@ -1053,20 +1053,135 @@ def test_nsga2_route_serves_on_the_card(cuda_device):
 def test_feature_gradient_at_the_lbfgsb_layout_matches_plain(cuda_device):
     """K2's feature side at L-BFGS-B's layout: 16 restarts' query points
     against 1024 data rows (1000 real), B = 1, Dc = 20. The query side's
-    gradient (side 0) and the parameter gradients against the plain
-    version; the launch counts as "features"."""
+    gradient (side 0) in both K2 modes against the plain versions, the
+    parameter gradients too when asked for; each mode's launch counts once,
+    as "features" with the parameters and "features_only" without."""
     args = _args(cuda_device, 1, 16, 1024, 20, 0)
     _, mask2, _ = _masks(cuda_device, 1, 16, 1024, None, 1000)
     grad = torch.randn((1, 16, 1024), generator=torch.Generator(device=cuda_device).manual_seed(5),
                        device=cuda_device)
-    tk.reset_launch_counts()
-    got = tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True)
-    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["features"] == 1
-    assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_bwd"].values()) == 1
     want = tk.matern52_ard_bwd_plain(grad, *args, None, mask2)
-    assert got[4] is None
-    _assert_grads_close(got[:4], want[:4])
-    _assert_params_within_rounding(got, grad, args, None, mask2)
+    for mode, run in (("features", {}), ("features_only", dict(need_params=False))):
+        tk.reset_launch_counts()
+        got = tk.matern52_ard_bwd_cuda(grad, *args, None, mask2, need_x1=True, **run)
+        assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"][mode] == 1
+        assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_bwd"].values()) == 1
+        assert got[4] is None
+        if run:
+            assert got[:3] == (None, None, None)
+            _assert_grads_close(got[3:4], want[3:4])
+        else:
+            _assert_grads_close(got[:4], want[:4])
+            _assert_params_within_rounding(got, grad, args, None, mask2)
+
+
+# The feature kernel's layouts: L-BFGS-B's, side 1 (x2's gradient), a
+# flush's grouped rows and masks, masked dims with a batched x1, categorical
+# dims beside the continuous ones, Dc = 64 (the exact path's widest in the
+# reference) and Dc = 80 (two passes of 32 dims and a third of 16), a shared
+# query side against grouped data rows, and other sides past 8 x 128 rows.
+_FEATURE_LAYOUTS = {
+    "lbfgsb": dict(b=1, n=16, m=1024, dc=20, ds=0, valid2=1000, sides=(True, False)),
+    "side1": dict(b=1, n=50, m=300, dc=20, ds=0, valid1=45, sides=(False, True)),
+    "grouped": dict(studies=2, group=3, n=40, m=70, dc=6, ds=2, valid=60, step=3, valid1=35,
+                    step1=1),
+    "masked_dims_batched": dict(b=2, n=30, m=45, dc=8, ds=4, batched=True, masked_dims=True),
+    "mixed": dict(b=3, n=20, m=200, dc=5, ds=3, valid1=18, valid2=190),
+    "dc64": dict(b=1, n=16, m=500, dc=64, ds=0, valid2=480),
+    "dc80": dict(b=2, n=12, m=300, dc=80, ds=2),
+    "shared_queries_grouped_data": dict(studies=2, group=2, n=16, m=129, dc=20, ds=0,
+                                        valid=120, step=5, shared_x1=True),
+    "long_other_side": dict(b=1, n=3, m=2500, dc=20, ds=0, valid2=2400),
+}
+
+
+def _feature_layout(device, spec):
+    """(args, mask1, mask2, need_x1, need_x2) for one of _FEATURE_LAYOUTS."""
+    spec = dict(spec)
+    if "studies" in spec:
+        studies, group = spec.pop("studies"), spec.pop("group")
+        shared_x1 = spec.pop("shared_x1", False)
+        args, (mask1, mask2, _) = _flush_args(device, studies, group, **spec)
+        if shared_x1:
+            args = (args[0][0].contiguous(), args[1][0].contiguous()) + args[2:]
+            mask1 = None
+        return args, mask1, mask2, True, True
+    need_x1, need_x2 = spec.pop("sides", (True, True))
+    masked_dims = spec.pop("masked_dims", False)
+    valid1, valid2 = spec.pop("valid1", None), spec.pop("valid2", None)
+    args = _args(device, **spec)
+    if masked_dims:
+        inv, inv_sq = args[5].clone(), args[6].clone()
+        inv[:, spec["dc"] // 2:] = 0.0
+        inv_sq[:, spec["ds"] // 2:] = 0.0
+        args = args[:5] + (inv, inv_sq)
+    mask1, mask2, _ = _masks(device, spec["b"], spec["n"], spec["m"], valid1, valid2)
+    return args, mask1, mask2, need_x1, need_x2
+
+
+@pytest.mark.parametrize("layout", sorted(_FEATURE_LAYOUTS))
+def test_feature_kernel_matches_plain_in_both_modes(cuda_device, layout):
+    """The feature kernel alone and after the parameter kernel against the
+    plain versions (1e-4 of the largest entry), each run twice with the same
+    floats, and the same floats in both modes."""
+    args, mask1, mask2, need_x1, need_x2 = _feature_layout(cuda_device, _FEATURE_LAYOUTS[layout])
+    b, n, m = args[4].shape[0], args[0].shape[-2], args[2].shape[-2]
+    grad = torch.randn((b, n, m), generator=torch.Generator(device=cuda_device).manual_seed(7),
+                       device=cuda_device)
+    sides = dict(need_x1=need_x1, need_x2=need_x2)
+    want = tk.matern52_ard_features_plain(grad, *args, mask1, mask2, **sides)
+    got = {}
+    for mode, run in (("features", {}), ("features_only", dict(need_params=False))):
+        first = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, **sides, **run)
+        again = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, **sides, **run)
+        for g, h, w in zip(first[3:], again[3:], want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g, h)
+        _assert_grads_close(first[3:], want)
+        got[mode] = first
+    assert got["features_only"][:3] == (None, None, None)
+    for g, h in zip(got["features"][3:], got["features_only"][3:]):
+        assert (g is None and h is None) or torch.equal(g, h)
+    _assert_params_within_rounding(got["features"], grad, args, mask1, mask2)
+
+
+def test_a_query_gradient_launches_one_kernel_and_no_scratch(cuda_device):
+    """A backward with the parameters detached and the query side's gradient
+    only: one device kernel (the profiler's count against the wrapper's one
+    "features_only" call), and no [B, N, M] scratch: the backward allocates
+    the query gradient alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _args(cuda_device, 1, 16, 1024, 20, 0)
+    _, mask2, _ = _masks(cuda_device, 1, 16, 1024, None, 1000)
+    x1 = args[0].clone().requires_grad_(True)
+    out = tk.matern52_ard(
+        tk.MixedFeatures(x1, args[1]), tk.MixedFeatures(args[2], args[3]),
+        amplitude=args[4], continuous_length_scales=1.0 / args[5],
+        categorical_length_scales=torch.ones((1, 0), device=cuda_device), row_mask2=mask2)
+    grad = torch.randn(out.shape, device=cuda_device)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (gx1,) = torch.autograd.grad(out, x1, grad)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert kernels and all("matern52_bwd_features_kernel" in k for k in kernels)
+    assert len(kernels) == 1
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"] == dict(
+        gram=0, cross=0, other=0, features=0, features_only=1)
+    want = tk.matern52_ard_bwd_plain(grad, x1.detach(), *args[1:], None, mask2)[3]
+    _assert_grads_close([gx1], [want])
+    # The kernel's own allocations: the [16, 20] query gradient only.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tk.matern52_ard_bwd_cuda(grad, x1.detach(), *args[1:], None, mask2, need_params=False,
+                             need_x1=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 4 * 16 * 1024
 
 
 def _lbfgsb_score(device, n=1000, n_pad=1024, dim=20):
@@ -1099,7 +1214,7 @@ def _lbfgsb_score(device, n=1000, n_pad=1024, dim=20):
 def test_lbfgsb_step_gradient_on_the_card_matches_the_cpu(cuda_device):
     """The L-BFGS-B loss's gradient at 16 restarts' starting points through
     K1/K2 on the card against the plain autograd on the CPU, within 1e-3
-    relative to its largest entry; K2's feature kernel ran once."""
+    relative to its largest entry; K2's feature kernel ran once, alone."""
     from vizier_tpu_torch.optimizers import lbfgsb_optimizer
 
     z0 = 2.0 * torch.randn((16, 20), generator=torch.Generator().manual_seed(1))
@@ -1111,7 +1226,9 @@ def test_lbfgsb_step_gradient_on_the_card_matches_the_cpu(cuda_device):
         loss = opt.loss_fn(_lbfgsb_score(device).score)(z)
         (grads[device.type],) = torch.autograd.grad(loss.sum(), z)
         if device.type == "cuda":
-            assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["features"] == 1
+            # The GP's parameters are constants: the feature kernel alone.
+            assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["features_only"] == 1
+            assert sum(tk.LAUNCHES_BY_MODE["matern52_ard_bwd"].values()) == 1
     want = grads["cpu"]
     torch.testing.assert_close(grads["cuda"].cpu(), want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))

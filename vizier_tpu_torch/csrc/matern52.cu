@@ -7,8 +7,11 @@
 // noise diagonal that its models/gp.py:189 _masked_gram puts around it.
 //
 // K1 (forward) writes the [B, N, M] kernel matrix; K2 (backward) writes the
-// [B, 1 + Dc + Ds] parameter gradients, and for input warping the feature
-// gradients.
+// [B, 1 + Dc + Ds] parameter gradients (a parameter kernel and a fixed-order
+// reduce), and the feature gradients (the query points' for an acquisition's
+// gradient, both sides' for input warping) in one feature kernel per side
+// that reads the incoming gradient itself: a caller whose parameters are
+// constants launches that kernel alone.
 //
 // Bound on the H100: bytes. K1 reads O((N + M) * D) inputs and writes B*N*M
 // floats; per distinct pair it does ~2*D + 15 operations, below the ~20
@@ -57,6 +60,9 @@
 //   one pass over the warps' sums in shared memory per kSlots parameters. A
 //   second launch sums the per-block partials in a fixed order: no atomics,
 //   so L-BFGS sees bit-identical gradients on every call.
+// - K2's feature kernel (matern52_bwd_features_kernel, its design beside it)
+//   recomputes each pair's distance and dL/d(r^2) in registers and reduces
+//   over the pairs within a thread block cluster, also in a fixed order.
 //
 // Numerics follow the JAX package's models/kernels.py: r = sqrt(max(r^2,
 // 1e-20)), k = amp^2 (1 + sqrt5 r + 5/3 r^2) exp(-sqrt5 r). The backward uses
@@ -69,8 +75,11 @@
 // nothing, does not synchronise (so it can be captured in a CUDA graph) and
 // returns cudaGetLastError() right after its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -429,8 +438,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 
 // Per-block partial sums of the parameter gradients, [B, G, 1 + Dc + Ds], in
 // the order (amplitude, inv_c[0..Dc), inv_s[0..Ds)), G tiles per batch
-// member. When w_out is not null (never in the symmetric mode) it also stores
-// dL/d(r^2) per pair for the feature gradient.
+// member.
 //
 // Each parameter's sum over the thread's pairs is reduced across the warp
 // with shuffles as soon as it is formed (a fixed butterfly), and lane 0 keeps
@@ -441,7 +449,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 template <class T>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     matern52_bwd_params_kernel(Inputs in, const float* __restrict__ gk,
-                               float* __restrict__ partials, float* __restrict__ w_out) {
+                               float* __restrict__ partials) {
   constexpr int kWarps = T::kThreads / 32;
   constexpr int kRed = kSlots + 1;
   constexpr int kTS = T::TM + 1;
@@ -502,7 +510,6 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
   }
 
   const float amp = __ldg(in.amp + b);
-  const bool vec = (in.M & 3) == 0;
   const int P = in.Dc + in.Ds;
   const int chunks = (P + kSlots - 1) / kSlots;
   float* out = partials + ((int64_t)b * gridDim.x + blockIdx.x) * (1 + P);
@@ -519,8 +526,6 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     float g_amp = 0.f;
 #pragma unroll
     for (int i = 0; i < T::RNP; ++i) {
-      const int row = n0 + a_row + i;
-      const int col0 = m0 + tx * T::RM;
 #pragma unroll
       for (int j = 0; j < T::RM; ++j) {
         float gij = gtile[(a_row + i) * kTS + tx * T::RM + j];
@@ -530,9 +535,6 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
         const float ex = expf(-kSqrt5 * r);
         g_amp += gij * 2.f * amp * (1.f + kSqrt5 * r + (5.f / 3.f) * s) * ex;
         w[i][j] = gij * amp * amp * (-5.f / 6.f) * (1.f + kSqrt5 * r) * ex;
-      }
-      if (w_out != nullptr && row < in.N) {
-        store_row<T::RM>(w_out + ((int64_t)b * in.N + row) * in.M, col0, in.M, vec, w[i]);
       }
     }
 
@@ -623,46 +625,214 @@ __global__ void matern52_bwd_reduce_kernel(const float* __restrict__ partials, i
   if (threadIdx.x == 0) out[(int64_t)b * P + p] = s;
 }
 
-// Gradient with respect to one side's continuous features:
-//   side 0: gx1[bx, n, d] = sum_{b, m} w[b, n, m] * 2 (x1 - x2)[d] * inv[b, d]^2
-//   side 1: gx2[bx, m, d] = sum_{b, n} w[b, n, m] * 2 (x2 - x1)[d] * inv[b, d]^2
-// where bx runs over the groups when that side is batched (then b runs over
-// group bx's members), and is a single slot summing over every b when the
-// side is shared. w is zero on masked pairs. Serves the gradient of an
-// acquisition with respect to its query points (side 0: LBFGSBOptimizer's
-// restarts against the data rows) and input warping.
-__global__ void matern52_bwd_features_kernel(Inputs in, const float* __restrict__ w, int side,
-                                             float* __restrict__ gx) {
-  const int self_count = side == 0 ? in.N : in.M;
-  const int other_count = side == 0 ? in.M : in.N;
-  const int64_t self_bstride = side == 0 ? in.x1_bstride : in.x2_bstride;
-  const int64_t other_bstride = side == 0 ? in.x2_bstride : in.x1_bstride;
-  const float* xs = side == 0 ? in.x1 : in.x2;
-  const float* xo = side == 0 ? in.x2 : in.x1;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t per_slot = (int64_t)self_count * in.Dc;
-  const int slots = self_bstride != 0 ? in.B / in.group : 1;
-  if (idx >= per_slot * slots) return;
-  const int bx = (int)(idx / per_slot);
-  const int j = (int)((idx % per_slot) / in.Dc);
-  const int d = (int)(idx % in.Dc);
-  const int b_lo = self_bstride != 0 ? bx * in.group : 0;
-  const int b_hi = self_bstride != 0 ? b_lo + in.group : in.B;
-  const int64_t total = (int64_t)in.N * in.M;
-  float acc = 0.f;
-  for (int b = b_lo; b < b_hi; ++b) {
-    const int64_t g = b / in.group;
-    const float inv = __ldg(in.inv_c + (int64_t)b * in.Dc + d);
-    const float xj = __ldg(xs + g * self_bstride + (int64_t)j * in.Dc + d);
-    const float* other = xo + g * other_bstride + d;
-    float part = 0.f;
-    for (int o = 0; o < other_count; ++o) {
-      const int64_t e = side == 0 ? (int64_t)j * in.M + o : (int64_t)o * in.M + j;
-      part = fmaf(__ldg(w + (int64_t)b * total + e), xj - __ldg(other + (int64_t)o * in.Dc), part);
-    }
-    acc += 2.f * inv * inv * part;
+// K2's feature side: the gradient with respect to one side's continuous
+// features, straight from the incoming gradient gk (no [B, N, M] scratch):
+//   side 0: gx1[bx, n, d] = sum_{b, m} 2 inv[b, d]^2 w[b, n, m] (x1 - x2)[d]
+//   side 1: gx2[bx, m, d] = sum_{b, n} 2 inv[b, d]^2 w[b, n, m] (x2 - x1)[d]
+//   w[b, n, m] = gk[b, n, m] amp_b^2 (-5/6)(1 + sqrt5 r) exp(-sqrt5 r),
+// zero on masked pairs, with r recomputed per pair as K1 forms it (exact
+// differences, categorical mismatches). bx runs over the groups when that
+// side is batched (b then runs over group bx's members, in order), and is a
+// single slot summing over every b when the side is shared. Serves the
+// gradient of an acquisition with respect to its query points (side 0:
+// LBFGSBOptimizer's restarts against the data rows) and input warping.
+//
+// Bound: bytes at the main path's layout (B=1, 16 x 1024, Dc=20: gk's 64 KB
+// and the rows read once, ~4 Dc + 17 operations per pair), but the work is
+// 16 384 pairs, so one launch's latency is the floor, and within it the
+// global loads' round trips: the design keeps every load of a pair in
+// flight at once, uses no scratch in device memory, and gives bit-identical
+// results from run to run:
+// - A thread block cluster of `parts` CTAs owns one row of the self side and
+//   splits the other side's rows between its CTAs (parts = ceil(rows /
+//   kFeatThreads), at most 8): at the main path's layout 16 x 8 = 128 CTAs,
+//   one wave, one pair per thread.
+// - Continuous-only rows of at most 32 dims, a multiple of 4 (that layout):
+//   each thread loads its pair's two rows and the scales as float4s straight
+//   into registers. Otherwise the CTA stages its chunk of other rows in
+//   shared memory 32 slots at a time, slot-major (cp.async, as K1 stages
+//   its tiles), so each thread reads its row without bank conflicts, the
+//   self row and the scales broadcast from shared memory. The float4 path
+//   issues a quarter of the loads, and needs no barrier.
+// - Each thread keeps its pair's (xs - xo)_d inv_d^2 for the current 32-dim
+//   pass in registers while it sums r^2 from (xs - xo)_d inv_d, forms w,
+//   and accumulates w (xs - xo)_d inv_d^2 over its pairs and the slot's
+//   members; the factor 2 is applied to the final sum. Dims past 32 take
+//   further passes (exact differences at every width, as K1 and the
+//   parameter side).
+// - The sums over the other rows are reduced in a fixed order: a butterfly of
+//   31 warp shuffles that leaves dim d's warp sum in lane d, the warps in
+//   order through shared memory, then each CTA stores its sums into rank
+//   0's shared memory (distributed shared memory) and, after one cluster
+//   barrier, rank 0 adds them in rank order. No atomics.
+constexpr int kFeatThreads = 128;  // other rows per staged chunk, one per thread
+constexpr int kFeatMaxParts = 8;   // CTAs of a cluster (the portable cluster size)
+constexpr int kFeatDims = 32;      // continuous dims per pass, one staged chunk of slots
+static_assert(kFeatDims == kSlots && kFeatThreads % 32 == 0, "one pass per staged chunk");
+
+// CTAs of the cluster that splits a self row's `other_rows` pairs.
+int feature_parts(int other_rows) {
+  const int parts = (other_rows + kFeatThreads - 1) / kFeatThreads;
+  return parts < 1 ? 1 : (parts > kFeatMaxParts ? kFeatMaxParts : parts);
+}
+
+// One step of warp_transpose_sum: lanes with bit `kHalf` set keep the upper
+// half of their kHalf * 2 values, the others the lower half, each adding
+// the partner lane's copy of the half it keeps. Templated so that every
+// index is a constant and v stays in registers.
+template <int kHalf>
+__device__ __forceinline__ void transpose_sum_step(float (&v)[32], int lane) {
+  const bool upper = (lane & kHalf) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = upper ? v[i] : v[i + kHalf];
+    const float keep = upper ? v[i + kHalf] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf);
   }
-  gx[idx] = acc;
+  if constexpr (kHalf > 1) transpose_sum_step<kHalf / 2>(v, lane);
+}
+
+// Leaves in lane l the warp's sum of v[l] over its 32 lanes, in a fixed
+// order: 31 shuffles, each step halving the values a lane holds.
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[32], int lane) {
+  transpose_sum_step<16>(v, lane);
+  return v[0];
+}
+
+// kVec: continuous dims only, Dc <= 32 and a multiple of 4, rows and scales
+// 16-byte aligned; the pair's rows come straight into registers.
+template <bool kVec>
+__global__ void __launch_bounds__(kFeatThreads)
+    matern52_bwd_features_kernel(Inputs in, const float* __restrict__ gk, int side,
+                                 float* __restrict__ gx) {
+  constexpr int kWarps = kFeatThreads / 32, kStride = kFeatThreads + kPad;
+  __shared__ __align__(16) float so[kSlots * kStride];  // other rows, slot-major
+  __shared__ float sself[kSlots];   // the self row's staged slots
+  __shared__ float sscale[kSlots];  // the member's inv_c / inv_s of those slots, 0 past them
+  __shared__ float red[kWarps * kFeatDims];
+  __shared__ float gathered[kFeatMaxParts * kFeatDims];  // rank 0's: each CTA's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int parts = (int)cluster.dim_blocks().x, part = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x / parts, slot = blockIdx.y;
+  const bool side0 = side == 0;
+  const int self_rows = side0 ? in.N : in.M, other_rows = side0 ? in.M : in.N;
+  const bool batched = (side0 ? in.x1_bstride : in.x2_bstride) != 0;
+  const int b_lo = batched ? slot * in.group : 0;
+  const int b_hi = batched ? b_lo + in.group : in.B;
+  const int per_part = (other_rows + parts - 1) / parts;
+  const int o_begin = min(other_rows, part * per_part);
+  const int o_end = min(other_rows, o_begin + per_part);
+  const int Dc = in.Dc, Ds = in.Ds, P = Dc + Ds;
+  float* out = gx + ((int64_t)(batched ? slot : 0) * self_rows + s) * Dc;
+
+  for (int dc0 = 0; dc0 < Dc; dc0 += kFeatDims) {
+    const int nd = min(kFeatDims, Dc - dc0);
+    float acc[kFeatDims];
+#pragma unroll
+    for (int k = 0; k < kFeatDims; ++k) acc[k] = 0.f;
+    for (int b = b_lo; b < b_hi; ++b) {
+      const MemberRows rows = member_rows(in, b);
+      const float* xs = side0 ? rows.x1 : rows.x2;
+      const int32_t* zs = side0 ? rows.z1 : rows.z2;
+      const float* xo = side0 ? rows.x2 : rows.x1;
+      const int32_t* zo = side0 ? rows.z2 : rows.z1;
+      const uint8_t* mo = side0 ? rows.mask2 : rows.mask1;
+      const bool self_valid = row_valid(side0 ? rows.mask1 : rows.mask2, s);
+      const float* inv = in.inv_c + (int64_t)b * Dc;
+      const float* inv_s = in.inv_s + (int64_t)b * Ds;
+      const float amp = __ldg(in.amp + b);
+      const float* gk_b = gk + (int64_t)b * in.N * in.M;
+      for (int o0 = o_begin; o0 < o_end; o0 += kFeatThreads) {
+        // The pair (s, o), or a readable stand-in whose w is zeroed.
+        const int o = o0 + tid;
+        const bool in_range = o < o_end;
+        const int oc = in_range ? o : o_begin;
+        const float gv = __ldg(gk_b + (side0 ? (int64_t)s * in.M + oc : (int64_t)oc * in.M + s));
+        const bool valid = in_range && self_valid && row_valid(mo, oc);
+        float r2 = 0.f, t[kFeatDims];
+#pragma unroll
+        for (int k = 0; k < kFeatDims; ++k) t[k] = 0.f;
+        if constexpr (kVec) {
+          constexpr int kQuads = kFeatDims / 4;
+          const float4* self4 = reinterpret_cast<const float4*>(xs + (int64_t)s * Dc);
+          const float4* other4 = reinterpret_cast<const float4*>(xo + (int64_t)oc * Dc);
+          const float4* scale4 = reinterpret_cast<const float4*>(inv);
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 a[kQuads], c[kQuads], q[kQuads];
+#pragma unroll
+          for (int j = 0; j < kQuads; ++j) {
+            const bool on = 4 * j < Dc;
+            a[j] = on ? __ldg(self4 + j) : zero;
+            c[j] = on ? __ldg(other4 + j) : zero;
+            q[j] = on ? __ldg(scale4 + j) : zero;
+          }
+#pragma unroll
+          for (int j = 0; j < kQuads; ++j) {
+            const float v[4] = {(a[j].x - c[j].x) * q[j].x, (a[j].y - c[j].y) * q[j].y,
+                                (a[j].z - c[j].z) * q[j].z, (a[j].w - c[j].w) * q[j].w};
+            const float sc[4] = {q[j].x, q[j].y, q[j].z, q[j].w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              r2 = fmaf(v[i], v[i], r2);
+              t[4 * j + i] = v[i] * sc[i];
+            }
+          }
+        } else {
+          for (int p0 = 0; p0 < P; p0 += kSlots) {
+            const int width = min(kSlots, P - p0);
+            __syncthreads();  // the previous chunk may still be read
+            stage_rows<kFeatThreads, kFeatThreads>(so, xo, zo, o0, o_end, Dc, Ds, p0, width, tid);
+            if (tid < kSlots) {
+              const int p = p0 + tid;
+              float self_v = 0.f, scale = 0.f;
+              if (tid < width) {
+                self_v = p < Dc ? __ldg(xs + (int64_t)s * Dc + p)
+                                : __int_as_float(__ldg(zs + (int64_t)s * Ds + (p - Dc)));
+                scale = p < Dc ? __ldg(inv + p) : __ldg(inv_s + (p - Dc));
+              }
+              sself[tid] = self_v;
+              sscale[tid] = scale;
+            }
+            cp_async_wait_all();
+            __syncthreads();
+            // Branch-free over the slots, so that every shared-memory read is
+            // in flight at once; slots past width have scale 0.
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k) {
+              const float xv = so[k * kStride + tid], xsv = sself[k], sc = sscale[k];
+              const bool cont = p0 + k < Dc;
+              const float v = cont ? (xsv - xv) * sc : 0.f;
+              r2 = fmaf(v, v, r2);
+              if (!cont && __float_as_int(xsv) != __float_as_int(xv)) r2 += sc;
+              if (p0 == dc0) t[k] = v * sc;
+            }
+          }
+        }
+        const float r = sqrtf(fmaxf(r2, 1e-20f));
+        const float g = valid ? gv : 0.f;
+        const float w = g * amp * amp * (-5.f / 6.f) * (1.f + kSqrt5 * r) * expf(-kSqrt5 * r);
+#pragma unroll
+        for (int k = 0; k < kFeatDims; ++k) acc[k] = fmaf(w, t[k], acc[k]);
+      }
+    }
+
+    red[warp * kFeatDims + lane] = warp_transpose_sum(acc, lane);
+    __syncthreads();
+    if (tid < kFeatDims) {
+      float total = 0.f;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) total += red[k * kFeatDims + tid];
+      cluster.map_shared_rank(gathered, 0)[part * kFeatDims + tid] = total;
+    }
+    cluster.sync();  // every CTA's sums are in rank 0's shared memory
+    if (part == 0 && tid < nd) {
+      float total = 0.f;
+      for (int q = 0; q < parts; ++q) total += gathered[q * kFeatDims + tid];
+      out[dc0 + tid] = 2.f * total;  // d(t^2)/dt
+    }
+    if (dc0 + kFeatDims < Dc) cluster.sync();  // rank 0 has read them before the next pass
+  }
 }
 
 enum class TileKind { kBig, kTiny };
@@ -726,11 +896,36 @@ void launch_fwd(const Inputs& in, float* out, cudaStream_t s) {
 }
 
 template <class T>
-void launch_bwd_params(const Inputs& in, const float* gk, float* partials, float* w,
-                       cudaStream_t s) {
+void launch_bwd_params(const Inputs& in, const float* gk, float* partials, cudaStream_t s) {
   prefer_shared_once<T>();
   const dim3 grid((unsigned)tiles_per_member<T>(in.N, in.M, in.symmetric), in.B);
-  matern52_bwd_params_kernel<T><<<grid, dim3(kTX, T::TY), 0, s>>>(in, gk, partials, w);
+  matern52_bwd_params_kernel<T><<<grid, dim3(kTX, T::TY), 0, s>>>(in, gk, partials);
+}
+
+// One side's feature gradient: a cluster of feature_parts CTAs per self row
+// of each slot (the groups when that side is batched, else one).
+cudaError_t launch_bwd_features(const Inputs& in, const float* gk, int side, float* gx,
+                                cudaStream_t s) {
+  const bool side0 = side == 0;
+  const int self_rows = side0 ? in.N : in.M;
+  const bool batched = (side0 ? in.x1_bstride : in.x2_bstride) != 0;
+  const int parts = feature_parts(side0 ? in.M : in.N);
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = in.Ds == 0 && in.Dc <= kFeatDims && in.Dc % 4 == 0 && aligned(in.x1) &&
+                   aligned(in.x2) && aligned(in.inv_c);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)self_rows * parts, batched ? in.B / in.group : 1);
+  cfg.blockDim = dim3(kFeatThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = parts;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return vec ? cudaLaunchKernelEx(&cfg, matern52_bwd_features_kernel<true>, in, gk, side, gx)
+             : cudaLaunchKernelEx(&cfg, matern52_bwd_features_kernel<false>, in, gk, side, gx);
 }
 
 }  // namespace
@@ -795,45 +990,43 @@ int matern52_ard_fwd(const float* x1, const int32_t* z1, const float* x2, const 
 }
 
 // grads: [B, 1 + Dc + Ds]; partials: [B, G, 1 + Dc + Ds] scratch with
-// G = matern52_bwd_num_blocks(B, N, M, symmetric). w: [B, N, M] scratch,
-// needed (not null) only when gx1 or gx2 is requested, and then symmetric
-// must be 0; gx1: [N, Dc] or [B / group, N, Dc] as x1 is shared or batched
-// (null to skip), gx2 likewise. Inputs, strides and masks as in the forward;
-// the diagonal's own gradient is the caller's (a sum of gk's valid
-// diagonal).
+// G = matern52_bwd_num_blocks(B, N, M, symmetric); both null to skip the
+// parameter gradients (a caller whose parameters are constants). gx1: [N, Dc]
+// or [B / group, N, Dc] as x1 is shared or batched (null to skip), gx2
+// likewise; the feature kernel reads gk itself, one launch per side.
+// Inputs, strides and masks as in the forward; the diagonal's own gradient
+// is the caller's (a sum of gk's valid diagonal).
 int matern52_ard_bwd(const float* gk, const float* x1, const int32_t* z1, const float* x2,
                      const int32_t* z2, const float* amp, const float* inv_c, const float* inv_s,
                      const uint8_t* mask1, const uint8_t* mask2, int64_t x1_bstride,
                      int64_t x2_bstride, int64_t z1_bstride, int64_t z2_bstride,
                      int64_t m1_bstride, int64_t m2_bstride, int group, int B, int N, int M,
-                     int Dc, int Ds, int symmetric, float* grads, float* partials, float* w,
-                     float* gx1, float* gx2, void* stream) {
+                     int Dc, int Ds, int symmetric, float* grads, float* partials, float* gx1,
+                     float* gx2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (symmetric && w != nullptr) return (int)cudaErrorInvalidValue;
   if (group < 1 || B % group != 0) return (int)cudaErrorInvalidValue;
+  if ((grads == nullptr) != (partials == nullptr)) return (int)cudaErrorInvalidValue;
   const Inputs in{x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2, nullptr,
                   x1_bstride, x2_bstride, z1_bstride, z2_bstride, m1_bstride, m2_bstride,
                   group, B, N, M, Dc, Ds, symmetric};
-  const int G = matern52_bwd_num_blocks(B, N, M, symmetric);
-  const int P = 1 + Dc + Ds;
-  if (G > 0) {
-    with_tile(B, N, M, symmetric,
-              [&](auto t) { launch_bwd_params<decltype(t)>(in, gk, partials, w, s); });
+  if (grads != nullptr) {
+    const int G = matern52_bwd_num_blocks(B, N, M, symmetric);
+    const int P = 1 + Dc + Ds;
+    if (G > 0) {
+      with_tile(B, N, M, symmetric,
+                [&](auto t) { launch_bwd_params<decltype(t)>(in, gk, partials, s); });
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    matern52_bwd_reduce_kernel<<<dim3(P, B), 256, 0, s>>>(partials, G, P, grads);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  matern52_bwd_reduce_kernel<<<dim3(P, B), 256, 0, s>>>(partials, G, P, grads);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   float* gx[2] = {gx1, gx2};
   for (int side = 0; side < 2; ++side) {
-    if (gx[side] == nullptr || Dc == 0) continue;
-    const int64_t stride = side == 0 ? x1_bstride : x2_bstride;
-    const int64_t count = (int64_t)(side == 0 ? N : M) * Dc * (stride != 0 ? B / group : 1);
-    const int blocks = (int)((count + 255) / 256);
-    if (blocks == 0) continue;
-    matern52_bwd_features_kernel<<<blocks, 256, 0, s>>>(in, w, side, gx[side]);
-    err = cudaGetLastError();
+    if (gx[side] == nullptr || Dc == 0 || (side == 0 ? N : M) == 0) continue;
+    cudaError_t err = launch_bwd_features(in, gk, side, gx[side], s);
+    if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

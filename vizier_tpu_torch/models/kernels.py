@@ -40,12 +40,14 @@ _DIRECT_DIST_MAX_DIM = 64
 # Launches of each CUDA wrapper, one per call that launched its kernels, by
 # mode: "gram" (both sides the same tensors: _masked_gram), "cross"
 # (row-masked cross kernel: predict) and "other" (neither). A K2 launch that
-# also runs its feature-gradient kernel (an acquisition's gradient with
-# respect to its query points, input warping) counts as "features" instead.
-# A wrapper's total is the sum over its modes.
+# also runs its feature-gradient kernel (input warping) counts as "features"
+# instead, and one that runs the feature kernel alone (parameters held
+# constant: an acquisition's gradient with respect to its query points) as
+# "features_only". A wrapper's total is the sum over its modes.
 LAUNCHES_BY_MODE: Dict[str, Dict[str, int]] = {
     "matern52_ard_fwd": {"gram": 0, "cross": 0, "other": 0},
-    "matern52_ard_bwd": {"gram": 0, "cross": 0, "other": 0, "features": 0},
+    "matern52_ard_bwd": {"gram": 0, "cross": 0, "other": 0, "features": 0,
+                         "features_only": 0},
 }
 
 
@@ -55,8 +57,12 @@ def reset_launch_counts() -> None:
             modes[mode] = 0
 
 
-def _count_launch(name: str, symmetric: int, masked: bool, features: bool = False) -> None:
-    mode = "features" if features else "gram" if symmetric else "cross" if masked else "other"
+def _count_launch(name: str, symmetric: int, masked: bool, features: bool = False,
+                  params: bool = True) -> None:
+    if features:
+        mode = "features" if params else "features_only"
+    else:
+        mode = "gram" if symmetric else "cross" if masked else "other"
     LAUNCHES_BY_MODE[name][mode] += 1
 
 
@@ -253,6 +259,25 @@ def matern52_ard_bwd_plain(
     repeated to one block per member; a grouped side's feature gradient is
     then summed over its group's members.
     """
+    return _bwd_plain(grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2,
+                      need_params=True, need_x1=True, need_x2=True)
+
+
+def matern52_ard_features_plain(
+    grad: Tensor, x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
+    amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
+    mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
+    *, need_x1: bool = True, need_x2: bool = True,
+) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """Plain PyTorch version of K2's feature kernel alone (a caller whose
+    parameters are constants): the gradients with respect to x1 and x2, each
+    None unless asked for, as ``matern52_ard_bwd_plain`` computes them."""
+    return _bwd_plain(grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2,
+                      need_params=False, need_x1=need_x1, need_x2=need_x2)[3:]
+
+
+def _bwd_plain(grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, *,
+               need_params: bool, need_x1: bool, need_x2: bool):
     batch = amplitude.shape[0]
     s = group_count(batch, x1, z1, x2, z2, mask1, mask2, base_dims=(2, 2, 2, 2, 1, 1))
     grouped = (x1.dim() == 3, x2.dim() == 3)
@@ -269,20 +294,26 @@ def matern52_ard_bwd_plain(
     r = torch.sqrt(torch.clamp(sq, min=1e-20))
     ex = torch.exp(-_SQRT5 * r)
     amp = amplitude[:, None, None]
-    g_amp = torch.sum(grad * 2.0 * amp * (1.0 + _SQRT5 * r + (5.0 / 3.0) * sq) * ex, dim=(1, 2))
     w = grad * amp * amp * (-5.0 / 6.0) * (1.0 + _SQRT5 * r) * ex  # dL/d(r²)
-    g_inv = 2.0 * inv_cont * torch.einsum("bnm,bnmd->bd", w, diff * diff)
-    g_inv_sq = torch.einsum("bnm,bnms->bs", w, mismatch)
-    gx = 2.0 * w[..., None] * diff * (inv_cont * inv_cont)[:, None, None, :]
-    gx1 = gx.sum(dim=2)
-    gx2 = -gx.sum(dim=1)
+    g_amp = g_inv = g_inv_sq = gx1 = gx2 = None
+    if need_params:
+        g_amp = torch.sum(
+            grad * 2.0 * amp * (1.0 + _SQRT5 * r + (5.0 / 3.0) * sq) * ex, dim=(1, 2))
+        g_inv = 2.0 * inv_cont * torch.einsum("bnm,bnmd->bd", w, diff * diff)
+        g_inv_sq = torch.einsum("bnm,bnms->bs", w, mismatch)
 
     def fold(g: Tensor, was_grouped: bool) -> Tensor:
         if not was_grouped:
             return g.sum(dim=0)
         return g.reshape(s, batch // s, *g.shape[1:]).sum(dim=1)
 
-    return g_amp, g_inv, g_inv_sq, fold(gx1, grouped[0]), fold(gx2, grouped[1])
+    if need_x1 or need_x2:
+        gx = 2.0 * w[..., None] * diff * (inv_cont * inv_cont)[:, None, None, :]
+        if need_x1:
+            gx1 = fold(gx.sum(dim=2), grouped[0])
+        if need_x2:
+            gx2 = fold(-gx.sum(dim=1), grouped[1])
+    return g_amp, g_inv, g_inv_sq, gx1, gx2
 
 
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
@@ -389,46 +420,51 @@ def matern52_ard_bwd_cuda(
     grad: Tensor, x1: Tensor, z1: Tensor, x2: Tensor, z2: Tensor,
     amplitude: Tensor, inv_cont: Tensor, inv_sq_cat: Tensor,
     mask1: Optional[Tensor] = None, mask2: Optional[Tensor] = None,
-    *, need_x1: bool = False, need_x2: bool = False,
-) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
+    *, need_params: bool = True, need_x1: bool = False, need_x2: bool = False,
+) -> Tuple[Optional[Tensor], Optional[Tensor], Optional[Tensor], Optional[Tensor],
+           Optional[Tensor]]:
     """K2: launches the backward kernels.
 
     Returns the gradients with respect to (amplitude, inv_cont, inv_sq_cat,
-    x1, x2); the feature gradients are None unless asked for.
+    x1, x2); each is None unless asked for. Without ``need_params`` only the
+    feature kernel runs: one launch per side asked for.
     """
     c = _check_cuda(x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2, None)
     batch, n, m, dc, ds = c.batch, c.n, c.m, c.dc, c.ds
     grad = grad.contiguous()
     if grad.shape != (batch, n, m) or grad.dtype != torch.float32 or grad.device != x1.device:
         raise ValueError(f"grad must be float32 [{batch}, {n}, {m}] on {x1.device}.")
-    lib = native.library()
     device = x1.device
     p = 1 + dc + ds
-    need_w = (need_x1 or need_x2) and dc > 0
-    # The feature gradients need dL/d(r²) of every ordered pair.
-    upper_tiles = int(c.symmetric and not need_w)
-    blocks = lib.matern52_bwd_num_blocks(batch, n, m, upper_tiles)
-    grads = torch.empty((batch, p), dtype=torch.float32, device=device)
-    partials = torch.empty((batch, max(blocks, 1), p), dtype=torch.float32, device=device)
-    w = torch.empty((batch, n, m), dtype=torch.float32, device=device) if need_w else None
-    gx1 = torch.empty_like(x1) if need_x1 else None
-    gx2 = torch.empty_like(x2) if need_x2 else None
-    if need_x1 and not need_w:
-        gx1.zero_()
-    if need_x2 and not need_w:
-        gx2.zero_()
+    features = (need_x1 or need_x2) and dc > 0
+    # Without dims there is no feature gradient to launch for.
+    gx1 = (torch.empty_like if features else torch.zeros_like)(x1) if need_x1 else None
+    gx2 = (torch.empty_like if features else torch.zeros_like)(x2) if need_x2 else None
+    if not (need_params or features):
+        return None, None, None, gx1, gx2
+    lib = native.library()
+    # The parameter kernel keeps to all ordered pairs when features are asked
+    # for, so its gradients are the same floats with and without them.
+    upper_tiles = int(c.symmetric and not features)
+    grads = partials = None
+    if need_params:
+        blocks = lib.matern52_bwd_num_blocks(batch, n, m, upper_tiles)
+        grads = torch.empty((batch, p), dtype=torch.float32, device=device)
+        partials = torch.empty((batch, max(blocks, 1), p), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         status = lib.matern52_ard_bwd(
             _ptr(grad), _ptr(x1), _ptr(z1), _ptr(x2), _ptr(z2), _ptr(amplitude),
             _ptr(inv_cont), _ptr(inv_sq_cat), _ptr(mask1), _ptr(mask2), *c.strides, c.group,
-            batch, n, m, dc, ds, upper_tiles,
-            _ptr(grads), _ptr(partials), _ptr(w), _ptr(gx1), _ptr(gx2),
+            batch, n, m, dc, ds, upper_tiles, _ptr(grads), _ptr(partials),
+            _ptr(gx1) if features else None, _ptr(gx2) if features else None,
             torch.cuda.current_stream(device).cuda_stream,
         )
         native.check(status, "matern52_ard_bwd")
     _count_launch("matern52_ard_bwd", c.symmetric, mask1 is not None or mask2 is not None,
-                  features=need_w)
+                  features=features, params=need_params)
     _record_shape("matern52_ard_bwd", c, x1, z1, x2, z2, inv_cont, inv_sq_cat, mask1, mask2, None)
+    if not need_params:
+        return None, None, None, gx1, gx2
     return grads[:, 0], grads[:, 1 : 1 + dc], grads[:, 1 + dc :], gx1, gx2
 
 
@@ -444,8 +480,11 @@ class _Matern52ArdCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2 = ctx.saved_tensors
+        # Parameters held constant (an acquisition's query gradient): the
+        # feature kernel alone.
         g_amp, g_inv, g_inv_sq, gx1, gx2 = matern52_ard_bwd_cuda(
             grad, x1, z1, x2, z2, amplitude, inv_cont, inv_sq_cat, mask1, mask2,
+            need_params=any(ctx.needs_input_grad[4:7]),
             need_x1=ctx.needs_input_grad[0], need_x2=ctx.needs_input_grad[2],
         )
         g_diag = gram_diag_grad(grad, mask1) if ctx.needs_input_grad[9] else None

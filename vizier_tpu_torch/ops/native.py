@@ -97,9 +97,9 @@ def library() -> ctypes.CDLL:
     lib.matern52_ard_fwd.argtypes = [_P] * 10 + [_L] * 6 + [_I] * 7 + [_P, _P]
     lib.matern52_ard_fwd.restype = _I
     # gk, x1, z1, x2, z2, amp, inv_c, inv_s, mask1, mask2; group strides as
-    # in the forward; group, B, N, M, Dc, Ds, symmetric; grads, partials, w,
-    # gx1, gx2, stream.
-    lib.matern52_ard_bwd.argtypes = [_P] * 10 + [_L] * 6 + [_I] * 7 + [_P] * 6
+    # in the forward; group, B, N, M, Dc, Ds, symmetric; grads, partials
+    # (both null: features only), gx1, gx2, stream.
+    lib.matern52_ard_bwd.argtypes = [_P] * 10 + [_L] * 6 + [_I] * 7 + [_P] * 5
     lib.matern52_ard_bwd.restype = _I
     return lib
 

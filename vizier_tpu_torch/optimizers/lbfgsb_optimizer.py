@@ -10,8 +10,10 @@ the restarts; here they are one ``[R, D]`` batch through the batched
 (each row is scored on its own, so each restart follows its own path). On
 CUDA features the acquisition's gradient with respect to the query points
 reaches the kernel through K2's feature gradient (``kernels.matern52_ard``'s
-backward asks for it when the queries require a gradient); on the CPU the
-plain version computes the same function.
+backward asks for it when the queries require a gradient). The GP's
+parameters are constants here, as the JAX package holds them, so K2 launches
+its feature kernel alone. On the CPU the plain version computes the same
+function.
 
 ``DesignerAsOptimizer`` is host logic, as in the JAX package: the
 acquisition is the objective of a mini-study that a designer drives.
