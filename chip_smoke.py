@@ -214,15 +214,30 @@ Phases (any failure raises and exits non-zero):
    flight recorder's events in order, the ``vizier_slo_*`` / speculative /
    admission series, a fleet dump read back. Then K1/K2 at every launch
    layout of its two designer computations.
-14. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+14. fleet: the fleet's routing onto one shared runtime, as the in-process
+   compute tier serves it (``run_fleet_phase``). The port's ``StudyRouter``
+   (``distributed/routing.py``, rendezvous hashing) places 8 studies of
+   serving-exact's shape (480 + 2i trials x 20-D, the DEFAULT, exact GP)
+   on 4 frontend ids; each frontend's handler threads send its own studies'
+   ``suggest(5)`` into ONE ``ServingRuntime`` (2 s window): one flush of
+   occupancy 8 with no fallback or slot error, 8 cold trains. The picks are
+   completed; one frontend is marked down: exactly its studies move, each to
+   the frontend ``rendezvous_weight`` ranks next, and their next
+   ``suggest(5)``, sent by those successors, trains warm from the shared
+   designer cache (warm trains = the moved count, no cold train). Marked up
+   again, every study's owner is the one before the kill. Suggestions finite
+   and in bounds. The phase imports no protobuf: the fleet's gRPC,
+   protobuf, WAL and replica-manager halves are held to the JAX package on
+   the CPU only (``tests/test_torch_fleet*.py``).
+15. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
-   service-reliability and service-planes steps' included, by mode; K2's
+   service-reliability, service-planes and fleet steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 run in two worker processes on
-the same card (``_WORKER_PHASES``: this script with ``--worker``), started
+The phases are host-bound, so phases 7-9 and 14 run in two worker processes
+on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. The main process prints each
 worker's log when its own phases are done and times phase 11's K2 feature
@@ -3952,6 +3967,143 @@ def run_service_planes_phase(kernels, lib, mods):
     return paths, figures
 
 
+# -- the fleet: rendezvous routing onto one shared runtime ----------------------
+
+# 4 frontend ids of the in-process tier (``ReplicaManager``'s replica ids), 8
+# studies of serving-exact's shape routed over them by the port's StudyRouter.
+_FLEET_FRONTENDS = tuple(f"replica-{i}" for i in range(4))
+_FLEET_STUDY = "owners/fleet/studies/s"
+
+
+def _fleet_requests(fleet, router, studies, count: int) -> tuple:
+    """Each owning frontend sends its studies' ``suggest(count)`` into the one
+    shared runtime, one handler thread per request (as a frontend's gRPC
+    workers would). Returns (suggestions by study index, wall seconds,
+    {frontend: [study indices]})."""
+    by_frontend = {}
+    for i in studies:
+        by_frontend.setdefault(router.replica_for(fleet.studies[i][2]), []).append(i)
+    results, errors = {}, []
+
+    def frontend(own):
+        handlers = [threading.Thread(target=handle, args=(i,)) for i in own]
+        for t in handlers:
+            t.start()
+        for t in handlers:
+            t.join()
+
+    def handle(i):
+        try:
+            results[i] = fleet._suggest(i, count)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    threads = [threading.Thread(target=frontend, args=(own,)) for own in by_frontend.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if errors:
+        raise errors[0]
+    return results, wall, by_frontend
+
+
+def run_fleet_phase(mods, kernels):
+    """Phase 14: the fleet's routing onto one shared runtime (see the module
+    docstring). Returns ({path: launches by mode}, figures)."""
+    from vizier_tpu_torch.distributed import routing
+
+    serving = mods["serving"]
+    label = "fleet"
+    phase_start = time.perf_counter()
+    config = dataclasses.replace(serving.ServingConfig(), batch_max_wait_ms=_SERVE_WINDOW_MS)
+    runtime = serving.ServingRuntime(config)
+    fleet = _Fleet(mods, runtime, "DEFAULT", _SERVE_TRIALS["exact"], _FLEET_STUDY)
+    names = [name for _, _, name in fleet.studies]
+    router = routing.StudyRouter(_FLEET_FRONTENDS)
+    owners = {name: router.replica_for(name) for name in names}
+    paths, figures = {}, {"owners": owners}
+    stat_keys = ("batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+                 "warm_trains", "cold_trains")
+
+    def served(studies, count, path):
+        before = runtime.stats.snapshot()
+        (results, wall, by_frontend), _, launches = _path_launches(
+            kernels, lambda: _fleet_requests(fleet, router, studies, count))
+        stats = {k: runtime.stats.get(k) - before[k] for k in stat_keys}
+        ordered = [results[i] for i in studies]
+        _check_round(ordered, count, f"{label} {path}")
+        paths[f"fleet_{path}"] = launches
+        occupancy = stats["batched_suggests"] / max(stats["batch_flushes"], 1)
+        row = dict(wall_ms=wall * 1e3, stats=stats, occupancy=occupancy, launches=launches,
+                   frontends={f: [names[i] for i in own] for f, own in by_frontend.items()})
+        print(f"{label} {path}: {len(studies)} x suggest(count={count}) from frontends "
+              f"{ {f: len(own) for f, own in sorted(by_frontend.items())} } into one runtime: "
+              f"{stats}, occupancy {occupancy:.1f}, wall {wall * 1e3:.1f} ms, launches {launches}")
+        return ordered, stats, row
+
+    # Round 1: every frontend's studies at once -> one flush of occupancy 8.
+    results, stats, figures["round1"] = served(range(_SERVE_STUDIES), _COUNT, "round1")
+    if (stats["batch_flushes"] != 1 or stats["batched_suggests"] != _SERVE_STUDIES
+            or stats["batch_fallbacks"] or stats["batch_slot_errors"]
+            or stats["cold_trains"] != _SERVE_STUDIES):
+        raise AssertionError(f"{label} round 1: not one flush of occupancy {_SERVE_STUDIES} "
+                             f"without fallback or slot error: {stats}")
+    fleet.complete(results)
+
+    # Kill: the frontend that owns the most studies (the lowest id on a tie).
+    counts = {f: sum(o == f for o in owners.values()) for f in _FLEET_FRONTENDS}
+    victim = max(_FLEET_FRONTENDS, key=lambda f: (counts[f], -_FLEET_FRONTENDS.index(f)))
+    if not counts[victim]:
+        raise AssertionError(f"{label}: no frontend owns a study: {owners}")
+    if not router.mark_down(victim):
+        raise AssertionError(f"{label}: {victim} was already down")
+    after = {name: router.replica_for(name) for name in names}
+    moved = sorted(name for name in names if after[name] != owners[name])
+    want = {}
+    for name in names:
+        if owners[name] == victim:
+            ranked = sorted(_FLEET_FRONTENDS, key=lambda f: routing.rendezvous_weight(f, name),
+                            reverse=True)
+            want[name] = next(f for f in ranked if f != victim)
+    if moved != sorted(want) or any(after[name] != want[name] for name in moved):
+        raise AssertionError(f"{label}: marking {victim} down moved {moved} to "
+                             f"{ {n: after[n] for n in moved} }; want exactly its studies on "
+                             f"their rendezvous successors {want}")
+    figures["kill"] = dict(victim=victim, moved={n: [owners[n], after[n]] for n in moved})
+    print(f"{label} kill: {victim} marked down; moved exactly its {len(moved)} studies, each to "
+          f"its next rendezvous choice: { {n.rsplit('/', 1)[1]: after[n] for n in moved} }")
+
+    moved_idx = [names.index(n) for n in moved]
+    _, stats, figures["moved"] = served(moved_idx, _COUNT, "moved")
+    if stats["warm_trains"] != len(moved) or stats["cold_trains"] or (
+            stats["batch_fallbacks"] or stats["batch_slot_errors"]):
+        raise AssertionError(f"{label}: the moved studies' requests did not all train warm from "
+                             f"the shared designer cache: {stats}")
+
+    # Revive: every study's owner is the one it had before the kill.
+    if not router.mark_up(victim):
+        raise AssertionError(f"{label}: {victim} was not down")
+    revived = {name: router.replica_for(name) for name in names}
+    if revived != owners:
+        raise AssertionError(f"{label}: owners after the revive {revived} != before {owners}")
+    runtime.shutdown()
+    total = {name: sum(sum(p[name].values()) for p in paths.values())
+             for name in kernels.LAUNCHES_BY_MODE}
+    _require_modes(paths["fleet_round1"], (("matern52_ard_fwd", "gram"),
+                                           ("matern52_ard_fwd", "cross"),
+                                           ("matern52_ard_bwd", "gram")), f"{label} round 1")
+    figures["wall_s"] = time.perf_counter() - phase_start
+    figures["launches"] = total
+    print(f"{label} revive: {victim} marked up, all {len(names)} owners as before the kill; "
+          f"phase {figures['wall_s']:.1f} s, K1/K2 launches {total}; {_card_line()}")
+    return paths, figures
+
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -3964,7 +4116,7 @@ def run_service_planes_phase(kernels, lib, mods):
 # JSON file. A worker that fails fails the run.
 _WORKER_PHASES = {
     "regret": ("regret",),
-    "serving": ("serving_exact", "serving_sparse", "gp_surface"),
+    "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -3998,6 +4150,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_regret_phase(kernels, lib)
     if phase == "gp_surface":
         return run_gp_surface_phase(kernels, lib)
+    if phase == "fleet":
+        return run_fleet_phase(mods, kernels)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -4160,6 +4314,8 @@ def main() -> int:
     print(json.dumps({"regret": regret_figures}))
     surface_paths = done["gp_surface"]["paths"]
     print(json.dumps({"gp_surface": done["gp_surface"]["figures"]}))
+    fleet_paths = done["fleet"]["paths"]
+    print(json.dumps({"fleet": done["fleet"]["figures"]}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -4206,11 +4362,14 @@ def main() -> int:
                 **{path: modes[name] for path, modes in algorithm_paths.items()},
                 **{path: modes[name] for path, modes in extras_paths.items()},
                 **{path: modes[name] for path, modes in service_paths.items()},
-                **{path: modes[name] for path, modes in planes_paths.items()}},
+                **{path: modes[name] for path, modes in planes_paths.items()},
+                **{path: modes[name] for path, modes in fleet_paths.items()}},
             "launches_algorithms_phase": sum(
                 sum(modes[name].values()) for modes in algorithm_paths.values()),
             "launches_algorithm_extras_phase": sum(
                 sum(modes[name].values()) for modes in extras_paths.values()),
+            "launches_fleet_phase": sum(
+                sum(modes[name].values()) for modes in fleet_paths.values()),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

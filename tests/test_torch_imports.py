@@ -150,3 +150,83 @@ print(json.dumps([study_pb2.Trial.__module__, study_pb2.Trial.DESCRIPTOR.full_na
     assert full_name == "vizier_tpu_torch.Trial"
     assert file_name == "vizier_tpu_torch/service/protos/study.proto"
     assert package == "vizier_tpu_torch" and flat == []
+
+
+_FLEET_MODULES = [
+    "vizier_tpu_torch.distributed", "vizier_tpu_torch.distributed.config",
+    "vizier_tpu_torch.distributed.routing", "vizier_tpu_torch.distributed.wal",
+    "vizier_tpu_torch.distributed.sharded_datastore", "vizier_tpu_torch.distributed.replication",
+    "vizier_tpu_torch.distributed.replication_service", "vizier_tpu_torch.distributed.router_stub",
+    "vizier_tpu_torch.distributed.replica_manager", "vizier_tpu_torch.distributed.compute_tier",
+    "vizier_tpu_torch.distributed.pythia_server_main", "vizier_tpu_torch.distributed.replica_main",
+    "vizier_tpu_torch.distributed.subprocess_fleet", "vizier_tpu_torch.testing",
+    "vizier_tpu_torch.testing.netchaos", "vizier_tpu_torch.service.protos.replication_service_pb2",
+]
+
+
+@pytest.fixture(scope="module")
+def fleet_imports():
+    """Per fleet module, in one fresh interpreter: the JAX-side modules its
+    import added, and the modules the package's exports resolve to."""
+    code = f"""
+import importlib, json, sys
+out = {{}}
+for name in {_FLEET_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(sys.modules) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "vizier_tpu"))
+import vizier_tpu_torch.distributed as d
+out["__all__"] = {{n: getattr(d, n).__module__ for n in d.__all__}}
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _FLEET_MODULES)
+def test_the_fleet_modules_load_no_jax(fleet_imports, module):
+    assert fleet_imports[module] == []
+
+
+def test_the_fleet_exports_equal_the_jax_packages_and_resolve_in_the_port(fleet_imports):
+    import vizier_tpu.distributed as jax_distributed
+
+    exports = fleet_imports["__all__"]
+    assert sorted(exports) == sorted(jax_distributed.__all__)
+    assert all(module.startswith("vizier_tpu_torch.distributed.") for module in exports.values())
+
+
+def test_fleet_routing_needs_neither_grpc_nor_protobuf():
+    """The card's fleet phase routes studies with the port's ``StudyRouter``:
+    with grpc and protobuf blocked, the fleet package and its router import,
+    and neither module is loaded."""
+    code = """
+import importlib, json, sys
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+for name in ("vizier_tpu_torch.distributed", "vizier_tpu_torch.distributed.routing",
+             "vizier_tpu_torch.distributed.config", "vizier_tpu_torch.testing.netchaos", "chip_smoke"):
+    importlib.import_module(name)
+import vizier_tpu_torch.distributed as d
+router = d.StudyRouter(["a", "b"])
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] == "grpc" or m.startswith("google.protobuf")))
+print(json.dumps([loaded, router.replica_for("owners/o/studies/s") in ("a", "b")]))
+"""
+    assert json.loads(_fresh(code)) == [[], True]
+
+
+def test_the_replication_messages_come_from_the_ports_own_package():
+    code = """
+import json, sys
+from vizier_tpu_torch.distributed import replication_service, subprocess_fleet
+from vizier_tpu_torch.service.protos import replication_service_pb2 as pb
+print(json.dumps([pb.HeartbeatRequest.__module__, pb.HeartbeatRequest.DESCRIPTOR.full_name,
+                  pb.DESCRIPTOR.name, replication_service._pb is pb, subprocess_fleet._pb is pb,
+                  sorted(m for m in sys.modules if m.endswith("_pb2") and "." not in m)]))
+"""
+    module, full_name, file_name, same_a, same_b, flat = json.loads(_fresh(code))
+    assert module == "vizier_tpu_torch.service.protos.replication_service_pb2"
+    assert full_name == "vizier_tpu_torch.HeartbeatRequest"
+    assert file_name == "vizier_tpu_torch/service/protos/replication_service.proto"
+    assert same_a and same_b and flat == []

@@ -4,10 +4,11 @@ A copy of the JAX package's ``service/grpc_stubs.py``: messages are
 protoc-generated (``protos/``) and the thin method tables below provide what
 ``*_pb2_grpc.py`` would (grpcio-tools, the service-stub generator, is not a
 dependency). The services are named under the port's proto package, so the
-method paths are ``/vizier_tpu_torch.VizierService/...`` and
-``/vizier_tpu_torch.PythiaService/...``: the payloads are the JAX package's
-byte for byte, but a JAX-package client cannot call the port's server, nor
-the reverse. The replication surface waits for the fleet's port.
+method paths are ``/vizier_tpu_torch.VizierService/...``,
+``/vizier_tpu_torch.PythiaService/...`` and
+``/vizier_tpu_torch.ReplicationService/...``: the payloads are the JAX
+package's byte for byte, but a JAX-package client cannot call the port's
+server, nor the reverse.
 """
 
 from __future__ import annotations
@@ -17,10 +18,16 @@ from typing import Any, Dict, Tuple
 
 import grpc
 
-from vizier_tpu_torch.service.protos import pythia_service_pb2, study_pb2, vizier_service_pb2
+from vizier_tpu_torch.service.protos import (
+    pythia_service_pb2,
+    replication_service_pb2,
+    study_pb2,
+    vizier_service_pb2,
+)
 
 _V = vizier_service_pb2
 _P = pythia_service_pb2
+_R = replication_service_pb2
 
 # method name -> (request class, response class)
 VIZIER_METHODS: Dict[str, Tuple[Any, Any]] = {
@@ -52,8 +59,23 @@ PYTHIA_METHODS: Dict[str, Tuple[Any, Any]] = {
     "Ping": (_P.PingRequest, _P.PingResponse),
 }
 
+# The cross-process replication plane (standby-log streaming, lease
+# heartbeats, recovery plumbing — vizier_tpu_torch.distributed).
+REPLICATION_METHODS: Dict[str, Tuple[Any, Any]] = {
+    "DeliverAppends": (_R.DeliverAppendsRequest, _R.DeliverAppendsResponse),
+    "Baseline": (_R.DeliverAppendsRequest, _R.DeliverAppendsResponse),
+    "Fence": (_R.FenceRequest, _R.FenceResponse),
+    "Heartbeat": (_R.HeartbeatRequest, _R.HeartbeatResponse),
+    "ExportStandby": (_R.ExportStandbyRequest, _R.ExportStandbyResponse),
+    "ExportState": (_R.ExportStateRequest, _R.ExportStateResponse),
+    "ApplyRecords": (_R.ApplyRecordsRequest, _R.ApplyRecordsResponse),
+    "Resync": (_R.ResyncRequest, _R.ResyncResponse),
+    "FlushStream": (_R.FlushStreamRequest, _R.FlushStreamResponse),
+}
+
 VIZIER_SERVICE_NAME = "vizier_tpu_torch.VizierService"
 PYTHIA_SERVICE_NAME = "vizier_tpu_torch.PythiaService"
+REPLICATION_SERVICE_NAME = "vizier_tpu_torch.ReplicationService"
 
 
 def _wrap(servicer, method_name: str):
@@ -90,6 +112,10 @@ def add_vizier_servicer_to_server(servicer, server) -> None:
 
 def add_pythia_servicer_to_server(servicer, server) -> None:
     _add_servicer(servicer, server, PYTHIA_SERVICE_NAME, PYTHIA_METHODS)
+
+
+def add_replication_servicer_to_server(servicer, server) -> None:
+    _add_servicer(servicer, server, REPLICATION_SERVICE_NAME, REPLICATION_METHODS)
 
 
 class _Stub:
@@ -141,6 +167,11 @@ class VizierServiceStub(_Stub):
 class PythiaServiceStub(_Stub):
     def __init__(self, channel: grpc.Channel):
         super().__init__(channel, PYTHIA_SERVICE_NAME, PYTHIA_METHODS)
+
+
+class ReplicationServiceStub(_Stub):
+    def __init__(self, channel: grpc.Channel):
+        super().__init__(channel, REPLICATION_SERVICE_NAME, REPLICATION_METHODS)
 
 
 # One channel per endpoint for the process lifetime. Stub creation sits on
@@ -250,3 +281,10 @@ def create_vizier_stub(endpoint: str, timeout: float = 10.0) -> VizierServiceStu
 
 def create_pythia_stub(endpoint: str, timeout: float = 10.0) -> PythiaServiceStub:
     return PythiaServiceStub(_shared_channel(endpoint, timeout))
+
+
+def create_replication_stub(
+    endpoint: str, timeout: float = 10.0
+) -> ReplicationServiceStub:
+    """Replication-surface stub on the shared per-endpoint channel."""
+    return ReplicationServiceStub(_shared_channel(endpoint, timeout))

@@ -13,5 +13,6 @@ protoc --python_out=. \
   vizier_tpu_torch/service/protos/key_value.proto \
   vizier_tpu_torch/service/protos/study.proto \
   vizier_tpu_torch/service/protos/vizier_service.proto \
-  vizier_tpu_torch/service/protos/pythia_service.proto
+  vizier_tpu_torch/service/protos/pythia_service.proto \
+  vizier_tpu_torch/service/protos/replication_service.proto
 echo "Regenerated $(ls vizier_tpu_torch/service/protos/*_pb2.py | wc -l) message modules."

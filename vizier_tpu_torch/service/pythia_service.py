@@ -18,8 +18,11 @@ adapts protos to them.
 
 ``device`` is where the default factory's designers run: CUDA unless the
 caller asks for the CPU, and the servicer raises at construction when CUDA
-is asked for and no GPU is present. The JAX servicer's compile prewarm and
-its ``connect_to_vizier`` (the fleet's late binding) are not ported.
+is asked for and no GPU is present. ``connect_to_vizier`` is the fleet's
+late binding: a shared compute tier builds its Pythia first and binds it to
+a Vizier service afterwards (``distributed/replica_manager.py``,
+``distributed/pythia_server_main.py``). The JAX servicer's compile prewarm
+is not ported.
 """
 
 from __future__ import annotations
@@ -100,6 +103,10 @@ class PythiaServicer:
         # Early-stopping policies cached per study (the regression rule
         # holds a trained boosted-tree regressor; see EarlyStop).
         self._stopping_policies = {}
+        self._bind_speculative()
+
+    def connect_to_vizier(self, vizier_service) -> None:
+        self._vizier = vizier_service
         self._bind_speculative()
 
     def _bind_speculative(self) -> None:

@@ -299,6 +299,38 @@ class NestedDictRAMDataStore(datastore.DataStore):
             node.early_stopping_ops[operation.name] = _copy(operation)
         return operation.name
 
+    # -- snapshot export ---------------------------------------------------
+
+    def export_protos(self):
+        """Copies of every stored proto: (studies, trials, ops, es_ops).
+
+        One consistent cut under the lock, in deterministic (sorted) order —
+        the snapshot/replication layers (``vizier_tpu_torch.distributed.wal``)
+        serialize these into compacted WAL records. Suggestion ops are
+        ordered (client_id, op_number) within a study; trials by id.
+        """
+        studies, trials, ops, es_ops = [], [], [], []
+        with self._lock:
+            for owner_id in sorted(self._owners):
+                for study_id in sorted(self._owners[owner_id]):
+                    node = self._owners[owner_id][study_id]
+                    studies.append(_copy(node.study))
+                    trials.extend(
+                        _copy(t) for _, t in sorted(node.trials.items())
+                    )
+                    for client_id in sorted(node.suggestion_ops):
+                        ops.extend(
+                            _copy(op)
+                            for _, op in sorted(
+                                node.suggestion_ops[client_id].items()
+                            )
+                        )
+                    es_ops.extend(
+                        _copy(op)
+                        for _, op in sorted(node.early_stopping_ops.items())
+                    )
+        return studies, trials, ops, es_ops
+
     # -- metadata ----------------------------------------------------------
 
     def update_metadata(

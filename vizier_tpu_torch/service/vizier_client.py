@@ -2,8 +2,11 @@
 
 A copy of the JAX package's ``service/vizier_client.py``: the client
 targets either a remote gRPC endpoint or an in-process ``VizierServicer``
-through the same interface. The JAX client's routed multi-replica stub
-(``server_endpoints``) belongs to the fleet, which is not ported yet.
+through the same interface, or a sharded fleet of replica endpoints
+(``server_endpoints``, or a list passed as ``endpoint``) through the
+fleet's routed multi-replica stub
+(``vizier_tpu_torch.distributed.router_stub.RoutedVizierStub``), which
+sends each study's RPCs to the replica that owns it.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 from vizier_tpu_torch import pyvizier as vz
 from vizier_tpu_torch.observability import tracing as tracing_lib
@@ -36,6 +39,11 @@ class EnvironmentVariables:
     """Process-global client defaults."""
 
     server_endpoint: str = NO_ENDPOINT
+    # Sharded tier: the replica endpoints, in replica-id order (position i
+    # is "replica-i"). When set, clients route each study to its owning
+    # replica through a RoutedVizierStub — VizierClient code is unchanged.
+    # Takes precedence over ``server_endpoint``.
+    server_endpoints: Optional[List[str]] = None
     # Where the in-process service's Pythia runs its designers (the
     # NO_ENDPOINT path): CUDA unless set to "cpu".
     device: str = "cuda"
@@ -49,6 +57,7 @@ class EnvironmentVariables:
 environment_variables = EnvironmentVariables()
 
 _local_servicer = None
+_routed_stubs: Dict[tuple, Any] = {}
 
 
 def _get_local_servicer():
@@ -73,9 +82,35 @@ def _get_local_servicer():
     return _local_servicer
 
 
-def create_service_stub(endpoint: Optional[str] = None):
-    """Returns a gRPC stub or the in-process servicer — duck-typed alike, so
-    callers cannot tell them apart."""
+def _routed_stub(endpoints) -> Any:
+    """One RoutedVizierStub per endpoint list (shared, like gRPC channels)."""
+    key = tuple(endpoints)
+    stub = _routed_stubs.get(key)
+    if stub is None:
+        from vizier_tpu_torch.distributed import router_stub
+        from vizier_tpu_torch.observability import metrics as metrics_lib
+        from vizier_tpu_torch.service import grpc_stubs
+        from vizier_tpu_torch.utils import env
+
+        stub = router_stub.RoutedVizierStub(
+            {
+                f"replica-{i}": (lambda ep=ep: grpc_stubs.create_vizier_stub(ep))
+                for i, ep in enumerate(key)
+            },
+            routing_enabled=env.env_on("VIZIER_TORCH_DISTRIBUTED"),
+            registry=metrics_lib.default_registry(),
+        )
+        _routed_stubs[key] = stub
+    return stub
+
+
+def create_service_stub(endpoint: Union[None, str, List[str]] = None):
+    """Returns a gRPC stub, a routed multi-replica stub, or the in-process
+    servicer — all duck-typed alike, so callers cannot tell them apart."""
+    if endpoint is None and environment_variables.server_endpoints:
+        return _routed_stub(environment_variables.server_endpoints)
+    if isinstance(endpoint, (list, tuple)):
+        return _routed_stub(endpoint)
     endpoint = endpoint or environment_variables.server_endpoint
     if endpoint == NO_ENDPOINT:
         return _get_local_servicer()

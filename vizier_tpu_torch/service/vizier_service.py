@@ -52,6 +52,12 @@ _logger = logging.getLogger(__name__)
 class VizierServicer:
     """The study service; callable in-process or wrapped by gRPC."""
 
+    # Which fleet replica this servicer is (set by ReplicaManager /
+    # replica_main); '' = standalone. Stamped onto request spans so a
+    # fleet merge can split one process's span ring back into per-replica
+    # dumps (observability.fleet).
+    replica_id = ""
+
     def __init__(
         self,
         *,
@@ -209,12 +215,14 @@ class VizierServicer:
         tracer = tracing_lib.get_tracer()
         parent = tracing_lib.parse_context(request.trace_context)
         t0 = time.perf_counter()
+        attrs = {"replica": self.replica_id} if self.replica_id else {}
         with tracer.span(
             "service.suggest_trials",
             parent=parent,
             study=request.parent,
             client_id=request.client_id or "default_client_id",
             deadline_budget_secs=float(request.deadline_secs),
+            **attrs,
         ) as span:
             op = self._suggest_trials(request)
             span.set_attribute("operation", op.name)
@@ -224,7 +232,8 @@ class VizierServicer:
         elapsed = time.perf_counter() - t0
         recorder_lib.get_recorder().record(
             request.parent, "suggest", trace_id=trace_id,
-            operation=op.name, duration_secs=round(elapsed, 6), error=bool(op.error),
+            operation=op.name, replica=self.replica_id or None,
+            duration_secs=round(elapsed, 6), error=bool(op.error),
         )
         runtime = getattr(self._pythia, "serving_runtime", None)
         if runtime is not None:
@@ -592,12 +601,16 @@ class VizierServicer:
         # the speculative pre-compute, and the precompute span links back
         # here — "this completion set that compute in motion".
         tracer = tracing_lib.get_tracer()
-        with tracer.span("service.complete_trial", study=study_name, trial=request.name) as span:
+        attrs = {"replica": self.replica_id} if self.replica_id else {}
+        with tracer.span(
+            "service.complete_trial", study=study_name, trial=request.name, **attrs
+        ) as span:
             trial = self._complete_trial(request, study_name)
             self._notify_trial_event(study_name)
             trace_id = getattr(span, "trace_id", None)
         recorder_lib.get_recorder().record(
             study_name, "complete", trace_id=trace_id, trial=request.name,
+            replica=self.replica_id or None,
             state=study_pb2.Trial.State.Name(trial.state),
         )
         return trial
