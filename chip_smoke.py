@@ -229,17 +229,52 @@ Phases (any failure raises and exits non-zero):
    and in bounds. The phase imports no protobuf: the fleet's gRPC,
    protobuf, WAL and replica-manager halves are held to the JAX package on
    the CPU only (``tests/test_torch_fleet*.py``).
-15. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+15. loadgen: the loadgen engine (``vizier_tpu_torch/loadgen/``) at
+   ``soak_config()`` whose fingerprint must equal the JAX package's
+   (``_SOAK_FINGERPRINT``): its 1000 studies, 4334 trials (dim 2, Zipf
+   budgets 1-16, the tenant and kind mixes, concurrency 8, think time
+   0.15 s, the trimmed GP economics) through ``driver.run(...,
+   transport="runtime")``: ``LoadgenPolicyFactory`` and one ``ServingRuntime``
+   under ``scenario_env``'s planes (batching, speculation, SLO, admission,
+   recorder; the mesh plane as one placement), each study's trials in an
+   ``InRamPolicySupporter``, no protobuf; then the parity cohort's
+   sequential reference arm and its gated-off arm. ``report.build_report``
+   over the three: every assertion that needs no replica must pass (zero
+   lost studies, all kinds served, fallback rate, speculative hits, SLO,
+   shed rate, regret parity, bit-identity when gated off); the replica
+   events and failover are printed as not run on the card (the replicas
+   target needs protobuf; held on the CPU). The chaos window strikes the GP
+   designers through ``ChaosDesigner``: every fallback and slot error must
+   be one injected strike. The GP studies' ARD steps replay captured CUDA
+   graphs (``optimizers/graphs.py``, ``AdamOptimizer(cuda_graph=True)``):
+   none may fail to capture. Then K1/K2 at every launch layout it recorded,
+   and one soak-layout ARD train eager and graphed on the same inputs (the
+   two results within rtol 1e-4, atol 1e-5; each one's wall).
+16. testing: ``SimpleKDConvergenceTester`` at the JAX gates' parameters
+   (GP bandit 40 trials, batch 5, within 0.6, seed 1; GP-UCB-PE within
+   0.8), ``SimpleRegretComparisonTester`` (GP bandit vs random on the 4-D
+   Sphere shifted by [1, -2, 0.5, 2.5], 25 trials x 2 repeats, tolerance
+   0.0), the designers on CUDA; ``testing/chaos_flushes.py``'s strikes
+   through the ``BatchExecutor``: a per-slot strike degrades only its slot
+   (the others equal an unstruck flush), a device-program strike runs the
+   whole-batch sequential fallback, the counters equal the injected
+   strikes. Then K1/K2 at every launch layout it recorded (SimpleKD's
+   mixed layout among them).
+17. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
-   service-reliability, service-planes and fleet steps' included, by mode; K2's
+   service-reliability, service-planes, fleet, loadgen and testing steps'
+   included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14 run in two worker processes
-on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
+The phases are host-bound, so phases 7-9 and 14-16 run in three worker
+processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
-the main process's phases 4-6 and 10-13. The main process prints each
+the main process's phases 4-6 and 10-13. Phase 15 measures a serving
+plane's latency and speculative hits, which other processes' launches on
+the card and the host distort, so its worker starts alone and the others,
+and the main process's phases, start when phase 15 has ended. The main process prints each
 worker's log when its own phases are done and times phase 11's K2 feature
 layout after the workers end. A worker that fails, or runs past
 ``_WORKER_LIMIT_S``, fails the run.
@@ -271,6 +306,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -4104,6 +4140,310 @@ def run_fleet_phase(mods, kernels):
     return paths, figures
 
 
+# -- loadgen and testing (phases 15-16) -----------------------------------------
+
+# The JAX package's soak_config() expansion (seed 0, 1000 studies, 4334
+# trials); tests/test_torch_loadgen.py pins it against the live JAX expansion.
+_SOAK_FINGERPRINT = "9e86d4650ea5e34e059723653de33f403895b334622f4afce6b215e4e334b47c"
+# The report's assertions that need no replica: each must hold on the card.
+# The replica events and failover need the replicas target, which needs
+# protobuf: they are held on the CPU (tests/test_torch_loadgen_soak.py).
+_LOADGEN_REQUIRED = ("zero_lost_studies", "all_kinds_served", "fallback_rate_bounded",
+                     "speculative_hits", "slo_evaluated", "shed_rate_bounded",
+                     "regret_parity", "bit_identical_when_gated")
+
+
+def _by_shape_row(r) -> dict:
+    """One kernel's ``time_kernels`` row in the ``kernels`` line's form."""
+    return dict(ms=r["ms"], host_us=r["host_us"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                max_abs_err=r["max_abs_err"], occupancy=r["occupancy"])
+
+
+def _time_recorded(kernels, recorded, label: str) -> dict:
+    """K1 and K2 timed as phase 3 times them (checked first) at the recorded
+    K1 Gram and cross layouts with the most pairs: a phase's largest
+    launches. Another process shares the card meanwhile."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {shape for name, shape in recorded if name == "matern52_ard_fwd"}
+    timed = {}
+    for kind, symmetric in (("gram", True), ("cross", False)):
+        pool = [s for s in shapes if bool(s.symmetric) == symmetric]
+        if not pool:
+            continue
+        shape = max(pool, key=lambda s: (s.batch * s.n * s.m, repr(s)))
+        name = f"{label} {kind} {shape}"
+        args, masks = _case_at(gen, shape)
+        grad, fwd_err, bwd_err = _check_case(kernels, gen, name, args, masks,
+                                             same=symmetric, dc=shape.dc, verbose=False)
+        timed[name] = (args, masks, grad, fwd_err, bwd_err)
+    rows = time_kernels(kernels, timed)
+    return {name: {key: _by_shape_row(r[key]) for key in ("fwd", "bwd")}
+            for name, r in rows.items()}
+
+
+def _chaos_accounting(engine, label: str) -> dict:
+    """Every fallback and slot error of the engine arm is one injected
+    designer strike: the monkey strikes only inside the chaos window, so a
+    failed GP computation outside it, which the quasi-random fallback would
+    hide, breaks these equalities. (The runtime's ``fallbacks`` counter also
+    counts a struck speculative job's, which is never parked or served.)"""
+    faults = {site: c["faults"] for site, c in engine.chaos_counts.items()}
+    stats = engine.serving_stats
+    served = [r for r in engine.records if r.op == "suggest" and r.error is None]
+    struck = sum(faults.get(f"designer.{s}", 0)
+                 for s in ("suggest", "batch_prepare", "batch_finalize"))
+    slot_faults = faults.get("designer.batch_prepare", 0) + faults.get("designer.batch_finalize", 0)
+    keys = ("designer_failures", "fallbacks", "breaker_short_circuits", "admission_degraded",
+            "batch_slot_errors", "batch_fallbacks")
+    row = dict(faults=faults, served_fallbacks=sum(1 for r in served if r.fallback),
+               baseline_fallbacks=sum(1 for r in served if r.fallback
+                                      and r.kind in ("random", "quasi_random")),
+               **{k: stats[k] for k in keys})
+    ok = (stats["designer_failures"] == struck
+          and stats["fallbacks"] == (struck + stats["breaker_short_circuits"]
+                                     + stats["admission_degraded"])
+          and row["served_fallbacks"] <= stats["fallbacks"]
+          and stats["batch_slot_errors"] == slot_faults
+          and (stats["batch_fallbacks"] == 0) == (faults.get("designer.batch_execute", 0) == 0)
+          and row["baseline_fallbacks"] == 0)
+    print(f"{label} chaos window: {row}")
+    if not ok:
+        raise AssertionError(f"{label}: a fallback or slot error not explained by an injected "
+                             f"strike: {row}")
+    return row
+
+
+def _ard_graph_check(label: str) -> dict:
+    """One ARD train at a soak layout (2-D, 16 padded rows of which 10 are
+    real, a warm row and 2 restarts, Adam for 10 steps), eager and through
+    captured CUDA graphs (``optimizers/graphs.py``) on the same inputs: the
+    largest difference between the two results (under capture the loss
+    solves with triangular solves, so they differ by rounding) and each
+    one's wall per train."""
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.optimizers import graphs, lbfgs
+
+    model = gp_lib.VizierGaussianProcess(num_continuous=2, num_categorical=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    n, valid = 16, 10
+    rows = torch.arange(n) < valid
+    data = gp_lib.GPData(
+        continuous=torch.rand((n, 2), generator=gen).cuda(),
+        categorical=torch.zeros((n, 0), dtype=torch.int32).cuda(),
+        labels=torch.where(rows, torch.randn(n, generator=gen), torch.zeros(n)).cuda(),
+        row_mask=rows.cuda(), cont_dim_mask=torch.ones(2, dtype=torch.bool).cuda(),
+        cat_dim_mask=torch.ones(0, dtype=torch.bool).cuda())
+    inits = model.param_collection().batch_random_init_unconstrained(
+        torch.Generator(device="cuda").manual_seed(0), 3)
+    loss = graphs.BoundLoss(model.neg_log_likelihood, data)
+    eager = lbfgs.AdamOptimizer(maxiter=10, device="cuda")
+    graphed = dataclasses.replace(eager, cuda_graph=True)
+    want, got = eager(loss, inits), graphed(loss, inits)
+    pairs = [(got.params[k], want.params[k]) for k in want.params] + [(got.losses, want.losses)]
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    if not all(torch.allclose(g, w, rtol=1e-4, atol=1e-5) for g, w in pairs):
+        raise AssertionError(f"{label}: the graphed ARD train differs from the eager one by "
+                             f"{err} (rtol 1e-4, atol 1e-5)")
+
+    def wall_ms(opt, reps=20):
+        opt(loss, inits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            opt(loss, inits)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = dict(max_abs_err=err, eager_ms=wall_ms(eager), graphed_ms=wall_ms(graphed))
+    print(f"{label}: one soak-layout ARD train (Adam 10 steps, 3 restarts, 16 rows): eager "
+          f"{out['eager_ms']:.3f} ms, graphed {out['graphed_ms']:.3f} ms, max abs diff "
+          f"{err:.3e}; {_card_line()}")
+    return out
+
+
+def run_loadgen_phase(kernels, lib):
+    """Phase 15: the loadgen engine at soak_config() (see the module
+    docstring). Returns ({path: launches by mode}, figures)."""
+    from vizier_tpu_torch.loadgen import driver, models, report
+    from vizier_tpu_torch.optimizers import graphs as graphs_lib
+
+    label = "loadgen"
+    phase_start = time.perf_counter()
+    kernels.LAUNCH_SHAPES = set()
+    scenario = models.build_scenario(models.soak_config())
+    fingerprint = scenario.fingerprint()
+    if fingerprint != _SOAK_FINGERPRINT:
+        raise AssertionError(f"{label}: soak_config() expands to {fingerprint}, the JAX "
+                             f"package's to {_SOAK_FINGERPRINT}")
+    print(f"{label}: soak_config() fingerprint {fingerprint} (the JAX package's); driving "
+          f"{scenario.summary()}")
+    from vizier_tpu_torch.parallel import batch_executor as executor_lib
+
+    # The executor's busy time in the engine arm: every flush's wall on its
+    # scheduler thread (the share of the arm's wall says how saturated the
+    # one computation at a time is).
+    flush_walls, execute = [], executor_lib.BatchExecutor._execute
+
+    def timed_execute(self, key, slots, reason):
+        t0 = time.perf_counter()
+        try:
+            return execute(self, key, slots, reason)
+        finally:
+            flush_walls.append(time.perf_counter() - t0)
+
+    paths, walls, arms = {}, {}, {}
+    for arm, fn in (("engine", driver.run), ("reference", driver.run_reference),
+                    ("gated_off", driver.run_gated_off)):
+        executor_lib.BatchExecutor._execute = timed_execute if arm == "engine" else execute
+        try:
+            arms[arm], walls[arm], paths[f"loadgen_{arm}"] = _path_launches(
+                kernels, lambda: fn(scenario, device="cuda", transport="runtime"))
+        finally:
+            executor_lib.BatchExecutor._execute = execute
+        print(f"{label} {arm} arm: {len(arms[arm].outcomes)} studies in {walls[arm]:.1f} s, "
+              f"launches {paths[f'loadgen_{arm}']}")
+    engine = arms["engine"]
+    rep = report.build_report(scenario, engine, arms["reference"], arms["gated_off"],
+                              stamps={"device": torch.cuda.get_device_name(0),
+                                      "card": _card_line(), "mesh": engine.mesh})
+    for row in rep["assertions"]:
+        if row["name"] in _LOADGEN_REQUIRED:
+            print(f"{label} [{'ok' if row['ok'] else 'FAIL'}] {row['name']}: {row['detail']}")
+        else:
+            print(f"{label} [not run on the card: needs the replicas target and protobuf] "
+                  f"{row['name']}: {row['detail']}")
+    verdicts = {row["name"]: row["ok"] for row in rep["assertions"]}
+    # Raised after the phase's other checks and figures, so a failed
+    # assertion still leaves the phase's numbers in the log.
+    failed = [name for name in _LOADGEN_REQUIRED if not verdicts.get(name)]
+    skipped = sorted({e["kind"] for e in engine.events_fired if "skipped" in e})
+    chaos = _chaos_accounting(engine, label)
+    by_kind = rep["outcomes"]["by_kind"]
+    figures = dict(
+        fingerprint=fingerprint, studies=len(scenario.studies), trials=scenario.total_trials,
+        walls_s=walls, mesh=engine.mesh, events_skipped=skipped,
+        events_fired=[e["kind"] for e in engine.events_fired if "skipped" not in e],
+        gp_hit_rate=rep["speculative"]["gp_hit_rate"], hits=rep["speculative"]["hits"],
+        fallback_rate=round(sum(r["fallbacks"] for r in by_kind.values()) / max(
+            1, sum(r["suggests"] - r["errors"] for r in by_kind.values())), 4),
+        shed_rate=rep["admission"]["shed_rate"], parity_p=rep["parity"]["ranksum_p"],
+        bit_identity=rep["bit_identity"]["studies_compared"],
+        p99_ms={kind: row["latency"]["p99_ms"] for kind, row in by_kind.items()},
+        p50_ms={kind: row["latency"]["p50_ms"] for kind, row in by_kind.items()},
+        achieved_trials_per_s=rep["traffic"]["achieved_trials_per_s"],
+        executor_busy_s=sum(flush_walls),
+        executor_busy_share=sum(flush_walls) / walls["engine"],
+        flush_ms_p50=float(np.percentile(flush_walls, 50)) * 1e3 if flush_walls else None,
+        serving={k: engine.serving_stats[k] for k in (
+            "batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+            "cold_trains", "warm_trains", "sparse_suggests", "surrogate_crossovers",
+            "coalesced_requests", "deadline_exceeded", "speculative_hits",
+            "speculative_misses", "speculative_precomputes", "speculative_cancelled",
+            "speculative_errors", "fallbacks", "admission_sheds")},
+        chaos=chaos, slo_breaching=rep["slo"].get("breaching", []),
+        launches={arm: sum(sum(m.values()) for m in paths[f"loadgen_{arm}"].values())
+                  for arm in arms},
+        ard_graphs=dict(graphs_lib.STATS))
+    for name in models.GP_KINDS:
+        if by_kind.get(name, {}).get("suggests", 0) - by_kind.get(name, {}).get("errors", 0) <= 0:
+            raise AssertionError(f"{label}: kind {name} was not served")
+    _require_modes(paths["loadgen_engine"], (("matern52_ard_fwd", "gram"),
+                                             ("matern52_ard_fwd", "cross"),
+                                             ("matern52_ard_bwd", "gram")), f"{label} engine")
+    if figures["ard_graphs"]["failures"] or not figures["ard_graphs"]["served"]:
+        raise AssertionError(f"{label}: the ARD loop was not replayed from captured graphs: "
+                             f"{figures['ard_graphs']}")
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded"] = check_recorded_shapes(kernels, lib, recorded, label)
+    figures["timed"] = _time_recorded(kernels, recorded, label)
+    figures["ard_graph"] = _ard_graph_check(label)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: {json.dumps({k: figures[k] for k in ('gp_hit_rate', 'fallback_rate', 'shed_rate', 'p99_ms', 'parity_p', 'executor_busy_share', 'flush_ms_p50', 'ard_graphs')})}; "
+          f"phase {figures['wall_s']:.1f} s; {_card_line()}")
+    if failed:
+        print(f"{label} figures: {json.dumps(figures)}")
+        raise AssertionError(f"{label}: report assertions failed or missing: {failed}")
+    return paths, figures
+
+
+def _simplekd_factories():
+    from vizier_tpu_torch.designers.gp_bandit import VizierGPBandit
+    from vizier_tpu_torch.designers.gp_ucb_pe import VizierGPUCBPEBandit
+    from vizier_tpu_torch.optimizers.lbfgs import AdamOptimizer
+
+    ard = AdamOptimizer(maxiter=40, device="cuda")
+
+    def gp(problem, seed=None, **kw):
+        return VizierGPBandit(problem, rng_seed=seed or 0, max_acquisition_evaluations=1500,
+                              ard_restarts=4, ard_optimizer=ard, num_seed_trials=5,
+                              device="cuda")
+
+    def ucb_pe(problem, seed=None, **kw):
+        return VizierGPUCBPEBandit(problem, rng_seed=seed or 0, max_acquisition_evaluations=800,
+                                   ard_restarts=4, ard_optimizer=ard, num_seed_trials=5,
+                                   device="cuda")
+
+    return gp, ucb_pe
+
+
+def run_testing_phase(kernels, lib):
+    """Phase 16: the designers' convergence gates and the chaos strikes on
+    the card (see the module docstring). Returns ({path: launches by mode},
+    figures)."""
+    from vizier_tpu_torch.benchmarks import NumpyExperimenter, bbob_problem
+    from vizier_tpu_torch.benchmarks.experimenters import wrappers
+    from vizier_tpu_torch.benchmarks.experimenters.synthetic import bbob
+    from vizier_tpu_torch.designers.random import RandomDesigner
+    from vizier_tpu_torch.testing import chaos_flushes, comparator_runner, simplekd_runner
+
+    label = "testing"
+    phase_start = time.perf_counter()
+    kernels.LAUNCH_SHAPES = set()
+    gp, ucb_pe = _simplekd_factories()
+    paths, figures = {}, {}
+    for name, factory, max_abs_error in (("gp_bandit", gp, 0.6), ("gp_ucb_pe", ucb_pe, 0.8)):
+        tester = simplekd_runner.SimpleKDConvergenceTester(
+            num_trials=40, batch_size=5, max_abs_error=max_abs_error, seed=1)
+        best, wall, paths[f"simplekd_{name}"] = _path_launches(
+            kernels, lambda: tester.assert_converges(factory))
+        figures[f"simplekd_{name}"] = dict(best=best, max_abs_error=max_abs_error, wall_s=wall)
+        print(f"{label} SimpleKD {name}: best {best:.4f} within {max_abs_error} of the optimum "
+              f"0.0 (40 trials, batch 5, seed 1), {wall:.1f} s, launches "
+              f"{paths[f'simplekd_{name}']}")
+    experimenter = wrappers.ShiftingExperimenter(
+        NumpyExperimenter(bbob.Sphere, bbob_problem(4)), shift=np.array([1.0, -2.0, 0.5, 2.5]))
+    tester = comparator_runner.SimpleRegretComparisonTester(
+        num_trials=25, num_repeats=2, tolerance=0.0)
+    _, wall, paths["regret_comparison"] = _path_launches(
+        kernels, lambda: tester.assert_better_simple_regret(
+            experimenter, candidate_factory=gp,
+            baseline_factory=lambda p, **kw: RandomDesigner(p.search_space,
+                                                           seed=kw.get("seed", 0))))
+    figures["regret_comparison"] = dict(wall_s=wall)
+    print(f"{label} SimpleRegretComparisonTester: GP bandit not worse than random on the "
+          f"4-D Sphere shifted by [1, -2, 0.5, 2.5] (25 trials x 2 repeats, tolerance 0.0), "
+          f"{wall:.1f} s, launches {paths['regret_comparison']}")
+    for name, fn in (("per_slot_strike", chaos_flushes.per_slot_strike),
+                     ("device_program_strike", chaos_flushes.device_program_strike)):
+        out, wall, paths[f"chaos_{name}"] = _path_launches(kernels, lambda: fn("cuda"))
+        if not all(out["equal"]):
+            raise AssertionError(f"{label} {name}: the unstruck slots differ: {out}")
+        counters = {k: out["counters"][k] for k in ("batch_flushes", "batched_suggests",
+                                                    "batch_fallbacks", "batch_slot_errors")}
+        figures[name] = dict(faults=out["faults"], counters=counters, wall_s=wall)
+        print(f"{label} {name}: {out['faults']} injected strike, counters {counters}, the "
+              f"other slots equal their unstruck suggestions, {wall:.1f} s")
+    for path in ("simplekd_gp_bandit", "simplekd_gp_ucb_pe"):
+        _require_modes(paths[path], (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                     ("matern52_ard_bwd", "gram")), f"{label} {path}")
+    recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+    figures["recorded"] = check_recorded_shapes(kernels, lib, recorded, label)
+    figures["timed"] = _time_recorded(kernels, recorded, label)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -4117,6 +4457,7 @@ def run_fleet_phase(mods, kernels):
 _WORKER_PHASES = {
     "regret": ("regret",),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
+    "loadgen": ("loadgen", "testing"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -4152,6 +4493,10 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_gp_surface_phase(kernels, lib)
     if phase == "fleet":
         return run_fleet_phase(mods, kernels)
+    if phase == "loadgen":
+        return run_loadgen_phase(kernels, lib)
+    if phase == "testing":
+        return run_testing_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -4165,18 +4510,28 @@ def run_worker(name: str, result: str, start: float) -> int:
     device_lib.resolve("cuda")
     lib = native.library()  # built by the main process: loaded as it is
     mods = _phase_modules()
-    out = {}
+    out, failed = {}, []
     for phase in _WORKER_PHASES[name]:
-        paths, figures = _run_worker_phase(phase, kernels, lib, mods)
+        # A failed phase does not stop the worker's later ones: each is
+        # checked and reported, and the worker exits 1 after the last.
+        try:
+            paths, figures = _run_worker_phase(phase, kernels, lib, mods)
+        except Exception:
+            traceback.print_exc()
+            failed.append(phase)
+            _mark(start, f"{phase.replace('_', '-')} phase FAILED (worker {name})")
+            continue
+        finally:
+            pathlib.Path(f"{result}.{phase}.ended").touch()
         out[phase] = dict(paths=paths, figures=figures)
         _mark(start, f"{phase.replace('_', '-')} phase done (worker {name})")
     pathlib.Path(result).write_text(json.dumps(out))
-    return 0
+    return 1 if failed else 0
 
 
-def _start_workers(tmp: str, start: float) -> dict:
+def _start_workers(tmp: str, start: float, names) -> dict:
     workers = {}
-    for name in _WORKER_PHASES:
+    for name in names:
         files = {kind: os.path.join(tmp, f"{name}.{kind}") for kind in ("out", "err", "json")}
         with open(files["out"], "w") as out, open(files["err"], "w") as err:
             proc = subprocess.Popen(
@@ -4185,6 +4540,15 @@ def _start_workers(tmp: str, start: float) -> dict:
                 stdout=out, stderr=err, stdin=subprocess.DEVNULL)
         workers[name] = (proc, files)
     return workers
+
+
+def _await_phase(worker, phase: str, start: float) -> None:
+    """Waits until ``worker`` has ended ``phase`` (done or failed), has
+    exited, or has run out of time."""
+    proc, files = worker
+    ended = pathlib.Path(f"{files['json']}.{phase}.ended")
+    while not ended.exists() and proc.poll() is None and time.time() < start + _WORKER_LIMIT_S:
+        time.sleep(0.2)
 
 
 def _join_workers(workers: dict, start: float) -> dict:
@@ -4270,8 +4634,15 @@ def main() -> int:
     mods = _phase_modules()
     vz = mods["vz"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as tmp:
-        workers = _start_workers(tmp, start)
+        # The loadgen phase measures a serving plane's latency and
+        # speculative hits: it has the card and the host to itself, and the
+        # other workers and this process's phases start once it has ended.
+        workers = _start_workers(tmp, start, ("loadgen",))
         try:
+            _await_phase(workers["loadgen"], "loadgen", start)
+            _mark(start, "loadgen phase ended; starting the other workers")
+            workers.update(_start_workers(
+                tmp, start, [name for name in _WORKER_PHASES if name != "loadgen"]))
             designer, launches, by_mode, exact_timers = run_main_path(
                 vz, gp_ucb_pe, kernels, gp_lib, multitask_gp)
             _mark(start, "main path done")
@@ -4316,6 +4687,9 @@ def main() -> int:
     print(json.dumps({"gp_surface": done["gp_surface"]["figures"]}))
     fleet_paths = done["fleet"]["paths"]
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
+    slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"]}
+    print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
+    print(json.dumps({"testing": done["testing"]["figures"]}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -4329,16 +4703,14 @@ def main() -> int:
     for key, name in (("fwd", "matern52_ard_fwd"), ("bwd", "matern52_ard_bwd")):
         by_shape = {}
         for shape, t in timing.items():
-            by_shape[shape] = {
-                "ms": t[key]["ms"], "host_us": t[key]["host_us"], "plain_ms": t[key]["plain_ms"],
-                "library_ms": t[key]["library_ms"], "bound_ms": t[key]["bound"][0],
-                "bound_by": t[key]["bound"][1], "max_abs_err": t[key]["max_abs_err"],
-                "occupancy": t[key]["occupancy"],
-            }
+            by_shape[shape] = _by_shape_row(t[key])
             if baseline is not None:
                 by_shape[shape]["baseline_ms"] = baseline[shape][f"{key}_ms"]
                 if key == "fwd":
                     by_shape[shape]["baseline_with_masking_ms"] = baseline[shape]["fwd_masked_ms"]
+        for phase in ("loadgen", "testing"):
+            for shape, row in done[phase]["figures"]["timed"].items():
+                by_shape[shape] = row[key]
         head = by_shape[headline[key]]
         rows.append({
             "name": name, "route": "cuda", "source": "vizier_tpu_torch/csrc/matern52.cu",
@@ -4363,13 +4735,20 @@ def main() -> int:
                 **{path: modes[name] for path, modes in extras_paths.items()},
                 **{path: modes[name] for path, modes in service_paths.items()},
                 **{path: modes[name] for path, modes in planes_paths.items()},
-                **{path: modes[name] for path, modes in fleet_paths.items()}},
+                **{path: modes[name] for path, modes in fleet_paths.items()},
+                **{path: modes[name] for path, modes in slice_paths.items()}},
             "launches_algorithms_phase": sum(
                 sum(modes[name].values()) for modes in algorithm_paths.values()),
             "launches_algorithm_extras_phase": sum(
                 sum(modes[name].values()) for modes in extras_paths.values()),
             "launches_fleet_phase": sum(
                 sum(modes[name].values()) for modes in fleet_paths.values()),
+            "launches_loadgen_phase": sum(
+                sum(done["loadgen"]["paths"][path][name].values())
+                for path in done["loadgen"]["paths"]),
+            "launches_testing_phase": sum(
+                sum(done["testing"]["paths"][path][name].values())
+                for path in done["testing"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

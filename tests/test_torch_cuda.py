@@ -1473,3 +1473,97 @@ def test_two_frontends_studies_routed_by_the_router_fuse_into_one_flush(cuda_dev
             values = [s.parameters.get_value(f"x{j}") for j in range(4)]
             assert all(np.isfinite(values)) and all(0.0 <= v <= 1.0 for v in values)
     rt.shutdown()
+
+
+def test_chaos_strikes_through_the_executor_on_the_card(cuda_device):
+    """A per-slot strike degrades only its slot, the other slots equal an
+    unstruck flush; a device-program strike runs the whole-batch sequential
+    fallback, each slot equal to its study's own suggest; the executor's
+    counters equal the injected strikes (``vizier_tpu_torch/testing/chaos_flushes.py``)."""
+    
+    from vizier_tpu_torch.testing import chaos_flushes
+
+    tk.reset_launch_counts()
+    per_slot = chaos_flushes.per_slot_strike("cuda")
+    assert per_slot["faults"] == 1 and per_slot["equal"] == [True, True]
+    fallback = chaos_flushes.device_program_strike("cuda")
+    assert fallback["faults"] == 1 and fallback["equal"] == [True, True]
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["gram"] > 0
+
+
+def test_simplekd_convergence_on_the_card(cuda_device):
+    """The JAX package's GP-bandit SimpleKD gate (40 trials, batch 5, within
+    0.6 of the optimum, seed 1) with the port's designer on CUDA: SimpleKD's
+    mixed layout (one categorical, one discrete, one int, two floats)."""
+    from vizier_tpu_torch.designers.gp_bandit import VizierGPBandit
+    from vizier_tpu_torch.optimizers.lbfgs import AdamOptimizer
+    from vizier_tpu_torch.testing import simplekd_runner
+
+    ard = AdamOptimizer(maxiter=40, device="cuda")
+
+    def factory(problem, seed=None, **kw):
+        return VizierGPBandit(problem, rng_seed=seed or 0, max_acquisition_evaluations=1500,
+                              ard_restarts=4, ard_optimizer=ard, num_seed_trials=5,
+                              device="cuda")
+
+    tk.reset_launch_counts()
+    tester = simplekd_runner.SimpleKDConvergenceTester(
+        num_trials=40, batch_size=5, max_abs_error=0.6, seed=1)
+    assert tester.assert_converges(factory) > -0.6
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0
+
+
+def _soak_train(device, studies=None, seed=0):
+    """A 2-D ARD train at a soak layout: the model, its bound loss and inits
+    (a warm row and 2 restarts per study); ``studies`` S stacks S studies'
+    data as a flush does."""
+    from vizier_tpu_torch.models import gp as tgp
+    from vizier_tpu_torch.optimizers import graphs
+
+    model = tgp.VizierGaussianProcess(num_continuous=2, num_categorical=0, device=device)
+    if studies is None:
+        data = _gp_data(device, 16, 10, 2, 0, seed=seed)
+    else:
+        parts = [_gp_data(device, 16, 6 + s, 2, 0, seed=seed + s) for s in range(studies)]
+        data = tgp.GPData(*(torch.stack([getattr(p, f) for p in parts])
+                            for f in ("continuous", "categorical", "labels", "row_mask",
+                                      "cont_dim_mask", "cat_dim_mask")))
+    inits = model.param_collection().batch_random_init_unconstrained(
+        torch.Generator(device=device).manual_seed(seed), 3 * (studies or 1))
+    return graphs.BoundLoss(model.neg_log_likelihood, data), inits
+
+
+@pytest.mark.parametrize("studies", [None, 8], ids=["one_study", "flush_of_8"])
+def test_a_graphed_adam_train_equals_the_eager_one(cuda_device, studies):
+    """The captured ARD loop gives the eager loop's result on the data it was
+    captured with and on new data of the same layout (up to float32 rounding:
+    under capture the NLL's solve is two triangular solves, not MAGMA's
+    cholesky_solve), and counts the kernels' launches when it replays them,
+    as the eager loop counts them."""
+    from vizier_tpu_torch.optimizers import graphs, lbfgs
+
+    graphs.clear()
+    eager = lbfgs.AdamOptimizer(maxiter=10, device="cuda")
+    graphed = lbfgs.AdamOptimizer(maxiter=10, device="cuda", cuda_graph=True)
+    before = dict(graphs.STATS)
+    for seed in (0, 1):
+        loss, inits = _soak_train(cuda_device, studies, seed=seed)
+        tk.reset_launch_counts()
+        want = eager(loss, inits, best_n=1, groups=studies or 1)
+        torch.cuda.synchronize()
+        eager_launches = {k: dict(v) for k, v in tk.LAUNCHES_BY_MODE.items()}
+        got = graphed(loss, inits, best_n=1, groups=studies or 1)
+        if seed == 1:  # replayed, not captured: its launches alone
+            tk.reset_launch_counts()
+            got = graphed(loss, inits, best_n=1, groups=studies or 1)
+            torch.cuda.synchronize()
+            assert tk.LAUNCHES_BY_MODE == eager_launches
+        for k in want.params:
+            torch.testing.assert_close(got.params[k], want.params[k], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got.losses, want.losses, rtol=1e-4, atol=1e-5)
+    # One step and one final loss captured, for both datasets' layout.
+    assert graphs.STATS["captures"] - before["captures"] == 2
+    assert graphs.STATS["served"] - before["served"] == 3
+    assert graphs.STATS["failures"] == before["failures"]

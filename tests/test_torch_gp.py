@@ -170,6 +170,47 @@ def test_lbfgs_reaches_the_same_best_loss():
     assert abs(float(got.best_loss) - float(want.best_loss)) <= 1e-3 * abs(float(want.best_loss))
 
 
+def test_adam_over_a_bound_loss_runs_the_eager_loop_on_the_cpu():
+    """``cuda_graph`` only captures CUDA work: on the CPU a bound loss runs
+    the eager loop and gives the floats of the plain closure."""
+    from vizier_tpu_torch.optimizers import graphs
+
+    _, _, tmodel, tdata, _ = _setup(seed=6, n=12, n_pad=16)
+    inits = tmodel.param_collection().batch_random_init_unconstrained(
+        torch.Generator().manual_seed(7), 3)
+    want = tlbfgs.AdamOptimizer(maxiter=10, device="cpu")(
+        lambda p: tmodel.neg_log_likelihood(p, tdata), inits, best_n=2)
+    before = dict(graphs.STATS)
+    got = tlbfgs.AdamOptimizer(maxiter=10, device="cpu", cuda_graph=True)(
+        graphs.BoundLoss(tmodel.neg_log_likelihood, tdata), inits, best_n=2)
+    assert graphs.STATS == before
+    assert torch.equal(got.losses, want.losses)
+    for k in want.params:
+        assert torch.equal(got.params[k], want.params[k])
+
+
+def test_graph_keys_follow_the_layout_of_the_inputs_not_their_values():
+    """The graph cache's key of a GP dataset: equal for new values of one
+    layout, different for another padded row count; the dataset rebuilt from
+    its tensors is the same dataset."""
+    from vizier_tpu_torch.optimizers import graphs
+
+    def layout(data):
+        leaves = []
+        return graphs.layout(data, leaves), leaves
+
+    _, _, _, a, _ = _setup(seed=1, n=12, n_pad=16)
+    _, _, _, b, _ = _setup(seed=2, n=10, n_pad=16)
+    _, _, _, c, _ = _setup(seed=1, n=12, n_pad=32)
+    (key_a, leaves_a), (key_b, _), (key_c, _) = layout(a), layout(b), layout(c)
+    assert key_a == key_b and hash(key_a) == hash(key_b)
+    assert key_a != key_c
+    rebuilt = graphs.rebuild(a, iter(leaves_a))
+    assert type(rebuilt) is type(a)
+    for field in dataclasses.fields(a):
+        assert getattr(rebuilt, field.name) is getattr(a, field.name)
+
+
 def test_lbfgs_minimizes_a_batch_of_quadratics():
     """Restarts are independent rows: each converges to its own minimum."""
     centers = torch.tensor([[1.0, -2.0], [0.5, 3.0], [-1.0, 0.0]])

@@ -230,3 +230,78 @@ print(json.dumps([pb.HeartbeatRequest.__module__, pb.HeartbeatRequest.DESCRIPTOR
     assert full_name == "vizier_tpu_torch.HeartbeatRequest"
     assert file_name == "vizier_tpu_torch/service/protos/replication_service.proto"
     assert same_a and same_b and flat == []
+
+
+_SLICE_MODULES = [
+    "vizier_tpu_torch.loadgen", "vizier_tpu_torch.loadgen.models",
+    "vizier_tpu_torch.loadgen.driver", "vizier_tpu_torch.loadgen.report",
+    "vizier_tpu_torch.loadgen.soak", "vizier_tpu_torch.testing.failing",
+    "vizier_tpu_torch.testing.chaos", "vizier_tpu_torch.testing.chaos_flushes",
+    "vizier_tpu_torch.testing.test_studies",
+    "vizier_tpu_torch.testing.test_runners", "vizier_tpu_torch.testing.optimizer_test_utils",
+    "vizier_tpu_torch.testing.numpy_assertions", "vizier_tpu_torch.testing.simplekd_runner",
+    "vizier_tpu_torch.testing.comparator_runner", "vizier_tpu_torch.testing.stress",
+    "vizier_tpu_torch.benchmarks.experimenters.synthetic.simplekd",
+]
+
+
+@pytest.fixture(scope="module")
+def slice_imports():
+    """Per loadgen / testing module, in one fresh interpreter: the JAX-side
+    modules its import added; and the two packages' exports."""
+    code = f"""
+import importlib, json, sys
+out = {{}}
+for name in {_SLICE_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(sys.modules) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "vizier_tpu"))
+import vizier_tpu_torch.loadgen as lg
+import vizier_tpu_torch.testing as t
+out["loadgen"] = {{n: getattr(lg, n).__module__ for n in lg.__all__}}
+out["testing"] = {{n: getattr(t, n).__module__ for n in t.__all__}}
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _SLICE_MODULES)
+def test_the_loadgen_and_testing_modules_load_no_jax(slice_imports, module):
+    assert slice_imports[module] == []
+
+
+def test_the_loadgen_and_testing_exports_equal_the_jax_packages(slice_imports):
+    import inspect
+
+    import vizier_tpu.loadgen as jax_loadgen
+    import vizier_tpu.testing as jax_testing
+
+    assert sorted(slice_imports["loadgen"]) == sorted(jax_loadgen.__all__)
+    assert all(m.startswith("vizier_tpu_torch.loadgen.") for m in slice_imports["loadgen"].values())
+    assert sorted(slice_imports["testing"]) == sorted(
+        n for n, v in vars(jax_testing).items() if not n.startswith("_") and not inspect.ismodule(v))
+    assert all(m.startswith("vizier_tpu_torch.testing.") for m in slice_imports["testing"].values())
+
+
+def test_the_loadgen_engine_runs_without_grpc_or_protobuf():
+    """The card's loadgen phase: with grpc and protobuf blocked, the models,
+    the report and the loadgen driver import, the smoke scenario runs through the
+    runtime transport on the CPU, and neither module is loaded."""
+    code = """
+import json, sys
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+import torch
+torch.set_num_threads(1)
+from vizier_tpu_torch.loadgen import driver, models, report
+from vizier_tpu_torch.testing import chaos, simplekd_runner, comparator_runner
+import vizier_tpu_torch.loadgen as lg
+scenario = lg.build_scenario(lg.smoke_config())
+engine = driver.run(scenario, device="cpu", transport="runtime")
+rep = report.build_report(scenario, engine)
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] == "grpc" or m.startswith("google.protobuf")))
+print(json.dumps([loaded, engine.lost_studies(), len(engine.outcomes)]))
+"""
+    assert json.loads(_fresh(code)) == [[], [], 8]

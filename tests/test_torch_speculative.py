@@ -311,6 +311,31 @@ def test_engine_scenario_equals_the_jax_packages(name):
         assert out == (None, [], False)
 
 
+def test_a_live_miss_supersedes_the_studys_queued_and_running_jobs():
+    """The port's departure from the JAX engine: a live request that misses
+    computes the frontier its study's job was enqueued for, so that job is
+    superseded. A queued one never runs; a running one parks nothing."""
+    h = _Harness(PORT)
+    try:
+        h.entry("s")
+        h.entry("t")
+        h.frontier = ([1], [], 1)
+        h.release.clear()
+        h.engine.notify_completion("s")
+        assert h.started.wait(10.0)  # s's job runs on the one worker
+        h.engine.notify_completion("t")  # t's waits behind it
+        assert h.engine.try_serve("t", 1, h.fp()) == (None, "miss")
+        assert h.engine.try_serve("s", 1, h.fp()) == (None, "miss")
+        h.release.set()
+        assert h.engine.wait_idle(10.0)
+        assert h.computes == 1 and h.slot("s") is None and h.slot("t") is None
+        counters = h.counters()
+        assert counters["cancelled"] == 2 and counters["misses"] == 2
+        assert counters["hits"] == 0
+    finally:
+        h.engine.close()
+
+
 def test_config_and_fingerprint_equal_the_jax_packages(monkeypatch):
     assert not speculative.SpeculativeConfig.from_env().speculative
     monkeypatch.setenv("VIZIER_TORCH_SPECULATIVE", "1")

@@ -56,6 +56,7 @@ from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.models import stacked_residual
 from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
+from vizier_tpu_torch.optimizers import graphs as graphs_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.parallel import batch_executor
@@ -101,7 +102,7 @@ def _train_gp(
     if warm_start is not None:
         inits = {k: torch.cat([warm_start[k][None], v]) for k, v in inits.items()}
     result = optimizer(
-        lambda p: model.neg_log_likelihood(p, data), inits, best_n=ensemble_size
+        graphs_lib.BoundLoss(model.neg_log_likelihood, data), inits, best_n=ensemble_size
     )
     return model.precompute(result.params, data)
 
@@ -140,7 +141,7 @@ def _train_gp_studies(
         inits = coll.batch_random_init_unconstrained(generator, num_restarts)
         blocks.append({k: torch.cat([warm_start[k][s : s + 1], v]) for k, v in inits.items()})
     result = optimizer(
-        lambda p: model.neg_log_likelihood(p, data), _stack_restarts(blocks),
+        graphs_lib.BoundLoss(model.neg_log_likelihood, data), _stack_restarts(blocks),
         best_n=ensemble_size, groups=len(generators),
     )
     return model.precompute(result.params, data)

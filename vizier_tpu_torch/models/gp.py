@@ -258,7 +258,14 @@ class VizierGaussianProcess:
         chol, info = torch.linalg.cholesky_ex(gram)
         y = rows_per_member(data.labels, gram.shape[0])
         mask = rows_per_member(data.row_mask, gram.shape[0])
-        alpha = torch.cholesky_solve(y[..., None], chol)[..., 0]
+        if chol.is_cuda and torch.cuda.is_current_stream_capturing():
+            # Batched cholesky_solve runs MAGMA on CUDA, which cannot be
+            # captured into a CUDA graph (``optimizers/graphs.py``): the same
+            # solve as two triangular solves.
+            lower = torch.linalg.solve_triangular(chol, y[..., None], upper=False)
+            alpha = torch.linalg.solve_triangular(chol.mT, lower, upper=True)[..., 0]
+        else:
+            alpha = torch.cholesky_solve(y[..., None], chol)[..., 0]
         n_valid = torch.sum(mask.to(torch.float32), dim=-1)
         # Padded rows: y = 0 and unit diag ⇒ zero contribution to each term.
         data_fit = 0.5 * torch.sum(y * alpha, dim=-1)

@@ -26,7 +26,8 @@ distinct pair once.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Set, Tuple
+import contextlib
+from typing import Dict, Iterator, List, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -57,12 +58,43 @@ def reset_launch_counts() -> None:
             modes[mode] = 0
 
 
+# Launches made while a stream is captured into a CUDA graph, by the
+# capturing stream: they run when the graph replays, and are counted then
+# (:func:`count_replayed`), not when captured. The autograd engine launches
+# a backward on its own thread, onto the forward's stream, so the sink is
+# found by stream, not by thread.
+_CAPTURED: Dict[int, List[Tuple[str, str]]] = {}
+
+
+@contextlib.contextmanager
+def capturing_launches(stream: torch.cuda.Stream) -> Iterator[List[Tuple[str, str]]]:
+    """Holds the (name, mode) of every launch onto ``stream`` while it is
+    captured, instead of counting it."""
+    launches: List[Tuple[str, str]] = []
+    _CAPTURED[stream.cuda_stream] = launches
+    try:
+        yield launches
+    finally:
+        del _CAPTURED[stream.cuda_stream]
+
+
+def count_replayed(launches: List[Tuple[str, str]]) -> None:
+    """Counts the launches a captured graph just replayed."""
+    for name, mode in launches:
+        LAUNCHES_BY_MODE[name][mode] += 1
+
+
 def _count_launch(name: str, symmetric: int, masked: bool, features: bool = False,
                   params: bool = True) -> None:
     if features:
         mode = "features" if params else "features_only"
     else:
         mode = "gram" if symmetric else "cross" if masked else "other"
+    if _CAPTURED:
+        sink = _CAPTURED.get(torch.cuda.current_stream().cuda_stream)
+        if sink is not None:
+            sink.append((name, mode))
+            return
     LAUNCHES_BY_MODE[name][mode] += 1
 
 

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Callable, List, NamedTuple, Optional, Protocol, Tuple
 
 import torch
 
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.models import params as params_lib
+from vizier_tpu_torch.optimizers import graphs as graphs_lib
 
 Tensor = torch.Tensor
 Params = params_lib.Params
@@ -281,6 +283,9 @@ class LbfgsOptimizer:
         return _select_best(unravel(x), f, best_n, groups)
 
 
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamOptimizer:
     """Adam over every restart at once, for a fixed ``maxiter`` steps.
@@ -296,6 +301,12 @@ class AdamOptimizer:
     maxiter: int = 200
     # "cuda" (the default) or "cpu"; CUDA raises when no GPU is present.
     device: device_lib.DeviceLike = "cuda"
+    # On CUDA, with a loss that names its inputs (``graphs.BoundLoss``):
+    # capture one step and the final loss once per input layout and replay
+    # them (``optimizers.graphs``). It pays where layouts repeat, as in
+    # serving. Under capture the GP loss solves with triangular solves
+    # (``models.gp``), so results differ from the eager loop's by rounding.
+    cuda_graph: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "device", device_lib.resolve(self.device))
@@ -306,22 +317,97 @@ class AdamOptimizer:
     ) -> OptimizeResult:
         x, unravel = _flatten(init_batch)
         device_lib.check(x, self.device, "Adam inits")
+        out = None
+        if self.cuda_graph and x.is_cuda and isinstance(loss_fn, graphs_lib.BoundLoss):
+            out = self._graphed(loss_fn, x, unravel, init_batch)
+        x, losses = out if out is not None else self._loop(loss_fn, x, unravel)
+        return _select_best(unravel(x), losses, best_n, groups)
+
+    def _step(self, loss_fn: LossFn, x: Tensor, mu: Tensor, nu: Tensor, c1, c2,
+              unravel) -> Tuple[Tensor, Tensor, Tensor]:
+        """One Adam step; ``c1``, ``c2`` are the bias corrections 1 - b1**t
+        and 1 - b2**t (floats, or 0-dim tensors in a captured step)."""
+        with torch.enable_grad():
+            leaf = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(loss_fn(unravel(leaf)).sum(), leaf)
+        mu = (1.0 - _ADAM_B1) * g + _ADAM_B1 * mu
+        nu = (1.0 - _ADAM_B2) * (g * g) + _ADAM_B2 * nu
+        mu_hat = mu / c1
+        nu_hat = nu / c2
+        x = x.detach() - self.learning_rate * (mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS))
+        return x, mu, nu
+
+    def _loop(self, loss_fn: LossFn, x: Tensor, unravel) -> Tuple[Tensor, Tensor]:
+        """``maxiter`` eager steps from ``x``: (final x, its losses)."""
         x = x.detach()
-        b1, b2, eps = 0.9, 0.999, 1e-8
         mu = torch.zeros_like(x)
         nu = torch.zeros_like(x)
         for step in range(1, self.maxiter + 1):
-            with torch.enable_grad():
-                leaf = x.requires_grad_(True)
-                (g,) = torch.autograd.grad(loss_fn(unravel(leaf)).sum(), leaf)
-            mu = (1.0 - b1) * g + b1 * mu
-            nu = (1.0 - b2) * (g * g) + b2 * nu
-            mu_hat = mu / (1.0 - b1**step)
-            nu_hat = nu / (1.0 - b2**step)
-            x = x.detach() - self.learning_rate * (mu_hat / (torch.sqrt(nu_hat) + eps))
+            x, mu, nu = self._step(
+                loss_fn, x, mu, nu, 1.0 - _ADAM_B1**step, 1.0 - _ADAM_B2**step, unravel)
         with torch.no_grad():
             losses = loss_fn(unravel(x))
-        return _select_best(unravel(x), losses, best_n, groups)
+        return x, losses
+
+    def _graphed(self, loss_fn: graphs_lib.BoundLoss, x: Tensor, unravel,
+                 init_batch: Params) -> Optional[Tuple[Tensor, Tensor]]:
+        """:meth:`_loop` through this layout's captured step and final loss,
+        or None when they cannot be captured."""
+        leaves: List[Tensor] = []
+        try:
+            key = ("adam", self.learning_rate,
+                   tuple((k, tuple(v.shape[1:])) for k, v in sorted(init_batch.items())),
+                   graphs_lib.fn_key(loss_fn.fn), graphs_lib.layout(loss_fn.inputs, leaves),
+                   tuple(x.shape), x.dtype, x.device)
+            hash(key)
+        except TypeError:  # an unhashable owner or static value: no graph
+            return None
+        graphs = graphs_lib.cached(key, lambda: _AdamGraphs(self, loss_fn, x, leaves, unravel))
+        if graphs is None:
+            return None
+        return graphs.run(x, leaves, self.maxiter)
+
+
+class _AdamGraphs:
+    """One layout's captured Adam step and final loss, over tensors of their
+    own: the inputs are copied in, the steps replayed ``maxiter`` times."""
+
+    def __init__(self, opt: AdamOptimizer, loss_fn: graphs_lib.BoundLoss, x: Tensor,
+                 leaves: List[Tensor], unravel):
+        device = x.device
+        self.data = [leaf.detach().clone() for leaf in leaves]
+        loss = graphs_lib.BoundLoss(loss_fn.fn, graphs_lib.rebuild(loss_fn.inputs, iter(self.data)))
+        self.x = x.detach().clone()
+        self.mu = torch.zeros_like(self.x)
+        self.nu = torch.zeros_like(self.x)
+        self.c1 = torch.ones((), device=device)
+        self.c2 = torch.ones((), device=device)
+        self.step = graphs_lib.capture(
+            lambda: opt._step(loss, self.x, self.mu, self.nu, self.c1, self.c2, unravel), device)
+
+        def final():
+            with torch.no_grad():
+                return (loss(unravel(self.x)),)
+
+        self.final = graphs_lib.capture(final, device)
+        self.lock = threading.Lock()
+
+    def run(self, x: Tensor, leaves: List[Tensor], maxiter: int) -> Tuple[Tensor, Tensor]:
+        with self.lock, torch.no_grad():
+            self.x.copy_(x)
+            self.mu.zero_()
+            self.nu.zero_()
+            for static, leaf in zip(self.data, leaves):
+                static.copy_(leaf)
+            for step in range(1, maxiter + 1):
+                self.c1.fill_(1.0 - _ADAM_B1**step)
+                self.c2.fill_(1.0 - _ADAM_B2**step)
+                x_next, mu_next, nu_next = self.step.replay()
+                self.x.copy_(x_next)
+                self.mu.copy_(mu_next)
+                self.nu.copy_(nu_next)
+            (losses,) = self.final.replay()
+            return self.x.clone(), losses.clone()
 
 
 def default_optimizer(device: device_lib.DeviceLike = "cuda") -> Optimizer:

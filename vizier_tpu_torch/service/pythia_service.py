@@ -11,10 +11,9 @@ Before that come the runtime's opt-in planes: the speculative serve check
 (a parked batch computed after the last completion, served stamped
 ``speculative=hit`` when the frontier still matches) and the admission gate
 (admit, shed with a retry-after hint, or serve a low-priority tenant the
-stamped quasi-random fallback). Each of those orders lives in the proto-free
-``ServingRuntime`` (``speculative_suggest``, ``admitted_suggest``,
-``guarded_suggest``), which the GPU smoke run drives too; this servicer only
-adapts protos to them.
+stamped quasi-random fallback). That whole order lives in the proto-free
+``ServingRuntime.serve_suggest``, which the loadgen's runtime transport and
+the GPU smoke run drive too; this servicer only adapts protos to it.
 
 ``device`` is where the default factory's designers run: CUDA unless the
 caller asks for the CPU, and the servicer raises at construction when CUDA
@@ -37,7 +36,6 @@ from typing import Optional
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
 from vizier_tpu_torch.pythia import policy as policy_lib
-from vizier_tpu_torch.reliability import deadline as deadline_lib
 from vizier_tpu_torch.reliability import errors as errors_lib
 from vizier_tpu_torch.reliability import fallback as fallback_lib
 from vizier_tpu_torch.service import policy_factory as policy_factory_lib
@@ -213,13 +211,13 @@ class PythiaServicer:
     def _suggest_coalesced(
         self, request: pythia_service_pb2.PythiaSuggestRequest
     ) -> pythia_service_pb2.PythiaSuggestResponse:
-        if not self._serving.config.coalescing:
-            return self._suggest_compute(request)
-        # Compute-level request coalescing: concurrent suggests against the
-        # same study state (name, config incarnation, algorithm, trial
-        # frontier, count) collapse onto one designer computation;
-        # followers receive their own copy of the response (protos are
-        # mutable and cross servicer threads).
+        """The request through ``ServingRuntime.serve_suggest``: coalescing
+        (concurrent suggests against the same study state, i.e. name,
+        config incarnation, algorithm, trial frontier and count, collapse
+        onto one designer computation; followers receive their own copy of
+        the response, since protos are mutable and cross servicer threads),
+        the speculative serve check, the admission gate, then the guarded
+        designer computation under the request's wire deadline."""
         key = coalescer_lib.suggest_key(
             request.study_name,
             _config_hash(request),
@@ -233,11 +231,23 @@ class PythiaServicer:
             out.CopyFrom(resp)
             return out
 
-        return self._serving.coalescer.coalesce(
-            key,
-            lambda: self._suggest_compute(request),
+        return self._serving.serve_suggest(
+            request.study_name,
+            max(1, int(request.count)),
+            key=key,
+            fingerprint=lambda: self._request_fingerprint(request),
+            prepare=lambda: self._prepare_compute(request),
+            fallback=lambda reason: self._fallback_suggestions(
+                self._parsed_study_config(request), request, reason
+            ),
+            respond=self._response,
+            stamp=self._stamp_speculative,
+            succeeded=lambda response: not response.error,
+            deadline_secs=float(request.deadline_secs),
+            # A degraded serve parses the config first: a config that fails
+            # to parse is a permanent error there, as on the live path.
+            setup=lambda: self._parsed_study_config(request),
             clone=clone,
-            span_name="pythia.suggest_compute",
         )
 
     # -- speculative pre-compute (serving.speculative) ------------------------
@@ -330,44 +340,6 @@ class PythiaServicer:
             suggestion.metadata.extend(key_values)
         return out
 
-    def _suggest_compute(
-        self, request: pythia_service_pb2.PythiaSuggestRequest
-    ) -> pythia_service_pb2.PythiaSuggestResponse:
-        """The speculative serve check around the admitted live compute
-        (``ServingRuntime.speculative_suggest``; a direct call of the live
-        compute with no engine, the default)."""
-        return self._serving.speculative_suggest(
-            request.study_name,
-            max(1, int(request.count)),
-            lambda: self._request_fingerprint(request),
-            lambda: self._suggest_compute_admitted(request),
-            self._stamp_speculative,
-            lambda response: not response.error,
-        )
-
-    # -- multi-tenant admission (serving.admission) ---------------------------
-
-    def _suggest_compute_admitted(
-        self, request: pythia_service_pb2.PythiaSuggestRequest
-    ) -> pythia_service_pb2.PythiaSuggestResponse:
-        """The admission gate around the live designer computation
-        (``ServingRuntime.admitted_suggest``; a direct call with no
-        controller, the default). A shed completes the op with the typed
-        ``TRANSIENT: RESOURCE_EXHAUSTED`` error and its retry-after hint; a
-        degraded low-priority tenant gets the stamped quasi-random
-        fallback; a config that fails to parse is a permanent error there,
-        as on the live path."""
-        outcome = self._serving.admitted_suggest(
-            request.study_name,
-            lambda: self._suggest_compute_live(request),
-            lambda reason: self._fallback_suggestions(
-                self._parsed_study_config(request), request, reason
-            ),
-            float(request.deadline_secs),
-            setup=lambda: self._parsed_study_config(request),
-        )
-        return self._response(outcome)
-
     @staticmethod
     def _fallback_suggestions(config, request, reason: str):
         return fallback_lib.suggest_fallback(
@@ -394,45 +366,26 @@ class PythiaServicer:
         self._append_metadata_deltas(response, outcome.decision.metadata)
         return response
 
-    def _suggest_compute_live(
-        self, request: pythia_service_pb2.PythiaSuggestRequest
-    ) -> serving_runtime_lib.GuardedSuggestion:
-        # Config parsing and policy construction fail hard: an invalid
-        # search space or unknown algorithm is permanent, and retrying or
-        # falling back would serve a misconfigured study forever.
-        try:
-            config = self._parsed_study_config(request)
-            algorithm = request.algorithm or config.algorithm
-            if algorithm != config.algorithm:
-                # The cached config is shared across requests (and threads):
-                # a per-request algorithm override goes on a shallow copy so
-                # it never leaks into later requests for the same study.
-                config = dataclasses.replace(config, algorithm=algorithm)
-            policy = self._get_policy(config, algorithm, request.study_name, _config_hash(request))
-            descriptor = vz.StudyDescriptor(
-                config=config,
-                guid=request.study_descriptor.guid,
-                max_trial_id=int(request.study_descriptor.max_trial_id),
-            )
-        except Exception as e:
-            _logger.warning("Pythia Suggest setup failed: %s", traceback.format_exc())
-            return serving_runtime_lib.GuardedSuggestion(error=e)
-
-        # from_wire, not from_budget: a negative wire budget means the
-        # caller's deadline already expired at the sender, and the dispatch
-        # check then sheds before any designer computation runs.
-        deadline = (
-            deadline_lib.Deadline.from_wire(request.deadline_secs)
-            if self._serving.reliability.deadlines_on
-            else deadline_lib.Deadline.none()
+    def _prepare_compute(self, request: pythia_service_pb2.PythiaSuggestRequest):
+        """The request's designer computation. Config parsing and policy
+        construction fail hard: an invalid search space or unknown
+        algorithm is permanent, and retrying or falling back would serve a
+        misconfigured study forever."""
+        config = self._parsed_study_config(request)
+        algorithm = request.algorithm or config.algorithm
+        if algorithm != config.algorithm:
+            # The cached config is shared across requests (and threads): a
+            # per-request algorithm override goes on a shallow copy so it
+            # never leaks into later requests for the same study.
+            config = dataclasses.replace(config, algorithm=algorithm)
+        policy = self._get_policy(config, algorithm, request.study_name, _config_hash(request))
+        descriptor = vz.StudyDescriptor(
+            config=config,
+            guid=request.study_descriptor.guid,
+            max_trial_id=int(request.study_descriptor.max_trial_id),
         )
-        return self._serving.guarded_suggest(
-            request.study_name,
-            lambda: policy.suggest(
-                policy_lib.SuggestRequest(study_descriptor=descriptor, count=int(request.count))
-            ),
-            lambda reason: self._fallback_suggestions(config, request, reason),
-            deadline,
+        return lambda: policy.suggest(
+            policy_lib.SuggestRequest(study_descriptor=descriptor, count=int(request.count))
         )
 
     def EarlyStop(

@@ -30,8 +30,8 @@ The JAX runtime's opt-in planes, each off by default as there:
 With all of them off the request path is the one without them, bit for bit:
 no engine object, no threads, no reordering, no tenant labels. The servicer's
 order around each plane lives here without protobuf
-(:meth:`guarded_suggest`, :meth:`admitted_suggest`,
-:meth:`speculative_suggest`), so the card drives the same code the gRPC
+(:meth:`serve_suggest` over :meth:`guarded_suggest`, :meth:`admitted_suggest`
+and :meth:`speculative_suggest`), so the card drives the same code the gRPC
 servicer adapts. The mesh execution plane, the compilation cache and compile
 prewarm are not ported; asking for one raises.
 """
@@ -44,7 +44,7 @@ import logging
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, Iterable, List, Optional, TypeVar
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, TypeVar
 
 from vizier_tpu_torch.observability import config as obs_config_lib
 from vizier_tpu_torch.observability import flight_recorder as recorder_lib
@@ -104,6 +104,17 @@ def accept_guarded(outcome: Optional[GuardedSuggestion]) -> Optional[int]:
     if outcome is None or outcome.error is not None or outcome.decision is None:
         return None
     return speculative_batch_size(s.metadata for s in outcome.suggestions)
+
+
+def clone_guarded(outcome: GuardedSuggestion) -> GuardedSuggestion:
+    """A coalesced follower's own copy of a protobuf-free response (the
+    caller adds its suggestions to a study, which must not touch the
+    leader's, nor a batch parked from the same computation)."""
+    return GuardedSuggestion(
+        decision=copy.deepcopy(outcome.decision),
+        fallbacks=copy.deepcopy(outcome.fallbacks),
+        error=outcome.error,
+    )
 
 
 def stamp_speculative_hit(outcome: GuardedSuggestion, count: int) -> GuardedSuggestion:
@@ -462,6 +473,64 @@ class ServingRuntime:
             # the post-suggest frontier would receive.
             engine.notify_fill(study_name)
         return response
+
+    def serve_suggest(
+        self,
+        study_name: str,
+        count: int,
+        *,
+        key: Hashable,
+        fingerprint: Callable[[], speculative_lib.FrontierFingerprint],
+        prepare: Callable[[], Callable[[], Any]],
+        fallback: Callable[[str], List[Any]],
+        respond: Callable[[GuardedSuggestion], R],
+        stamp: Callable[[R, int], R],
+        succeeded: Callable[[R], bool],
+        deadline_secs: float = 0.0,
+        setup: Optional[Callable[[], Any]] = None,
+        clone: Optional[Callable[[R], R]] = None,
+    ) -> R:
+        """One suggest in the Pythia servicer's order, without protobuf.
+
+        Request coalescing under ``key`` (``coalescer.suggest_key``; off with
+        ``ServingConfig.coalescing``), then :meth:`speculative_suggest`'s
+        serve check, then :meth:`admitted_suggest`'s gate (``setup`` runs
+        before a degraded serve), then ``prepare()``, which returns the
+        designer computation (its exception is a permanent error, never a
+        fallback), then :meth:`guarded_suggest` under the wire budget
+        ``deadline_secs`` (0 = none; deadlines off = none). ``respond`` turns
+        the outcome into the transport's response; a coalesced follower
+        gets ``clone`` of the leader's. The gRPC servicer and the loadgen's
+        runtime transport both serve through here.
+        """
+
+        def live_compute() -> GuardedSuggestion:
+            try:
+                compute = prepare()
+            except Exception as e:
+                _logger.warning("Pythia Suggest setup failed: %s", traceback.format_exc())
+                return GuardedSuggestion(error=e)
+            # from_wire, not from_budget: a negative wire budget means the
+            # caller's deadline already expired at the sender, and the
+            # dispatch check then sheds before any designer computation.
+            deadline = (
+                deadline_lib.Deadline.from_wire(deadline_secs)
+                if self.reliability.deadlines_on
+                else deadline_lib.Deadline.none()
+            )
+            return self.guarded_suggest(study_name, compute, fallback, deadline)
+
+        def live() -> R:
+            return respond(self.admitted_suggest(
+                study_name, live_compute, fallback, deadline_secs, setup=setup
+            ))
+
+        def serve() -> R:
+            return self.speculative_suggest(study_name, count, fingerprint, live, stamp, succeeded)
+
+        if not self.config.coalescing:
+            return serve()
+        return self.coalescer.coalesce(key, serve, clone=clone, span_name="pythia.suggest_compute")
 
     def speculative_invalidate(self, study_name: str, reason: str = "") -> None:
         """Drops only the study's speculative slot and job (frontier

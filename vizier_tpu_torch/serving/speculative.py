@@ -27,6 +27,11 @@ Correctness model — a hit IS the live compute, run early:
   speculates only frontiers the workload will serve (completion-triggered
   by default; the post-fill trigger is opt-in) and discards — never
   serves — results whose frontier moved mid-flight.
+- A live request that misses computes the very frontier its study's job
+  was enqueued for, so it supersedes that job (a queued one never runs, a
+  running one parks nothing): the port's one departure from the JAX
+  engine, which lets such a job run on and speculate a frontier nobody asks
+  for, holding a worker and the executor meanwhile.
 - Speculative failures never surface to clients: a failed, superseded,
   fallback-stamped or shutdown-cancelled job simply leaves the slot empty
   and the next request decays to a live compute. ``stats`` counts each
@@ -453,33 +458,55 @@ class SpeculativeEngine:
         slot = getattr(entry, "speculative", None) if entry is not None else None
         if slot is None:
             self._record("miss", study=study_name)
+            self._supersede_for_live(study_name)
             return None, "miss"
         now = self._time()
+        outcome = "hit"
         with self._serve_lock:
             slot = entry.speculative
             if slot is None:
                 self._record("miss", study=study_name)
-                return None, "miss"
-            if now - slot.created_at > self.config.max_speculation_age_s:
+                outcome = "miss"
+            elif now - slot.created_at > self.config.max_speculation_age_s:
                 entry.speculative = None
                 self._record("stale", study=study_name)
-                return None, "stale"
-            if slot.fingerprint != fingerprint:
+                outcome = "stale"
+            elif slot.fingerprint != fingerprint:
                 # The frontier moved since the job ran; the batch can never
                 # be served (fingerprints don't come back) — drop it.
                 entry.speculative = None
                 self._record("miss", study=study_name, reason="fingerprint")
-                return None, "miss"
-            if count > slot.count:
+                outcome = "miss"
+            elif count > slot.count:
                 # The client wants more than was speculated: the whole
                 # request falls through to live compute (the parked batch
                 # stays for a matching-count peer; the live compute's new
                 # trials will invalidate it naturally).
                 self._record("miss", study=study_name, reason="count")
                 return None, "miss"
-            entry.speculative = None
+            else:
+                entry.speculative = None
+        if outcome != "hit":
+            self._supersede_for_live(study_name)
+            return None, outcome
         self._record("hit", study=study_name)
         return slot.response, "hit"
+
+    def _supersede_for_live(self, study_name: str) -> None:
+        """A live request missed and is computing the frontier that a queued
+        or running job of the study was enqueued for. That job can no longer
+        park a batch anyone asks for: a queued one would speculate the
+        frontier after the live suggest (the post-fill batch, which
+        ``speculate_on_fill`` leaves off), a running one parks for a frontier
+        the live suggest just moved. It is superseded, so the worker and the
+        executor are free for other studies' jobs."""
+        with self._cond:
+            if study_name not in self._jobs and study_name not in self._inflight:
+                return
+            self._epochs[study_name] = self._epochs.get(study_name, 0) + 1
+            dropped = self._jobs.pop(study_name, None) is not None
+        if dropped:
+            self._record("cancelled", study=study_name, reason="served_live")
 
     def observe_suggest_latency(self, result: str, seconds: float) -> None:
         """The request-path latency histogram split by hit/miss."""

@@ -25,6 +25,7 @@ import torch
 
 from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
+from vizier_tpu_torch.optimizers import graphs as graphs_lib
 from vizier_tpu_torch.optimizers import lbfgs as lbfgs_lib
 from vizier_tpu_torch.surrogates import sparse_gp
 
@@ -72,7 +73,7 @@ def _train_sparse_gp(
         rows.insert(0, warm_start)
     inits = {k: torch.cat([r[k][None] for r in rows] + [v]) for k, v in inits.items()}
     result = optimizer(
-        lambda p: model.neg_log_likelihood(p, sdata), inits, best_n=ensemble_size
+        graphs_lib.BoundLoss(model.neg_log_likelihood, sdata), inits, best_n=ensemble_size
     )
     return model.precompute(result.params, sdata)
 
@@ -103,7 +104,7 @@ def _train_sparse_gp_studies(
         })
     inits = {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
     result = optimizer(
-        lambda p: model.neg_log_likelihood(p, sdata), inits,
+        graphs_lib.BoundLoss(model.neg_log_likelihood, sdata), inits,
         best_n=ensemble_size, groups=len(generators),
     )
     return model.precompute(result.params, sdata)
