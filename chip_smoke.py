@@ -260,15 +260,37 @@ Phases (any failure raises and exits non-zero):
    whole-batch sequential fallback, the counters equal the injected
    strikes. Then K1/K2 at every launch layout it recorded (SimpleKD's
    mixed layout among them).
-17. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+17. benchmarks: the GP designers on CUDA over the benchmark slice's spaces,
+   each through ``BenchmarkState`` -> ``InRamDesignerPolicy`` ->
+   ``BenchmarkRunner`` (``_BENCH_ROUNDS`` rounds of ``GenerateAndEvaluate(5)``,
+   the experimenters' own spaces uncut): the DEFAULT on NASBench-101 over
+   ``synthetic_nasbench101``'s table (21 bools + 5 ops, no continuous
+   feature), ``PestControlExperimenter`` (25 stages x 5 choices) and
+   ``MAXSATExperimenter`` on a synthetic 60-variable WCNF; the GP bandit on
+   ``SparseExperimenter.create_default`` with 20 placeholder floats around
+   the regret cell's shifted Sphere20d (40 floats); the DEFAULT on the
+   permuting, normalizing and sign-flip wrappers around discretized BBOB
+   functions. Every trial completes (feasible or infeasible) with its
+   parameters inside the space; each study's trained posterior is held to
+   the CPU plain path (``_check_posterior_against_cpu``, 5e-3, at unit-scale
+   and at the trained parameters). ``PredictorExperimenter`` over the
+   sparse Sphere's GP bandit is the objective of a random-designer run: its
+   values must equal the bandit's ``predict`` means for the same rng. Random
+   baselines on the three combinatorial problems, then the analyzers over
+   every state: best-so-far and ``MultiMetricCurveConverter`` curves,
+   ``build_convergence_curve`` of each DEFAULT curve against its baseline,
+   the record analyzer's comparison scores and the exploration scores.
+   Then K1/K2 at every launch layout it recorded, and the largest Gram and
+   cross layout of each (Dc, Ds) timed.
+18. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
-   service-reliability, service-planes, fleet, loadgen and testing steps'
-   included, by mode; K2's
+   service-reliability, service-planes, fleet, loadgen, testing and
+   benchmarks steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-16 run in three worker
+The phases are host-bound, so phases 7-9 and 14-17 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -1456,7 +1478,7 @@ def _float64_predict(state, query, kernels):
 
 
 def _check_posterior_against_cpu(label, state, kernels, gp_lib, multitask_gp,
-                                 hold_trained: bool = False):
+                                 hold_trained: bool = False, query=None):
     """A trained exact (one metric) or multi-task posterior's predictions at
     64 queries on the card against the port's plain CPU path, at the same
     parameters on both sides:
@@ -1471,11 +1493,14 @@ def _check_posterior_against_cpu(label, state, kernels, gp_lib, multitask_gp,
       reach: every float32 factorization, the CPU's too, is then off the
       float64 one by a few 1e-3, and the mean, a cancelling sum of large
       alpha terms, differs by ~1e-3 even from one factorization (PERF.md,
-      PR 4)."""
-    query = torch.rand((64, _DIM), generator=torch.Generator().manual_seed(1))
-    zeros = torch.zeros((64, 0), dtype=torch.int32)
-    card_q = kernels.MixedFeatures(query.cuda(), zeros.cuda())
-    cpu_q = kernels.MixedFeatures(query, zeros)
+      the multi-objective finding).
+    ``query`` (CPU ``MixedFeatures``) replaces the 64 points in [0, 1]^20."""
+    if query is None:
+        query = kernels.MixedFeatures(
+            torch.rand((64, _DIM), generator=torch.Generator().manual_seed(1)),
+            torch.zeros((64, 0), dtype=torch.int32))
+    card_q = kernels.MixedFeatures(query.continuous.cuda(), query.categorical.cuda())
+    cpu_q = query
     predict = lambda s, q: gp_lib.EnsemblePredictive(s).predict(q)  # noqa: E731
     cpu_state = _cpu_state(state, gp_lib, multitask_gp)
     cpu_model = cpu_state.model
@@ -4160,15 +4185,19 @@ def _by_shape_row(r) -> dict:
                 max_abs_err=r["max_abs_err"], occupancy=r["occupancy"])
 
 
-def _time_recorded(kernels, recorded, label: str) -> dict:
+def _time_recorded(kernels, recorded, label: str, per_layout: bool = False) -> dict:
     """K1 and K2 timed as phase 3 times them (checked first) at the recorded
     K1 Gram and cross layouts with the most pairs: a phase's largest
-    launches. Another process shares the card meanwhile."""
+    launches, or with ``per_layout`` those of each recorded (Dc, Ds).
+    Another process shares the card meanwhile."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     shapes = {shape for name, shape in recorded if name == "matern52_ard_fwd"}
+    groups = sorted({(s.dc, s.ds) for s in shapes}) if per_layout else [None]
     timed = {}
-    for kind, symmetric in (("gram", True), ("cross", False)):
-        pool = [s for s in shapes if bool(s.symmetric) == symmetric]
+    for (kind, symmetric), group in ((k, g) for k in (("gram", True), ("cross", False))
+                                     for g in groups):
+        pool = [s for s in shapes if bool(s.symmetric) == symmetric
+                and group in (None, (s.dc, s.ds))]
         if not pool:
             continue
         shape = max(pool, key=lambda s: (s.batch * s.n * s.m, repr(s)))
@@ -4444,6 +4473,238 @@ def run_testing_phase(kernels, lib):
     print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
     return paths, figures
 
+# -- phase 17: the benchmark slice ---------------------------------------------
+
+# Rounds of GenerateAndEvaluate(5) per study: a depth cut (the spaces are the
+# experimenters' own). The first round is the designers' quasi-random seed.
+_BENCH_ROUNDS = 5
+_BENCH_BATCH = 5
+# Acquisition evaluations per pick (the designers' default is 75 000, which
+# would make each pick a ~7 s host-bound sweep at any trial count).
+_BENCH_EVALS = 2_000
+_BENCH_PREDICTOR_SEED = 7
+
+
+def _discretized(fn: str):
+    """A 4-D BBOB function on 11 feasible values per coordinate."""
+    from vizier_tpu_torch.benchmarks import NumpyExperimenter, bbob_problem
+    from vizier_tpu_torch.benchmarks.experimenters import wrappers
+    from vizier_tpu_torch.benchmarks.experimenters.synthetic import bbob
+
+    grid = np.linspace(-5.0, 5.0, 11).tolist()
+    return wrappers.DiscretizingExperimenter(
+        NumpyExperimenter(getattr(bbob, fn), bbob_problem(4)), {f"x{i}": grid for i in range(4)})
+
+
+def _benchmark_studies():
+    """[(name, experimenter, algorithm)] of the phase's GP studies."""
+    from vizier_tpu_torch.benchmarks.experimenters import combinatorial, experimenter_factory
+    from vizier_tpu_torch.benchmarks.experimenters import nasbench101, wrappers
+
+    api, _ = nasbench101.synthetic_nasbench101(num_cells=64, seed=0)
+    wcnf = combinatorial.random_wcnf(60, 200, np.random.default_rng(0))
+    sphere = experimenter_factory.shifted_bbob_instance("Sphere", 1, dim=20)
+    return [
+        ("nasbench101", nasbench101.NASBench101Experimenter(api), "DEFAULT"),
+        ("pest_control", combinatorial.PestControlExperimenter(seed=0), "DEFAULT"),
+        ("maxsat60", combinatorial.MAXSATExperimenter(wcnf), "DEFAULT"),
+        ("sparse_sphere20", wrappers.SparseExperimenter.create_default(sphere, num_float=20),
+         "GAUSSIAN_PROCESS_BANDIT"),
+        ("permuting_rastrigin4", wrappers.PermutingExperimenter(
+            _discretized("Rastrigin"), [f"x{i}" for i in range(4)], seed=0), "DEFAULT"),
+        ("normalizing_rosenbrock4",
+         wrappers.NormalizingExperimenter(_discretized("Rosenbrock"), seed=0), "DEFAULT"),
+        ("sign_flip_sphere4", wrappers.SignFlipExperimenter(_discretized("Sphere")), "DEFAULT"),
+    ]
+
+
+def _bench_factory(algorithm: str, device: str):
+    from vizier_tpu_torch.designers.gp_bandit import VizierGPBandit
+    from vizier_tpu_torch.designers.gp_ucb_pe import VizierGPUCBPEBandit
+
+    cls = VizierGPUCBPEBandit if algorithm == "DEFAULT" else VizierGPBandit
+
+    def make(problem, seed=None, **kw):
+        return cls(problem, rng_seed=seed or 0, num_seed_trials=_BENCH_BATCH,
+                   max_acquisition_evaluations=_BENCH_EVALS, device=device)
+
+    return make
+
+
+def _check_benchmark_trials(state, label: str, rounds: int) -> list:
+    """Every trial completed, feasible or infeasible, its parameters inside
+    the space. Returns the trials."""
+    space = state.experimenter.problem_statement().search_space
+    trials = state.algorithm.supporter.GetTrials()
+    if len(trials) != rounds * _BENCH_BATCH:
+        raise AssertionError(f"{label}: {len(trials)} trials, expected {rounds * _BENCH_BATCH}")
+    for t in trials:
+        if not t.is_completed or (t.final_measurement is None and not t.infeasibility_reason):
+            raise AssertionError(f"{label}: trial {t.id} not completed")
+        names = set(t.parameters)
+        if names != set(space.parameter_names()) or not all(
+                space.get(n).contains(t.parameters[n].value) for n in names):
+            raise AssertionError(f"{label}: trial {t.id} outside its space: "
+                                 f"{t.parameters.as_dict()}")
+    return trials
+
+
+def _trained_posterior(designer):
+    """The designer's last trained exact posterior (one metric)."""
+    from vizier_tpu_torch.designers.gp_ucb_pe import VizierGPUCBPEBandit
+
+    if isinstance(designer, VizierGPUCBPEBandit):
+        (state,), _ = designer._cached_states
+        return state
+    return designer._last_predictive.states
+
+
+def _layout_query(state, kernels):
+    """64 CPU query points at the posterior's layout: uniform continuous
+    features, categorical indices in 0..4."""
+    gen = torch.Generator().manual_seed(1)
+    dc, ds = state.data.continuous.shape[-1], state.data.categorical.shape[-1]
+    return kernels.MixedFeatures(torch.rand((64, dc), generator=gen),
+                                 torch.randint(0, 5, (64, ds), generator=gen, dtype=torch.int32))
+
+
+def run_benchmarks_phase(kernels, lib, device: str = "cuda"):
+    """Phase 17: the GP designers over the benchmark slice's spaces, the
+    PredictorExperimenter and the analyzers (see the module docstring).
+    Returns ({path: launches by mode}, figures). ``device="cpu"`` runs the
+    host path alone, without the card's checks."""
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch.benchmarks import BenchmarkRunner, BenchmarkState, GenerateAndEvaluate
+    from vizier_tpu_torch.benchmarks.analyzers import convergence_curve as cc
+    from vizier_tpu_torch.benchmarks.analyzers import exploration_score, state_analyzer
+    from vizier_tpu_torch.benchmarks.experimenters import surrogates
+    from vizier_tpu_torch.designers.random import RandomDesigner
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.models import multitask_gp
+
+    label = "benchmarks"
+    on_card = device == "cuda"
+    phase_start = time.perf_counter()
+    kernels.LAUNCH_SHAPES = set()
+    paths, figures, states = {}, {}, {}
+    runner = BenchmarkRunner([GenerateAndEvaluate(_BENCH_BATCH)], num_repeats=_BENCH_ROUNDS)
+    for name, experimenter, algorithm in _benchmark_studies():
+        state = BenchmarkState.from_designer_factory(experimenter,
+                                                     _bench_factory(algorithm, device))
+        _, wall, paths[name] = _path_launches(kernels, lambda: runner.run(state))
+        trials = _check_benchmark_trials(state, f"{label} {name}", _BENCH_ROUNDS)
+        designer = state.algorithm.policy._designer
+        posterior = _trained_posterior(designer)
+        dc = int(posterior.data.cont_dim_mask.sum())
+        ds = int(posterior.data.cat_dim_mask.sum())
+        feasible = sum(t.final_measurement is not None for t in trials)
+        print(f"{label} {name}: {algorithm} on {device}, {len(trials)} trials ({feasible} feasible) "
+              f"in {_BENCH_ROUNDS} rounds of {_BENCH_BATCH}, layout Dc={dc} Ds={ds}, "
+              f"{wall:.1f} s, launches {paths[name]}")
+        if on_card:
+            _check_posterior_against_cpu(f"{label} {name}", posterior, kernels, gp_lib,
+                                         multitask_gp, hold_trained=True,
+                                         query=_layout_query(posterior, kernels))
+            _require_modes(paths[name], (("matern52_ard_fwd", "gram"),
+                                         ("matern52_ard_fwd", "cross"),
+                                         ("matern52_ard_bwd", "gram")), f"{label} {name}")
+        states[name] = state
+        figures[name] = dict(algorithm=algorithm, dc=dc, ds=ds, trials=len(trials),
+                             feasible=feasible, wall_s=wall)
+
+    # The sparse Sphere's trained GP bandit as the objective of a random run.
+    bandit_state = states["sparse_sphere20"]
+    bandit = bandit_state.algorithm.policy._designer
+    problem = bandit_state.experimenter.problem_statement()
+    predictor_state = BenchmarkState.from_designer_factory(
+        surrogates.PredictorExperimenter(bandit, problem, seed=_BENCH_PREDICTOR_SEED),
+        lambda p, **kw: RandomDesigner(p.search_space, seed=3))
+    _, wall, paths["predictor_random"] = _path_launches(
+        kernels, lambda: BenchmarkRunner([GenerateAndEvaluate(_BENCH_BATCH)],
+                                         num_repeats=3).run(predictor_state))
+    trials = _check_benchmark_trials(predictor_state, f"{label} predictor", 3)
+    rng = np.random.default_rng(_BENCH_PREDICTOR_SEED)
+    metric = problem.metric_information.item().name
+    for r in range(3):
+        batch = sorted(trials, key=lambda t: t.id)[r * _BENCH_BATCH:(r + 1) * _BENCH_BATCH]
+        want = np.asarray(bandit.predict(
+            [vz.TrialSuggestion(parameters=t.parameters) for t in batch], rng).mean).reshape(-1)
+        got = np.array([t.final_measurement.metrics[metric].value for t in batch])
+        if not (np.array_equal(got, want) and np.all(np.isfinite(got))):
+            raise AssertionError(f"{label} predictor: values {got} differ from predict's "
+                                 f"means {want}")
+    figures["predictor_random"] = dict(trials=len(trials), wall_s=wall,
+                                       best=float(min(t.final_measurement.metrics[metric].value
+                                                      for t in trials)))
+    print(f"{label} PredictorExperimenter over the sparse Sphere's GP bandit as the objective "
+          f"of a random run: 15 values equal predict's means for the same rng, {wall:.2f} s, "
+          f"launches {paths['predictor_random']}")
+
+    # Random baselines on the combinatorial problems, then the analyzers.
+    combinatorial_names = ("nasbench101", "pest_control", "maxsat60")
+    baselines = {}
+    for name in combinatorial_names:
+        experimenter = states[name].experimenter
+        baselines[name] = BenchmarkState.from_designer_factory(
+            experimenter, lambda p, **kw: RandomDesigner(p.search_space, seed=1))
+        runner.run(baselines[name])
+        _check_benchmark_trials(baselines[name], f"{label} {name} random", _BENCH_ROUNDS)
+    records = state_analyzer.BenchmarkStateAnalyzer.to_records(
+        [states[n] for n in combinatorial_names] + [baselines[n] for n in combinatorial_names],
+        algorithm_names=["default"] * 3 + ["random"] * 3)
+    plot_records, analysis = [], {}
+    for name in combinatorial_names:
+        curves = {}
+        for algorithm, state in (("default", states[name]), ("random", baselines[name])):
+            done = state.algorithm.supporter.GetTrials()
+            problem = state.experimenter.problem_statement()
+            curve = cc.MultiMetricCurveConverter.from_metrics_config(
+                problem.metric_information, flip_signs_for_min=True).convert(done)
+            plain = cc.ConvergenceCurveConverter(problem.metric_information.item(),
+                                                 flip_signs_for_min=True).convert(done)
+            ys = curve.ys[0]
+            if not np.array_equal(curve.ys, plain.ys) or np.any(ys[1:] < ys[:-1]):
+                raise AssertionError(f"{label} {name} {algorithm}: curves disagree or fall")
+            curves[algorithm] = curve
+            plot_records.append(state_analyzer.BenchmarkRecord(
+                algorithm=algorithm, experimenter_metadata={"name": name},
+                plot_elements={"objective": state_analyzer.PlotElement(curve=curve)}))
+        finite = lambda ys: [float(v) for v in ys if np.isfinite(v)]  # noqa: E731
+        relative = cc.build_convergence_curve(finite(curves["random"].ys[0]),
+                                              finite(curves["default"].ys[0]))
+        entropies = {}
+        for algorithm, state in (("default", states[name]), ("random", baselines[name])):
+            study = vz.ProblemAndTrials(problem=state.experimenter.problem_statement(),
+                                        trials=state.algorithm.supporter.GetTrials())
+            entropies[algorithm] = exploration_score.compute_average_marginal_parameter_entropy(
+                {algorithm: {name: {0: study}}})
+        if not all(np.isfinite(v) and v > 0 for v in entropies.values()):
+            raise AssertionError(f"{label} {name}: exploration scores {entropies}")
+        analysis[name] = dict(
+            best_default=float(curves["default"].ys[0, -1]),
+            best_random=float(curves["random"].ys[0, -1]),
+            relative_convergence=relative, entropy=entropies)
+    scored = state_analyzer.BenchmarkRecordAnalyzer.add_comparison_metrics(plot_records, "random")
+    for row in state_analyzer.BenchmarkRecordAnalyzer.summarize(scored):
+        if row["algorithm"] == "default":
+            analysis[row["experimenter"].split("=")[1]]["scores_vs_random"] = {
+                k: v for k, v in row.items() if k.endswith("_vs_random")}
+    if len(records) != 6 or not all(r["num_trials"] == 25 for r in records):
+        raise AssertionError(f"{label}: state records {records}")
+    figures["analysis"] = analysis
+    print(f"{label} analyzers over the DEFAULT and random states (best-so-far, flipped for "
+          f"MINIMIZE; build_convergence_curve of the DEFAULT against random; marginal "
+          f"entropies in nats): {json.dumps(analysis, default=float)}")
+    if on_card:
+        recorded, kernels.LAUNCH_SHAPES = kernels.LAUNCH_SHAPES, None
+        figures["recorded"] = check_recorded_shapes(kernels, lib, recorded, label)
+        figures["timed"] = _time_recorded(kernels, recorded, label, per_layout=True)
+    kernels.LAUNCH_SHAPES = None
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: phase {figures['wall_s']:.1f} s; "
+          f"{_card_line() if on_card else 'host path alone, on the CPU'}")
+    return paths, figures
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -4457,7 +4718,7 @@ def run_testing_phase(kernels, lib):
 _WORKER_PHASES = {
     "regret": ("regret",),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
-    "loadgen": ("loadgen", "testing"),
+    "loadgen": ("loadgen", "testing", "benchmarks"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -4497,6 +4758,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_loadgen_phase(kernels, lib)
     if phase == "testing":
         return run_testing_phase(kernels, lib)
+    if phase == "benchmarks":
+        return run_benchmarks_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -4687,9 +4950,11 @@ def main() -> int:
     print(json.dumps({"gp_surface": done["gp_surface"]["figures"]}))
     fleet_paths = done["fleet"]["paths"]
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
-    slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"]}
+    slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
+                   **done["benchmarks"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
+    print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -4708,7 +4973,7 @@ def main() -> int:
                 by_shape[shape]["baseline_ms"] = baseline[shape][f"{key}_ms"]
                 if key == "fwd":
                     by_shape[shape]["baseline_with_masking_ms"] = baseline[shape]["fwd_masked_ms"]
-        for phase in ("loadgen", "testing"):
+        for phase in ("loadgen", "testing", "benchmarks"):
             for shape, row in done[phase]["figures"]["timed"].items():
                 by_shape[shape] = row[key]
         head = by_shape[headline[key]]
@@ -4749,6 +5014,9 @@ def main() -> int:
             "launches_testing_phase": sum(
                 sum(done["testing"]["paths"][path][name].values())
                 for path in done["testing"]["paths"]),
+            "launches_benchmarks_phase": sum(
+                sum(done["benchmarks"]["paths"][path][name].values())
+                for path in done["benchmarks"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

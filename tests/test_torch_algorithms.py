@@ -7,7 +7,8 @@ they must give the same parameters, value for value (tolerance: none). The
 JSON format of designer state is byte-compatible, and a Grid walk dumped by
 one package resumes in the other with the same next points. The port's
 factory gives every algorithm name the JAX factory serves a policy of the
-same class, except PYGLOVE, which it refuses. regret_suite.py's baselines
+same class; a PYGLOVE study with no registered generator is refused by both
+with the same error. regret_suite.py's baselines
 for seed 1 equal ``regret_suite_baselines_5seed.json``'s (the JAX package's
 runs) exactly, and the rank gate over all five seeds holds.
 """
@@ -228,13 +229,24 @@ def test_every_route_has_the_reference_policy_class(algorithm):
 
 
 def test_only_pyglove_is_refused_and_the_error_lists_what_is_served():
-    assert tfactory.NOT_PORTED == ("PYGLOVE",)
-    assert set(tfactory.SERVED) == set(_JAX_ROUTES)
-    config = _study(tvz, tstudy_config, "PYGLOVE")
-    with pytest.raises(tfactory.AlgorithmNotPortedError) as info:
-        tfactory.DefaultPolicyFactory(device="cpu")(
-            config.to_problem(), "PYGLOVE", tlps.InRamPolicySupporter(config), "s")
-    assert all(name in str(info.value) for name in _JAX_ROUTES)
+    """PYGLOVE is served since the benchmark slice's second part: the port
+    refuses nothing the JAX factory serves. A PYGLOVE study whose primary
+    tuner registered no generator is refused by both factories with the
+    same error; ``test_torch_pyglove.py`` serves a registered one."""
+    from vizier_tpu.pyvizier import study_config as jstudy_config
+
+    assert set(tfactory.SERVED) == set(_JAX_ROUTES) | {"PYGLOVE"}
+    assert not hasattr(tfactory, "NOT_PORTED")
+    messages = {}
+    for side, vz, study_config, factory, lps in (
+            ("jax", jvz, jstudy_config, jfactory.DefaultPolicyFactory(), jlps),
+            ("port", tvz, tstudy_config, tfactory.DefaultPolicyFactory(device="cpu"), tlps)):
+        config = _study(vz, study_config, "PYGLOVE")
+        with pytest.raises(ValueError) as info:
+            factory(config.to_problem(), "PYGLOVE", lps.InRamPolicySupporter(config), "s")
+        messages[side] = str(info.value)
+    assert messages["port"] == messages["jax"]
+    assert "No PyGlove generator registered for study 's'" in messages["port"]
 
 
 @pytest.mark.parametrize("algorithm", ["GRID_SEARCH", "SHUFFLED_GRID_SEARCH",

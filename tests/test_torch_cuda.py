@@ -1567,3 +1567,86 @@ def test_a_graphed_adam_train_equals_the_eager_one(cuda_device, studies):
     assert graphs.STATS["captures"] - before["captures"] == 2
     assert graphs.STATS["served"] - before["served"] == 3
     assert graphs.STATS["failures"] == before["failures"]
+
+
+# The benchmark slice's layouts: all-categorical studies (NASBench-101's 21
+# bools + 5 ops, pest control's 25 five-valued stages, a 60-variable MAXSAT)
+# stage several chunks of categorical slots and no continuous one; the
+# sparse-wrapped 20-D Sphere has 40 floats. Each as the designers launch it:
+# the ARD train's masked Gram over a padded trial bucket, and the sweep's
+# cross kernel against the data rows.
+_BENCHMARK_LAYOUTS = {
+    "nasbench101_dc0_ds26": dict(dc=0, ds=26, n=64, valid=50),
+    "pest_control_dc0_ds25": dict(dc=0, ds=25, n=64, valid=45),
+    "maxsat60_dc0_ds60": dict(dc=0, ds=60, n=64, valid=40),
+    "sparse_sphere_dc40": dict(dc=40, ds=0, n=64, valid=40),
+}
+
+
+@pytest.mark.parametrize("tile", [-1, 0, 1], ids=["chosen", "big", "tiny"])
+@pytest.mark.parametrize("kind", ["gram", "cross"])
+@pytest.mark.parametrize("layout", sorted(_BENCHMARK_LAYOUTS))
+def test_benchmark_layouts_match_plain_at_every_tile(cuda_device, layout, kind, tile):
+    """K1 and K2 at each layout against their plain versions, each tile
+    forced in turn: the Gram with its masks and diagonal (triangles equal),
+    the cross kernel at 50 queries with the data side masked, K2 with the
+    feature gradients."""
+    from vizier_tpu_torch.ops import native
+
+    case = _BENCHMARK_LAYOUTS[layout]
+    n, dc, ds, valid = case["n"], case["dc"], case["ds"], case["valid"]
+    lib = native.library()
+    assert lib.matern52_force_tile(tile) == 0
+    try:
+        if kind == "gram":
+            args = _args(cuda_device, 4, n, n, dc, ds, same=True, seed=5)
+            mask1, mask2, diag = _masks(cuda_device, 4, n, n, valid, same=True, diag=True)
+        else:
+            args = _args(cuda_device, 1, 50, n, dc, ds, seed=6)
+            mask1, mask2, diag = _masks(cuda_device, 1, 50, n, None, valid)
+        want = tk.matern52_ard_fwd_plain(*args, mask1, mask2, diag)
+        got = tk.matern52_ard_fwd_cuda(*args, mask1, mask2, diag)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if kind == "gram":
+            assert torch.equal(got, got.transpose(-1, -2))
+        grad = torch.randn(want.shape, device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(7))
+        features = dict(need_x1=True, need_x2=True) if kind == "cross" else {}
+        got_g = tk.matern52_ard_bwd_cuda(grad, *args, mask1, mask2, **features)
+        want_g = tk.matern52_ard_bwd_plain(grad, *args, mask1, mask2)
+        _assert_grads_close(got_g if features else got_g[:3], want_g if features else want_g[:3])
+        _assert_params_within_rounding(got_g, grad, args, mask1, mask2)
+    finally:
+        lib.matern52_force_tile(-1)
+
+
+@pytest.mark.parametrize("experimenter", ["nasbench101", "pest_control"])
+def test_the_default_serves_an_all_categorical_study_through_the_kernels(cuda_device,
+                                                                        experimenter):
+    """The DEFAULT on CUDA through the benchmark runner on a study with no
+    continuous parameter: every suggestion inside the space, every trial
+    completed (feasible or not), K1's Gram and cross and K2's Gram launched."""
+    from vizier_tpu_torch.benchmarks import BenchmarkRunner, BenchmarkState, GenerateAndEvaluate
+    from vizier_tpu_torch.benchmarks.experimenters import combinatorial, nasbench101
+
+    if experimenter == "nasbench101":
+        exp = nasbench101.NASBench101Experimenter(
+            nasbench101.synthetic_nasbench101(num_cells=64, seed=0)[0])
+    else:
+        exp = combinatorial.PestControlExperimenter(seed=0)
+    state = BenchmarkState.from_designer_factory(
+        exp, lambda p, **kw: gp_ucb_pe.VizierGPUCBPEBandit(
+            p, ard_restarts=2, max_acquisition_evaluations=1000, num_seed_trials=5))
+    tk.reset_launch_counts()
+    BenchmarkRunner([GenerateAndEvaluate(5)], num_repeats=3).run(state)
+    torch.cuda.synchronize()
+    space = exp.problem_statement().search_space
+    trials = state.algorithm.supporter.GetTrials()
+    assert len(trials) == 15
+    for t in trials:
+        assert t.is_completed
+        for name in space.parameter_names():
+            assert space.get(name).contains(t.parameters[name].value)
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["gram"] > 0
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["cross"] > 0
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0

@@ -305,3 +305,115 @@ loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
 print(json.dumps([loaded, engine.lost_studies(), len(engine.outcomes)]))
 """
     assert json.loads(_fresh(code)) == [[], [], 8]
+
+
+_BENCHMARK_SLICE_MODULES = [
+    "vizier_tpu_torch.benchmarks", "vizier_tpu_torch.benchmarks.experimenters",
+    "vizier_tpu_torch.benchmarks.experimenters.wrappers",
+    "vizier_tpu_torch.benchmarks.experimenters.combinatorial",
+    "vizier_tpu_torch.benchmarks.experimenters.nasbench101",
+    "vizier_tpu_torch.benchmarks.experimenters.surrogates",
+    "vizier_tpu_torch.benchmarks.analyzers",
+    "vizier_tpu_torch.benchmarks.analyzers.convergence_curve",
+    "vizier_tpu_torch.benchmarks.analyzers.exploration_score",
+    "vizier_tpu_torch.benchmarks.analyzers.state_analyzer",
+    "vizier_tpu_torch.benchmarks.analyzers.plot_utils",
+    "vizier_tpu_torch.pyglove.converters", "vizier_tpu_torch.pyglove.backend",
+    "vizier_tpu_torch.service.policy_factory", "vizier_tpu_torch.raytune.vizier_search",
+    "vizier_tpu_torch.raytune.run_tune",
+]
+# The benchmark slice's optional dependencies, each gated as in the JAX package.
+_OPTIONAL = ("pyglove", "ray", "dopamine", "gin", "matplotlib", "pandas", "xgboost", "grpc",
+             "google.protobuf")
+
+
+@pytest.fixture(scope="module")
+def benchmark_slice_imports():
+    """In one fresh interpreter with every optional dependency blocked: per
+    module, the JAX-side modules its import added; the optional modules
+    loaded; the three packages' exports; and the errors of the gated entry
+    points."""
+    code = f"""
+import importlib, json, sys
+for name in {_OPTIONAL!r}:
+    sys.modules[name] = None
+out = {{}}
+for name in {_BENCHMARK_SLICE_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(sys.modules) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "vizier_tpu"))
+out["optional_loaded"] = sorted(m for m, v in sys.modules.items() if v is not None and any(
+    m == o or m.startswith(o + ".") for o in {_OPTIONAL!r}))
+for pkg in ("benchmarks", "benchmarks.experimenters", "benchmarks.analyzers"):
+    mod = importlib.import_module("vizier_tpu_torch." + pkg)
+    out[pkg] = sorted(n for n, v in vars(mod).items() if not n.startswith("_")
+                      and getattr(v, "__module__", "").startswith("vizier_tpu_torch."))
+from vizier_tpu_torch.benchmarks.experimenters import surrogates
+from vizier_tpu_torch.pyglove import backend
+from vizier_tpu_torch.raytune import run_tune
+from vizier_tpu_torch import pyvizier as vz
+errors = []
+for call in (lambda: backend.TunerPolicy(None, None, None), lambda: backend.VizierBackend("s"),
+             lambda: run_tune.run_tune_bbob("Sphere", 2),
+             lambda: surrogates.Atari100kExperimenter().evaluate([vz.Trial(id=1)])):
+    try:
+        call()
+        errors.append(None)
+    except ImportError as e:
+        errors.append(str(e))
+out["errors"] = errors
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _BENCHMARK_SLICE_MODULES)
+def test_the_benchmark_slice_modules_load_no_jax_and_need_no_optional_package(
+        benchmark_slice_imports, module):
+    assert benchmark_slice_imports[module] == []
+    assert benchmark_slice_imports["optional_loaded"] == []
+
+
+@pytest.mark.parametrize("package", ["benchmarks", "benchmarks.experimenters",
+                                     "benchmarks.analyzers"])
+def test_the_benchmark_packages_export_what_the_jax_packages_export(benchmark_slice_imports,
+                                                                    package):
+    import importlib
+
+    jax_module = importlib.import_module("vizier_tpu." + package)
+    jax_exports = {n for n, v in vars(jax_module).items() if not n.startswith("_")
+                   and getattr(v, "__module__", "").startswith("vizier_tpu.")}
+    assert jax_exports <= set(benchmark_slice_imports[package])
+
+
+def test_the_gated_entry_points_raise_the_jax_packages_errors(benchmark_slice_imports,
+                                                             monkeypatch):
+    """Without pyglove, ray or dopamine, constructing what needs them raises
+    the JAX package's ImportError (its text, but for the port naming no
+    install image: ``test_torch_surrogates.port_wording``). The JAX backend
+    is loaded anew with ``pyglove`` blocked and restored afterwards."""
+    import importlib
+    import sys
+
+    import vizier_tpu.pyglove as jpkg
+    from vizier_tpu import pyvizier as jvz
+    from vizier_tpu.benchmarks.experimenters import surrogates as jsur
+    from vizier_tpu.raytune import run_tune as jrun
+
+    name = "vizier_tpu.pyglove.backend"
+    monkeypatch.setitem(sys.modules, "pyglove", None)
+    monkeypatch.setattr(jpkg, "backend", importlib.import_module(name))
+    monkeypatch.delitem(sys.modules, name)
+    jbackend = importlib.import_module(name)
+    expected = []
+    for call in (lambda: jbackend.TunerPolicy(None, None, None),
+                 lambda: jbackend.VizierBackend("s"),
+                 lambda: jrun.run_tune_bbob("Sphere", 2),
+                 lambda: jsur.Atari100kExperimenter().evaluate([jvz.Trial(id=1)])):
+        with pytest.raises(ImportError) as info:
+            call()
+        expected.append(str(info.value))
+    from test_torch_surrogates import port_wording
+
+    assert benchmark_slice_imports["errors"] == port_wording(expected)

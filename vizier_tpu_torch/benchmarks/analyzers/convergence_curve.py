@@ -339,3 +339,109 @@ class OptimalityGapComparator:
         comp_gap = abs(self.optimum - np.median(compared.ys[:, -1]))
         return float(np.log(max(base_gap, 1e-12) / max(comp_gap, 1e-12)))
 
+
+class MultiMetricCurveConverter:
+    """Metric-config-driven curve converter with safety warping.
+
+    Parity with the reference ``MultiMetricCurveConverter``
+    (``convergence_curve.py:464``): single-objective configs route to
+    ``ConvergenceCurveConverter``, multi-objective to
+    ``HypervolumeCurveConverter``, and unsafe trials are warped infeasible
+    (``multimetric.SafetyChecker``) before conversion either way.
+    """
+
+    def __init__(self, metrics_config, converter):
+        self.metrics_config = metrics_config
+        self.converter = converter
+
+    @classmethod
+    def from_metrics_config(
+        cls, metrics_config: base_study_config.MetricsConfig, **kwargs
+    ) -> "MultiMetricCurveConverter":
+        objectives = list(
+            metrics_config.of_type(base_study_config.MetricType.OBJECTIVE)
+        )
+        if metrics_config.is_single_objective:
+            converter = ConvergenceCurveConverter(objectives[0], **kwargs)
+        else:
+            converter = HypervolumeCurveConverter(objectives, **kwargs)
+        return cls(metrics_config, converter)
+
+    def convert(self, trials: Sequence[trial_.Trial]) -> ConvergenceCurve:
+        if not trials:
+            raise ValueError("No trials provided.")
+        if not any(m.is_safety_metric for m in self.metrics_config):
+            return self.converter.convert(list(trials))
+        import copy as _copy
+
+        from vizier_tpu_torch.pyvizier import multimetric
+
+        checker = multimetric.SafetyChecker(self.metrics_config)
+        # Deep-copy only what warping may mutate (the unsafe trials).
+        warped = [
+            t if checker.is_safe(t) else checker.warp_unsafe_trials([_copy.deepcopy(t)])[0]
+        for t in trials]
+        return self.converter.convert(warped)
+
+
+class RestartingCurveConverter:
+    """Incremental curve building with periodic converter rebuilds.
+
+    Parity with the reference ``RestartingCurveConverter``
+    (``convergence_curve.py:516``), adapted to this project's *stateless*
+    converters: every ``convert(new_batch)`` runs the current converter
+    over the FULL accumulated history and returns the tail slice for the
+    new batch (so callers can stream batches and concatenate curves), and
+    the converter instance is rebuilt via ``converter_factory`` whenever
+    the total trial count crosses a power of ``restart_rate`` — refreshing
+    anything the converter snapshots at construction (e.g. an inferred
+    hypervolume reference point).
+    """
+
+    def __init__(self, converter_factory, *, restart_min_trials: int = 10,
+                 restart_rate: float = 2.0):
+        if restart_min_trials < 0:
+            raise ValueError("restart_min_trials must be >= 0.")
+        if restart_rate <= 1.0:
+            raise ValueError("restart_rate must be > 1.")
+        self._factory = converter_factory
+        self._restart_min_trials = restart_min_trials
+        self._restart_rate = restart_rate
+        self._all_trials: List[trial_.Trial] = []
+        self._converter = None
+
+    def convert(self, trials: Sequence[trial_.Trial]) -> ConvergenceCurve:
+        if self._converter is None:
+            self._converter = self._factory()
+        self._all_trials.extend(trials)
+        full = self._converter.convert(list(self._all_trials))
+        curve = ConvergenceCurve(
+            xs=full.xs[-len(trials):] if len(trials) else full.xs[:0],
+            ys=full.ys[:, full.ys.shape[1] - len(trials):],
+            trend=full.trend,
+        )
+        if len(self._all_trials) >= self._restart_min_trials:
+            log_prev = np.log(1 + len(self._all_trials) - len(trials)) / np.log(
+                self._restart_rate
+            )
+            log_now = np.log(1 + len(self._all_trials)) / np.log(self._restart_rate)
+            if int(log_now) > int(log_prev):
+                self._converter = None  # rebuild on next convert
+        return curve
+
+
+def build_convergence_curve(
+    baseline_curve: Sequence[float], compared_curve: Sequence[float]
+) -> List[float]:
+    """Relative convergence: for each baseline value, the first compared
+    index reaching it (inf if never). Both curves must be non-decreasing
+    (maximization best-so-far). Reference ``convergence_curve.py:1108``.
+    """
+    import bisect
+
+    compared = list(compared_curve)
+    out: List[float] = []
+    for value in baseline_curve:
+        j = bisect.bisect_left(compared, value)
+        out.append(float(j) if j != len(compared) else float("inf"))
+    return out

@@ -1,16 +1,19 @@
-"""Experimenter wrappers: noise, shifting and discretizing.
+"""Experimenter wrappers: noise, shifting, discretizing, sign-flip, etc.
 
-Copy of the JAX package's ``benchmarks/experimenters/wrappers.py``, the
-wrappers that ``SingleObjectiveExperimenterFactory`` builds (parity with the
-reference's noisy_experimenter, shifting_experimenter and
-discretizing_experimenter under ``vizier/_src/benchmarks/experimenters/``).
-The sign-flip, normalizing, infeasible, sparse, permuting and switch
-wrappers are not ported.
+Copy of the JAX package's ``benchmarks/experimenters/wrappers.py``, every
+wrapper of it (parity with the reference wrapper experimenters under
+``vizier/_src/benchmarks/experimenters/``: noisy_experimenter,
+shifting_experimenter, discretizing_experimenter, normalizing_experimenter,
+sign_flip_experimenter, infeasible_experimenter, permuting_experimenter,
+sparse_experimenter and switch_experimenter). All of it is host numpy: the
+same seed and the same trials give the same floats as the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import copy
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -200,6 +203,38 @@ class ShiftingExperimenter(_Wrapper):
             orig.completion_time = sh.completion_time
 
 
+class SignFlipExperimenter(_Wrapper):
+    """Negates metrics and flips goals (MINIMIZE ⇄ MAXIMIZE)."""
+
+    def __init__(self, exptr: base.Experimenter):
+        super().__init__(exptr)
+        original = exptr.problem_statement()
+        self._problem = base_study_config.ProblemStatement(
+            search_space=original.search_space,
+            metric_information=base_study_config.MetricsConfig(
+                [m.flip_goal() for m in original.metric_information]
+            ),
+            metadata=original.metadata,
+        )
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        self._exptr.evaluate(suggestions)
+        for t in suggestions:
+            if t.final_measurement is None:
+                continue
+            t.final_measurement = trial_.Measurement(
+                metrics={
+                    name: trial_.Metric(-m.value)
+                    for name, m in t.final_measurement.metrics.items()
+                },
+                elapsed_secs=t.final_measurement.elapsed_secs,
+                steps=t.final_measurement.steps,
+            )
+
+    def problem_statement(self) -> base_study_config.ProblemStatement:
+        return self._problem
+
+
 class DiscretizingExperimenter(_Wrapper):
     """Restricts selected DOUBLE parameters to discrete feasible points."""
 
@@ -226,3 +261,259 @@ class DiscretizingExperimenter(_Wrapper):
 
     def problem_statement(self) -> base_study_config.ProblemStatement:
         return self._problem
+
+
+class NormalizingExperimenter(_Wrapper):
+    """Normalizes metrics by |f| statistics sampled on a random grid."""
+
+    def __init__(self, exptr: base.Experimenter, *, num_samples: int = 100, seed: int = 0):
+        super().__init__(exptr)
+        problem = exptr.problem_statement()
+        rng = np.random.default_rng(seed)
+        from vizier_tpu_torch.designers import random as random_designer
+
+        probes = []
+        for _ in range(num_samples):
+            params = random_designer.sample_point(problem.search_space, rng)
+            probes.append(trial_.Trial(parameters=params))
+        exptr.evaluate(probes)
+        names = [m.name for m in problem.metric_information]
+        self._scale = {}
+        for name in names:
+            vals = [
+                t.final_measurement.metrics[name].value
+                for t in probes
+                if t.final_measurement is not None and name in t.final_measurement.metrics
+            ]
+            std = float(np.std(vals)) if vals else 1.0
+            self._scale[name] = std if std > 1e-12 else 1.0
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        self._exptr.evaluate(suggestions)
+        for t in suggestions:
+            if t.final_measurement is None:
+                continue
+            t.final_measurement = trial_.Measurement(
+                metrics={
+                    name: trial_.Metric(m.value / self._scale.get(name, 1.0))
+                    for name, m in t.final_measurement.metrics.items()
+                },
+                elapsed_secs=t.final_measurement.elapsed_secs,
+                steps=t.final_measurement.steps,
+            )
+
+
+class InfeasibleExperimenter(_Wrapper):
+    """Marks a random fraction of evaluations infeasible."""
+
+    def __init__(
+        self, exptr: base.Experimenter, *, infeasible_prob: float = 0.1, seed: int = 0
+    ):
+        super().__init__(exptr)
+        self._prob = infeasible_prob
+        self._rng = np.random.default_rng(seed)
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        self._exptr.evaluate(suggestions)
+        for t in suggestions:
+            if self._rng.uniform() < self._prob:
+                t.final_measurement = None
+                t.infeasibility_reason = "Randomly infeasible (benchmark wrapper)."
+
+
+class SparseExperimenter(_Wrapper):
+    """Expands the search space with placeholder parameters that do nothing.
+
+    Reference ``SparseExperimenter``: tests that a designer can optimize when
+    only a subset of the parameters affect the objective. The added ("sparse")
+    parameters are copies of ``extra_space``'s parameters, renamed with
+    ``prefix``; evaluation strips them before delegating.
+    """
+
+    def __init__(
+        self,
+        exptr: base.Experimenter,
+        extra_space: "pc.SearchSpace",
+        *,
+        prefix: str = "_SPARSE",
+    ):
+        super().__init__(exptr)
+        self._prefix = prefix
+        inner = exptr.problem_statement()
+        self._inner_names = set(inner.search_space.parameter_names())
+        self._problem = copy.deepcopy(inner)
+        for cfg in extra_space.parameters:
+            name = f"{prefix}_{cfg.name}"
+            if name in self._inner_names:
+                raise ValueError(f"Sparse parameter {name!r} collides.")
+            self._problem.search_space.root.add(
+                dataclasses.replace(cfg, name=name)
+            )
+
+    @classmethod
+    def create_default(
+        cls,
+        exptr: base.Experimenter,
+        num_float: int = 0,
+        num_int: int = 0,
+        num_discrete: int = 0,
+        num_categorical: int = 0,
+        *,
+        prefix: str = "_SPARSE",
+    ) -> "SparseExperimenter":
+        """Convenience: N placeholder params of each type with default domains."""
+        space = pc.SearchSpace()
+        for i in range(num_float):
+            space.root.add_float_param(f"float{i}", -5.0, 5.0)
+        for i in range(num_int):
+            space.root.add_int_param(f"int{i}", -5, 5)
+        for i in range(num_discrete):
+            space.root.add_discrete_param(f"discrete{i}", [0, 1, 2, 3, 4])
+        for i in range(num_categorical):
+            space.root.add_categorical_param(
+                f"categorical{i}", ["a", "b", "c", "d", "e", "f"]
+            )
+        return cls(exptr, space, prefix=prefix)
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        stripped = []
+        for t in suggestions:
+            s = trial_.Trial(
+                id=t.id,
+                parameters={
+                    k: v.value
+                    for k, v in t.parameters.items()
+                    if k in self._inner_names
+                },
+            )
+            stripped.append(s)
+        self._exptr.evaluate(stripped)
+        for t, s in zip(suggestions, stripped):
+            if s.final_measurement is not None:
+                t.complete(s.final_measurement)
+            else:
+                t.complete(
+                    infeasibility_reason=s.infeasibility_reason
+                    or "Inner experimenter returned no measurement."
+                )
+
+    def problem_statement(self) -> base_study_config.ProblemStatement:
+        return copy.deepcopy(self._problem)
+
+
+class PermutingExperimenter(_Wrapper):
+    """Permutes chosen discrete/categorical parameter values before evaluation.
+
+    Reference ``PermutingExperimenter``: breaks any accidental ordinal
+    structure of categorical values, so designers that (wrongly) assume
+    category order degrade while order-agnostic ones do not.
+    """
+
+    def __init__(
+        self,
+        exptr: base.Experimenter,
+        parameters_to_permute: Sequence[str],
+        seed: Optional[int] = None,
+    ):
+        super().__init__(exptr)
+        problem = exptr.problem_statement()
+        if problem.search_space.is_conditional:
+            raise ValueError("PermutingExperimenter requires a flat space.")
+        rng = np.random.default_rng(seed)
+        self._maps: Dict[str, Dict] = {}
+        for name in parameters_to_permute:
+            cfg = problem.search_space.get(name)
+            if cfg.type == pc.ParameterType.DOUBLE:
+                raise ValueError(
+                    f"Parameter {name!r} is continuous; only finite-domain "
+                    "parameters can be permuted."
+                )
+            values = list(cfg.feasible_values)
+            permuted = list(rng.permutation(np.asarray(values, dtype=object)))
+            self._maps[name] = dict(zip(values, permuted))
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        permuted = []
+        for t in suggestions:
+            s = copy.deepcopy(t)
+            for name, mapping in self._maps.items():
+                if name in s.parameters:
+                    raw = s.parameters[name].value
+                    key = type(next(iter(mapping)))(raw)
+                    s.parameters[name] = mapping[key]
+            permuted.append(s)
+        self._exptr.evaluate(permuted)
+        for t, s in zip(suggestions, permuted):
+            if s.final_measurement is not None:
+                t.complete(s.final_measurement)
+            else:
+                t.complete(
+                    infeasibility_reason=s.infeasibility_reason
+                    or "Inner experimenter returned no measurement."
+                )
+
+
+class SwitchExperimenter(base.Experimenter):
+    """Conditional-space benchmark: a switch selects one sub-experimenter.
+
+    Reference ``SwitchExperimenter``: the root ``switch`` parameter activates
+    the selected experimenter's parameters as conditional children; the
+    objective is relayed under one common metric name. This is the
+    tree-structured (NAS-style) search-space testbed for conditional-capable
+    designers (grid/random/quasi-random).
+    """
+
+    def __init__(
+        self,
+        experimenters: Sequence[base.Experimenter],
+        *,
+        switch_param_name: str = "switch",
+        metric_name: str = "switch_metric",
+    ):
+        if not experimenters:
+            raise ValueError("Need at least one experimenter.")
+        self._experimenters = list(experimenters)
+        self._switch = switch_param_name
+        self._metric = metric_name
+        self._problems = [e.problem_statement() for e in self._experimenters]
+        self._objectives = [
+            p.metric_information.item().name for p in self._problems
+        ]
+        goals = {p.metric_information.item().goal for p in self._problems}
+        if len(goals) > 1:
+            # Relaying raw values under one goal would silently invert the
+            # benchmark for sub-experimenters with the other goal.
+            raise ValueError(
+                f"All sub-experimenters must share one optimization goal; "
+                f"got {sorted(g.name for g in goals)}."
+            )
+        goal = self._problems[0].metric_information.item().goal
+        self._problem = base_study_config.ProblemStatement()
+        selector = self._problem.search_space.root.add_categorical_param(
+            self._switch, [str(i) for i in range(len(self._experimenters))]
+        )
+        for i, p in enumerate(self._problems):
+            child = selector.select_values([str(i)])
+            for cfg in p.search_space.parameters:
+                child.add(copy.deepcopy(cfg))
+        self._problem.metric_information.append(
+            base_study_config.MetricInformation(name=self._metric, goal=goal)
+        )
+
+    def evaluate(self, suggestions: Sequence[trial_.Trial]) -> None:
+        for t in suggestions:
+            idx = int(str(t.parameters[self._switch].value))
+            sub = copy.deepcopy(t)
+            del sub.parameters[self._switch]
+            self._experimenters[idx].evaluate([sub])
+            if sub.final_measurement is None:
+                t.complete(
+                    infeasibility_reason=sub.infeasibility_reason
+                    or "Sub-experimenter returned no measurement."
+                )
+                continue
+            value = sub.final_measurement.metrics[self._objectives[idx]].value
+            t.complete(trial_.Measurement(metrics={self._metric: value}))
+
+    def problem_statement(self) -> base_study_config.ProblemStatement:
+        return copy.deepcopy(self._problem)

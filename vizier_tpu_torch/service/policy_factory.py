@@ -16,7 +16,11 @@ protobuf: ``PythiaServicer.Suggest`` calls
   ``PartiallySerializableDesignerPolicy`` (designer state in the study's
   metadata); CMA_ES, BOCS and HARMONICA to the stateless ``DesignerPolicy``.
   Each route has the JAX package's policy class.
-- PYGLOVE is not ported yet and raises an error that names it.
+- PYGLOVE goes to the port's ``pyglove.backend.TunerPolicy`` over the
+  generator that the study's primary tuner registered
+  (``pyglove.backend.register_generator``); a study with none raises
+  ``ValueError``, as in the JAX package. The policy needs the ``pyglove``
+  package, which only a host with it installed has.
 """
 
 from __future__ import annotations
@@ -30,17 +34,11 @@ from vizier_tpu_torch.pyvizier import base_study_config
 
 _ALLOWED_BUDGET_POLICIES = ("first_pick_full", "per_batch", "per_pick")
 
-# The JAX package's factory serves these too; the port does not yet.
-NOT_PORTED = ("PYGLOVE",)
 SERVED = (
     "DEFAULT", "GP_UCB_PE", "ALGORITHM_UNSPECIFIED", "GAUSSIAN_PROCESS_BANDIT", "RANDOM_SEARCH",
     "QUASI_RANDOM_SEARCH", "GRID_SEARCH", "SHUFFLED_GRID_SEARCH", "NSGA2", "EAGLE_STRATEGY",
-    "CMA_ES", "BOCS", "HARMONICA",
+    "CMA_ES", "BOCS", "HARMONICA", "PYGLOVE",
 )
-
-
-class AlgorithmNotPortedError(NotImplementedError):
-    """The algorithm is served by the JAX package only (ROADMAP A16)."""
 
 
 def _validated_acq_evals(problem_statement) -> int:
@@ -204,9 +202,16 @@ class DefaultPolicyFactory:
             return designer_policy.DesignerPolicy(
                 policy_supporter, lambda p, **kw: harmonica.HarmonicaDesigner(p)
             )
-        if algorithm in NOT_PORTED:
-            raise AlgorithmNotPortedError(
-                f"Algorithm {algorithm!r} is served by the JAX package only; the port "
-                f"serves {', '.join(SERVED)}."
-            )
+        if algorithm == "PYGLOVE":
+            from vizier_tpu_torch.pyglove import backend as pyglove_backend
+
+            registered = pyglove_backend.get_registered_generator(study_name)
+            if registered is None:
+                raise ValueError(
+                    f"No PyGlove generator registered for study {study_name!r}; "
+                    "construct VizierBackend with dna_spec and algorithm in the "
+                    "primary tuner process first."
+                )
+            dna_spec, generator = registered
+            return pyglove_backend.TunerPolicy(policy_supporter, dna_spec, generator)
         raise ValueError(f"Unknown algorithm: {algorithm!r}")
