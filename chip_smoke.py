@@ -282,15 +282,36 @@ Phases (any failure raises and exits non-zero):
    the record analyzer's comparison scores and the exploration scores.
    Then K1/K2 at every launch layout it recorded, and the largest Gram and
    cross layout of each (Dc, Ds) timed.
-18. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+18. tooling, last in the ``loadgen`` worker: (a) device-phase timing
+   (``observability/device_timing.py``, CUDA events on the current stream)
+   of the DEFAULT at full width, bench.py's study (1000 trials x 20 floats,
+   ``suggest(5)``, the picks completed in between, the whole 75 000-evaluation
+   sweep) over two requests: each phase's mode, host ms and event ms
+   printed; the first request's phases are ``compile``, the second's
+   ``execute``, every event time within its host wall, train plus
+   acquisition within the request's wall; (b) prewarm: a ``ServingRuntime``
+   with batching, ``batching_prewarm`` and ``compilation_cache_dir`` on
+   prewarms the soak's 2-D layout and serving-exact's 20-D layout up to
+   ``batching_prewarm_max_trials`` (32) with the soak's designer economics
+   (Adam ARD steps captured as CUDA graphs); the report rows, then per
+   layout one live flush of 4 studies, which must capture no graph, its wall
+   beside the same flush after the graphs are dropped (a bucket not
+   prewarmed, same shapes, same process), the flush's program phase, and
+   the kernel library built into and reloaded from the cache directory;
+   (c) one soak-layout serving flush with coalescing and speculation through
+   the loadgen's runtime transport under ``debug_locks.instrument()``: no
+   observed lock edge may be missing from the static graph; (d)
+   ``python -m vizier_tpu_torch.analysis`` with no finding outside its
+   baseline, and the ``run_benchmark`` demo at its defaults.
+19. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
-   service-reliability, service-planes, fleet, loadgen, testing and
-   benchmarks steps' included, by mode; K2's
+   service-reliability, service-planes, fleet, loadgen, testing,
+   benchmarks and tooling steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-17 run in three worker
+The phases are host-bound, so phases 7-9 and 14-18 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -323,6 +344,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4705,6 +4727,331 @@ def run_benchmarks_phase(kernels, lib, device: str = "cuda"):
           f"{_card_line() if on_card else 'host path alone, on the CPU'}")
     return paths, figures
 
+# -- tooling: device-phase timing, prewarm, debug locks, the suite ---------------
+
+_ROOT = pathlib.Path(__file__).resolve().parent
+# The prewarm walk's live flushes: studies per flush (the executor's
+# ``batch_max_size``) and their completed trials (inside the 16-row bucket).
+_PREWARM_STUDIES = 4
+_PREWARM_TRIALS = (10, 11, 12, 13)
+
+
+def _default_device_phases(kernels, vz) -> tuple:
+    """(a): two DEFAULT requests at full width with device-phase timing on.
+    Returns (launches by mode, figures)."""
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.observability import config as obs_config
+    from vizier_tpu_torch.observability import device_timing
+
+    label = "tooling device phases"
+    device_timing.set_config(obs_config.ObservabilityConfig())
+    # The worker's earlier phases ran these names at the soak's layout; the
+    # DEFAULT at full width starts its own first-run (compile) record.
+    device_timing.reset_compile_tracking()
+    designer = gp_ucb_pe.default_factory(_bench_problem(vz), seed=0, device="cuda")
+    latencies, by_mode, _, _ = _serve(vz, kernels, designer, lambda request: None, label,
+                                      requests=2)
+    rows = [r for r in device_timing.recent() if r[0].startswith("gp_ucb_pe.")]
+    want = [("gp_ucb_pe.train_gp", "compile"), ("gp_ucb_pe.acquisition", "compile"),
+            ("gp_ucb_pe.train_gp", "execute"), ("gp_ucb_pe.acquisition", "execute")]
+    for name, mode, host, event in rows:
+        print(f"{label}: {name} mode={mode} host {host:.1f} ms, CUDA events {event:.1f} ms; "
+              f"{_card_line()}")
+    if [(name, mode) for name, mode, _, _ in rows] != want:
+        raise AssertionError(f"{label}: phases {rows}, want {want}")
+    late = [r for r in rows if not 0.0 < r[3] <= r[2]]
+    if late:
+        raise AssertionError(f"{label}: event time not within its host wall: {late}")
+    for request, wall in enumerate(latencies):
+        train, acquisition = rows[2 * request], rows[2 * request + 1]
+        if train[2] + acquisition[2] > wall * 1e3:
+            raise AssertionError(
+                f"{label} request {request}: train {train[2]:.1f} + acquisition "
+                f"{acquisition[2]:.1f} ms exceed the request's {wall * 1e3:.1f} ms")
+    return by_mode, dict(requests_ms=[w * 1e3 for w in latencies],
+                         phases=[dict(name=n, mode=m, host_ms=h, event_ms=e)
+                                 for n, m, h, e in rows])
+
+
+def _prewarm_trials(vz, dim: int, num_trials: int, seed: int):
+    rng = np.random.default_rng(seed)
+    trials = []
+    for i in range(num_trials):
+        t = vz.Trial(id=i + 1, parameters={f"x{j}": float(rng.random()) for j in range(dim)})
+        t.complete(vz.Measurement(metrics={"obj": float(rng.normal())}))
+        trials.append(t)
+    return trials
+
+
+def _live_flush(runtime, factory, problem, vz, dim: int) -> tuple:
+    """One flush of ``_PREWARM_STUDIES`` fresh studies (10-13 completed
+    trials: the 16-row bucket) through the runtime's executor, one thread
+    per study. Returns (wall s, graph captures it made)."""
+    from vizier_tpu_torch.optimizers import graphs
+
+    designers = []
+    for s, n in enumerate(_PREWARM_TRIALS):
+        d = factory(problem)
+        d.update(vz.CompletedTrials(_prewarm_trials(vz, dim, n, seed=s)), vz.ActiveTrials())
+        designers.append(d)
+    out, errors = [None] * len(designers), []
+
+    def run(i):
+        try:
+            out[i] = runtime.batch_executor.suggest(designers[i], 1)
+        except Exception as e:  # raised below, on this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(designers))]
+    captures = graphs.STATS["captures"]
+    flushes = runtime.snapshot()["batch_flushes"]
+    start = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if errors or not all(o is not None and len(o) == 1 for o in out):
+        raise AssertionError(f"live flush at {dim}-D: {errors or out}")
+    if runtime.snapshot()["batch_flushes"] - flushes != 1:
+        raise AssertionError(f"live flush at {dim}-D: {runtime.snapshot()['batch_flushes'] - flushes}"
+                             " flushes, want one")
+    return wall, graphs.STATS["captures"] - captures
+
+
+def _prewarm_check(kernels, vz, models) -> tuple:
+    """(b): prewarm over the soak's and serving-exact's layouts, the first
+    live flush after it and the same flush with the graphs dropped, and the
+    compile cache. Returns (launches by mode, figures)."""
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.observability import device_timing
+    from vizier_tpu_torch.ops import native
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.optimizers import lbfgs
+    from vizier_tpu_torch.serving import config as serving_config
+    from vizier_tpu_torch.serving import runtime as runtime_lib
+
+    label = "tooling prewarm"
+    soak = models.soak_config()
+    cache_dir = _ROOT / "build" / "vizier_tpu_torch_compile_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    config = serving_config.ServingConfig(
+        batching_prewarm=True, batch_max_size=_PREWARM_STUDIES, batch_max_wait_ms=2000.0,
+        compilation_cache_dir=str(cache_dir))
+    figures = dict(layouts={})
+    kernels.reset_launch_counts()
+    runtime = runtime_lib.ServingRuntime(config)
+    try:
+        # The compile cache: the kernel library built into the directory the
+        # config names, then found there by the next load.
+        cold = native.build(native._SOURCE, native.build_dir())
+        warm = native.build(native._SOURCE, native.build_dir())
+        built = sorted(p.name for p in native.build_dir().glob("*.so"))
+        print(f"{label}: compilation_cache_dir -> {native.build_dir()} ({built}); build into "
+              f"it {cold.build_seconds:.2f} s, load from it {warm.build_seconds:.3f} s")
+        if native.build_dir() != cache_dir.resolve() or not built or warm.build_log:
+            raise AssertionError(f"{label}: the kernel library did not build into and load "
+                                 f"from {cache_dir}")
+        figures.update(cache_dir=str(native.build_dir()), cache_build_s=cold.build_seconds,
+                       cache_load_s=warm.build_seconds)
+
+        def factory(p):
+            # The soak's designer economics (LoadgenPolicyFactory): Adam ARD
+            # steps captured once per layout and replayed.
+            return gp_ucb_pe.VizierGPUCBPEBandit(
+                p, rng_seed=0, device="cuda", ard_restarts=soak.ard_restarts,
+                max_acquisition_evaluations=soak.acquisition_evals, warm_start_min_trials=0,
+                ard_optimizer=lbfgs.AdamOptimizer(maxiter=soak.ard_maxiter, device="cuda",
+                                                  cuda_graph=True))
+
+        graphs.clear()
+        for name, dim in (("soak", soak.dim), ("serving_exact", _DIM)):
+            problem = vz.ProblemStatement()
+            for j in range(dim):
+                problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+            problem.metric_information.append(
+                vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+            rows = runtime.prewarm_batching(problem, factory)
+            for row in rows:
+                print(f"{label} {name} ({dim}-D): {row}")
+            if not rows or not all(r["status"] == "ok" and r["captures"] > 0 for r in rows):
+                raise AssertionError(f"{label} {name}: a prewarm step failed or captured "
+                                     f"nothing: {rows}")
+            prewarmed_s, prewarmed_captures = _live_flush(runtime, factory, problem, vz, dim)
+            phase = [r for r in device_timing.recent() if r[0].endswith("suggest_batched")][-1]
+            graphs.clear()
+            cold_s, cold_captures = _live_flush(runtime, factory, problem, vz, dim)
+            print(f"{label} {name} ({dim}-D): first live flush of {_PREWARM_STUDIES} studies "
+                  f"after prewarm {prewarmed_s * 1e3:.1f} ms with {prewarmed_captures} new graph "
+                  f"captures; the same flush with no graph prewarmed {cold_s * 1e3:.1f} ms with "
+                  f"{cold_captures} captures; the flush's program phase {phase[0]} "
+                  f"mode={phase[1]} host {phase[2]:.1f} ms, CUDA events {phase[3]:.1f} ms; "
+                  f"{_card_line()}")
+            if prewarmed_captures != 0 or cold_captures <= 0:
+                raise AssertionError(f"{label} {name}: captures after prewarm "
+                                     f"{prewarmed_captures} (want 0), without {cold_captures}")
+            if not 0.0 < phase[3] <= phase[2]:
+                raise AssertionError(f"{label} {name}: program phase {phase}")
+            figures["layouts"][name] = dict(
+                dim=dim, rows=rows, prewarmed_flush_ms=prewarmed_s * 1e3,
+                prewarmed_captures=prewarmed_captures, cold_flush_ms=cold_s * 1e3,
+                cold_captures=cold_captures,
+                program_phase=dict(name=phase[0], mode=phase[1], host_ms=phase[2],
+                                   event_ms=phase[3]))
+    finally:
+        runtime.shutdown()
+        native.set_build_dir(None)
+    by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    figures["graph_stats"] = dict(graphs.STATS)
+    return by_mode, figures
+
+
+def _debug_locks_check(kernels, vz, models) -> tuple:
+    """(c): one soak-layout serving flush with coalescing and speculation
+    through the loadgen's runtime transport, every lock it builds recorded
+    (``debug_locks.instrument``), each observed edge held to the static lock
+    graph. Returns (launches by mode, figures)."""
+    import concurrent.futures.thread  # noqa: F401  (imported before the locks are patched)
+
+    from unittest import mock
+
+    from vizier_tpu_torch.analysis import baseline as baseline_lib
+    from vizier_tpu_torch.analysis import common as analysis_common
+    from vizier_tpu_torch.analysis import debug_locks, lock_order
+    from vizier_tpu_torch.analysis import suite as analysis_suite
+    from vizier_tpu_torch.loadgen import driver
+    from vizier_tpu_torch.reliability import ReliabilityConfig
+
+    label = "tooling debug locks"
+    static = lock_order.run(analysis_common.Project(
+        [str(_ROOT / "vizier_tpu_torch"), str(_ROOT / "chip_smoke.py")], rel_to=str(_ROOT)))
+    scenario = models.build_scenario(models.soak_config())
+    specs = [s for s in scenario.studies if s.algorithm == "DEFAULT"][:_PREWARM_STUDIES]
+    factory = driver.LoadgenPolicyFactory(scenario, device="cuda")
+    reliability = ReliabilityConfig()
+    switches = {"VIZIER_TORCH_SPECULATIVE": "1", "VIZIER_TORCH_SERVING_COALESCING": "1",
+                "VIZIER_TORCH_BATCHING": "1", "VIZIER_TORCH_BATCH_MAX_WAIT_MS": "2000"}
+    accepted = {e.key for e in baseline_lib.load_baseline(
+        str(_ROOT / analysis_suite.DEFAULT_BASELINE)).entries if e.pass_name == "debug_locks"}
+    kernels.reset_launch_counts()
+    with mock.patch.dict(os.environ, switches):
+        with debug_locks.instrument() as obs:
+            target = driver._RuntimeTarget(scenario, reliability, factory, "cuda")
+            try:
+                clients = []
+                for s, spec in enumerate(specs):
+                    client = target.open_study(
+                        spec, driver._study_config(spec, scenario.config.dim), reliability, None)
+                    for trial in _prewarm_trials(vz, scenario.config.dim, _PREWARM_TRIALS[s], s):
+                        made = client.create_trial(vz.Trial(parameters=trial.parameters))
+                        client.complete_trial(made.id, trial.final_measurement)
+                    clients.append(client)
+
+                def round_(count: int) -> list:
+                    out = [None] * len(clients)
+
+                    def run(i):
+                        out[i] = clients[i].get_suggestions(count)
+
+                    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(clients))]
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(timeout=300)
+                    return out
+
+                flushes = []
+                for r in range(2):
+                    before = target.runtime.snapshot()["batch_flushes"]
+                    picks = round_(1)
+                    flushes.append(target.runtime.snapshot()["batch_flushes"] - before)
+                    if not all(p and len(p) == 1 for p in picks):
+                        raise AssertionError(f"{label} round {r}: {picks}")
+                    for client, (trial,) in zip(clients, picks):
+                        client.complete_trial(trial.id, vz.Measurement(metrics={"obj": 0.5}))
+                    # The completions arm speculative jobs on the deferrable lane.
+                    deadline = time.time() + 30
+                    while (target.runtime.snapshot()["speculative_precomputes"]
+                           < len(clients) * (r + 1) and time.time() < deadline):
+                        time.sleep(0.05)
+                stats = target.runtime.snapshot()
+            finally:
+                target.runtime.shutdown()
+    by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    check = debug_locks.check_against_static(obs, static, str(_ROOT))
+    missing = sorted({(a, b) for a, b, _ in check.missing_static})
+    figures = dict(
+        acquisitions=obs.acquisitions, observed_edges=len(obs.edges),
+        confirmed=sorted(set(check.confirmed)), unmapped_sites=len(check.unmapped_sites),
+        baselined=[pair for pair in missing
+                   if f"runtime-edge-not-in-static-graph:{pair[0]}->{pair[1]}" in accepted],
+        missing=[pair for pair in missing
+                 if f"runtime-edge-not-in-static-graph:{pair[0]}->{pair[1]}" not in accepted],
+        flushes=flushes, serving={k: stats[k] for k in (
+            "batch_flushes", "batched_suggests", "coalesced_requests", "speculative_hits",
+            "speculative_precomputes", "speculative_misses")})
+    print(f"{label}: {obs.acquisitions} acquisitions, {len(obs.edges)} observed edges, "
+          f"{len(figures['confirmed'])} confirmed in the static graph "
+          f"({len(static.edges)} edges), {figures['unmapped_sites']} unmapped sites, "
+          f"{len(figures['baselined'])} in the baseline {figures['baselined']}, "
+          f"{len(figures['missing'])} missing from both: {figures['missing']}; serving "
+          f"{figures['serving']}, flushes per round {flushes}")
+    if figures["missing"]:
+        raise AssertionError(f"{label}: observed lock edges missing from the static graph "
+                             f"and the baseline: {figures['missing']}")
+    if not figures["confirmed"] or stats["speculative_precomputes"] <= 0:
+        raise AssertionError(f"{label}: the flush exercised no lock edge or no speculation")
+    return by_mode, figures
+
+
+def _suite_and_demo(kernels) -> tuple:
+    """(d): the analysis suite's command line on this machine, then the
+    ``run_benchmark`` demo at its defaults. Returns (launches by mode,
+    figures)."""
+    from vizier_tpu_torch.demos import run_benchmark
+
+    label = "tooling suite"
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vizier_tpu_torch.analysis"], cwd=_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    suite_s = time.perf_counter() - start
+    print(proc.stdout.strip())
+    if proc.returncode != 0:
+        print(proc.stderr.strip(), file=sys.stderr)
+        raise AssertionError(f"{label}: python -m vizier_tpu_torch.analysis exit "
+                             f"{proc.returncode}")
+    best, wall, by_mode = _path_launches(kernels, lambda: run_benchmark.main([]))
+    print(f"tooling demo: run_benchmark at its defaults (Sphere 4-D, 30 trials x 2 repeats, "
+          f"cuda) in {wall:.1f} s: best {best}; {_card_line()}")
+    if sorted(best) != ["gp_ucb", "quasirandom", "random"] or not all(
+            len(v) == 2 and all(np.isfinite(v)) for v in best.values()):
+        raise AssertionError(f"tooling demo: {best}")
+    return by_mode, dict(suite_s=suite_s, suite_report=proc.stdout.strip().splitlines()[-2],
+                         demo_s=wall, demo_best=best)
+
+
+def run_tooling_phase(kernels, lib):
+    """Phase 18: device-phase timing, prewarm and the compile cache, debug
+    locks, the analysis suite and the benchmark demo (see the module
+    docstring). Returns ({path: launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch.loadgen import models
+
+    phase_start = time.perf_counter()
+    paths, figures = {}, {}
+    paths["tooling_default"], figures["device_phases"] = _default_device_phases(kernels, vz)
+    paths["tooling_prewarm"], figures["prewarm"] = _prewarm_check(kernels, vz, models)
+    paths["tooling_debug_locks"], figures["debug_locks"] = _debug_locks_check(kernels, vz, models)
+    paths["tooling_demo"], figures["suite"] = _suite_and_demo(kernels)
+    for path in ("tooling_default", "tooling_prewarm", "tooling_debug_locks", "tooling_demo"):
+        _require_modes(paths[path], (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                     ("matern52_ard_bwd", "gram")), path)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"tooling: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -4718,7 +5065,7 @@ def run_benchmarks_phase(kernels, lib, device: str = "cuda"):
 _WORKER_PHASES = {
     "regret": ("regret",),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
-    "loadgen": ("loadgen", "testing", "benchmarks"),
+    "loadgen": ("loadgen", "testing", "benchmarks", "tooling"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -4760,6 +5107,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_testing_phase(kernels, lib)
     if phase == "benchmarks":
         return run_benchmarks_phase(kernels, lib)
+    if phase == "tooling":
+        return run_tooling_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -4951,10 +5300,11 @@ def main() -> int:
     fleet_paths = done["fleet"]["paths"]
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
     slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
-                   **done["benchmarks"]["paths"]}
+                   **done["benchmarks"]["paths"], **done["tooling"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
+    print(json.dumps({"tooling": done["tooling"]["figures"]}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -5017,6 +5367,9 @@ def main() -> int:
             "launches_benchmarks_phase": sum(
                 sum(done["benchmarks"]["paths"][path][name].values())
                 for path in done["benchmarks"]["paths"]),
+            "launches_tooling_phase": sum(
+                sum(done["tooling"]["paths"][path][name].values())
+                for path in done["tooling"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -1650,3 +1650,104 @@ def test_the_default_serves_an_all_categorical_study_through_the_kernels(cuda_de
     assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["gram"] > 0
     assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["cross"] > 0
     assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0
+
+
+def _prewarm_problem(dims=2):
+    problem = vz.ProblemStatement()
+    for d in range(dims):
+        problem.search_space.root.add_float_param(f"x{d}", 0.0, 1.0)
+    problem.metric_information.append(
+        vz.MetricInformation(name="y", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    return problem
+
+
+def _graphed_factory(p):
+    from vizier_tpu_torch.optimizers import lbfgs
+
+    return gp_ucb_pe.VizierGPUCBPEBandit(
+        p, rng_seed=0, device="cuda", ard_restarts=4, max_acquisition_evaluations=500,
+        ard_optimizer=lbfgs.AdamOptimizer(maxiter=10, device="cuda", cuda_graph=True),
+        warm_start_min_trials=0)
+
+
+def test_a_prewarmed_bucket_captures_no_graph_on_its_first_flush(cuda_device):
+    """After ``BatchExecutor.prewarm`` over a bucket, a live flush of that
+    bucket's layout replays the captured ARD steps: no new capture."""
+    import threading
+
+    from vizier_tpu_torch.algorithms import core as core_lib
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.parallel import batch_executor
+
+    graphs.clear()
+    problem = _prewarm_problem()
+    ex = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=2000)
+    try:
+        report = ex.prewarm(problem, _graphed_factory, max_trials=16)
+        assert [(r["pad_trials"], r["batch_size"]) for r in report] == [
+            (8, 1), (8, 4), (16, 1), (16, 4)]
+        assert all(r["status"] == "ok" and r["captures"] > 0 for r in report)
+        rng = np.random.default_rng(0)
+        designers = []
+        for s in range(4):
+            d = _graphed_factory(problem)
+            trials = []
+            for i in range(10 + s % 3):
+                t = vz.Trial(id=i + 1, parameters={"x0": rng.random(), "x1": rng.random()})
+                t.complete(vz.Measurement(metrics={"y": float(rng.random())}))
+                trials.append(t)
+            d.update(core_lib.CompletedTrials(trials))
+            designers.append(d)
+        before = dict(graphs.STATS)
+        out = [None] * 4
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, ex.suggest(designers[i], 1))) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert all(o is not None and len(o) == 1 for o in out)
+        assert graphs.STATS["captures"] == before["captures"]
+        assert graphs.STATS["served"] > before["served"]
+        assert graphs.STATS["failures"] == before["failures"]
+    finally:
+        ex.close()
+
+
+def test_a_device_phase_event_time_lies_within_its_wall(cuda_device):
+    """CUDA events around the stage on the current stream: the device time
+    is positive and no longer than the host wall around it; the first run of
+    a name is compile, the next execute."""
+    from vizier_tpu_torch.observability import config as obs_config
+    from vizier_tpu_torch.observability import device_timing
+
+    device_timing.set_config(obs_config.ObservabilityConfig())
+    device_timing.reset_compile_tracking()
+    try:
+        modes = []
+        for _ in range(2):
+            with device_timing.device_phase("cuda_test.matmul", cuda_device) as phase:
+                x = torch.rand((1024, 1024), device=cuda_device)
+                for _ in range(20):
+                    x = torch.tanh(x @ x / 1024.0)
+            modes.append(phase.mode)
+            assert phase.device_ms is not None and 0.0 < phase.device_ms <= phase.host_ms
+        assert modes == ["compile", "execute"]
+        # A designer's sequential suggest on the card times its stages too.
+        from vizier_tpu_torch.algorithms import core as core_lib
+
+        d = _graphed_factory(_prewarm_problem())
+        rng = np.random.default_rng(1)
+        trials = []
+        for i in range(12):
+            t = vz.Trial(id=i + 1, parameters={"x0": rng.random(), "x1": rng.random()})
+            t.complete(vz.Measurement(metrics={"y": float(rng.random())}))
+            trials.append(t)
+        d.update(core_lib.CompletedTrials(trials))
+        d.suggest(1)
+        rows = [r for r in device_timing.recent() if r[0].startswith("gp_ucb_pe.")]
+        assert [r[0] for r in rows] == ["gp_ucb_pe.train_gp", "gp_ucb_pe.acquisition"]
+        assert all(0.0 < event <= host for _, _, host, event in rows)
+    finally:
+        device_timing.set_config(None)
+        device_timing.reset_compile_tracking()

@@ -417,3 +417,78 @@ def test_the_gated_entry_points_raise_the_jax_packages_errors(benchmark_slice_im
     from test_torch_surrogates import port_wording
 
     assert benchmark_slice_imports["errors"] == port_wording(expected)
+
+
+_SLICE16_MODULES = [
+    "vizier_tpu_torch.analysis", "vizier_tpu_torch.analysis.registry",
+    "vizier_tpu_torch.analysis.common", "vizier_tpu_torch.analysis.baseline",
+    "vizier_tpu_torch.analysis.lock_order", "vizier_tpu_torch.analysis.debug_locks",
+    "vizier_tpu_torch.analysis.env_registry", "vizier_tpu_torch.analysis.compute_ir",
+    "vizier_tpu_torch.analysis.graph_discipline", "vizier_tpu_torch.analysis.suite",
+    "vizier_tpu_torch.analysis.__main__", "vizier_tpu_torch.observability.device_timing",
+    "vizier_tpu_torch.numerics", "vizier_tpu_torch.demos", "vizier_tpu_torch.demos.run_benchmark",
+    "vizier_tpu_torch.demos.run_vizier_server", "vizier_tpu_torch.demos.run_vizier_client",
+    "vizier_tpu_torch.utils.env",
+]
+
+
+@pytest.fixture(scope="module")
+def slice16_imports():
+    """Per module of the analysis suite, device timing, the facade and the
+    demos, in one fresh interpreter with ``grpc``, ``protobuf`` and
+    matplotlib blocked (the card's machine has none of them): whether it
+    imported, and the JAX-side or blocked modules its import loaded."""
+    code = f"""
+import importlib, json, sys
+for blocked in ("grpc", "google.protobuf", "matplotlib"):
+    sys.modules[blocked] = None
+out = {{}}
+for name in {_SLICE16_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(m for m in sys.modules if sys.modules[m] is not None) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "vizier_tpu", "grpc", "matplotlib") or m.startswith(
+        "google.protobuf"))
+import vizier_tpu_torch.analysis.registry as r
+out["torch_free"] = "torch" not in sys.modules or None
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _SLICE16_MODULES)
+def test_the_slice16_modules_load_no_jax_grpc_protobuf_or_matplotlib(slice16_imports, module):
+    assert slice16_imports[module] == []
+
+
+def test_the_analysis_suite_loads_without_torch():
+    """The suite is stdlib only, as the JAX package's: its registry, passes
+    and command line import without torch."""
+    code = """
+import importlib, json, sys
+sys.modules["torch"] = None
+for name in ("vizier_tpu_torch.analysis", "vizier_tpu_torch.analysis.suite",
+             "vizier_tpu_torch.analysis.__main__"):
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules if m.startswith("vizier_tpu_torch."))))
+"""
+    loaded = json.loads(_fresh(code))
+    assert all(m.startswith("vizier_tpu_torch.analysis") for m in loaded), loaded
+
+
+def test_the_numerics_facade_has_the_jax_facades_names():
+    import vizier_tpu.jax as jfacade
+
+    import vizier_tpu_torch.numerics as facade
+
+    def public(module):
+        return sorted(n for n in vars(module) if not n.startswith("_"))
+
+    assert public(facade) == public(jfacade)
+    for name in public(jfacade):
+        ours, theirs = getattr(facade, name), getattr(jfacade, name)
+        if isinstance(theirs, int):  # DEFAULT_RANDOM_RESTARTS
+            assert ours == theirs
+        else:
+            assert ours.__name__ == theirs.__name__

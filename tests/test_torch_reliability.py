@@ -396,10 +396,10 @@ def test_config_turnover_and_invalidation_drop_the_breaker_and_designer():
 def test_planes_the_port_does_not_have_are_refused(monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False), mesh=object())
-    with pytest.raises(NotImplementedError, match="batching_prewarm"):
-        serving_config.ServingConfig(batching_prewarm=True)
-    with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
-        serving_config.ServingConfig(compilation_cache_dir="/tmp/cache")
+    # Prewarm and the compile cache are ported: both configs build.
+    assert serving_config.ServingConfig(batching_prewarm=True).batching_prewarm
+    assert serving_config.ServingConfig(
+        compilation_cache_dir="/tmp/cache").compilation_cache_dir == "/tmp/cache"
     # The flight recorder is ported: the switch builds a working recorder.
     monkeypatch.setenv("VIZIER_TORCH_FLIGHT_RECORDER", "1")
     from vizier_tpu_torch.observability import flight_recorder

@@ -244,10 +244,10 @@ def test_close_drains_pending():
 def test_planes_that_are_not_ported_raise():
     with pytest.raises(NotImplementedError):
         BatchExecutor(mesh=object())
-    with pytest.raises(NotImplementedError):
-        serving_config.ServingConfig(batching_prewarm=True)
-    with pytest.raises(NotImplementedError):
-        serving_config.ServingConfig(compilation_cache_dir="/tmp/cache")
+    # Prewarm and the compile cache are ported: both configs build.
+    assert serving_config.ServingConfig(batching_prewarm=True).batching_prewarm
+    assert serving_config.ServingConfig(
+        compilation_cache_dir="/tmp/cache").compilation_cache_dir == "/tmp/cache"
     with pytest.raises(NotImplementedError):
         serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=False),
                                        mesh=object())

@@ -63,7 +63,11 @@ class DesignerProgram(abc.ABC):
 
     #: Unique registry key; also the BucketKey.kind this program emits.
     kind: str = ""
-    #: Service algorithm names whose studies this program serves.
+    #: ``device_timing.device_phase`` name a batched flush is timed under
+    #: (``vizier_jax_phase_seconds{phase}``, the JAX package's histogram).
+    device_phase: str = ""
+    #: Service algorithm names whose studies this program serves, and whose
+    #: prewarm walks cover its buckets (``PythiaServicer.prewarm``).
     algorithms: Tuple[str, ...] = ()
 
     @abc.abstractmethod
@@ -88,6 +92,16 @@ class DesignerProgram(abc.ABC):
     def finalize(self, designer: Any, item: dict, output: dict) -> List[Any]:
         """Host-side decode/demux on the waiting thread: the designer's
         sequential state writeback plus suggestion decode."""
+
+    def prewarm_factory(self, problem: Any, **kwargs) -> Any:
+        """A designer whose computations route to this program, for the
+        prewarm walker (``BatchExecutor.prewarm``) to run synthetic studies
+        through every padding bucket. A program that does not override it is
+        not prewarmable (the ``compute_ir`` analysis pass requires it of
+        every registered program)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} is not prewarmable: it declares no prewarm_factory."
+        )
 
     def run_alone(self, designer: Any, count: int) -> List[Any]:
         """The designer's study as a flush of one: its sequential suggest."""

@@ -54,6 +54,7 @@ from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import output_warpers
 from vizier_tpu_torch.models import stacked_residual
+from vizier_tpu_torch.observability import device_timing
 from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import graphs as graphs_lib
@@ -818,6 +819,12 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
 # single-objective suggest is the same program over one study.
 
 
+def default_factory(
+    problem: base_study_config.ProblemStatement, seed: Optional[int] = None, **kwargs
+) -> VizierGPBandit:
+    return VizierGPBandit(problem, rng_seed=seed or 0, **kwargs)
+
+
 def _gp_bandit_unbatchable(designer: "VizierGPBandit", count: int) -> bool:
     """Paths the programs do not cover (seeding, multi-objective, transfer
     priors, joint qEI): those run the sequential suggest's own code."""
@@ -846,14 +853,27 @@ def _gp_bandit_prepare(designer: "VizierGPBandit", count: int, sparse: bool) -> 
     )
 
 
-def _gp_bandit_flush(items: Sequence[dict], pad_to: Optional[int], sparse: bool) -> List[dict]:
+# A study's sequential suggest times its train and its sweep as these device
+# phases (exact, sparse), as the JAX package's does; a batched flush is one
+# phase, its program's ``device_phase``.
+_ALONE_PHASES = {
+    False: ("gp_bandit.train_gp", "gp_bandit.acquisition"),
+    True: ("sparse_gp.train", "sparse_gp.acquisition"),
+}
+
+
+def _gp_bandit_flush(
+    items: Sequence[dict], pad_to: Optional[int], sparse: bool, alone: bool = False
+) -> List[dict]:
     """Encode → multi-restart ARD → acquisition sweep → warm seeds for every
     study of the flush as one batch, then ONE device-to-host copy of the
-    sweep results. Each slot's state stays on the device as views."""
+    sweep results. Each slot's state stays on the device as views. ``alone``:
+    one study's sequential suggest, timed per stage."""
     d0: VizierGPBandit = items[0]["designer"]
     stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
     device = d0.device
-    with profiler.timeit("train_gp"):
+    train_phase, acquisition_phase = _ALONE_PHASES[sparse] if alone else (None, None)
+    with profiler.timeit("train_gp"), device_timing.device_phase(train_phase, device):
         data = gp_lib.GPData.from_model_data(stack("md"), device)
         studies = data.num_studies
         train_args = (
@@ -868,7 +888,9 @@ def _gp_bandit_flush(items: Sequence[dict], pad_to: Optional[int], sparse: bool)
             states = _train_gp_studies(model, *train_args)
         warm_next = _warm_next_batched(model, states, studies)
         _synchronize(device)
-    with profiler.timeit("acquisition_optimizer"):
+    with profiler.timeit("acquisition_optimizer"), device_timing.device_phase(
+        acquisition_phase, device
+    ):
         result = _sweep_studies(
             d0._vec_opt, d0._make_acquisition(), states, data,
             _generators(device, stack("seed_acq")), items[0]["count"], d0.use_trust_region,
@@ -907,6 +929,7 @@ class GPBanditProgram(compute_ir.DesignerProgram):
     sweep, the studies of a bucket as one batch."""
 
     kind = "gp_bandit"
+    device_phase = "gp_bandit.suggest_batched"
     algorithms = ("GAUSSIAN_PROCESS_BANDIT",)
     sparse = False
 
@@ -938,10 +961,21 @@ class GPBanditProgram(compute_ir.DesignerProgram):
         return _gp_bandit_prepare(designer, count, sparse=self.sparse)
 
     def device_program(self, items, pad_to=None):
-        return _gp_bandit_flush(items, pad_to, sparse=self.sparse)
+        with device_timing.device_phase(self.device_phase, items[0]["designer"].device):
+            return _gp_bandit_flush(items, pad_to, sparse=self.sparse)
 
     def finalize(self, designer, item, output):
         return _gp_bandit_finalize(designer, item, output)
+
+    def run_alone(self, designer, count):
+        item = self.prepare(designer, count)
+        (output,) = _gp_bandit_flush([item], None, sparse=self.sparse, alone=True)
+        return self.finalize(designer, item, output)
+
+    def prewarm_factory(self, problem, **kwargs):
+        # The walker's synthetic studies reach this program exactly when the
+        # factory's surrogate config makes them sparse, as live studies do.
+        return VizierGPBandit(problem, **kwargs)
 
 
 class GPBanditSparseProgram(GPBanditProgram):
@@ -950,6 +984,7 @@ class GPBanditSparseProgram(GPBanditProgram):
     statics)."""
 
     kind = "gp_bandit_sparse"
+    device_phase = "sparse_gp.suggest_batched"
     sparse = True
 
 

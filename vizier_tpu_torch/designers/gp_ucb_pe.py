@@ -61,10 +61,12 @@ from vizier_tpu_torch.models import gp as gp_lib
 from vizier_tpu_torch.models import kernels
 from vizier_tpu_torch.models import multitask_gp
 from vizier_tpu_torch.models import output_warpers
+from vizier_tpu_torch.observability import device_timing
 from vizier_tpu_torch.ops import pareto as pareto_ops
 from vizier_tpu_torch.optimizers import eagle as eagle_lib
 from vizier_tpu_torch.optimizers import vectorized as vectorized_lib
 from vizier_tpu_torch.parallel import batch_executor
+from vizier_tpu_torch.pyvizier import base_study_config
 from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
 from vizier_tpu_torch.surrogates import sparse_bandit
@@ -949,7 +951,10 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         (set acquisition, ``prior_acquisition``). The program's sweeps run
         as a study axis of one, seeded as the program seeds them; with set
         acquisition and ``count`` > 1 the exploration picks are one set."""
-        with profiler.timeit("train_gp"):
+        # Named by the mode the last refresh left (the train refreshes it).
+        train_phase, acquisition_phase = _ALONE_PHASES[
+            self._surrogate_mode == surrogate_config_lib.MODE_SPARSE]
+        with profiler.timeit("train_gp"), device_timing.device_phase(train_phase, self.device):
             (state,), (data,) = self._train_states_me()
             gp_bandit._synchronize(self.device)
         if self.config.optimize_set_acquisition_for_exploration and count > 1:
@@ -967,7 +972,9 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         )
         all_data = gp_lib.GPData.from_model_data(
             one(self._all_points_model_data(count)), self.device)
-        with profiler.timeit("acquisition_optimizer"):
+        with profiler.timeit("acquisition_optimizer"), device_timing.device_phase(
+            acquisition_phase, self.device
+        ):
             segments, rows = _ucb_pe_sweeps(
                 self, states, one(data), all_data,
                 [gp_bandit._generators(self.device, seed) for seed in seeds], count, sparse,
@@ -1147,6 +1154,21 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         return out[:, :, 0] if out.shape[-1] == 1 else out
 
 
+def default_factory(
+    problem: base_study_config.ProblemStatement, seed: Optional[int] = None, **kwargs
+) -> VizierGPUCBPEBandit:
+    return VizierGPUCBPEBandit(problem, rng_seed=seed or 0, **kwargs)
+
+
+# A study's sequential suggest times its train and its picks as these device
+# phases (exact, sparse), as the JAX package's does; a batched flush is one
+# phase, its program's ``device_phase``.
+_ALONE_PHASES = {
+    False: ("gp_ucb_pe.train_gp", "gp_ucb_pe.acquisition"),
+    True: ("sparse_gp.ucb_pe_train_gp", "sparse_gp.ucb_pe_acquisition"),
+}
+
+
 # -- compute-IR programs (vizier_tpu_torch.compute) ---------------------------
 #
 # The batched compute of the service DEFAULT: one program per surrogate
@@ -1241,10 +1263,11 @@ def _ucb_pe_sweeps(
     return [(first, aux1), (rest, aux2)], [1, count - 1]
 
 
-def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool) -> List[dict]:
+def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool, alone: bool = False) -> List[dict]:
     """Encode → ARD → the greedy UCB-PE batch → warm seeds for every study
     of the flush as one batch, then ONE device-to-host copy of the picks.
-    Each slot's state and data stay on the device as views."""
+    Each slot's state and data stay on the device as views. ``alone``: one
+    study's sequential suggest, timed per stage."""
     d0: VizierGPUCBPEBandit = items[0]["designer"]
     stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
     device = d0.device
@@ -1257,7 +1280,8 @@ def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool) -> List[dict]:
         d0._ard, data, generators("seed_train"), items[0]["restarts"],
         max(d0.ensemble_size, 1), stack("warm"),
     )
-    with profiler.timeit("train_gp"):
+    train_phase, acquisition_phase = _ALONE_PHASES[sparse] if alone else (None, None)
+    with profiler.timeit("train_gp"), device_timing.device_phase(train_phase, device):
         if sparse:
             model = d0._sparse_model()
             states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
@@ -1267,7 +1291,9 @@ def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool) -> List[dict]:
         warm_next = gp_bandit._warm_next_batched(model, states, studies)
         gp_bandit._synchronize(device)
     phases = ["seed_acq", "seed_rest"] if d0._two_phase(count) else ["seed_acq"]
-    with profiler.timeit("acquisition_optimizer"):
+    with profiler.timeit("acquisition_optimizer"), device_timing.device_phase(
+        acquisition_phase, device
+    ):
         segments, rows = _ucb_pe_sweeps(
             d0, states, data, all_data, [generators(name) for name in phases], count, sparse,
             first_has_new=torch.as_tensor(stack("first_has_new"), device=device),
@@ -1313,6 +1339,7 @@ class UCBPEProgram(compute_ir.DesignerProgram):
     greedy batch loops as one."""
 
     kind = "gp_ucb_pe"
+    device_phase = "gp_ucb_pe.suggest_batched"
     algorithms = ("DEFAULT", "GP_UCB_PE", "ALGORITHM_UNSPECIFIED")
     sparse = False
 
@@ -1355,10 +1382,19 @@ class UCBPEProgram(compute_ir.DesignerProgram):
         return _ucb_pe_prepare(designer, count, sparse=self.sparse)
 
     def device_program(self, items, pad_to=None):
-        return _ucb_pe_flush(items, pad_to, sparse=self.sparse)
+        with device_timing.device_phase(self.device_phase, items[0]["designer"].device):
+            return _ucb_pe_flush(items, pad_to, sparse=self.sparse)
 
     def finalize(self, designer, item, output):
         return _ucb_pe_finalize(designer, item, output)
+
+    def run_alone(self, designer, count):
+        item = self.prepare(designer, count)
+        (output,) = _ucb_pe_flush([item], None, sparse=self.sparse, alone=True)
+        return self.finalize(designer, item, output)
+
+    def prewarm_factory(self, problem, **kwargs):
+        return VizierGPUCBPEBandit(problem, **kwargs)
 
 
 class UCBPESparseProgram(UCBPEProgram):
@@ -1367,6 +1403,7 @@ class UCBPESparseProgram(UCBPEProgram):
     augment); both sparse models ride in the statics."""
 
     kind = "gp_ucb_pe_sparse"
+    device_phase = "sparse_gp.ucb_pe_suggest_batched"
     sparse = True
 
 

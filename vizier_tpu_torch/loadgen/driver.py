@@ -298,9 +298,10 @@ class LoadgenPolicyFactory:
                 original_policy = base._gp_policy
                 chaos = self._chaos
 
-                def policy_hook(supporter, factory, study_name):
+                def policy_hook(supporter, factory, study_name, problem=None):
                     return original_policy(
-                        supporter, chaos_lib.chaos_designer_factory(factory, chaos), study_name
+                        supporter, chaos_lib.chaos_designer_factory(factory, chaos), study_name,
+                        problem=problem,
                     )
 
                 base._gp_policy = policy_hook

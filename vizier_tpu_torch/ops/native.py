@@ -4,9 +4,11 @@ The kernels have a plain C interface, so ``nvcc`` compiles them in seconds
 into a shared library with no PyTorch headers; PyTorch's own extension
 builder would compile a binding file against its headers for minutes on
 every fresh machine. The library is built at first use into
-``build/vizier_tpu_torch_kernels/`` beside the package (git-ignored), named by
-a hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+``build/vizier_tpu_torch_kernels/`` beside the package (git-ignored), or into
+the directory :func:`set_build_dir` names (the serving config's
+``compilation_cache_dir``), named by a hash of the source and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is: that
+directory is the port's compile cache across processes.
 
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
 """
@@ -79,10 +81,28 @@ def build(source: pathlib.Path, build_dir: pathlib.Path) -> ctypes.CDLL:
     return lib
 
 
+_build_dir = BUILD_DIR
+
+
+def set_build_dir(path) -> pathlib.Path:
+    """Makes ``path`` (None: :data:`BUILD_DIR`) the directory :func:`library`
+    builds into and loads from. A library already loaded in this process
+    stays loaded: the directory applies to the first load and to later
+    processes."""
+    global _build_dir
+    _build_dir = pathlib.Path(path).expanduser().resolve() if path else BUILD_DIR
+    return _build_dir
+
+
+def build_dir() -> pathlib.Path:
+    """The directory :func:`library` builds into and loads from."""
+    return _build_dir
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
-    lib = build(_SOURCE, BUILD_DIR)
+    lib = build(_SOURCE, _build_dir)
     lib.matern52_bwd_num_blocks.argtypes = [_I] * 4
     lib.matern52_bwd_num_blocks.restype = _I
     # kernel (0 K1, 1 K2), B, N, M, symmetric; out: tile rows, cols, threads.

@@ -45,8 +45,17 @@ instead of FIFO; due batches of one lane are ordered by weighted
 served-slot counts across buckets. Without a controller (the default) no
 tenant is attached and every bucket is one FIFO, as before.
 
-The JAX package's mesh placements and compile prewarm are not part of the
-port; asking for the mesh raises.
+Prewarm (:meth:`BatchExecutor.prewarm`) walks a search space's padding-bucket
+grid before live traffic: it builds the kernel library and runs one flush per
+(bucket, count, batch size in {1, max}) over synthetic studies, so every
+layout's CUDA graphs (``optimizers/graphs.py``) are captured before a live
+flush needs them. Its device work runs on the scheduler thread between
+flushes, as every computation of the executor does, so a capture never
+overlaps another thread's launches and the graphs are captured on the thread
+that replays them.
+
+The JAX package's mesh placements are not part of the port; asking for the
+mesh raises.
 """
 
 from __future__ import annotations
@@ -259,6 +268,10 @@ class BatchExecutor:
         self._time = time_fn
         self._cond = threading.Condition()
         self._queues: Dict[BucketKey, List[_Slot]] = {}
+        # Work handed to the scheduler thread to run between flushes
+        # (prewarm steps): (fn, done event, [result, error]).
+        self._tasks: Deque[Tuple[Callable[[], Any], threading.Event, list]] = (
+            collections.deque())
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         self._occupancy = self._flushes = self._queue_wait = None
@@ -530,14 +543,37 @@ class BatchExecutor:
     def _scheduler_loop(self) -> None:
         while True:
             with self._cond:
+                tasks = list(self._tasks)
+                self._tasks.clear()
                 due = self._take_due()
-                if not due:
+                if not due and not tasks:
                     if self._closed:
                         return
                     self._cond.wait(timeout=self._next_deadline())
                     continue
+            for fn, done, outcome in tasks:
+                try:
+                    outcome[0] = fn()
+                except BaseException as e:  # raised again on the waiting thread
+                    outcome[1] = e
+                done.set()
             for key, slots, reason in due:
                 self._execute(key, slots, reason)
+
+    def _run_on_scheduler(self, fn: Callable[[], Any]) -> Any:
+        """Runs ``fn()`` on the scheduler thread between flushes and returns
+        its result (its exception is raised here)."""
+        done, outcome = threading.Event(), [None, None]
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("The batch executor is closed.")
+            self._ensure_scheduler()
+            self._tasks.append((fn, done, outcome))
+            self._cond.notify_all()
+        done.wait()
+        if outcome[1] is not None:
+            raise outcome[1]
+        return outcome[0]
 
     # -- execution ----------------------------------------------------------
 
@@ -628,3 +664,104 @@ class BatchExecutor:
             slot.output = output
             slot.action = "batched"
             slot.event.set()
+
+    # -- prewarm ------------------------------------------------------------
+
+    def prewarm(
+        self,
+        problem: Any,  # pyvizier ProblemStatement
+        designer_factory: Callable[..., Any],
+        *,
+        max_trials: int = 32,
+        counts: Sequence[int] = (1,),
+        batch_sizes: Optional[Sequence[int]] = None,
+        rng_seed: int = 0,
+    ) -> List[dict]:
+        """Walks the padding-bucket grid and captures each layout's graphs.
+
+        Builds the kernel library when the designers run on CUDA, then for
+        every ``pad_trials`` bucket covering studies up to ``max_trials`` and
+        every requested suggestion ``count``, trains and sweeps synthetic
+        studies once at batch sizes {1, max}: 1 runs a study's sequential
+        suggest (the lone-slot path), max the padded flush every batched
+        bucket runs (with ``pad_partial``, the only batched layout). A
+        bucket's first live flush then captures no CUDA graph. Returns one
+        report row per (bucket, count, batch size): its wall seconds, the
+        graphs it captured and its status (a failed step is reported, not
+        raised: prewarm must never block serving).
+        """
+        from vizier_tpu_torch.algorithms import core as core_lib
+        from vizier_tpu_torch.designers import quasi_random
+        from vizier_tpu_torch.ops import native
+        from vizier_tpu_torch.optimizers import graphs as graphs_lib
+        from vizier_tpu_torch.pyvizier import trial as trial_
+
+        sizes = tuple(batch_sizes) if batch_sizes else (1, self.max_batch_size)
+        probe = designer_factory(problem)
+        if torch.device(getattr(probe, "device", "cpu")).type == "cuda":
+            native.library()
+        schedule = probe._converter.padding
+        report: List[dict] = []
+        for bucket in schedule.trial_bucket_grid(max_trials):
+            for count in counts:
+                for size in sizes:
+                    t0 = time.perf_counter()
+                    designers = []
+                    for j in range(size):
+                        d = designer_factory(problem)
+                        seeder = quasi_random.QuasiRandomDesigner(
+                            problem.search_space, seed=rng_seed + j
+                        )
+                        trials = []
+                        for i, s in enumerate(seeder.suggest(bucket)):
+                            t = s.to_trial(i + 1)
+                            t.complete(
+                                trial_.Measurement(
+                                    metrics={
+                                        m.name: 0.1 * ((i + j) % 7)
+                                        for m in problem.metric_information
+                                    }
+                                )
+                            )
+                            trials.append(t)
+                        d.update(core_lib.CompletedTrials(trials))
+                        designers.append(d)
+                    status = "ok"
+                    captures = graphs_lib.STATS["captures"]
+                    try:
+                        self._run_on_scheduler(
+                            lambda: self._prewarm_step(designers, count, size))
+                    except Exception as e:  # prewarm must never block serving
+                        status = f"error:{type(e).__name__}"
+                    captures = graphs_lib.STATS["captures"] - captures
+                    report.append(
+                        dict(
+                            pad_trials=bucket,
+                            count=count,
+                            batch_size=size,
+                            seconds=round(time.perf_counter() - t0, 4),
+                            captures=captures,
+                            status=status,
+                        )
+                    )
+        return report
+
+    def _prewarm_step(self, designers: List[Any], count: int, size: int) -> None:
+        """One synthetic flush: the lone suggest at size 1, else the padded
+        batch through the designers' resolved program."""
+        if size == 1:
+            designers[0].suggest(count)
+            return
+        # Resolution refreshes each designer's surrogate mode, which prepare
+        # snapshots into its item, and names the program this bucket runs.
+        resolved = [compute_registry.resolve(d, count) for d in designers]
+        if any(r is None for r in resolved):
+            designers[0].suggest(count)
+            return
+        program, _ = resolved[0]
+        items = [program.prepare(d, count) for d in designers]
+        outputs = program.device_program(
+            items, pad_to=self.max_batch_size if self.pad_partial else None
+        )
+        for d, item, out in zip(designers, items, outputs):
+            program.finalize(d, item, out)

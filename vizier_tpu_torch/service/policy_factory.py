@@ -92,13 +92,19 @@ class DefaultPolicyFactory:
             kwargs["surrogate"] = surrogates
         return kwargs
 
-    def _gp_policy(self, policy_supporter, factory, study_name: str) -> policy_lib.Policy:
+    def _gp_policy(
+        self, policy_supporter, factory, study_name: str, problem=None
+    ) -> policy_lib.Policy:
         """Cache-backed policy when serving is on; stateless otherwise."""
         from vizier_tpu_torch.algorithms import designer_policy
 
         if self._serving is not None and self._serving.config.designer_cache:
             from vizier_tpu_torch.serving import policy as serving_policy
 
+            if problem is not None:
+                # Background prewarm of this search space's buckets (a no-op
+                # unless batching_prewarm is on).
+                self._serving.maybe_prewarm_batching_async(problem, factory)
             return serving_policy.CachedDesignerStatePolicy(
                 policy_supporter, factory, self._serving, study_name, use_seeding=True
             )
@@ -141,7 +147,9 @@ class DefaultPolicyFactory:
                     kwargs["max_acquisition_evaluations"] = evals
                 return gp_ucb_pe.VizierGPUCBPEBandit(p, **kwargs)
 
-            return self._gp_policy(policy_supporter, factory, study_name)
+            return self._gp_policy(
+                policy_supporter, factory, study_name, problem=problem_statement
+            )
         if algorithm == "GAUSSIAN_PROCESS_BANDIT":
             from vizier_tpu_torch.designers import gp_bandit
 
@@ -150,6 +158,7 @@ class DefaultPolicyFactory:
                 policy_supporter,
                 lambda p, **kw: gp_bandit.VizierGPBandit(p, **serving_kwargs),
                 study_name,
+                problem=problem_statement,
             )
         if algorithm == "RANDOM_SEARCH":
             from vizier_tpu_torch.algorithms import random_policy

@@ -128,6 +128,42 @@ class PythiaServicer:
         """Serving counters + latency histograms, Prometheus text format."""
         return self._serving.prometheus_text()
 
+    def prewarm(self, study_config, algorithm: str = "DEFAULT", counts=(1,),
+                max_trials=None) -> list:
+        """Prewarms the (batched) suggest programs for this study shape.
+
+        Walks the padding-bucket grid at batch sizes {1, max}, so a server
+        prewarmed for its expected study shapes captures no CUDA graph on
+        the first real request of a bucket. The designer factory comes from
+        the compute-IR registry: every registered program claiming
+        ``algorithm`` contributes its ``prewarm_factory``. Returns the
+        per-bucket report (empty when batching is off or no registered
+        program covers the algorithm).
+        """
+        from vizier_tpu_torch.compute import registry as compute_registry
+
+        problem = study_config.to_problem()
+        kwargs_fn = getattr(self._policy_factory, "_gp_designer_kwargs", None)
+        kwargs = kwargs_fn() if kwargs_fn is not None else {}
+        report = []
+        seen_factories = set()
+        for program in compute_registry.programs_for_algorithm(algorithm or "DEFAULT"):
+            # Programs of one designer (exact and sparse) share one walk: the
+            # factory's auto-switch decides which program each bucket runs.
+            factory_key = type(program.prewarm_factory(problem, **kwargs))
+            if factory_key in seen_factories:
+                continue
+            seen_factories.add(factory_key)
+            report.extend(
+                self._serving.prewarm_batching(
+                    problem,
+                    lambda p, _program=program: _program.prewarm_factory(p, **kwargs),
+                    counts=counts,
+                    max_trials=max_trials,
+                )
+            )
+        return report
+
     def shutdown(self) -> None:
         """Drains the serving runtime's batch executor (idempotent)."""
         self._serving.shutdown()

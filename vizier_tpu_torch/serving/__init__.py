@@ -1,7 +1,7 @@
 """Stateful serving runtime of the port: designer cache, request coalescing,
 circuit breakers, stats, the cross-study batch executor and the opt-in
 admission and speculative pre-compute planes (own copies of the JAX
-package's ``serving`` modules; its compile prewarm is not ported)."""
+package's ``serving`` modules, prewarm included)."""
 
 from vizier_tpu_torch.serving.coalescer import RequestCoalescer
 from vizier_tpu_torch.serving.config import ServingConfig

@@ -13,10 +13,11 @@ off per process through the environment:
 - ``VIZIER_TORCH_BATCHING=0``           — no cross-study batch executor:
   every study's computation runs alone;
 - ``VIZIER_TORCH_BATCH_MAX_SIZE``, ``VIZIER_TORCH_BATCH_MAX_WAIT_MS`` — the
-  flush window.
-
-The JAX package's compile prewarm and persistent compilation cache have no
-counterpart in the port: a config that asks for them is refused.
+  flush window;
+- ``VIZIER_TORCH_BATCHING_PREWARM=1`` — prewarm a search space's buckets when
+  its first study arrives (``ServingRuntime.maybe_prewarm_batching_async``);
+- ``VIZIER_TORCH_COMPILE_CACHE_DIR=path`` — where the CUDA kernel library is
+  built and found again by later processes.
 """
 
 from __future__ import annotations
@@ -56,24 +57,19 @@ class ServingConfig:
     batch_max_wait_ms: float = 4.0
     # Pad partial batches to batch_max_size with masked copies of slot 0.
     batch_pad_partial: bool = True
-    # The JAX package's compile prewarm: not part of the port (must stay off).
+    # Prewarm the padding-bucket grid when the first study of a search
+    # space arrives (background thread): the kernel library is built and one
+    # flush per (bucket, count, batch size in {1, max}) captures each
+    # layout's CUDA graphs before live requests need them. Explicit prewarm
+    # via ServingRuntime.prewarm_batching works either way.
     batching_prewarm: bool = False
+    # The padding-grid ceiling the prewarm walks (study sizes 1..N).
     batching_prewarm_max_trials: int = 32
 
-    # The JAX package's persistent compilation cache: not part of the port
-    # (must stay None).
+    # The persistent compile cache: the directory the CUDA kernel library is
+    # built into and reused from across processes (``ops/native.py``); None
+    # keeps ``build/`` beside the package.
     compilation_cache_dir: Optional[str] = None
-
-    def __post_init__(self):
-        if self.batching_prewarm:
-            raise NotImplementedError(
-                "batching_prewarm is not ported: the port compiles its kernels once per "
-                "process and has no per-bucket programs to prewarm."
-            )
-        if self.compilation_cache_dir is not None:
-            raise NotImplementedError(
-                "compilation_cache_dir is not ported: the port has no compilation cache."
-            )
 
     @classmethod
     def from_env(cls) -> "ServingConfig":
@@ -85,6 +81,8 @@ class ServingConfig:
             batching=env_lib.env_on("VIZIER_TORCH_BATCHING"),
             batch_max_size=env_lib.env_int("VIZIER_TORCH_BATCH_MAX_SIZE", 8),
             batch_max_wait_ms=env_lib.env_float("VIZIER_TORCH_BATCH_MAX_WAIT_MS", 4.0),
+            batching_prewarm=env_lib.env_on("VIZIER_TORCH_BATCHING_PREWARM"),
+            compilation_cache_dir=env_lib.env_str("VIZIER_TORCH_COMPILE_CACHE_DIR") or None,
         )
 
     @classmethod

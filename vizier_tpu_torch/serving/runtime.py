@@ -32,8 +32,14 @@ no engine object, no threads, no reordering, no tenant labels. The servicer's
 order around each plane lives here without protobuf
 (:meth:`serve_suggest` over :meth:`guarded_suggest`, :meth:`admitted_suggest`
 and :meth:`speculative_suggest`), so the card drives the same code the gRPC
-servicer adapts. The mesh execution plane, the compilation cache and compile
-prewarm are not ported; asking for one raises.
+servicer adapts.
+
+Prewarm (:meth:`prewarm_batching`, or :meth:`maybe_prewarm_batching_async`
+with ``batching_prewarm`` on) builds the kernel library and runs one flush per
+(bucket, count, batch size), so a bucket's first live flush captures no CUDA
+graph; ``compilation_cache_dir`` is where the kernel library is built and
+found again by later processes. The mesh execution plane is not ported;
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -44,13 +50,14 @@ import logging
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, TypeVar
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence, TypeVar
 
 from vizier_tpu_torch.observability import config as obs_config_lib
 from vizier_tpu_torch.observability import flight_recorder as recorder_lib
 from vizier_tpu_torch.observability import metrics as metrics_lib
 from vizier_tpu_torch.observability import slo as slo_lib
 from vizier_tpu_torch.observability import tracing as tracing_lib
+from vizier_tpu_torch.ops import native
 from vizier_tpu_torch.parallel import batch_executor as batch_executor_lib
 from vizier_tpu_torch.reliability import breaker as breaker_lib
 from vizier_tpu_torch.reliability import config as reliability_config_lib
@@ -157,6 +164,10 @@ class ServingRuntime:
         self.stats = stats or stats_lib.ServingStats()
         self.metrics: metrics_lib.MetricsRegistry = self.stats.registry
         self.reliability = reliability or reliability_config_lib.ReliabilityConfig.from_env()
+        # The persistent compile cache: the kernel library is built into (and
+        # found again in) this directory.
+        if self.config.compilation_cache_dir:
+            native.set_build_dir(self.config.compilation_cache_dir)
         self.designer_cache = cache_lib.DesignerStateCache(
             max_entries=self.config.cache_max_entries,
             ttl_seconds=self.config.cache_ttl_seconds,
@@ -234,15 +245,68 @@ class ServingRuntime:
             self.slo_engine.start()
         self._lock = threading.Lock()
         self._closed = False
+        self._prewarmed_shapes: set = set()
+        self._prewarm_threads: List[threading.Thread] = []
+
+    # -- prewarm ---------------------------------------------------------------
+
+    def prewarm_batching(
+        self,
+        problem: Any,
+        designer_factory: Callable[..., Any],
+        *,
+        max_trials: Optional[int] = None,
+        counts: Sequence[int] = (1,),
+    ) -> List[dict]:
+        """Walks the padding-bucket grid for ``problem`` at batch sizes
+        {1, max}, so a bucket's first live flush captures no CUDA graph.
+        Returns the executor's per-(bucket, count, size) report."""
+        if self.batch_executor is None:
+            return []
+        return self.batch_executor.prewarm(
+            problem,
+            designer_factory,
+            max_trials=max_trials or self.config.batching_prewarm_max_trials,
+            counts=counts,
+        )
+
+    def maybe_prewarm_batching_async(
+        self, problem: Any, designer_factory: Callable[..., Any]
+    ) -> bool:
+        """Background prewarm, once per distinct search-space shape; used by
+        the policy factory when ``config.batching_prewarm`` is on. Returns
+        True when a prewarm thread was started."""
+        if self.batch_executor is None or not self.config.batching_prewarm:
+            return False
+        shape_key = tuple(
+            sorted((p.name, str(p.type)) for p in problem.search_space.parameters)
+        )
+        with self._lock:
+            if shape_key in self._prewarmed_shapes:
+                return False
+            self._prewarmed_shapes.add(shape_key)
+        thread = threading.Thread(
+            target=lambda: self.prewarm_batching(problem, designer_factory),
+            name="vizier-batch-prewarm",
+            daemon=True,
+        )
+        with self._lock:
+            self._prewarm_threads.append(thread)
+        thread.start()
+        return True
 
     def shutdown(self) -> None:
-        """Stops the SLO evaluator, cancels speculative jobs and joins their
-        workers, then drains the batch executor — in that order, so no
-        speculative job can submit into a closing executor. Idempotent."""
+        """Joins in-flight prewarms, stops the SLO evaluator, cancels
+        speculative jobs and joins their workers, then drains the batch
+        executor — in that order, so no speculative job can submit into a
+        closing executor. Idempotent."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+            threads, self._prewarm_threads = self._prewarm_threads, []
+        for thread in threads:
+            thread.join(timeout=120.0)
         if self.slo_engine is not None:
             self.slo_engine.close()
         if self.speculative_engine is not None:
