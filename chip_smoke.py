@@ -236,7 +236,7 @@ Phases (any failure raises and exits non-zero):
    0.15 s, the trimmed GP economics) through ``driver.run(...,
    transport="runtime")``: ``LoadgenPolicyFactory`` and one ``ServingRuntime``
    under ``scenario_env``'s planes (batching, speculation, SLO, admission,
-   recorder; the mesh plane as one placement), each study's trials in an
+   recorder; the mesh plane: one placement on the one card), each study's trials in an
    ``InRamPolicySupporter``, no protobuf; then the parity cohort's
    sequential reference arm and its gated-off arm. ``report.build_report``
    over the three: every assertion that needs no replica must pass (zero
@@ -303,15 +303,42 @@ Phases (any failure raises and exits non-zero):
    observed lock edge may be missing from the static graph; (d)
    ``python -m vizier_tpu_torch.analysis`` with no finding outside its
    baseline, and the ``run_benchmark`` demo at its defaults.
-19. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+19. mesh, last in the ``loadgen`` worker: the single-host mesh
+   (``parallel/mesh.py``, ``parallel/__init__.py``). (a) The DEFAULT with
+   ``use_mesh=True`` on the card's own device list at bench.py's study
+   (1000 trials x 20 floats, the 75 000-evaluation sweep, one
+   ``suggest(5)``): one placement, the restarts rounded to the mesh (4 on
+   one device), one pool per pick's sweep, the posterior within 5e-3 of the
+   CPU plain path, K1/K2 launched. (b) ``train_gp_sharded`` and
+   ``maximize_acquisition_sharded`` on a 4-entry mesh of the one card
+   (``local_devices`` patched for this part alone, said in its line) at
+   that study, from fixed injected inits and pool seeds, against the
+   unsharded train and the pools run one after another (5 000
+   evaluations a pool: cut from 75 000 so eight sweeps fit the phase):
+   the trained NLL and the top scores and features within 1e-3 (the chosen
+   parameters printed: one restart per chunk rounds otherwise, C6); and the
+   chosen parameters within 1e-5 relative of the unsharded optimizer run
+   once per restart row (four batch-1 calls at the same inits, selected as
+   one call selects), which holds the split, gather and selection apart
+   from batch-size rounding. (c) serving-exact's 8 studies (480 + 2i trials x 20-D, the
+   service DEFAULT) through a ``ServingRuntime`` with
+   ``MeshConfig(enabled=True)``: one flush of occupancy 8 on ``mesh0`` run by
+   the scheduler thread (no worker), each slot's suggestions equal to the
+   same studies' mesh-off flush (the same padded batch of 8) and its trained
+   NLL within 1e-3; both walls printed. (d) the same at
+   ``shard_devices=4`` on the 4-entry logical mesh: the flush padded by
+   ``pad_to`` and split into 4 chunks of 2, each slot's trained NLL within
+   1e-3 of the mesh-off flush's (the per-device batch is 2, not 8: C6), its
+   suggestions finite and in bounds, 0 CUDA-graph capture failures.
+20. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
    service-reliability, service-planes, fleet, loadgen, testing,
-   benchmarks and tooling steps' included, by mode; K2's
+   benchmarks, tooling and mesh steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-18 run in three worker
+The phases are host-bound, so phases 7-9 and 14-19 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -337,6 +364,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -4336,10 +4364,10 @@ def run_loadgen_phase(kernels, lib):
     # one computation at a time is).
     flush_walls, execute = [], executor_lib.BatchExecutor._execute
 
-    def timed_execute(self, key, slots, reason):
+    def timed_execute(self, key, slots, reason, placement=None):
         t0 = time.perf_counter()
         try:
-            return execute(self, key, slots, reason)
+            return execute(self, key, slots, reason, placement)
         finally:
             flush_walls.append(time.perf_counter() - t0)
 
@@ -5052,6 +5080,298 @@ def run_tooling_phase(kernels, lib):
     print(f"tooling: phase {figures['wall_s']:.1f} s; {_card_line()}")
     return paths, figures
 
+# -- phase 19: the single-host mesh ---------------------------------------------
+
+# Parts (b) and (d) run on a mesh of this many entries of the one card.
+_MESH_LOGICAL = 4
+# Part (b)'s pool budget, cut from 75 000: its 4 pools run twice (sharded,
+# then one after another).
+_MESH_SWEEP_EVALS = 5_000
+# Part (b): sharded against unsharded, |difference| relative to
+# max(1, |value|): the trained NLL (chunks of one restart round otherwise
+# than one batch of four, C6, and L-BFGS carries that into its iterates: on
+# a flat optimum the chosen parameters move by a few 1e-2, printed) and the
+# sweep's top scores and features.
+_MESH_TOL = 1e-3
+# Part (b): the sharded train's chosen parameters against the unsharded
+# optimizer run once per restart row (batch 1, as each chunk), relative to
+# the largest parameter.
+_MESH_ROW_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _logical_devices(n: int):
+    """The port's device list as ``n`` entries of cuda:0, inside the block."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+    saved = mesh_lib.local_devices, parallel.local_devices
+
+    def devices(device="cuda"):
+        del device
+        return [torch.device("cuda", 0)] * n
+
+    mesh_lib.local_devices = parallel.local_devices = devices
+    print(f"mesh: local_devices patched to {n} entries of cuda:0 for this part alone")
+    try:
+        yield
+    finally:
+        mesh_lib.local_devices, parallel.local_devices = saved
+
+
+def _mesh_default(kernels, vz) -> tuple:
+    """(a) The DEFAULT with ``use_mesh=True`` on the card's device list."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.models import multitask_gp
+    from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+    placements = mesh_lib.build_placements(mesh_lib.MeshConfig(enabled=True))
+    designer = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0, use_mesh=True)
+    calls = {"restarts": [], "pools": []}
+    real_train, real_sweep = parallel.train_gp_sharded, parallel.maximize_score_fn_sharded
+
+    def train(*args, **kwargs):
+        calls["restarts"].append(args[4])
+        return real_train(*args, **kwargs)
+
+    def sweep(*args, **kwargs):
+        calls["pools"].append(args[4])
+        return real_sweep(*args, **kwargs)
+
+    states = []
+
+    def check_state(request):
+        (state,) = designer._cached_states[0]
+        states.append(state)
+        if not bool(torch.isfinite(state.chol).all()):
+            raise AssertionError(f"mesh DEFAULT request {request}: non-finite Cholesky factor")
+
+    parallel.train_gp_sharded, parallel.maximize_score_fn_sharded = train, sweep
+    try:
+        latencies, by_mode, peak, _ = _serve(vz, kernels, designer, check_state, "mesh DEFAULT")
+    finally:
+        parallel.train_gp_sharded, parallel.maximize_score_fn_sharded = real_train, real_sweep
+    print(f"mesh (a): {len(placements)} placement(s) {[p.describe() for p in placements]}, "
+          f"designer mesh {designer._mesh.devices}, restarts per train {calls['restarts']} "
+          f"(ard_restarts {designer.ard_restarts}), pools per sweep {calls['pools']}, "
+          f"suggest(5) {latencies[0] * 1e3:.1f} ms, peak {peak} B, launches {by_mode}")
+    if len(placements) != 1 or designer._mesh.size != 1:
+        raise AssertionError("mesh (a): one card must be one placement and a mesh of one")
+    if calls["restarts"] != [designer._mesh_restarts(designer.ard_restarts)]:
+        raise AssertionError(f"mesh (a): restarts {calls['restarts']}")
+    if not calls["pools"] or set(calls["pools"]) != {1}:
+        raise AssertionError(f"mesh (a): pools per sweep {calls['pools']}")
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), "mesh DEFAULT")
+    _check_posterior_against_cpu("mesh DEFAULT", states[-1], kernels, gp_lib, multitask_gp,
+                                 hold_trained=True)
+    return by_mode, dict(wall_ms=latencies[0] * 1e3, restarts=calls["restarts"],
+                         pools=calls["pools"], placements=len(placements))
+
+
+def _mesh_sharded_vs_unsharded(kernels, vz) -> tuple:
+    """(b) The sharded train and sweep on the logical mesh against the
+    unsharded ones, at bench.py's study, from fixed inits and pool seeds."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.designers.gp import acquisitions
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.optimizers import graphs as graphs_lib
+    from vizier_tpu_torch.optimizers import lbfgs
+    from vizier_tpu_torch.optimizers import vectorized
+
+    encoder = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
+    encoder.update(vz.CompletedTrials(_bench_trials(vz, _NUM_TRIALS, _DIM)))
+    cuda = torch.device("cuda", 0)
+    data = gp_lib.GPData.from_model_data(encoder._warped_model_data(), cuda)
+    model, optimizer = encoder._model, encoder._ard
+    restarts = _MESH_LOGICAL
+    inits = model.param_collection().batch_random_init_unconstrained(
+        torch.Generator(device=cuda).manual_seed(0), restarts)
+    with _logical_devices(_MESH_LOGICAL):
+        mesh = parallel.create_mesh()
+    sharded, train_s, train_launches = _path_launches(kernels, lambda: parallel.train_gp_sharded(
+        model, optimizer, data, None, restarts, 1, mesh, inits=inits))
+    t0 = time.perf_counter()
+    whole = optimizer(graphs_lib.BoundLoss(model.neg_log_likelihood, data), inits, best_n=1)
+    alone = model.precompute(whole.params, data)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    scale = max(float(torch.max(torch.abs(v))) for v in alone.params.values())
+    param_err = max(float(torch.max(torch.abs(sharded.params[k] - v))) for k, v in
+                    alone.params.items()) / scale
+    # The witness: each restart row alone through the unsharded optimizer,
+    # the rows then selected as one call selects them.
+    t0 = time.perf_counter()
+    rows = [optimizer(graphs_lib.BoundLoss(model.neg_log_likelihood, data),
+                      {k: v[i:i + 1] for k, v in inits.items()}, best_n=1)
+            for i in range(restarts)]
+    per_row = model.precompute(lbfgs._select_best(
+        {k: torch.cat([r.params[k] for r in rows]) for k in rows[0].params},
+        torch.cat([r.losses for r in rows]), 1).params, data)
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t0
+    row_err = max(float(torch.max(torch.abs(sharded.params[k] - v))) for k, v in
+                  per_row.params.items()) / scale
+    coll = model.param_collection()
+    nll = [float(model.neg_log_likelihood(coll.unconstrain(s.params), data)[0])
+           for s in (sharded, alone)]
+    nll_err = abs(nll[0] - nll[1]) / max(1.0, abs(nll[1]))
+    scoring = acquisitions.ScoringFunction(
+        predictive=gp_lib.EnsemblePredictive(alone), acquisition=acquisitions.UCB(1.8),
+        best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
+        trust_region=acquisitions.TrustRegion.from_data(data))
+    vec = vectorized.VectorizedOptimizer(encoder._vec_opt.strategy,
+                                         max_evaluations=_MESH_SWEEP_EVALS)
+
+    def generators():
+        return [torch.Generator(device=cuda).manual_seed(i) for i in range(_MESH_LOGICAL)]
+
+    pooled, sweep_s, sweep_launches = _path_launches(
+        kernels, lambda: parallel.maximize_acquisition_sharded(
+            vec, scoring, generators(), _COUNT, _MESH_LOGICAL, mesh))
+    t0 = time.perf_counter()
+    one_by_one = [vec(scoring.score, g, count=_COUNT) for g in generators()]
+    scores = torch.cat([r.scores for r in one_by_one])
+    top = torch.sort(scores, descending=True, stable=True).indices[:_COUNT]
+    want_scores = scores[top]
+    want_cont = torch.cat([r.features.continuous for r in one_by_one])[top]
+    torch.cuda.synchronize()
+    pools_s = time.perf_counter() - t0
+    score_err = float(torch.max(torch.abs(pooled.scores - want_scores))) / max(
+        1.0, float(torch.max(torch.abs(want_scores))))
+    feature_err = float(torch.max(torch.abs(pooled.features.continuous - want_cont)))
+    print(f"mesh (b): {_MESH_LOGICAL}-entry mesh of the card: sharded train {train_s * 1e3:.1f} ms "
+          f"against unsharded {whole_s * 1e3:.1f} ms, chosen params max rel err {param_err:.3e}, "
+          f"(not held), NLL {nll[0]:.6f} / {nll[1]:.6f} (rel {nll_err:.2e}); against the "
+          f"unsharded optimizer once per row ({rows_s * 1e3:.1f} ms) chosen params max rel err "
+          f"{row_err:.3e} (tol {_MESH_ROW_TOL}); {_MESH_LOGICAL} "
+          f"pools of "
+          f"{_MESH_SWEEP_EVALS} evaluations sharded {sweep_s * 1e3:.1f} ms against one after "
+          f"another {pools_s * 1e3:.1f} ms, top {_COUNT} scores max rel err {score_err:.3e}, "
+          f"features max abs err {feature_err:.3e} (tol {_MESH_TOL})")
+    if not max(nll_err, score_err, feature_err) <= _MESH_TOL:
+        raise AssertionError("mesh (b): the sharded train or sweep differs from the unsharded one")
+    if not row_err <= _MESH_ROW_TOL:
+        raise AssertionError("mesh (b): the sharded train differs from its restarts run one by one")
+    by_mode = {name: {m: train_launches[name][m] + sweep_launches[name][m]
+                      for m in train_launches[name]} for name in train_launches}
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), "mesh sharded train and sweep")
+    return by_mode, dict(train_ms=train_s * 1e3, unsharded_train_ms=whole_s * 1e3,
+                         sweep_ms=sweep_s * 1e3, pools_one_by_one_ms=pools_s * 1e3,
+                         param_err=param_err, nll_err=nll_err, score_err=score_err,
+                         rows_one_by_one_ms=rows_s * 1e3, row_param_err=row_err,
+                         feature_err=feature_err)
+
+
+def _mesh_round(mods, kernels, mesh_config, label: str, logical: bool = False):
+    """Serving-exact's 8 studies, fresh, through one runtime with
+    ``mesh_config``: (results, wall s, launches by mode, runtime stats delta,
+    the fleet, graph-capture failures, the executor's chunks per flush)."""
+    from vizier_tpu_torch.optimizers import graphs as graphs_lib
+
+    serving, batch_executor = mods["serving"], mods["batch_executor"]
+    config = dataclasses.replace(serving.ServingConfig(), batch_max_wait_ms=_SERVE_WINDOW_MS)
+    with _logical_devices(_MESH_LOGICAL) if logical else contextlib.nullcontext():
+        runtime = serving.ServingRuntime(config, mesh=mesh_config)
+    fleet = _Fleet(mods, runtime, "DEFAULT", _SERVE_TRIALS["exact"], label)
+    chunks = []
+    real_place = batch_executor.place_batch
+
+    def place(tree, placement=None):
+        out = real_place(tree, placement)
+        chunks.append([len(batch_executor.tree_leaves(c)[0]) for c in out])
+        return out
+
+    failures = graphs_lib.STATS["failures"]
+    batch_executor.place_batch = place
+    try:
+        kernels.reset_launch_counts()
+        (results, wall, _) = fleet.round(_COUNT, concurrent=True)
+        torch.cuda.synchronize()
+        by_mode = {name: dict(modes) for name, modes in kernels.LAUNCHES_BY_MODE.items()}
+    finally:
+        batch_executor.place_batch = real_place
+    stats = {k: runtime.stats.get(k) for k in (
+        "batch_flushes", "batched_suggests", "batch_fallbacks", "batch_slot_errors",
+        "mesh_flushes")}
+    _check_round(results, _COUNT, label)
+    executor = runtime.batch_executor
+    out = dict(results=results, wall=wall, by_mode=by_mode, stats=stats, fleet=fleet,
+               failures=graphs_lib.STATS["failures"] - failures, chunks=chunks,
+               placements=executor.placements(), workers=len(executor._workers),
+               flush_counts=executor.placement_flush_counts())
+    print(f"{label}: one round of 8 concurrent suggest({_COUNT}) {wall * 1e3:.1f} ms, {stats}, "
+          f"placements {[p.describe() for p in out['placements']]}, worker threads "
+          f"{out['workers']}, flushes per placement {out['flush_counts']}, rows per chunk "
+          f"{chunks}, graph capture failures {out['failures']}, launches {by_mode}")
+    if (stats["batch_flushes"] != 1 or stats["batched_suggests"] != _SERVE_STUDIES
+            or stats["batch_fallbacks"] or stats["batch_slot_errors"]):
+        raise AssertionError(f"{label}: not one flush of occupancy 8: {stats}")
+    runtime.shutdown()
+    return out
+
+
+def _mesh_slot_parity(reference, got, label: str, exact: bool) -> dict:
+    """Each slot of ``got`` against the same study in ``reference``: its
+    trained NLL within _NLL_TOL; with ``exact`` its suggestions equal."""
+    worst, equal = 0.0, 0
+    for i in range(_SERVE_STUDIES):
+        states = [_trained_state(run["fleet"].designer(i), False) for run in (got, reference)]
+        coll = states[0].model.param_collection()
+        nll = [float(s.model.neg_log_likelihood(coll.unconstrain(s.params), s.data)[0])
+               for s in states]
+        worst = max(worst, abs(nll[0] - nll[1]) / max(1.0, abs(nll[1])))
+        same = ([s.parameters.as_dict() for s in got["results"][i]]
+                == [s.parameters.as_dict() for s in reference["results"][i]])
+        equal += int(same)
+    print(f"{label}: slots with suggestions equal to the mesh-off flush's {equal}/"
+          f"{_SERVE_STUDIES}; worst trained-NLL rel {worst:.2e} (tol {_NLL_TOL})")
+    if not worst <= _NLL_TOL or (exact and equal != _SERVE_STUDIES):
+        raise AssertionError(f"{label}: slot parity with the mesh-off flush does not hold")
+    return dict(equal_slots=equal, worst_nll_rel=worst)
+
+
+def run_mesh_phase(kernels, lib):
+    """Phase 19: the single-host mesh (see the module docstring). Returns
+    ({path: launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+    mods = _phase_modules()
+    phase_start = time.perf_counter()
+    paths, figures = {}, {}
+    paths["mesh_default"], figures["default"] = _mesh_default(kernels, vz)
+    paths["mesh_sharded"], figures["sharded"] = _mesh_sharded_vs_unsharded(kernels, vz)
+    off = _mesh_round(mods, kernels, mesh_lib.MeshConfig(), "mesh (c) mesh off")
+    one = _mesh_round(mods, kernels, mesh_lib.MeshConfig(enabled=True), "mesh (c) one placement")
+    if (len(one["placements"]) != 1 or one["workers"] or one["flush_counts"] != {"mesh0": 1}
+            or one["stats"]["mesh_flushes"] != 1 or one["chunks"] != [[8]]):
+        raise AssertionError("mesh (c): not one flush on mesh0 run by the scheduler thread")
+    logical = _mesh_round(mods, kernels, mesh_lib.MeshConfig(enabled=True, shard_devices=4),
+                          "mesh (d) 4-entry logical mesh", logical=True)
+    (placement,) = logical["placements"]
+    if (placement.num_devices != _MESH_LOGICAL or placement.pad_to(_SERVE_STUDIES, 8) != 8
+            or logical["chunks"] != [[2] * _MESH_LOGICAL] or logical["failures"]):
+        raise AssertionError("mesh (d): not one padded flush split over the 4 entries")
+    figures["executor"] = dict(
+        off_wall_ms=off["wall"] * 1e3, one_placement_wall_ms=one["wall"] * 1e3,
+        logical_wall_ms=logical["wall"] * 1e3, chunks=logical["chunks"],
+        capture_failures=logical["failures"],
+        one_placement=_mesh_slot_parity(off, one, "mesh (c) one placement", exact=True),
+        logical=_mesh_slot_parity(off, logical, "mesh (d) 4-entry logical mesh", exact=False))
+    for name, run in (("off", off), ("one", one), ("logical", logical)):
+        paths[f"mesh_executor_{name}"] = run["by_mode"]
+        _require_modes(run["by_mode"], (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                        ("matern52_ard_bwd", "gram")), f"mesh executor {name}")
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"mesh: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -5065,7 +5385,7 @@ def run_tooling_phase(kernels, lib):
 _WORKER_PHASES = {
     "regret": ("regret",),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
-    "loadgen": ("loadgen", "testing", "benchmarks", "tooling"),
+    "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -5109,6 +5429,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_benchmarks_phase(kernels, lib)
     if phase == "tooling":
         return run_tooling_phase(kernels, lib)
+    if phase == "mesh":
+        return run_mesh_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -5300,11 +5622,13 @@ def main() -> int:
     fleet_paths = done["fleet"]["paths"]
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
     slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
-                   **done["benchmarks"]["paths"], **done["tooling"]["paths"]}
+                   **done["benchmarks"]["paths"], **done["tooling"]["paths"],
+                   **done["mesh"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
     print(json.dumps({"tooling": done["tooling"]["figures"]}, default=float))
+    print(json.dumps({"mesh": done["mesh"]["figures"]}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -5370,6 +5694,9 @@ def main() -> int:
             "launches_tooling_phase": sum(
                 sum(done["tooling"]["paths"][path][name].values())
                 for path in done["tooling"]["paths"]),
+            "launches_mesh_phase": sum(
+                sum(done["mesh"]["paths"][path][name].values())
+                for path in done["mesh"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

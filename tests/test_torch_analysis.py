@@ -171,18 +171,19 @@ def test_the_suite_scans_the_port_and_the_smoke_script(port_suite):
 
 
 def test_the_shard_axis_rule_is_off_by_one_baseline_entry(port_suite):
+    """The mesh slice turned the rule back on: no baseline entry accepts it,
+    every registered program declares ``shardable_batch_axis = "study"``,
+    and the pass finds and accepts nothing."""
+    from vizier_tpu_torch.compute import registry as compute_registry
+
     entries = baseline_lib.load_baseline(str(_ROOT / suite.DEFAULT_BASELINE)).entries
-    wildcard = [e for e in entries if e.key == baseline_lib.RULE_WILDCARD]
-    assert [(e.pass_name, e.rule) for e in wildcard] == [
-        ("compute_ir", "program-missing-shard-axis")]
-    assert "mesh" in wildcard[0].reason
-    accepted = port_suite.passes["compute_ir"].accepted
-    assert sorted(f.key for f in accepted) == sorted(
-        f"program-missing-shard-axis:{c}" for c in (
-            "GPBanditProgram", "GPBanditSparseProgram", "UCBPEProgram", "UCBPESparseProgram"))
-    # Every other rule of the pass holds on every registered program.
-    assert {f.rule for f in port_suite.passes["compute_ir"].findings} == {
-        "program-missing-shard-axis"}
+    assert [e for e in entries if e.key == baseline_lib.RULE_WILDCARD] == []
+    assert not [e for e in entries if e.rule == "program-missing-shard-axis"]
+    assert list(port_suite.passes["compute_ir"].accepted) == []
+    assert list(port_suite.passes["compute_ir"].findings) == []
+    assert sorted((p.kind, p.shardable_batch_axis) for p in compute_registry.programs()) == [
+        (kind, "study") for kind in (
+            "gp_bandit", "gp_bandit_sparse", "gp_ucb_pe", "gp_ucb_pe_sparse")]
 
 
 def test_the_command_line_exits_zero_on_the_port_tree():
@@ -216,7 +217,9 @@ def test_every_vizier_torch_read_in_the_port_is_declared(port_suite):
     declared = set(registry.env_switch_names())
     assert seen <= declared
     assert declared <= seen  # no stale declaration either
-    assert len(declared) == 76  # the 74 switches before prewarm, and its two
+    # The 74 switches before prewarm, its two, and the mesh's three (the
+    # device count, the shard size and the designers' opt-out).
+    assert len(declared) == 79
 
 
 def test_an_undeclared_switch_raises_and_a_constant_is_not_a_switch(monkeypatch):

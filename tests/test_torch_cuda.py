@@ -1751,3 +1751,176 @@ def test_a_device_phase_event_time_lies_within_its_wall(cuda_device):
     finally:
         device_timing.set_config(None)
         device_timing.reset_compile_tracking()
+
+
+# -- the single-host mesh (chip_smoke.py's mesh phase, at small sizes) ----------
+
+
+def _logical_mesh(monkeypatch, n=4):
+    """The port's device list as ``n`` entries of cuda:0 (this test alone)."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+    def devices(device="cuda"):
+        del device
+        return [torch.device("cuda", 0)] * n
+
+    monkeypatch.setattr(mesh_lib, "local_devices", devices)
+    monkeypatch.setattr(parallel, "local_devices", devices)
+    monkeypatch.setenv("VIZIER_TORCH_DISABLE_MESH", "1")
+
+
+def _mesh_designers(seeds, n=12, graphed=False, use_mesh=None):
+    from vizier_tpu_torch.algorithms import core as core_lib
+    from vizier_tpu_torch.optimizers import lbfgs
+
+    designers = []
+    for seed in seeds:
+        optimizer = (lbfgs.AdamOptimizer(maxiter=10, device="cuda", cuda_graph=True) if graphed
+                     else lbfgs.LbfgsOptimizer(maxiter=20, device="cuda"))
+        d = gp_ucb_pe.VizierGPUCBPEBandit(
+            _prewarm_problem(4), rng_seed=seed, device="cuda", ard_restarts=4,
+            max_acquisition_evaluations=500, ard_optimizer=optimizer, warm_start_min_trials=0,
+            use_mesh=use_mesh)
+        rng = np.random.default_rng(seed)
+        trials = []
+        for i in range(n + seed % 3):
+            x = rng.random(4)
+            t = vz.Trial(id=i + 1, parameters={f"x{j}": float(x[j]) for j in range(4)})
+            t.complete(vz.Measurement(metrics={"y": float(-np.sum((x - 0.4) ** 2))}))
+            trials.append(t)
+        d.update(core_lib.CompletedTrials(trials))
+        designers.append(d)
+    return designers
+
+
+def _flush_through(executor, designers, count=2):
+    import threading
+
+    out = [None] * len(designers)
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, executor.suggest(designers[i], count))) for i in range(len(designers))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert all(o is not None and len(o) == count for o in out)
+    return [[s.parameters.as_dict() for s in o] for o in out]
+
+
+def test_the_default_with_use_mesh_on_the_cards_device_list(cuda_device):
+    """One card is a mesh of one: one pool, the restarts unrounded, K1 and
+    K2 launched, the suggestions in bounds."""
+    (d,) = _mesh_designers([0], use_mesh=True)
+    assert d._mesh.size == 1 and d._mesh_restarts(d.ard_restarts) == d.ard_restarts
+    tk.reset_launch_counts()
+    suggestions = d.suggest(2)
+    torch.cuda.synchronize()
+    for s in suggestions:
+        assert all(0.0 <= v <= 1.0 for v in s.parameters.as_dict().values())
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["cross"] > 0
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0
+
+
+def test_the_sharded_train_and_sweep_on_a_logical_mesh_of_the_card(cuda_device, monkeypatch):
+    """Four entries of the one card: the sharded train equals one unsharded
+    call at the same inits within 1e-3, and the unsharded optimizer run once
+    per restart row (batch 1, as each chunk) within 1e-5; the pool sweep
+    equals its pools run one after another."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.designers.gp import acquisitions
+    from vizier_tpu_torch.models import gp as gp_lib
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.optimizers import lbfgs
+
+    _logical_mesh(monkeypatch)
+    mesh = parallel.create_mesh()
+    assert mesh.devices == (torch.device("cuda", 0),) * 4
+    (d,) = _mesh_designers([1], n=40)
+    data = gp_lib.GPData.from_model_data(d._warped_model_data(), torch.device("cuda", 0))
+    inits = d._model.param_collection().batch_random_init_unconstrained(
+        torch.Generator(device="cuda").manual_seed(0), 4)
+    sharded = parallel.train_gp_sharded(d._model, d._ard, data, None, 4, 1, mesh, inits=inits)
+    whole = d._ard(graphs.BoundLoss(d._model.neg_log_likelihood, data), inits, best_n=1)
+    alone = d._model.precompute(whole.params, data)
+    scale = max(float(torch.max(torch.abs(v))) for v in alone.params.values())
+    for k, v in alone.params.items():
+        assert float(torch.max(torch.abs(sharded.params[k] - v))) <= 1e-3 * scale
+    rows = [d._ard(graphs.BoundLoss(d._model.neg_log_likelihood, data),
+                   {k: v[i:i + 1] for k, v in inits.items()}, best_n=1) for i in range(4)]
+    per_row = d._model.precompute(lbfgs._select_best(
+        {k: torch.cat([r.params[k] for r in rows]) for k in rows[0].params},
+        torch.cat([r.losses for r in rows]), 1).params, data)
+    for k, v in per_row.params.items():
+        assert float(torch.max(torch.abs(sharded.params[k] - v))) <= 1e-5 * scale
+    scoring = acquisitions.ScoringFunction(
+        gp_lib.EnsemblePredictive(alone), acquisitions.UCB(1.8),
+        acquisitions.get_best_labels(data.labels, data.row_mask),
+        acquisitions.TrustRegion.from_data(data))
+    gens = lambda: [torch.Generator(device="cuda").manual_seed(i) for i in range(4)]  # noqa: E731
+    pooled = parallel.maximize_acquisition_sharded(d._vec_opt, scoring, gens(), 3, 4, mesh)
+    one_by_one = [d._vec_opt(scoring.score, g, count=3) for g in gens()]
+    scores = torch.cat([r.scores for r in one_by_one])
+    top = torch.sort(scores, descending=True, stable=True).indices[:3]
+    torch.testing.assert_close(pooled.scores, scores[top], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(
+        pooled.features.continuous,
+        torch.cat([r.features.continuous for r in one_by_one])[top], rtol=0, atol=1e-3)
+
+
+def test_one_placement_on_the_card_is_the_executor_without_the_mesh(cuda_device):
+    """MeshConfig(enabled=True) on one card: one placement, no worker
+    thread, and a full flush (the same padded batch) equal slot for slot to
+    the flush without the mesh."""
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.parallel.mesh import MeshConfig
+
+    off = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=5000)
+    one = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=5000,
+                                       mesh=MeshConfig(enabled=True))
+    try:
+        want = _flush_through(off, _mesh_designers(range(4)))
+        got = _flush_through(one, _mesh_designers(range(4)))
+        assert [p.label() for p in one.placements()] == ["mesh0"]
+        assert one._workers == [] and one.placement_flush_counts() == {"mesh0": 1}
+        assert got == want
+    finally:
+        off.close()
+        one.close()
+
+
+def test_a_flush_split_over_a_logical_four_entry_mesh(cuda_device, monkeypatch):
+    """shard_devices=4 on 4 entries of the card: the flush of 4 padded by
+    pad_to and run as 4 chunks of 1, each slot's trained NLL within 1e-3 of
+    the flush without the mesh (a batch of 1 per device, not 4: C6), the
+    graphed ARD steps captured without a failure."""
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.parallel.mesh import MeshConfig
+
+    _logical_mesh(monkeypatch)
+    off = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=5000)
+    split = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=5000,
+                                         mesh=MeshConfig(enabled=True, shard_devices=4))
+    failures = graphs.STATS["failures"]
+    try:
+        (placement,) = split.placements()
+        assert placement.num_devices == 4 and placement.pad_to(4, 4) == 4
+        designers = [_mesh_designers(range(4), graphed=True) for _ in range(2)]
+        _flush_through(off, designers[0])
+        got = _flush_through(split, designers[1])
+        for a, b in zip(designers[0], designers[1]):
+            (sa,), _ = a._cached_states
+            (sb,), _ = b._cached_states
+            coll = sa.model.param_collection()
+            nll = [float(s.model.neg_log_likelihood(coll.unconstrain(s.params), s.data)[0])
+                   for s in (sa, sb)]
+            assert abs(nll[0] - nll[1]) <= 1e-3 * max(1.0, abs(nll[0]))
+        for slot in got:
+            for params in slot:
+                assert all(0.0 <= v <= 1.0 for v in params.values())
+        assert graphs.STATS["failures"] == failures
+        assert split.placement_flush_counts() == {"mesh0": 1}
+    finally:
+        off.close()
+        split.close()

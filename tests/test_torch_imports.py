@@ -492,3 +492,55 @@ def test_the_numerics_facade_has_the_jax_facades_names():
             assert ours == theirs
         else:
             assert ours.__name__ == theirs.__name__
+
+
+_MESH_MODULES = ["vizier_tpu_torch.parallel", "vizier_tpu_torch.parallel.mesh",
+                 "vizier_tpu_torch.parallel.batch_executor"]
+
+
+@pytest.fixture(scope="module")
+def mesh_imports():
+    """Per module of the mesh slice, in one fresh interpreter with ``grpc``
+    and ``protobuf`` blocked (the card's machine has neither): the JAX-side
+    or blocked modules its import loaded."""
+    code = f"""
+import importlib, json, sys
+for blocked in ("grpc", "google.protobuf"):
+    sys.modules[blocked] = None
+out = {{}}
+for name in {_MESH_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(m for m in sys.modules if sys.modules[m] is not None) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "vizier_tpu", "grpc") or m.startswith("google.protobuf"))
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _MESH_MODULES)
+def test_the_mesh_modules_load_no_jax_grpc_or_protobuf(mesh_imports, module):
+    assert mesh_imports[module] == []
+
+
+def test_the_parallel_package_exports_the_jax_packages_names_but_the_multi_host_seam():
+    import vizier_tpu.parallel as jparallel
+
+    import vizier_tpu_torch.parallel as tparallel
+
+    def public(module):
+        return {n for n in vars(module) if not n.startswith("_") and n.isidentifier()}
+
+    missing = public(jparallel) - public(tparallel)
+    # The multi-host coordinator seam (and the jax modules the JAX package
+    # imports by name) are the next slice's or not the port's.
+    assert missing <= {"initialize_multihost", "jax", "jnp", "NamedSharding", "P", "Array",
+                       "functools", "acquisitions", "gp_lib", "kernels", "lbfgs_lib",
+                       "vectorized_lib", "batch_executor", "mesh"}, missing
+    for name in ("create_mesh", "replicated", "batch_sharded", "train_gp_sharded",
+                 "maximize_score_fn_sharded", "maximize_acquisition_sharded",
+                 "suggest_step_sharded", "BatchExecutor", "BatchSlotError", "BucketKey",
+                 "DevicePlacement", "MeshConfig", "build_placements", "multihost_mesh",
+                 "DEVICE_AXIS", "Mesh"):
+        assert hasattr(tparallel, name), name

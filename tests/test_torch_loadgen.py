@@ -14,7 +14,8 @@
   give equal JSON and text on one synthetic set of driver records built in
   both packages; ``ranksum_p`` equal; ``ChaosMonkey`` gives the same strike
   schedule for a seed.
-- The mesh plane runs as one placement; more mesh devices are refused.
+- The mesh plane runs on the placements its devices give: one on the CPU
+  or one card, more on more devices (with the tests' 8 CPU entries).
 - ``LoadgenPolicyFactory`` builds the service's policies on ``device="cpu"``
   with the scenario's per-study seeds and economics, and wraps GP designers
   in ``ChaosDesigner`` when given a monkey.
@@ -205,19 +206,64 @@ def test_loadgen_reliability_equal():
         jdriver.loadgen_reliability())
 
 
+def _stamp_of_a_built_executor(config, num_devices=0):
+    """The stamp read off an executor built as the runtime builds it."""
+    from vizier_tpu_torch.parallel import batch_executor, mesh as mesh_lib
+
+    executor = batch_executor.BatchExecutor(
+        mesh=mesh_lib.MeshConfig(enabled=True, num_devices=num_devices), device="cpu")
+    try:
+        return driver.mesh_stamp(config, "cpu", executor)
+    finally:
+        executor.close()
+
+
 def test_mesh_runs_as_one_placement():
     """The JAX acceptance soak arms the mesh on one host device, which builds
-    one placement; the port runs it on one device too, its stamp saying so
-    (the soak's command line refuses more mesh devices:
-    ``test_torch_loadgen_soak.py::test_soak_command_line``)."""
+    one placement; the port's CPU is one device too, and its stamp reads the
+    placements off the run's executor."""
     config = models.soak_config()
-    assert driver.mesh_stamp(models.smoke_config(), "cpu") == {"armed": False, "placements": 0}
-    assert driver.mesh_stamp(config, "cpu") == {"armed": True, "placements": 1, "device": "cpu"}
+    assert driver.mesh_stamp(models.smoke_config(), "cpu", None) == {
+        "armed": False, "placements": 0}
+    assert _stamp_of_a_built_executor(config) == {"armed": True, "placements": 1, "device": "cpu"}
+    # A run with no executor in this process builds no placement here.
+    assert driver.mesh_stamp(config, "cpu", None) == {"armed": True, "placements": 0, "device": "cpu"}
     scenario = models.build_scenario(models.smoke_config(
         num_studies=3, kind_mix=(("random", 1.0), ("gp_bandit", 1.0)),
         planes=models.PlaneConfig(batching=True, speculative=False, mesh=True, slo=False)))
     engine = driver.run(scenario, device="cpu", transport="runtime")
     assert engine.mesh == {"armed": True, "placements": 1, "device": "cpu"}
+    assert engine.lost_studies() == [] and engine.errored_studies() == []
+
+
+def test_a_mesh_armed_scenario_runs_on_every_placement_it_builds(monkeypatch):
+    """On more devices (the tests' 8 CPU entries), capped at 2 by the mesh's
+    switch, the runtime's executor builds two placements and serves the
+    scenario through their workers."""
+    import torch_mesh_devices
+
+    torch_mesh_devices.patch_devices(monkeypatch)
+    monkeypatch.setenv("VIZIER_TORCH_MESH_DEVICES", "2")
+    config = models.soak_config()
+    assert _stamp_of_a_built_executor(config, num_devices=2) == {
+        "armed": True, "placements": 2, "device": "cpu"}
+    scenario = models.build_scenario(models.smoke_config(
+        num_studies=3, kind_mix=(("random", 1.0), ("gp_ucb_pe", 1.0)),
+        planes=models.PlaneConfig(batching=True, speculative=False, mesh=True, slo=False)))
+    engine = driver.run(scenario, device="cpu", transport="runtime")
+    assert engine.mesh == {"armed": True, "placements": 2, "device": "cpu"}
+    assert engine.lost_studies() == [] and engine.errored_studies() == []
+
+
+def test_a_mesh_armed_scenario_runs_on_subprocess_replicas():
+    """The subprocess target's runtimes live in its replica processes, so the
+    driver holds a detached runtime with no executor: the run completes and
+    its stamp reports no placement in the driver's process."""
+    scenario = models.build_scenario(models.smoke_config(
+        num_studies=2, target="subprocess", replicas=1, kind_mix=(("random", 1.0),),
+        planes=models.PlaneConfig(batching=True, speculative=False, mesh=True, slo=False)))
+    engine = driver.run(scenario, device="cpu")
+    assert engine.mesh == {"armed": True, "placements": 0, "device": "cpu"}
     assert engine.lost_studies() == [] and engine.errored_studies() == []
 
 

@@ -196,8 +196,11 @@ def test_soak_command_line(tmp_path, capsys):
         models.smoke_config()).fingerprint()
     assert soak.main(["--diff", str(out), str(out)]) == 0
     assert "soak diff: OK" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A12"):
-        soak.main(["--smoke", "--device", "cpu", "--mesh-devices", "2", "--out", str(out)])
+    # More mesh devices than the run has are capped: the CPU is one placement.
+    soak.main(["--smoke", "--device", "cpu", "--transport", "runtime", "--skip-reference",
+               "--studies", "3", "--mesh-devices", "2", "--out", str(out)])
+    assert json.loads(out.read_text())["stamps"]["mesh"] == {
+        "armed": True, "placements": 1, "device": "cpu"}
 
 
 @pytest.mark.slow

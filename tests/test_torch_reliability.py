@@ -394,8 +394,15 @@ def test_config_turnover_and_invalidation_drop_the_breaker_and_designer():
 
 
 def test_planes_the_port_does_not_have_are_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        runtime_lib.ServingRuntime(serving_config.ServingConfig(batching=False), mesh=object())
+    # The mesh is ported: only its multi-host coordinator is refused.
+    from vizier_tpu_torch.parallel.mesh import MeshConfig
+
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        runtime_lib.ServingRuntime(
+            mesh=MeshConfig(enabled=True, coordinator_address="localhost:1234"), device="cpu")
+    rt = runtime_lib.ServingRuntime(mesh=MeshConfig(enabled=True), device="cpu")
+    assert [p.label() for p in rt.batch_executor.placements()] == ["mesh0"]
+    rt.shutdown()
     # Prewarm and the compile cache are ported: both configs build.
     assert serving_config.ServingConfig(batching_prewarm=True).batching_prewarm
     assert serving_config.ServingConfig(

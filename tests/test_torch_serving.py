@@ -242,15 +242,21 @@ def test_close_drains_pending():
 
 
 def test_planes_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        BatchExecutor(mesh=object())
+    # The mesh is ported; its multi-host coordinator seam is the one plane
+    # left, refused by the executor and by a batching runtime.
+    from vizier_tpu_torch.parallel.mesh import MeshConfig
+
+    coordinator = MeshConfig(enabled=True, coordinator_address="localhost:1234")
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        BatchExecutor(mesh=coordinator, device="cpu")
+    BatchExecutor(mesh=MeshConfig(enabled=True), device="cpu").close()
     # Prewarm and the compile cache are ported: both configs build.
     assert serving_config.ServingConfig(batching_prewarm=True).batching_prewarm
     assert serving_config.ServingConfig(
         compilation_cache_dir="/tmp/cache").compilation_cache_dir == "/tmp/cache"
-    with pytest.raises(NotImplementedError):
-        serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=False),
-                                       mesh=object())
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=True),
+                                       mesh=coordinator, device="cpu")
     # The ported planes build: an executor with fair-share admission, and a
     # runtime with speculation, admission and the SLO engine armed.
     from vizier_tpu_torch.observability import slo as slo_lib

@@ -102,7 +102,7 @@ def test_chaos_designer_resolves_a_chaos_program():
     assert isinstance(program, chaos.ChaosProgram)
     assert program.kind == inner_program.kind == key.kind == "gp_bandit"
     assert key == inner_key and program.algorithms == inner_program.algorithms
-    assert program.shardable_batch_axis == ""
+    assert program.shardable_batch_axis == inner_program.shardable_batch_axis == "study"
     assert program.matches_algorithm("GAUSSIAN_PROCESS_BANDIT")
     # Reads reach the inner designer; the crossover listener lands on it.
     assert wrapped.ard_train_counts == inner.ard_train_counts == {"cold": 0, "warm": 0}
@@ -117,9 +117,14 @@ def test_chaos_designer_resolves_a_chaos_program():
     with pytest.raises(failing.FailedSuggestError):
         chaos.ChaosDesigner(inner, monkey).suggest(1)
     assert monkey.counts() == {"designer.suggest": {"calls": 1, "faults": 1, "latencies": 0}}
-    with pytest.raises(NotImplementedError, match="A12"):
-        chaos.ChaosDesigner(inner, chaos.ChaosMonkey(failure_prob=0.0)).batch_execute(
-            [], placement=object())
+    # A placement passes through to the inner program's device body.
+    from vizier_tpu_torch.parallel.mesh import DevicePlacement
+
+    placement = DevicePlacement(0, [torch.device("cpu")] * 2)
+    quiet = chaos.ChaosDesigner(inner, chaos.ChaosMonkey(failure_prob=0.0))
+    item = inner_program.prepare(inner, 1)
+    (out,) = quiet.batch_execute([item], pad_to=placement.pad_to(1, 8), placement=placement)
+    assert out["result"].features.continuous.shape == (1, 3)
 
 
 def test_per_slot_strike_degrades_only_its_slot():

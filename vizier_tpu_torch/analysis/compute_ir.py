@@ -1,9 +1,7 @@
 """Pass 5: compute-IR conformance — every registered DesignerProgram is a
 full citizen of the serving stack.
 
-The port's copy of the JAX package's ``analysis/compute_ir.py``. The
-``program-missing-shard-axis`` rule stays in the pass; the port's baseline
-accepts the whole rule with one entry until the mesh plane is ported.
+The port's copy of the JAX package's ``analysis/compute_ir.py``.
 
 The batched designer-compute IR (:mod:`vizier_tpu_torch.compute`) only pays off
 if every registered program actually carries the cross-cutting features

@@ -223,9 +223,17 @@ SWITCHES: Tuple[EnvSwitch, ...] = (
             "Inducing points of the sparse surrogate.", "128"),
     _switch("VIZIER_TORCH_SPARSE_UCB_PE", "flag", "SurrogateConfig",
             "Sparse surrogate for the UCB-PE designer too.", "1"),
-    # -- mesh plane (not ported yet; written by the loadgen overlay) -------
-    _switch("VIZIER_TORCH_MESH", "flag", "loadgen.driver.scenario_env",
-            "The mesh plane of a scenario's overlay (the port refuses it).", "0"),
+    # -- mesh execution plane (parallel.mesh.MeshConfig) -------------------
+    _switch("VIZIER_TORCH_MESH", "flag", "MeshConfig",
+            "Mesh execution plane: carve the host's devices into placements the "
+            "batch executor schedules buckets over (0 = one scheduler thread; "
+            "the loadgen overlay writes it).", "0"),
+    _switch("VIZIER_TORCH_MESH_DEVICES", "int", "MeshConfig",
+            "Devices the mesh plane may use (0 = all; capped at the host's count).", "0"),
+    _switch("VIZIER_TORCH_MESH_SHARD_DEVICES", "int", "MeshConfig",
+            "Devices per placement; > 1 splits each flush's study axis over them.", "1"),
+    _switch("VIZIER_TORCH_DISABLE_MESH", "flag", "VizierGPBandit",
+            "Opt out of the GP designers' auto-mesh over several devices.", "0"),
     # -- loadgen traffic engine (loadgen.models.ScenarioConfig) ------------
     _switch("VIZIER_TORCH_LOADGEN_SEED", "int", "ScenarioConfig",
             "Scenario seed: the whole workload expansion follows from it.", "0"),

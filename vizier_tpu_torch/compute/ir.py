@@ -66,6 +66,12 @@ class DesignerProgram(abc.ABC):
     #: ``device_timing.device_phase`` name a batched flush is timed under
     #: (``vizier_jax_phase_seconds{phase}``, the JAX package's histogram).
     device_phase: str = ""
+    #: Name of the batch axis ``device_program`` may split over a mesh
+    #: placement ("" = unshardable: the executor never passes a
+    #: ``placement``). Every in-tree program stacks its items along a leading
+    #: study axis and declares ``"study"``. Declared, not inferred, so the
+    #: ``compute_ir`` analysis pass can check that each program made the call.
+    shardable_batch_axis: str = ""
     #: Service algorithm names whose studies this program serves, and whose
     #: prewarm walks cover its buckets (``PythiaServicer.prewarm``).
     algorithms: Tuple[str, ...] = ()
@@ -82,11 +88,19 @@ class DesignerProgram(abc.ABC):
         sequential order. Issues no device work."""
 
     @abc.abstractmethod
-    def device_program(self, items: Sequence[dict], pad_to: Optional[int] = None) -> List[dict]:
+    def device_program(
+        self, items: Sequence[dict], pad_to: Optional[int] = None, placement: Any = None
+    ) -> List[dict]:
         """The batched train + acquire body for a whole bucket: stacks the
         items along a leading study axis (padded to ``pad_to`` with copies of
         item 0), runs them as one batch, copies the results to the host once,
-        and returns one output dict per item."""
+        and returns one output dict per item.
+
+        ``placement`` (a ``parallel.mesh.DevicePlacement``) is passed only to
+        a program that declares a ``shardable_batch_axis``: the program then
+        splits the stacked items over the placement's devices
+        (``batch_executor.place_batch``), one batch per device. The executor
+        pads to a multiple of the placement's device count."""
 
     @abc.abstractmethod
     def finalize(self, designer: Any, item: dict, output: dict) -> List[Any]:

@@ -29,7 +29,17 @@ Each suggest draws two seeds from the study's seed stream (train, then
 acquisition), so slot i of a flush draws what study i draws alone. Priors
 and joint q-batches run outside the programs, as in the JAX package; the
 designer is also a ``Predictor`` (``predict``/``sample``, unwarped to the
-metric's scale). Mesh sharding is served by the JAX package only.
+metric's scale).
+
+With more than one device (``use_mesh``; automatic unless
+``VIZIER_TORCH_DISABLE_MESH`` is set) the exact suggest runs on a mesh of the
+host's devices, as the JAX package's does: the ARD restarts, rounded up to a
+multiple of the mesh size, are split over the devices with the warm seed
+replacing restart 0 (``parallel.train_gp_sharded``), and the sweep runs one
+independent eagle pool per device, each spending the whole evaluation
+budget, merged by one top-k (``parallel.maximize_acquisition_sharded``;
+joint qEI too). A mesh designer takes no batched program; its sparse
+suggest runs on its own device, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from vizier_tpu_torch import device as device_lib
+from vizier_tpu_torch import parallel
 from vizier_tpu_torch import types
 from vizier_tpu_torch.algorithms import core as core_lib
 from vizier_tpu_torch.algorithms import designer_policy
@@ -66,6 +77,7 @@ from vizier_tpu_torch.pyvizier import trial as trial_
 from vizier_tpu_torch.surrogates import config as surrogate_config_lib
 from vizier_tpu_torch.surrogates import sparse_bandit
 from vizier_tpu_torch.surrogates import sparse_gp
+from vizier_tpu_torch.utils import env as env_lib
 from vizier_tpu_torch.utils import profiler
 
 Tensor = torch.Tensor
@@ -262,6 +274,7 @@ def _maximize_q_batch(
     q: int,
     num_samples: int,
     prior_features: Optional[kernels.MixedFeatures] = None,
+    mesh: Optional[parallel.Mesh] = None,
 ) -> vectorized_lib.VectorizedOptimizerResult:
     """Joint q-batch qEI: each candidate is a whole batch, a point of the
     (q·Dc)-space the strategy searches.
@@ -270,20 +283,26 @@ def _maximize_q_batch(
     draws, so every candidate of every iteration is scored on the same
     draws. Each iteration scores its pool with one k* and one K(q, q)
     launch (``GPState.predict_joint``'s candidate axis). The prior features
-    are tiled over the q slots, so the search starts at the incumbents.
+    are tiled over the q slots, so the search starts at the incumbents. With
+    a ``mesh`` the search runs one independent pool per device, its
+    generators drawn from ``generator`` after the normals
+    (``parallel.maximize_score_fn_sharded``).
     """
     dc = states.data.continuous.shape[-1]
     ds = states.data.categorical.shape[-1]
     eps = torch.randn((num_samples, states.alpha.shape[0], q), generator=generator,
                       device=generator.device)
 
-    def score_fn(flat: kernels.MixedFeatures) -> Tensor:
-        pool = flat.continuous.shape[0]
-        query = kernels.MixedFeatures(
-            flat.continuous.reshape(pool, q, dc),
-            torch.zeros((pool, q, ds), dtype=torch.int32, device=flat.continuous.device),
-        )
-        return qei_joint_scores(states, query, eps, best_label, trust)
+    def scorer(states, eps, best_label, trust):
+        def score_fn(flat: kernels.MixedFeatures) -> Tensor:
+            pool = flat.continuous.shape[0]
+            query = kernels.MixedFeatures(
+                flat.continuous.reshape(pool, q, dc),
+                torch.zeros((pool, q, ds), dtype=torch.int32, device=flat.continuous.device),
+            )
+            return qei_joint_scores(states, query, eps, best_label, trust)
+
+        return score_fn
 
     prior = None
     if prior_features is not None:
@@ -292,7 +311,14 @@ def _maximize_q_batch(
             prior_features.continuous.repeat(1, q),
             torch.zeros((k, 0), dtype=torch.int32, device=prior_features.continuous.device),
         )
-    return vec_opt(score_fn, generator, count=1, prior_features=prior)
+    if mesh is not None:
+        return parallel.maximize_score_fn_sharded(
+            vec_opt, None, parallel.pool_generators(generator, mesh.size, mesh), 1, mesh.size,
+            mesh, prior, score_on=lambda device: scorer(
+                *parallel.replicate((states, eps, best_label, trust), device)),
+        )
+    return vec_opt(scorer(states, eps, best_label, trust), generator, count=1,
+                   prior_features=prior)
 
 
 def _sample_generator(rng, device: torch.device) -> torch.Generator:
@@ -334,6 +360,10 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
     surrogate: Optional[surrogate_config_lib.SurrogateConfig] = None
     # "cuda" (the default) or "cpu"; CUDA raises when no GPU is present.
     device: device_lib.DeviceLike = "cuda"
+    # The multi-device path: None = a mesh over the host's devices of the
+    # designer's type when there is more than one (unless
+    # VIZIER_TORCH_DISABLE_MESH is set); True / False force it on / off.
+    use_mesh: Optional[bool] = None
 
     def __post_init__(self):
         self.device = device_lib.resolve(self.device)
@@ -391,6 +421,12 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
         self._sparse_model_cache: Optional[sparse_gp.SparseGaussianProcess] = None
         self._last_sparse_state: Optional[sparse_gp.SparseGPState] = None
         self._surrogate_counts = {"sparse_suggests": 0, "crossovers": 0}
+        if self.use_mesh is not None:
+            want_mesh = self.use_mesh
+        else:
+            want_mesh = (len(parallel.local_devices(self.device)) > 1
+                         and not env_lib.env_on("VIZIER_TORCH_DISABLE_MESH"))
+        self._mesh = parallel.create_mesh(device=self.device) if want_mesh else None
 
     # -- Designer ----------------------------------------------------------
 
@@ -406,6 +442,29 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
         """The next train's random restarts: the warm budget when one applies,
         else ``ard_restarts``, floored at ``ensemble_size``."""
         return max(self._warm_restart_budget() or self.ard_restarts, ensemble_size)
+
+    # -- the mesh ----------------------------------------------------------
+
+    def _mesh_size(self) -> int:
+        return self._mesh.size if self._mesh is not None else 1
+
+    def _mesh_restarts(self, restarts: int) -> int:
+        """``restarts`` rounded up to a multiple of the mesh size."""
+        ndev = self._mesh_size()
+        return -(-restarts // ndev) * ndev
+
+    def _train_one(self, model, data, generator: torch.Generator, restarts: int,
+                   ensemble_size: int, warm_start: Optional[gp_lib.Params]):
+        """One ARD train: the sequential one (``warm_start`` one more row),
+        or on the mesh ``parallel.train_gp_sharded`` (restarts rounded up to
+        the mesh, ``warm_start`` replacing restart 0)."""
+        if self._mesh is None:
+            return _train_gp(model, self._ard, data, generator, restarts, ensemble_size,
+                             warm_start)
+        return parallel.train_gp_sharded(
+            model, self._ard, data, generator, self._mesh_restarts(restarts), ensemble_size,
+            self._mesh, warm_start,
+        )
 
     def _train_sparse(
         self, data: gp_lib.GPData, ensemble_size: int, warm_start: gp_lib.Params
@@ -587,17 +646,23 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             # exact whatever the auto-switch says.
             self._refresh_surrogate_mode()
             return self._suggest_q_batch(count)
+        if self._mesh is not None:
+            if self._refresh_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
+                # The JAX package's sparse suggest takes no mesh.
+                return compute_registry.get(GPBanditSparseProgram.kind).run_alone(self, count)
+            return self._suggest_on_mesh(count)
         # The single-objective suggest (exact or sparse, as the auto-switch
         # says): this study alone through its compute-IR program.
         program, _ = compute_registry.resolve(self, count)
         return program.run_alone(self, count)
 
     def _train_exact(self, data: gp_lib.GPData) -> gp_lib.GPState:
-        """The single-objective exact train outside a program, with its warm
-        seed, counted as warm or cold, writing back the next warm seed."""
-        states = _train_gp(
-            self._model, self._ard, data, self._phase_generator(),
-            self._restarts(self.ensemble_size), self.ensemble_size, self._warm_params,
+        """The single-objective exact train outside a program (on the mesh
+        when there is one), with its warm seed, counted as warm or cold,
+        writing back the next warm seed."""
+        states = self._train_one(
+            self._model, data, self._phase_generator(), self._restarts(self.ensemble_size),
+            self.ensemble_size, self._warm_params,
         )
         self._record_train()
         if self._warm_update_allowed():
@@ -605,6 +670,36 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             self._warm_is_trained = True
         self._last_predictive = gp_lib.EnsemblePredictive(states)
         return states
+
+    def _suggest_on_mesh(self, count: int) -> List[trial_.TrialSuggestion]:
+        """The exact single-objective suggest on the mesh: the sharded train,
+        then one pool per device."""
+        with profiler.timeit("convert_trials"):
+            data = gp_lib.GPData.from_model_data(self._warped_model_data(), self.device)
+        with profiler.timeit("train_gp"), device_timing.device_phase(
+            _ALONE_PHASES[False][0], self.device
+        ):
+            states = self._train_exact(data)
+            _synchronize(self.device)
+        scoring = acquisitions.ScoringFunction(
+            predictive=gp_lib.EnsemblePredictive(states),
+            acquisition=self._make_acquisition(),
+            best_label=acquisitions.get_best_labels(data.labels, data.row_mask),
+            trust_region=acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
+        )
+        size = self._mesh.size
+        with profiler.timeit("acquisition_optimizer"), device_timing.device_phase(
+            _ALONE_PHASES[False][1], self.device
+        ):
+            # One pool per device, their generators from the next phase seed.
+            result = parallel.maximize_acquisition_sharded(
+                self._vec_opt, scoring,
+                parallel.pool_generators(self._next_seed(), size, self._mesh), count, size,
+                self._mesh, _prior_features_from_data(data),
+            )
+            _synchronize(self.device)
+        with profiler.timeit("best_candidates_to_trials"):
+            return self._decode_result(result, count, kind=self.acquisition)
 
     def _suggest_q_batch(self, count: int) -> List[trial_.TrialSuggestion]:
         """Joint qEI: the ``count`` suggestions are one point of the
@@ -627,6 +722,7 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
             vec_opt, states, acquisitions.get_best_labels(data.labels, data.row_mask),
             acquisitions.TrustRegion.from_data(data) if self.use_trust_region else None,
             self._phase_generator(), count, _QEI_SAMPLES, _prior_features_from_data(data),
+            mesh=self._mesh,
         )
         rows = result.features.continuous[0].reshape(count, self._cont_width)
         unrolled = vectorized_lib.VectorizedOptimizerResult(
@@ -827,9 +923,11 @@ def default_factory(
 
 def _gp_bandit_unbatchable(designer: "VizierGPBandit", count: int) -> bool:
     """Paths the programs do not cover (seeding, multi-objective, transfer
-    priors, joint qEI): those run the sequential suggest's own code."""
+    priors, joint qEI, a mesh designer): those run the sequential suggest's
+    own code."""
     return bool(
-        len(designer._trials) < designer.num_seed_trials
+        designer._mesh is not None
+        or len(designer._trials) < designer.num_seed_trials
         or designer._num_objectives() > 1
         or designer._priors
         or (designer.acquisition == "qei" and count > 1)
@@ -862,29 +960,51 @@ _ALONE_PHASES = {
 }
 
 
+def _stacked_chunks(items: Sequence[dict], names: Sequence[str], pad_to: Optional[int],
+                    placement) -> List[tuple]:
+    """The items' ``names`` stacked along a study axis (padded to ``pad_to``)
+    as (inputs, device) chunks: one on the designer's device, or one per
+    device of a mesh ``placement`` (``batch_executor.place_batch``)."""
+    inputs = {n: batch_executor.stack_pytrees([it[n] for it in items], pad_to) for n in names}
+    devices = placement.devices if placement is not None else (items[0]["designer"].device,)
+    return list(zip(batch_executor.place_batch(inputs, placement), devices))
+
+
 def _gp_bandit_flush(
-    items: Sequence[dict], pad_to: Optional[int], sparse: bool, alone: bool = False
+    items: Sequence[dict], pad_to: Optional[int], sparse: bool, alone: bool = False,
+    placement=None,
 ) -> List[dict]:
     """Encode → multi-restart ARD → acquisition sweep → warm seeds for every
     study of the flush as one batch, then ONE device-to-host copy of the
     sweep results. Each slot's state stays on the device as views. ``alone``:
-    one study's sequential suggest, timed per stage."""
-    d0: VizierGPBandit = items[0]["designer"]
-    stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
-    device = d0.device
+    one study's sequential suggest, timed per stage. On a mesh ``placement``
+    the padded study axis is split over its devices, one batch per device."""
+    outputs: List[dict] = []
+    for inputs, device in _stacked_chunks(
+        items, ("md", "seed_train", "seed_acq", "warm"), pad_to, placement
+    ):
+        outputs += _gp_bandit_chunk(items[0], inputs, device, sparse, alone)
+    return outputs[: len(items)]
+
+
+def _gp_bandit_chunk(item0: dict, inputs: dict, device: torch.device, sparse: bool,
+                     alone: bool) -> List[dict]:
+    """:func:`_gp_bandit_flush` of one device's stacked ``inputs``."""
+    d0: VizierGPBandit = item0["designer"]
+    ard, vec_opt = parallel.replicate((d0._ard, d0._vec_opt), device)
     train_phase, acquisition_phase = _ALONE_PHASES[sparse] if alone else (None, None)
     with profiler.timeit("train_gp"), device_timing.device_phase(train_phase, device):
-        data = gp_lib.GPData.from_model_data(stack("md"), device)
+        data = gp_lib.GPData.from_model_data(inputs["md"], device)
         studies = data.num_studies
         train_args = (
-            d0._ard, data, _generators(device, stack("seed_train")), items[0]["restarts"],
-            d0.ensemble_size, stack("warm"),
+            ard, data, _generators(device, inputs["seed_train"]), item0["restarts"],
+            d0.ensemble_size, inputs["warm"],
         )
         if sparse:
-            model = d0._sparse_model()
+            model = parallel.replicate(d0._sparse_model(), device)
             states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
         else:
-            model = d0._model
+            model = parallel.replicate(d0._model, device)
             states = _train_gp_studies(model, *train_args)
         warm_next = _warm_next_batched(model, states, studies)
         _synchronize(device)
@@ -892,8 +1012,8 @@ def _gp_bandit_flush(
         acquisition_phase, device
     ):
         result = _sweep_studies(
-            d0._vec_opt, d0._make_acquisition(), states, data,
-            _generators(device, stack("seed_acq")), items[0]["count"], d0.use_trust_region,
+            vec_opt, d0._make_acquisition(), states, data,
+            _generators(device, inputs["seed_acq"]), item0["count"], d0.use_trust_region,
         )
         result = batch_executor.to_host(result)
     return [
@@ -903,7 +1023,7 @@ def _gp_bandit_flush(
             result=batch_executor.slice_pytree(result, i),
             sparse=sparse,
         )
-        for i in range(len(items))
+        for i in range(studies)
     ]
 
 
@@ -930,6 +1050,7 @@ class GPBanditProgram(compute_ir.DesignerProgram):
 
     kind = "gp_bandit"
     device_phase = "gp_bandit.suggest_batched"
+    shardable_batch_axis = "study"
     algorithms = ("GAUSSIAN_PROCESS_BANDIT",)
     sparse = False
 
@@ -960,9 +1081,11 @@ class GPBanditProgram(compute_ir.DesignerProgram):
     def prepare(self, designer, count):
         return _gp_bandit_prepare(designer, count, sparse=self.sparse)
 
-    def device_program(self, items, pad_to=None):
+    def device_program(self, items, pad_to=None, placement=None):
+        """The bucket's studies as one batch; on a mesh ``placement`` the
+        padded study axis is split over its devices."""
         with device_timing.device_phase(self.device_phase, items[0]["designer"].device):
-            return _gp_bandit_flush(items, pad_to, sparse=self.sparse)
+            return _gp_bandit_flush(items, pad_to, sparse=self.sparse, placement=placement)
 
     def finalize(self, designer, item, output):
         return _gp_bandit_finalize(designer, item, output)
@@ -985,6 +1108,7 @@ class GPBanditSparseProgram(GPBanditProgram):
 
     kind = "gp_bandit_sparse"
     device_phase = "sparse_gp.suggest_batched"
+    shardable_batch_axis = "study"
     sparse = True
 
 

@@ -39,6 +39,14 @@ the study's seed stream in the same order. Above the ``surrogate`` config's tria
 are the sparse inducing-point ones (``surrogates.sparse_gp``): each pick
 re-conditions in O(n·m²) through the trained inducing set, and a pick far
 from it joins it (``_append_row_sparse``).
+
+On a mesh (``use_mesh``, as the GP bandit's) each metric's ARD train and the
+multi-task train split their restarts over the devices
+(``parallel.train_gp_sharded``: restarts rounded up to the mesh, the warm
+seed replacing restart 0), and every pick's sweep runs one independent pool
+per device, merged by one top-k (``parallel.maximize_score_fn_sharded``). A
+mesh designer stays exact and takes no batched program, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vizier_tpu_torch import parallel
 from vizier_tpu_torch import types
 from vizier_tpu_torch.algorithms import core as core_lib
 from vizier_tpu_torch.compute import ir as compute_ir
@@ -393,6 +402,7 @@ def _suggest_batch(
     labels_mask: Optional[Tensor] = None,
     ref_point: Optional[Tensor] = None,
     prior_acquisition: Optional[PriorAcquisition] = None,
+    mesh: Optional[parallel.Mesh] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
     """The greedy multi-objective batch: per pick, UCB-or-PE with
     pending-point conditioning. (A single-objective suggest runs
@@ -402,7 +412,8 @@ def _suggest_batch(
     ``GPData``, or a ``MultiTaskGPState`` over a ``MultiTaskData``. With
     M > 1 metrics the pick draws ``config.num_scalarizations`` directions
     for the HV scalarization over ``labels_mn`` [M, N1] (valid where
-    ``labels_mask`` [N1]) from ``ref_point`` [M].
+    ``labels_mask`` [N1]) from ``ref_point`` [M]. With a ``mesh`` each
+    pick's sweep runs one pool per device (:func:`_sweep_one_study`).
     """
     is_mt = isinstance(states_completed, multitask_gp.MultiTaskGPState)
     if is_mt:
@@ -443,9 +454,11 @@ def _suggest_batch(
             weights = pareto_ops.draw_directions(generator, config.num_scalarizations, num_metrics)
             inv_w = 1.0 / torch.clamp(weights, min=1e-6)
             hv = (inv_w, ref_point, _hv_floor(inv_w, ref_point, labels_mn, labels_mask))
-        score_fn = _score_fn(
-            states_completed, states_all, config, use_ucb, threshold, hv, trust, prior_acquisition)
-        result = vec_opt(score_fn, generator, count=1, prior_features=prior_features)
+        def score_on(device, args=(states_completed, states_all, use_ucb, threshold, hv, trust)):
+            sc, sa, u, thr, h, tr = parallel.replicate(args, device)
+            return _score_fn(sc, sa, config, u, thr, h, tr, prior_acquisition)
+
+        result = _sweep_one_study(vec_opt, score_on, generator, prior_features, mesh)
         x = kernels.MixedFeatures(
             result.features.continuous[:1], result.features.categorical[:1]
         )
@@ -467,6 +480,25 @@ def _suggest_batch(
         torch.cat([p.continuous for p in picks]), torch.cat([p.categorical for p in picks])
     )
     return vectorized_lib.VectorizedOptimizerResult(features, torch.cat(scores)), out
+
+
+def _sweep_one_study(
+    vec_opt: vectorized_lib.VectorizedOptimizer,
+    score_on: Callable[[torch.device], Callable[[kernels.MixedFeatures], Tensor]],
+    generator: torch.Generator,
+    prior_features: Optional[kernels.MixedFeatures],
+    mesh: Optional[parallel.Mesh],
+) -> vectorized_lib.VectorizedOptimizerResult:
+    """One pick's sweep of one study ([1] results): one pool with
+    ``generator``, or on a ``mesh`` one pool per device, their generators
+    drawn from ``generator``. ``score_on(device)`` is the [Q] score function
+    with its state on ``device`` (as it is, for None)."""
+    if mesh is None:
+        return vec_opt(score_on(None), generator, count=1, prior_features=prior_features)
+    return parallel.maximize_score_fn_sharded(
+        vec_opt, None, parallel.pool_generators(generator, mesh.size, mesh), 1, mesh.size,
+        mesh, prior_features, score_on=score_on,
+    )
 
 
 def _pe_conditioning_studies(states, all_data: gp_lib.GPData, config: UCBPEConfig, studies: int):
@@ -530,6 +562,7 @@ def _suggest_batch_studies(
     use_trust_region: bool = True,
     model=None,
     prior_acquisition: Optional[PriorAcquisition] = None,
+    mesh: Optional[parallel.Mesh] = None,
 ) -> Tuple[vectorized_lib.VectorizedOptimizerResult, dict]:
     """The greedy single-objective batch of S studies at once: the study axis
     of :func:`_suggest_batch` (the JAX package's ``_sweep_batched``).
@@ -541,7 +574,9 @@ def _suggest_batch_studies(
     are [S] bool. Each pick draws each study's UCB/PE coin from its own
     generator, re-conditions every study's all-points posterior in one
     batch, sweeps all studies in one loop and appends each study's pick.
-    Returns [S, count, ...] picks and per-pick aux ([S, count, 1]).
+    Returns [S, count, ...] picks and per-pick aux ([S, count, 1]). With a
+    ``mesh`` (one study, a mesh designer's) each pick's sweep runs one pool
+    per device (:func:`_sweep_one_study`).
     """
     studies = len(generators)
     model = states_completed.model if model is None else model
@@ -566,11 +601,25 @@ def _suggest_batch_studies(
         if b == 0:
             first = ~(u < torch.where(noise_is_high, pe_prob_high, pe_prob))
             use_ucb = torch.where(first_has_new, first, use_ucb)
-        score_fn = _score_fn_studies(
-            states_completed, states_all, config, use_ucb, threshold, trust, studies,
-            prior_acquisition,
-        )
-        result = vec_opt.run_studies(score_fn, generators, count=1, prior_features=prior_features)
+        if mesh is None:
+            score_fn = _score_fn_studies(
+                states_completed, states_all, config, use_ucb, threshold, trust, studies,
+                prior_acquisition,
+            )
+            result = vec_opt.run_studies(
+                score_fn, generators, count=1, prior_features=prior_features)
+        else:
+            def score_on(device, args=(states_completed, states_all, use_ucb, threshold, trust)):
+                sc, sa, u, thr, tr = parallel.replicate(args, device)
+                score = _score_fn_studies(sc, sa, config, u, thr, tr, 1, prior_acquisition)
+                return lambda q: score(kernels.MixedFeatures(*(t[None] for t in q)))[0]
+
+            one = _sweep_one_study(
+                vec_opt, score_on, generators[0],
+                None if prior_features is None else kernels.MixedFeatures(
+                    *(t[0] for t in prior_features)), mesh)
+            result = vectorized_lib.VectorizedOptimizerResult(
+                kernels.MixedFeatures(*(t[None] for t in one.features)), one.scores[None])
         x = kernels.MixedFeatures(result.features.continuous, result.features.categorical)
         mean_x, std_x = mixture(states_completed, x)  # [S, 1]
         _, std_all_x = mixture(states_all, x)
@@ -802,11 +851,12 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
 
     def _sparse_ucb_pe_eligible(self) -> bool:
         """Whether the sparse surrogate may serve this designer's suggests:
-        the single-objective greedy path only, without set acquisition,
-        prior_acquisition or transfer priors."""
+        the single-objective greedy path only, off the mesh, without set
+        acquisition, prior_acquisition or transfer priors."""
         cfg = self.surrogate
         return bool(
             cfg is not None and cfg.sparse and cfg.sparse_ucb_pe and self._num_objectives() == 1
+            and self._mesh is None
             and not self.config.optimize_set_acquisition_for_exploration
             and self.prior_acquisition is None
             and not self._priors
@@ -867,21 +917,30 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         if len(datas) == 1 and self._refresh_ucb_pe_surrogate_mode() == surrogate_config_lib.MODE_SPARSE:
             states = [self._train_sparse(datas[0], ensemble, self._warm_params_me[0])]
         elif self._use_multitask(len(datas)):
-            states = _train_mt_gp(
-                self._mt_model(len(datas)), self._ard, multitask_gp.MultiTaskData.from_gp_datas(datas),
-                self._phase_generator(), self.ard_restarts, ensemble,
-            )
+            mt_model = self._mt_model(len(datas))
+            mt_data = multitask_gp.MultiTaskData.from_gp_datas(datas)
+            if self._mesh is None:
+                states = _train_mt_gp(
+                    mt_model, self._ard, mt_data, self._phase_generator(), self.ard_restarts,
+                    ensemble,
+                )
+            else:
+                # The same restart split as the independent path: the sharded
+                # trainer takes any model with the GP's three methods.
+                states = parallel.train_gp_sharded(
+                    mt_model, self._ard, mt_data, self._phase_generator(),
+                    self._mesh_restarts(self.ard_restarts), ensemble, self._mesh,
+                )
             self._ard_train_counts["cold"] += 1
             self._cached_states = (states, datas)
             return self._cached_states
         else:
-            # Each metric's train is seeded with its own previous optimum.
+            # Each metric's train is seeded with its own previous optimum (on
+            # the mesh, the sharded train when there is one).
             restarts = self._restarts(ensemble)
             generator = self._phase_generator()
             states = [
-                gp_bandit._train_gp(
-                    self._model, self._ard, data, generator, restarts, ensemble, warm
-                )
+                self._train_one(self._model, data, generator, restarts, ensemble, warm)
                 for data, warm in zip(datas, self._warm_params_me)
             ]
             self._record_train()
@@ -1007,6 +1066,7 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
                     torch.tensor([True], device=self.device),
                     torch.tensor([bool(self._trials)], device=self.device), 1, self.config,
                     self.use_trust_region, prior_acquisition=self.prior_acquisition,
+                    mesh=self._mesh,
                 )
                 gp_bandit._synchronize(self.device)
             first, aux = batch_executor.slice_pytree((first, aux), 0)
@@ -1064,7 +1124,7 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
         has_completed = bool(self._trials)
         prior = gp_bandit._prior_features_from_data(datas[0])
         args = (self.config, self.use_trust_region)
-        kw = dict(hv, prior_acquisition=self.prior_acquisition)
+        kw = dict(hv, prior_acquisition=self.prior_acquisition, mesh=self._mesh)
         with profiler.timeit("acquisition_optimizer"):
             if self._two_phase(count):
                 # Full budget on the exploitation-critical first pick; one
@@ -1178,13 +1238,14 @@ _ALONE_PHASES = {
 
 
 def _ucb_pe_unbatchable(designer: "VizierGPUCBPEBandit", count: int) -> bool:
-    """Paths the programs do not cover: the seeding stage, transfer priors,
-    more than one objective (independent or multi-task), set acquisition,
-    ``prior_acquisition``, and a cached fit (the sequential suggest would
-    skip training; re-training it in a flush would not)."""
+    """Paths the programs do not cover: a mesh designer, the seeding stage,
+    transfer priors, more than one objective (independent or multi-task), set
+    acquisition, ``prior_acquisition``, and a cached fit (the sequential
+    suggest would skip training; re-training it in a flush would not)."""
     del count
     return bool(
-        len(designer._trials) + len(designer._active_trials) < designer.num_seed_trials
+        designer._mesh is not None
+        or len(designer._trials) + len(designer._active_trials) < designer.num_seed_trials
         or designer._priors
         or len(designer._objective_indices()) != 1
         or designer.config.optimize_set_acquisition_for_exploration
@@ -1223,33 +1284,36 @@ def _ucb_pe_prepare(designer: "VizierGPUCBPEBandit", count: int, sparse: bool) -
 def _ucb_pe_sweeps(
     d0: VizierGPUCBPEBandit, states, data: gp_lib.GPData, all_data: gp_lib.GPData,
     generators: Sequence[Sequence[torch.Generator]], count: int, sparse: bool, *,
-    first_has_new: Tensor, has_completed: Tensor,
+    first_has_new: Tensor, has_completed: Tensor, device: Optional[torch.device] = None,
 ):
     """The greedy UCB-PE batches of S studies over their trained ``states``
     (S × E members; ``data`` and ``all_data`` stacked [S, ...]): one loop
     of ``count`` picks, or with a two-phase budget a full-budget first pick,
     its append, then the other picks on a split budget. ``generators`` holds
-    each phase's S generators. Returns the [(result, aux)] segments on the
-    device and their pick counts."""
+    each phase's S generators; ``device`` is where they run (the designer's
+    by default). Returns the [(result, aux)] segments on the device and
+    their pick counts. A mesh designer's one study sweeps on its mesh."""
+    device = d0.device if device is None else device
     if sparse:
         # Each study's trained inducing set over its all-points rows, with
         # one spare Nyström slot per pick, re-conditioned over m + count.
         all_data = sparse_gp.with_pending_capacity(states.sdata, all_data, count)
-        pick_model = d0._sparse_all_model(count)
+        pick_model = parallel.replicate(d0._sparse_all_model(count), device)
     else:
         pick_model = None
+    full_opt, pick_opt = parallel.replicate((d0._vec_opt, d0._pick_vec_opt(count)), device)
     prior = gp_bandit._prior_features_from_data(data)
-    args = (d0.config, d0.use_trust_region, pick_model, d0.prior_acquisition)
+    args = (d0.config, d0.use_trust_region, pick_model, d0.prior_acquisition, d0._mesh)
     if not d0._two_phase(count):
         batch, aux = _suggest_batch_studies(
-            d0._pick_vec_opt(count), states, all_data, prior, generators[0],
+            pick_opt, states, all_data, prior, generators[0],
             first_has_new, has_completed, count, *args,
         )
         return [(batch, aux)], [count]
     # Full budget on the exploitation-critical first pick; one further full
     # budget split across the remaining picks.
     first, aux1 = _suggest_batch_studies(
-        d0._vec_opt, states, all_data, prior, generators[0],
+        full_opt, states, all_data, prior, generators[0],
         first_has_new, has_completed, 1, *args,
     )
     if sparse:
@@ -1257,36 +1321,49 @@ def _ucb_pe_sweeps(
     else:
         all_data = _append_row(all_data, first.features)
     rest, aux2 = _suggest_batch_studies(
-        d0._pick_vec_opt(count), states, all_data, prior, generators[1],
+        pick_opt, states, all_data, prior, generators[1],
         torch.zeros_like(first_has_new), has_completed, count - 1, *args,
     )
     return [(first, aux1), (rest, aux2)], [1, count - 1]
 
 
-def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool, alone: bool = False) -> List[dict]:
+_UCB_PE_INPUTS = ("md", "all_md", "first_has_new", "has_completed", "warm", "seed_train",
+                  "seed_acq", "seed_rest")
+
+
+def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool, alone: bool = False,
+                  placement=None) -> List[dict]:
     """Encode → ARD → the greedy UCB-PE batch → warm seeds for every study
     of the flush as one batch, then ONE device-to-host copy of the picks.
     Each slot's state and data stay on the device as views. ``alone``: one
-    study's sequential suggest, timed per stage."""
-    d0: VizierGPUCBPEBandit = items[0]["designer"]
-    stack = lambda name: batch_executor.stack_pytrees([it[name] for it in items], pad_to)  # noqa: E731
-    device = d0.device
-    count = items[0]["count"]
-    data = gp_lib.GPData.from_model_data(stack("md"), device)
-    all_data = gp_lib.GPData.from_model_data(stack("all_md"), device)
+    study's sequential suggest, timed per stage. On a mesh ``placement`` the
+    padded study axis is split over its devices, one batch per device."""
+    outputs: List[dict] = []
+    for inputs, device in gp_bandit._stacked_chunks(items, _UCB_PE_INPUTS, pad_to, placement):
+        outputs += _ucb_pe_chunk(items[0], inputs, device, sparse, alone)
+    return outputs[: len(items)]
+
+
+def _ucb_pe_chunk(item0: dict, inputs: dict, device: torch.device, sparse: bool,
+                  alone: bool) -> List[dict]:
+    """:func:`_ucb_pe_flush` of one device's stacked ``inputs``."""
+    d0: VizierGPUCBPEBandit = item0["designer"]
+    count = item0["count"]
+    data = gp_lib.GPData.from_model_data(inputs["md"], device)
+    all_data = gp_lib.GPData.from_model_data(inputs["all_md"], device)
     studies = data.num_studies
-    generators = lambda name: gp_bandit._generators(device, stack(name))  # noqa: E731
+    generators = lambda name: gp_bandit._generators(device, inputs[name])  # noqa: E731
     train_args = (
-        d0._ard, data, generators("seed_train"), items[0]["restarts"],
-        max(d0.ensemble_size, 1), stack("warm"),
+        parallel.replicate(d0._ard, device), data, generators("seed_train"), item0["restarts"],
+        max(d0.ensemble_size, 1), inputs["warm"],
     )
     train_phase, acquisition_phase = _ALONE_PHASES[sparse] if alone else (None, None)
     with profiler.timeit("train_gp"), device_timing.device_phase(train_phase, device):
         if sparse:
-            model = d0._sparse_model()
+            model = parallel.replicate(d0._sparse_model(), device)
             states = sparse_bandit._train_sparse_gp_studies(model, *train_args)
         else:
-            model = d0._model
+            model = parallel.replicate(d0._model, device)
             states = gp_bandit._train_gp_studies(model, *train_args)
         warm_next = gp_bandit._warm_next_batched(model, states, studies)
         gp_bandit._synchronize(device)
@@ -1296,8 +1373,9 @@ def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool, alone: bool = Fals
     ):
         segments, rows = _ucb_pe_sweeps(
             d0, states, data, all_data, [generators(name) for name in phases], count, sparse,
-            first_has_new=torch.as_tensor(stack("first_has_new"), device=device),
-            has_completed=torch.as_tensor(stack("has_completed"), device=device),
+            first_has_new=torch.as_tensor(inputs["first_has_new"], device=device),
+            has_completed=torch.as_tensor(inputs["has_completed"], device=device),
+            device=device,
         )
         segments = batch_executor.to_host(segments)
     return [
@@ -1311,7 +1389,7 @@ def _ucb_pe_flush(items, pad_to: Optional[int], sparse: bool, alone: bool = Fals
             ],
             sparse=sparse,
         )
-        for i in range(len(items))
+        for i in range(studies)
     ]
 
 
@@ -1340,6 +1418,7 @@ class UCBPEProgram(compute_ir.DesignerProgram):
 
     kind = "gp_ucb_pe"
     device_phase = "gp_ucb_pe.suggest_batched"
+    shardable_batch_axis = "study"
     algorithms = ("DEFAULT", "GP_UCB_PE", "ALGORITHM_UNSPECIFIED")
     sparse = False
 
@@ -1381,9 +1460,11 @@ class UCBPEProgram(compute_ir.DesignerProgram):
     def prepare(self, designer, count):
         return _ucb_pe_prepare(designer, count, sparse=self.sparse)
 
-    def device_program(self, items, pad_to=None):
+    def device_program(self, items, pad_to=None, placement=None):
+        """The bucket's studies as one batch; on a mesh ``placement`` the
+        padded study axis is split over its devices."""
         with device_timing.device_phase(self.device_phase, items[0]["designer"].device):
-            return _ucb_pe_flush(items, pad_to, sparse=self.sparse)
+            return _ucb_pe_flush(items, pad_to, sparse=self.sparse, placement=placement)
 
     def finalize(self, designer, item, output):
         return _ucb_pe_finalize(designer, item, output)
@@ -1404,6 +1485,7 @@ class UCBPESparseProgram(UCBPEProgram):
 
     kind = "gp_ucb_pe_sparse"
     device_phase = "sparse_gp.ucb_pe_suggest_batched"
+    shardable_batch_axis = "study"
     sparse = True
 
 

@@ -36,10 +36,10 @@ replica tier) revives run under LIVE traffic — the epoch-fenced cutover +
 the tier's own failover barrier replace the loadgen driver's external drain gate,
 which is kept only for replication-off runs.
 
-The mesh plane (``PlaneConfig.mesh``) is part of a scenario's identity, so
-it stays; the port runs a mesh-armed scenario as one placement on the run's
-device (:func:`mesh_stamp`), and the soak's ``--mesh-devices`` above 1 is
-refused until the port has a mesh (ROADMAP A12).
+The mesh plane (``PlaneConfig.mesh``, ``VIZIER_TORCH_MESH=1`` in the
+overlay) carves the run's devices into the executor's placements, as the
+JAX package's does; on one card, or on the CPU, that is one placement
+(:func:`mesh_stamp` records what was built).
 
 Protobuf, gRPC and the service client are imported inside the targets and
 functions that use them, so the records, :func:`scenario_env`,
@@ -53,7 +53,7 @@ import os
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from vizier_tpu_torch import device as device_lib
 from vizier_tpu_torch import pyvizier as vz
@@ -214,20 +214,24 @@ def scenario_env(config: models.ScenarioConfig) -> Dict[str, str]:
     return env
 
 
-def mesh_stamp(config: models.ScenarioConfig, device) -> Dict[str, object]:
-    """How the scenario's mesh plane runs on the port.
+def mesh_stamp(
+    config: models.ScenarioConfig, device, executor: Optional[Any]
+) -> Dict[str, object]:
+    """How the scenario's mesh plane ran: the placements of the run's
+    ``executor``. ``None`` stands for a run with no executor in this
+    process (batching off, or replicas in other processes, each building
+    its own placements from the overlay), which reports none.
 
     The JAX package's acceptance soak arms the mesh on its one host device,
-    which builds one placement. The port runs a mesh-armed scenario on one
-    device as well, its executor as the one placement: a placement dispatch
-    worker beside the scheduler, as the JAX executor has, doubled the GP
-    suggest p50 of ``soak_config()`` on an H100 (PERF.md §6), since the
-    port's flushes batch the slots that queue while the scheduler computes.
-    The soak's command line refuses more mesh devices (ROADMAP A12).
+    which builds one placement; the port does the same on one card. With one
+    placement the executor's scheduler runs every flush, as without the
+    mesh: a placement worker beside it doubled the GP suggest p50 of
+    ``soak_config()`` on an H100 (PERF.md §6).
     """
     if not config.planes.mesh:
         return {"armed": False, "placements": 0}
-    return {"armed": True, "placements": 1, "device": str(device)}
+    placements = executor.placements() if executor is not None else []
+    return {"armed": True, "placements": len(placements), "device": str(device)}
 
 
 def loadgen_reliability() -> reliability_config_lib.ReliabilityConfig:
@@ -524,11 +528,13 @@ class _ReplicaTarget(_ServiceStudies):
 
 class _DetachedRuntime:
     """Runtime shim for targets whose serving runtimes live in OTHER
-    processes: the loadgen driver cannot reach a subprocess replica's SLO engine
-    or admission controller, so those report sections come back empty
-    (each replica dumps its own via ``--obs-dump-dir`` instead)."""
+    processes: the loadgen driver cannot reach a subprocess replica's SLO engine,
+    admission controller or batch executor, so those report sections and
+    the mesh stamp's placements come back empty (each replica dumps its own
+    via ``--obs-dump-dir`` instead)."""
 
     slo_engine = None
+    batch_executor = None
 
     def slo_report(self) -> Dict[str, object]:
         return {}
@@ -701,9 +707,9 @@ class _RuntimeTarget:
     def __init__(self, scenario: models.Scenario, reliability, factory, device):
         from vizier_tpu_torch.serving import runtime as runtime_lib
 
-        del scenario, device  # the factory carries the device
+        del scenario
         self._runtime_lib = runtime_lib
-        self.runtime = runtime_lib.ServingRuntime(reliability=reliability)
+        self.runtime = runtime_lib.ServingRuntime(reliability=reliability, device=device)
         factory.bind_runtime(self.runtime)
         self._factory = factory
         self._studies: Dict[str, _RuntimeStudy] = {}
@@ -1384,7 +1390,6 @@ def run(
         raise ValueError(f"Unknown transport {transport!r}; expected one of {TRANSPORTS}.")
     device = device_lib.resolve(device)
     config = scenario.config
-    mesh = mesh_stamp(config, device)
     if only_indices is not None:
         scenario = models.Scenario(
             config,
@@ -1408,6 +1413,7 @@ def run(
             scenario, device=device, chaos=monkey if transport == "runtime" else None
         )
         target = _build_target(scenario, reliability, factory, device, transport)
+        mesh = mesh_stamp(config, device, target.runtime.batch_executor)
         run_state = _Run(scenario, target, monkey, recorder)
 
         def run_one(spec: models.StudySpec) -> None:

@@ -42,9 +42,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import sys
 import time
+import unittest.mock
 
 from vizier_tpu_torch.loadgen import driver as driver_lib
 from vizier_tpu_torch.loadgen import models
@@ -127,8 +129,8 @@ def _parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         metavar="N",
-        help="arm the mesh plane over N devices (the port runs one placement; "
-        "N above 1 is refused until the port has a mesh)",
+        help="arm the mesh plane over at most N of the run's devices "
+        "(VIZIER_TORCH_MESH_DEVICES; one card or the CPU is one placement)",
     )
     parser.add_argument("--think-time", type=float, default=None,
                         help="per-GP-trial evaluation window in seconds")
@@ -201,12 +203,12 @@ def main(argv=None) -> int:
             print(f"[soak] wrote {args.diff_out}")
         return 0 if diff["ok"] else 1
 
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            f"A mesh over {args.mesh_devices} devices needs the mesh plane, which the port "
-            "does not have yet (ROADMAP A12); a mesh-armed scenario runs as one placement "
-            "on one device."
-        )
+    if args.mesh_devices:
+        # The runtime's MeshConfig.from_env() reads the cap during the run.
+        with unittest.mock.patch.dict(
+            os.environ, {"VIZIER_TORCH_MESH_DEVICES": str(args.mesh_devices)}
+        ):
+            return _soak(args)
     return _soak(args)
 
 

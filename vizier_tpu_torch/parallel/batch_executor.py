@@ -1,10 +1,10 @@
 """Cross-study continuous batching: N same-shape studies, one device batch.
 
-Counterpart of the JAX package's ``parallel/batch_executor.py``, single
-placement. The padding schedule (``converters.padding``) quantizes trials
-and features into a small grid of ``(pad_trials, cont_width, cat_width)``
-buckets, so concurrent designer computations from *different* studies are
-collected into shape-bucket queues and run as one program over a leading
+Counterpart of the JAX package's ``parallel/batch_executor.py``. The
+padding schedule (``converters.padding``) quantizes trials and features into
+a small grid of ``(pad_trials, cont_width, cat_width)`` buckets, so
+concurrent designer computations from *different* studies are collected
+into shape-bucket queues and run as one program over a leading
 study axis (``DesignerProgram.device_program``): N studies' work in the
 kernel launches of one.
 
@@ -14,7 +14,8 @@ Scheduling is a bounded micro-batch window: a bucket flushes when it reaches
 ``max_batch_size`` with copies of slot 0 that are dropped at demux. A lone
 slot that was never prepared takes the designer's ordinary ``suggest``.
 
-Every computation of the executor runs on its one scheduler thread, a lone
+Every computation of the executor runs on its one scheduler thread (or, on a
+mesh of several placements, on the bucket's placement worker), a lone
 slot's ``suggest`` included (the JAX executor hands that one back to the
 caller's thread). The port's device work is eager and host-bound: a suggest
 enqueues hundreds of thousands of launches from Python, so suggests running
@@ -54,8 +55,19 @@ flushes, as every computation of the executor does, so a capture never
 overlaps another thread's launches and the graphs are captured on the thread
 that replays them.
 
-The JAX package's mesh placements are not part of the port; asking for the
-mesh raises.
+Mesh execution plane (``parallel.mesh``, opt-in ``VIZIER_TORCH_MESH=1``): the
+host's devices are carved into placements and each bucket is sticky-assigned
+to one (least loaded on its first flush). A shardable program's flush on a
+placement pads at shard granularity (``DevicePlacement.pad_to``: the next
+power-of-two multiple of its device count) instead of to ``max_batch_size``,
+and gets the placement, which splits its study axis over the placement's
+devices (:func:`place_batch`). With exactly one placement the scheduler
+thread still runs every flush, as above: a placement worker beside it doubled
+the loadgen soak's GP suggest p50 on an H100. With two or more, each
+placement has one worker thread (``vizier-mesh-worker-<i>``) that runs every
+launch of its buckets (flushes, lone slots, fallbacks, prewarm steps), so a
+capture on a device never overlaps another thread's launches there; the
+scheduler then only forms flushes.
 """
 
 from __future__ import annotations
@@ -154,6 +166,16 @@ def slice_pytree(tree: Any, index: int) -> Any:
     return tree_map(lambda a: a[index], tree)
 
 
+def place_batch(tree: Any, placement: Optional[Any] = None) -> List[Any]:
+    """A stacked flush pytree as the chunks its devices run: ``[tree]`` with
+    no placement, else one chunk per device of the placement
+    (``DevicePlacement.shard``). The shardable programs route their stacked
+    inputs through this."""
+    if placement is None:
+        return [tree]
+    return placement.shard(tree)
+
+
 def to_host(tree: Any) -> Any:
     """The tree with every tensor leaf on the host, copied in ONE transfer:
     the leaves' bytes are packed into one buffer on their device, copied,
@@ -232,7 +254,8 @@ class BatchExecutor:
     Callers (one serving thread per study, each holding its study's
     cache-entry lock) block in :meth:`suggest`; a single daemon scheduler
     thread owns flush decisions and runs the batched programs and the lone
-    slots' suggests, so device work is serialized.
+    slots' suggests, so device work is serialized. On a mesh of several
+    placements it hands each flush to its placement's worker thread instead.
     """
 
     def __init__(
@@ -243,13 +266,14 @@ class BatchExecutor:
         stats: Optional[Any] = None,  # serving.stats.ServingStats
         metrics: Optional[metrics_lib.MetricsRegistry] = None,
         time_fn: Callable[[], float] = time.monotonic,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Any] = None,  # parallel.mesh.MeshConfig
         admission: Optional[Any] = None,  # serving.admission.AdmissionController
+        device: Any = "cuda",
     ):
+        """``device`` names the device type whose devices an enabled ``mesh``
+        carves into placements (the designers' own device type)."""
         if max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {max_batch_size}")
-        if mesh is not None and getattr(mesh, "enabled", True):
-            raise NotImplementedError("The port's batch executor has no mesh placements.")
         self.max_batch_size = max_batch_size
         self.max_wait_secs = max(max_wait_ms, 0.0) / 1000.0
         # Weighted fair share across tenants: with a controller attached,
@@ -274,6 +298,31 @@ class BatchExecutor:
             collections.deque())
         self._thread: Optional[threading.Thread] = None
         self._closed = False
+        # -- mesh execution plane (parallel.mesh, VIZIER_TORCH_MESH=1) -------
+        # Placements are built only when the config enables the mesh; None
+        # keeps every mesh branch below dead.
+        self._placements: Optional[List[Any]] = None
+        # Per-placement dispatch queues and workers, used with two or more
+        # placements: entries are ("flush", key, slots, reason) or ("task",
+        # fn, done event, [result, error]).
+        self._workers: List[threading.Thread] = []
+        self._dispatch_cond = threading.Condition()
+        self._dispatch_queues: Dict[int, Deque[tuple]] = {}
+        self._dispatch_closed = False
+        # BucketKey -> placement index, sticky from the first flush (the
+        # prewarm walker assigns through the same map). Guarded by
+        # _dispatch_cond.
+        self._bucket_placement: Dict[BucketKey, int] = {}
+        # Flushes per placement label; each entry is written only by the
+        # thread that runs its placement's flushes.
+        self._placement_flushes: Dict[str, int] = {}
+        if mesh is not None and getattr(mesh, "enabled", False):
+            from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+            self._placements = mesh_lib.build_placements(mesh, device)
+            for placement in self._placements:
+                self._dispatch_queues[placement.index] = collections.deque()
+                self._placement_flushes[placement.label()] = 0
         self._occupancy = self._flushes = self._queue_wait = None
         if metrics is not None:
             self._occupancy = metrics.histogram(
@@ -358,17 +407,69 @@ class BatchExecutor:
         return slot.output  # "alone"
 
     def close(self) -> None:
-        """Drains every queue (reason "drain") and stops the scheduler."""
+        """Drains every queue (reason "drain") and stops the scheduler, and
+        then the placement workers, which run the drained flushes the
+        scheduler handed them first."""
         with self._cond:
             self._closed = True
             self._cond.notify_all()
         thread = self._thread
         if thread is not None:
             thread.join(timeout=30.0)
+        if self._placements is not None:
+            with self._dispatch_cond:
+                self._dispatch_closed = True
+                self._dispatch_cond.notify_all()
+            for worker in self._workers:
+                worker.join(timeout=30.0)
 
     def pending_counts(self) -> Dict[str, int]:
         with self._cond:
             return {k.label(): len(v) for k, v in self._queues.items() if v}
+
+    # -- mesh introspection -------------------------------------------------
+
+    @property
+    def mesh_enabled(self) -> bool:
+        return self._placements is not None
+
+    def placements(self) -> List[Any]:
+        """The device placements (empty when the mesh plane is off)."""
+        return list(self._placements or [])
+
+    def placement_flush_counts(self) -> Dict[str, int]:
+        """Flushes run per placement label (mesh on only)."""
+        return dict(self._placement_flushes)
+
+    def bucket_placements(self) -> Dict[str, List[str]]:
+        """Sticky bucket -> placements, by bucket label (which omits the
+        statics, so one label may hold several keys' placements)."""
+        if self._placements is None:
+            return {}
+        by_index = {p.index: p.label() for p in self._placements}
+        out: Dict[str, List[str]] = {}
+        with self._dispatch_cond:
+            for key, idx in self._bucket_placement.items():
+                out.setdefault(key.label(), []).append(by_index[idx])
+        return {label: sorted(placements) for label, placements in out.items()}
+
+    def _placement_for(self, key: BucketKey) -> Any:
+        """The placement sticky-assigned to ``key``: the least loaded on its
+        first sight, the same ever after. Caller must not hold
+        ``_dispatch_cond``."""
+        with self._dispatch_cond:
+            index = self._bucket_placement.get(key)
+            if index is None:
+                load: Dict[int, int] = {p.index: 0 for p in self._placements}
+                for assigned in self._bucket_placement.values():
+                    load[assigned] += 1
+                index = min(load, key=lambda i: (load[i], i))
+                self._bucket_placement[key] = index
+        return self._placements[index]
+
+    def _uses_workers(self) -> bool:
+        """Two or more placements: each runs its buckets on its own worker."""
+        return self._placements is not None and len(self._placements) > 1
 
     def queue_depth(self) -> Dict[str, int]:
         """Queued slots by lane — the speculative admission gate's view of
@@ -389,6 +490,16 @@ class BatchExecutor:
                 target=self._scheduler_loop, name="vizier-torch-batch-executor", daemon=True
             )
             self._thread.start()
+        if self._uses_workers() and not self._workers:
+            self._workers = [
+                threading.Thread(
+                    target=self._worker_loop, args=(placement,),
+                    name=f"vizier-mesh-worker-{placement.index}", daemon=True,
+                )
+                for placement in self._placements
+            ]
+            for worker in self._workers:
+                worker.start()
 
     @staticmethod
     def _deferrable(slots: List[_Slot]) -> bool:
@@ -548,28 +659,73 @@ class BatchExecutor:
                 due = self._take_due()
                 if not due and not tasks:
                     if self._closed:
+                        self._signal_workers_closed()
                         return
                     self._cond.wait(timeout=self._next_deadline())
                     continue
             for fn, done, outcome in tasks:
-                try:
-                    outcome[0] = fn()
-                except BaseException as e:  # raised again on the waiting thread
-                    outcome[1] = e
-                done.set()
+                self._run_task(fn, done, outcome)
             for key, slots, reason in due:
-                self._execute(key, slots, reason)
+                if not self._uses_workers():
+                    # No mesh, or one placement: the scheduler runs the flush.
+                    self._execute(key, slots, reason, self._placements[0]
+                                  if self._placements is not None else None)
+                    continue
+                # Several placements: the scheduler only forms flushes; the
+                # bucket's placement worker runs it.
+                placement = self._placement_for(key)
+                with self._dispatch_cond:
+                    self._dispatch_queues[placement.index].append(("flush", key, slots, reason))
+                    self._dispatch_cond.notify_all()
 
-    def _run_on_scheduler(self, fn: Callable[[], Any]) -> Any:
-        """Runs ``fn()`` on the scheduler thread between flushes and returns
-        its result (its exception is raised here)."""
+    @staticmethod
+    def _run_task(fn: Callable[[], Any], done: threading.Event, outcome: list) -> None:
+        try:
+            outcome[0] = fn()
+        except BaseException as e:  # raised again on the waiting thread
+            outcome[1] = e
+        done.set()
+
+    def _signal_workers_closed(self) -> None:
+        if self._placements is None:
+            return
+        with self._dispatch_cond:
+            self._dispatch_closed = True
+            self._dispatch_cond.notify_all()
+
+    def _worker_loop(self, placement: Any) -> None:
+        """One placement's thread: runs its queued flushes and tasks in order,
+        popped under the dispatch lock and run outside it."""
+        queue = self._dispatch_queues[placement.index]
+        while True:
+            with self._dispatch_cond:
+                while not queue and not self._dispatch_closed:
+                    self._dispatch_cond.wait()
+                if not queue:
+                    return
+                entry = queue.popleft()
+            if entry[0] == "task":
+                self._run_task(*entry[1:])
+            else:
+                self._execute(*entry[1:], placement)
+
+    def _run_on_scheduler(self, fn: Callable[[], Any], placement: Optional[Any] = None) -> Any:
+        """Runs ``fn()`` between flushes on the thread that runs
+        ``placement``'s flushes (the scheduler, or with several placements
+        that placement's worker) and returns its result (its exception is
+        raised here)."""
         done, outcome = threading.Event(), [None, None]
         with self._cond:
             if self._closed:
                 raise RuntimeError("The batch executor is closed.")
             self._ensure_scheduler()
-            self._tasks.append((fn, done, outcome))
-            self._cond.notify_all()
+            if placement is None or not self._uses_workers():
+                self._tasks.append((fn, done, outcome))
+                self._cond.notify_all()
+            else:
+                with self._dispatch_cond:
+                    self._dispatch_queues[placement.index].append(("task", fn, done, outcome))
+                    self._dispatch_cond.notify_all()
         done.wait()
         if outcome[1] is not None:
             raise outcome[1]
@@ -581,15 +737,23 @@ class BatchExecutor:
         if self._stats is not None and amount:
             self._stats.increment(field, amount)
 
-    def _observe_flush(self, key: BucketKey, slots: List[_Slot], reason: str) -> None:
+    def _observe_flush(
+        self, key: BucketKey, slots: List[_Slot], reason: str, placement: Optional[Any] = None
+    ) -> None:
         now = self._time()
         label = key.label()
+        # The device label exists only on a mesh, so the series of the
+        # executor without one stay as they were.
+        device = {"device": placement.label()} if placement is not None else {}
         if self._flushes is not None:
-            self._flushes.inc(reason=reason)
-            self._occupancy.observe(len(slots), bucket=label)
+            self._flushes.inc(reason=reason, **device)
+            self._occupancy.observe(len(slots), bucket=label, **device)
             for slot in slots:
-                self._queue_wait.observe(now - slot.enqueued_at, bucket=label)
+                self._queue_wait.observe(now - slot.enqueued_at, bucket=label, **device)
         self._increment("batch_flushes")
+        if placement is not None:
+            self._increment("mesh_flushes")
+            self._placement_flushes[placement.label()] += 1
         recorder = recorder_lib.get_recorder()
         if recorder.enabled:
             # Flush membership: the member suggests' trace ids tie this
@@ -600,15 +764,19 @@ class BatchExecutor:
                 bucket=label,
                 occupancy=len(slots),
                 reason=reason,
-                device=None,
+                device=placement.label() if placement is not None else None,
                 members=[s.span.trace_id for s in slots if s.span is not None],
             )
 
-    def _execute(self, key: BucketKey, slots: List[_Slot], reason: str) -> None:
-        self._observe_flush(key, slots, reason)
+    def _execute(
+        self, key: BucketKey, slots: List[_Slot], reason: str, placement: Optional[Any] = None
+    ) -> None:
+        self._observe_flush(key, slots, reason, placement)
         tracer = tracing_lib.get_tracer()
+        device_attr = {"device": placement.label()} if placement is not None else {}
         with tracer.span(
-            "batch_executor.flush", bucket=key.label(), occupancy=len(slots), reason=reason
+            "batch_executor.flush", bucket=key.label(), occupancy=len(slots), reason=reason,
+            **device_attr,
         ) as span:
             for slot in slots:
                 if slot.span is not None and span is not None:
@@ -620,7 +788,7 @@ class BatchExecutor:
                 # suggest, run here (see the module docstring).
                 self._run_alone(slots[0])
                 return
-            self._execute_batched(slots)
+            self._execute_batched(slots, placement)
 
     @staticmethod
     def _run_alone(slot: _Slot) -> None:
@@ -632,7 +800,7 @@ class BatchExecutor:
         slot.action = "alone"
         slot.event.set()
 
-    def _execute_batched(self, slots: List[_Slot]) -> None:
+    def _execute_batched(self, slots: List[_Slot], placement: Optional[Any] = None) -> None:
         # Prepare any slot that arrived into an empty bucket; a study whose
         # prepare raises is dropped before the device program runs.
         live: List[_Slot] = []
@@ -649,9 +817,8 @@ class BatchExecutor:
         if not live:
             return
         program = live[0].program
-        pad_to = self.max_batch_size if self.pad_partial else None
         try:
-            outputs = program.device_program([slot.item for slot in live], pad_to=pad_to)
+            outputs = self._run_program(program, [slot.item for slot in live], placement)
         except BaseException:
             # The shared device program died: every slot retries alone, one
             # after another, and each fallback is counted.
@@ -664,6 +831,19 @@ class BatchExecutor:
             slot.output = output
             slot.action = "batched"
             slot.event.set()
+
+    def _run_program(self, program: Any, items: List[dict], placement: Optional[Any]) -> List[Any]:
+        """The program's device body over ``items``. A shardable program on a
+        placement pads at shard granularity (``DevicePlacement.pad_to``) and
+        gets the placement, which splits its study axis over the devices;
+        anything else pads to ``max_batch_size`` (with ``pad_partial``)."""
+        if placement is not None and getattr(program, "shardable_batch_axis", ""):
+            return program.device_program(
+                items, pad_to=placement.pad_to(len(items), self.max_batch_size),
+                placement=placement,
+            )
+        return program.device_program(
+            items, pad_to=self.max_batch_size if self.pad_partial else None)
 
     # -- prewarm ------------------------------------------------------------
 
@@ -684,7 +864,10 @@ class BatchExecutor:
         every requested suggestion ``count``, trains and sweeps synthetic
         studies once at batch sizes {1, max}: 1 runs a study's sequential
         suggest (the lone-slot path), max the padded flush every batched
-        bucket runs (with ``pad_partial``, the only batched layout). A
+        bucket runs (with ``pad_partial``, the only batched layout); on a mesh
+        the batched sizes are the placements' padding grids
+        (``DevicePlacement.pad_grid``) and each bucket's steps run through its
+        sticky placement, on the thread that will run its live flushes. A
         bucket's first live flush then captures no CUDA graph. Returns one
         report row per (bucket, count, batch size): its wall seconds, the
         graphs it captured and its status (a failed step is reported, not
@@ -696,7 +879,14 @@ class BatchExecutor:
         from vizier_tpu_torch.optimizers import graphs as graphs_lib
         from vizier_tpu_torch.pyvizier import trial as trial_
 
-        sizes = tuple(batch_sizes) if batch_sizes else (1, self.max_batch_size)
+        if batch_sizes:
+            sizes = tuple(batch_sizes)
+        elif self._placements is not None:
+            grid = sorted({size for placement in self._placements
+                           for size in placement.pad_grid(self.max_batch_size)})
+            sizes = tuple([1] + [s for s in grid if s != 1])
+        else:
+            sizes = (1, self.max_batch_size)
         probe = designer_factory(problem)
         if torch.device(getattr(probe, "device", "cpu")).type == "cuda":
             native.library()
@@ -729,8 +919,7 @@ class BatchExecutor:
                     status = "ok"
                     captures = graphs_lib.STATS["captures"]
                     try:
-                        self._run_on_scheduler(
-                            lambda: self._prewarm_step(designers, count, size))
+                        self._prewarm_on_placement(designers, count, size)
                     except Exception as e:  # prewarm must never block serving
                         status = f"error:{type(e).__name__}"
                     captures = graphs_lib.STATS["captures"] - captures
@@ -746,22 +935,26 @@ class BatchExecutor:
                     )
         return report
 
-    def _prewarm_step(self, designers: List[Any], count: int, size: int) -> None:
-        """One synthetic flush: the lone suggest at size 1, else the padded
+    def _prewarm_on_placement(self, designers: List[Any], count: int, size: int) -> None:
+        """One synthetic flush, on the thread and placement that will run the
+        bucket's live flushes: the lone suggest at size 1, else the padded
         batch through the designers' resolved program."""
-        if size == 1:
-            designers[0].suggest(count)
-            return
         # Resolution refreshes each designer's surrogate mode, which prepare
-        # snapshots into its item, and names the program this bucket runs.
+        # snapshots into its item, and names the program and the bucket.
         resolved = [compute_registry.resolve(d, count) for d in designers]
-        if any(r is None for r in resolved):
+        placement = None
+        if self._placements is not None and resolved[0] is not None:
+            placement = self._placement_for(resolved[0][1])
+        self._run_on_scheduler(
+            lambda: self._prewarm_step(designers, count, size, resolved, placement), placement)
+
+    def _prewarm_step(self, designers: List[Any], count: int, size: int, resolved: List[Any],
+                      placement: Optional[Any]) -> None:
+        if size == 1 or any(r is None for r in resolved):
             designers[0].suggest(count)
             return
         program, _ = resolved[0]
         items = [program.prepare(d, count) for d in designers]
-        outputs = program.device_program(
-            items, pad_to=self.max_batch_size if self.pad_partial else None
-        )
+        outputs = self._run_program(program, items, placement)
         for d, item, out in zip(designers, items, outputs):
             program.finalize(d, item, out)

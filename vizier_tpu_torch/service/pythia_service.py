@@ -77,15 +77,16 @@ class PythiaServicer:
         # ``reliability_config`` disable parts or all of it;
         # ``surrogate_config`` sets the exact↔sparse auto-switch every GP
         # designer shares; ``admission_config`` arms the multi-tenant
-        # overload-protection plane (off = the path without admission).
-        # ``mesh_config`` names a plane the port does not have: the runtime
-        # refuses it. None -> defaults with env-var overrides.
+        # overload-protection plane (off = the path without admission);
+        # ``mesh_config`` the mesh execution plane over the servicer's device
+        # type. None -> defaults with env-var overrides.
         self._serving = serving_runtime_lib.ServingRuntime(
             serving_config,
             reliability=reliability_config,
             surrogates=surrogate_config,
             mesh=mesh_config,
             admission=admission_config,
+            device=self.device,
         )
         self._policy_factory = policy_factory or policy_factory_lib.DefaultPolicyFactory(
             serving_runtime=self._serving, device=self.device

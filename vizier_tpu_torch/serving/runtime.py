@@ -38,8 +38,9 @@ Prewarm (:meth:`prewarm_batching`, or :meth:`maybe_prewarm_batching_async`
 with ``batching_prewarm`` on) builds the kernel library and runs one flush per
 (bucket, count, batch size), so a bucket's first live flush captures no CUDA
 graph; ``compilation_cache_dir`` is where the kernel library is built and
-found again by later processes. The mesh execution plane is not ported;
-asking for it raises.
+found again by later processes. The mesh execution plane (``mesh``, or
+``MeshConfig.from_env()`` when batching is on) carves the host's devices of
+the runtime's ``device`` type into the executor's placements.
 """
 
 from __future__ import annotations
@@ -148,14 +149,13 @@ class ServingRuntime:
         observability: Optional[obs_config_lib.ObservabilityConfig] = None,
         surrogates: Optional[surrogate_config_lib.SurrogateConfig] = None,
         speculative: Optional[speculative_lib.SpeculativeConfig] = None,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Any] = None,  # parallel.mesh.MeshConfig
         slo: Optional[slo_lib.SloConfig] = None,
         admission: Optional[admission_lib.AdmissionConfig] = None,
+        device: Any = "cuda",
     ):
-        if mesh is not None and getattr(mesh, "enabled", True):
-            raise NotImplementedError(
-                "The mesh plane of the JAX package's serving runtime is not ported."
-            )
+        """``device`` is the designers' device type, whose devices an enabled
+        mesh carves into placements."""
         self.config = config or config_lib.ServingConfig.from_env()
         self.observability = observability or obs_config_lib.ObservabilityConfig.from_env()
         # The exact↔sparse auto-switch threaded into every GP designer the
@@ -209,16 +209,24 @@ class ServingRuntime:
             )
         # Cross-study batch executor: concurrent same-bucket designer
         # computations share one batched program. None = batching off: the
-        # per-study path.
+        # per-study path. The mesh execution plane (VIZIER_TORCH_MESH=1,
+        # parallel.mesh.MeshConfig) carves the devices into the placements the
+        # executor schedules buckets over; off (the default) = one thread.
         self.batch_executor: Optional[batch_executor_lib.BatchExecutor] = None
+        self.mesh = mesh
         if self.config.batching:
+            from vizier_tpu_torch.parallel import mesh as mesh_lib
+
+            self.mesh = mesh or mesh_lib.MeshConfig.from_env()
             self.batch_executor = batch_executor_lib.BatchExecutor(
                 max_batch_size=self.config.batch_max_size,
                 max_wait_ms=self.config.batch_max_wait_ms,
                 pad_partial=self.config.batch_pad_partial,
                 stats=self.stats,
                 metrics=metrics,
+                mesh=self.mesh,
                 admission=self.admission,
+                device=device,
             )
         # Speculative pre-compute: after each completion the next suggestion
         # batch is computed in the background and served from the

@@ -195,12 +195,7 @@ class ChaosDesigner(core_lib.Designer):
 
     def batch_execute(self, items, pad_to: Optional[int] = None, placement=None):
         self._chaos.strike("designer.batch_execute")
-        if placement is not None:
-            raise NotImplementedError(
-                "Device placements belong to the mesh plane, which the port does not have "
-                "yet (ROADMAP A12)."
-            )
-        return self._inner_program().device_program(items, pad_to=pad_to)
+        return self._inner_program().device_program(items, pad_to=pad_to, placement=placement)
 
     def batch_finalize(self, item: dict, output) -> List[trial_.TrialSuggestion]:
         try:
@@ -246,8 +241,9 @@ class ChaosProgram(compute_ir.DesignerProgram):
         self.algorithms = inner.algorithms
         self.device_phase = getattr(inner, "device_phase", "")
         self.surrogate_family = getattr(inner, "surrogate_family", "exact")
-        # Mesh shardability is the wrapped program's call, as in the JAX
-        # package (the port's executor has no placements yet).
+        # Mesh shardability is the wrapped program's call: a chaos-wrapped
+        # shardable program runs on its assigned placement, so the strikes
+        # reach the mesh dispatch path too.
         self.shardable_batch_axis = getattr(inner, "shardable_batch_axis", "")
 
     def bucket_key(self, designer, count):

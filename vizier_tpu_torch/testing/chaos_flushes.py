@@ -69,7 +69,7 @@ def _unstruck(designer_: chaos.ChaosDesigner) -> None:
     designer_.batch_prepare = lambda count=None: designer_._inner_program(count).prepare(
         designer_._inner, count or 1)
     designer_.batch_execute = lambda items, pad_to=None, placement=None: (
-        designer_._inner_program().device_program(items, pad_to=pad_to))
+        designer_._inner_program().device_program(items, pad_to=pad_to, placement=placement))
 
 
 def _flush(executor: BatchExecutor, designers, count: int = 1):
