@@ -330,15 +330,42 @@ Phases (any failure raises and exits non-zero):
    ``pad_to`` and split into 4 chunks of 2, each slot's trained NLL within
    1e-3 of the mesh-off flush's (the per-device batch is 2, not 8: C6), its
    suggestions finite and in bounds, 0 CUDA-graph capture failures.
-20. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+20. lanes, last in the ``regret`` worker: the executor's N-lane table and
+   the multi-host seam. (a) One ``BatchExecutor`` with three lanes, ``live``
+   (0), ``batchwork`` (1, deferrable, cap 150 ms) and ``speculative`` (2,
+   deferrable, cap 250 ms), and a 100 ms window serves GP-UCB-PE studies at
+   the soak's 2-D layout with its designer economics, submitted on all
+   three lanes at once in separate buckets (the suggestion count is in the
+   key), one speculative slot in the live bucket: the flushes printed in
+   order; no deferrable bucket flushes while a slot of a lower priority
+   number is queued except at its cap, batchwork before speculative, the
+   speculative slot rides the live flush, ``queue_depth()`` shows all three
+   lanes queued at once; 0 slot errors, fallbacks and capture failures,
+   suggestions finite and in bounds, K1/K2 launched. (b) Two processes of
+   the tests' two-process worker (``tests/torch_multihost_worker.py``, at
+   bench.py's study) join one ``gloo`` group through
+   ``parallel.initialize_multihost`` on a free local port, each with the
+   card as its one local device: each prints global 2, local 1, processes 2
+   and 2 placements, refuses an executor placement across both, and serves
+   one batched flush of two studies on its own placement with no fallback;
+   then it runs, over the global mesh, the sharded train from fixed inits
+   (the restarts rounded to the mesh), the 4-pool sweep of its ensemble (5
+   000 evaluations a pool) and ``suggest_step_sharded`` from the same
+   inits, printing each part's wall, its gathers' wall and its launches. The
+   two processes' arrays must be equal bit for bit, within 1e-6 of the same
+   calls in this process over a 2-entry logical mesh of the card
+   (``local_devices`` patched for that part alone), and the trained NLL
+   within 1e-3 of the unsharded train's. Either process failing or passing
+   its own 300 s fails the phase.
+21. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
    service-reliability, service-planes, fleet, loadgen, testing,
-   benchmarks, tooling and mesh steps' included, by mode; K2's
+   benchmarks, tooling, mesh and lanes steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-19 run in three worker
+The phases are host-bound, so phases 7-9 and 14-20 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -5372,6 +5399,309 @@ def run_mesh_phase(kernels, lib):
     print(f"mesh: phase {figures['wall_s']:.1f} s; {_card_line()}")
     return paths, figures
 
+# -- phase 20: the executor's lane table and the multi-host seam ----------------
+
+# (a) The executor's three lanes (name, priority, deferrable, starvation cap
+# ms) and its window: the live bucket flushes first on its window, the
+# deferrable ones after it in priority order or at their caps.
+_LANES = (("live", 0, False, 0.0), ("batchwork", 1, True, 150.0),
+          ("speculative", 2, True, 250.0))
+_LANE_WINDOW_MS = 100.0
+# (a) Each lane's studies as (lane, suggestion count, completed trials): the
+# count is part of the bucket key, so the lanes' buckets are separate at the
+# soak's 2-D layout (10-13 trials, the 16-row bucket); one speculative slot
+# joins the live bucket and must ride its flush.
+_LANE_JOBS = (("live", 1, 10), ("live", 1, 11), ("speculative", 1, 12),
+              ("batchwork", 2, 10), ("batchwork", 2, 13),
+              ("speculative", 3, 11), ("speculative", 3, 12))
+# (b) Each of the two processes' own time limit, inside the phase's worker's.
+_MULTIHOST_LIMIT_S = 300.0
+# (b) The two processes against one process over a 2-entry logical mesh of
+# the card (the same chunks on the same card): |difference| relative to
+# max(1, |value|).
+_MULTIHOST_TOL = 1e-6
+# (b) The parts of the worker's run that it times.
+_MULTIHOST_PARTS = ("train_ms", "sweep_ms", "step_ms")
+
+
+def _lane_designers(vz):
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.loadgen import models
+    from vizier_tpu_torch.optimizers import lbfgs
+
+    soak = models.soak_config()
+    problem = vz.ProblemStatement()
+    for j in range(soak.dim):
+        problem.search_space.root.add_float_param(f"x{j}", 0.0, 1.0)
+    problem.metric_information.append(
+        vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    designers = []
+    for seed, (_, _, trials) in enumerate(_LANE_JOBS):
+        # The soak's designer economics (LoadgenPolicyFactory).
+        d = gp_ucb_pe.VizierGPUCBPEBandit(
+            problem, rng_seed=seed, device="cuda", ard_restarts=soak.ard_restarts,
+            max_acquisition_evaluations=soak.acquisition_evals, warm_start_min_trials=0,
+            ard_optimizer=lbfgs.AdamOptimizer(maxiter=soak.ard_maxiter, device="cuda",
+                                              cuda_graph=True))
+        d.update(vz.CompletedTrials(_prewarm_trials(vz, soak.dim, trials, seed=seed)),
+                 vz.ActiveTrials())
+        designers.append(d)
+    return designers, soak.dim
+
+
+def _lanes_on_the_card(kernels, vz) -> tuple:
+    """(a) Three lanes on one executor, GP-UCB-PE studies submitted on all
+    three at once. Returns (launches by mode, figures)."""
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.serving import stats as stats_lib
+
+    label = "lanes (a)"
+    lanes = [batch_executor.LaneSpec(*lane) for lane in _LANES]
+    spec = {lane.name: lane for lane in lanes}
+    stats = stats_lib.ServingStats()
+    executor = batch_executor.BatchExecutor(
+        max_batch_size=4, max_wait_ms=_LANE_WINDOW_MS, stats=stats,
+        speculative_max_wait_ms=spec["speculative"].starvation_cap_ms, lanes=lanes)
+    designers, dim = _lane_designers(vz)
+    # Every take that returned batches: the lanes queued just before it, by
+    # bucket, and the batches in the order the executor runs them.
+    log, take, start = [], executor._take_due, time.perf_counter()
+
+    def recording_take():
+        queued = [[s.lane for s in slots] for slots in executor._queues.values() if slots]
+        due = take()
+        if due:
+            log.append((time.perf_counter() - start, queued,
+                        [(key.label(), [s.lane for s in slots], reason)
+                         for key, slots, reason in due]))
+        return due
+
+    executor._take_due = recording_take
+    results, errors, depths, done = [None] * len(_LANE_JOBS), [], [], threading.Event()
+
+    def run(i):
+        lane, count, _ = _LANE_JOBS[i]
+        try:
+            # The rider goes through ``speculative=True``, the others by name.
+            results[i] = (executor.suggest(designers[i], count, speculative=True)
+                          if lane == "speculative" and count == 1
+                          else executor.suggest(designers[i], count, lane=lane))
+        except Exception as e:  # raised below, on this thread
+            errors.append(e)
+
+    def poll():
+        while not done.is_set():
+            depths.append(executor.queue_depth())
+            time.sleep(0.001)
+
+    def submit():
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(_LANE_JOBS))]
+        poller = threading.Thread(target=poll)
+        poller.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        done.set()
+        poller.join(timeout=10)
+        return [th.is_alive() for th in threads]
+
+    failures = graphs.STATS["failures"]
+    try:
+        alive, wall, by_mode = _path_launches(kernels, submit)
+    finally:
+        executor.close()
+    failures = graphs.STATS["failures"] - failures
+    order = [(t, batch) for t, _, batches in log for batch in batches]
+    for t, (bucket, slot_lanes, reason) in order:
+        print(f"{label} flush at {t * 1e3:.1f} ms: {bucket} lanes {slot_lanes} reason {reason}")
+    snap = stats.snapshot()
+    print(f"{label}: {len(_LANE_JOBS)} studies in {wall * 1e3:.1f} ms, {len(order)} flushes, "
+          f"stats {snap}, capture failures {failures}, queue_depth keys "
+          f"{sorted(depths[0]) if depths else None}, launches {by_mode}; {_card_line()}")
+    if any(alive) or errors or snap["batch_slot_errors"] or snap["batch_fallbacks"] or failures:
+        raise AssertionError(f"{label}: threads alive {alive}, errors {errors}, stats {snap}, "
+                             f"capture failures {failures}")
+    for (lane, count, _), out in zip(_LANE_JOBS, results):
+        values = np.array([[s.parameters.get_value(f"x{j}") for j in range(dim)] for s in out])
+        if len(out) != count or not (np.all(np.isfinite(values))
+                                     and np.all((values >= 0.0) & (values <= 1.0))):
+            raise AssertionError(f"{label}: {lane} suggestions {values}")
+
+    def bucket_lane(slot_lanes):
+        return min((spec.get(name, spec["live"]) for name in slot_lanes),
+                   key=lambda lane: lane.priority)
+
+    # No deferrable bucket flushes while a lower-number slot is queued,
+    # except at its cap.
+    for t, queued, batches in log:
+        queued_priorities = [spec.get(name, spec["live"]).priority
+                             for bucket in queued for name in bucket]
+        for bucket, slot_lanes, reason in batches:
+            lane = bucket_lane(slot_lanes)
+            if (lane.deferrable and reason != "spec_starved"
+                    and min(queued_priorities) < lane.priority):
+                raise AssertionError(f"{label}: {bucket} ({lane.name}) flushed at {t:.3f} s "
+                                     f"({reason}) while {queued} was queued")
+    lanes_in_order = [bucket_lane(slot_lanes).name for _, (_, slot_lanes, _) in order]
+    rode = [slot_lanes for _, (_, slot_lanes, _) in order
+            if bucket_lane(slot_lanes).name == "live" and "speculative" in slot_lanes]
+    all_three = [d for d in depths if all(d.get(name, 0) > 0 for name in spec)]
+    print(f"{label}: flush order by lane {lanes_in_order}; the speculative rider in a live "
+          f"flush {rode}; samples with all three lanes queued {len(all_three)} of {len(depths)}")
+    if lanes_in_order.index("batchwork") > lanes_in_order.index("speculative"):
+        raise AssertionError(f"{label}: speculative flushed before batchwork: {lanes_in_order}")
+    if not rode:
+        raise AssertionError(f"{label}: the speculative slot did not ride the live flush")
+    if not depths or any(set(d) != set(spec) for d in depths) or not all_three:
+        raise AssertionError(f"{label}: queue_depth() did not show all three lanes queued")
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), label)
+    return by_mode, dict(
+        wall_ms=wall * 1e3, flushes=[dict(t_ms=t * 1e3, bucket=b, lanes=l, reason=r)
+                                     for t, (b, l, r) in order],
+        lane_order=lanes_in_order, stats=snap, capture_failures=failures)
+
+
+def _bench_gp(vz) -> tuple:
+    """bench.py's study on the card as (encoder designer, GP data, model,
+    ARD optimizer)."""
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.models import gp as gp_lib
+
+    encoder = gp_ucb_pe.VizierGPUCBPEBandit(_bench_problem(vz), rng_seed=0)
+    encoder.update(vz.CompletedTrials(_bench_trials(vz, _NUM_TRIALS, _DIM)))
+    data = gp_lib.GPData.from_model_data(encoder._warped_model_data(), torch.device("cuda", 0))
+    return encoder, data, encoder._model, encoder._ard
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multihost_on_the_card(kernels, vz) -> tuple:
+    """(b) Two processes of one group on the card (the tests' two-process
+    worker, ``tests/torch_multihost_worker.py``, at bench.py's study), held
+    to each other, to one process over a 2-entry logical mesh, and to the
+    unsharded train. Returns ({path: launches by mode}, figures)."""
+    from vizier_tpu_torch import parallel
+    from vizier_tpu_torch.optimizers import graphs as graphs_lib
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tests = os.path.join(root, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_multihost_worker
+
+    label = "multihost (b)"
+    coordinator = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, tests]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as tmp:
+        logs = [os.path.join(tmp, f"rank{i}.log") for i in range(2)]
+        results = [os.path.join(tmp, f"rank{i}") for i in range(2)]
+        procs = []
+        start = time.perf_counter()
+        try:
+            for i in range(2):
+                with open(logs[i], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, torch_multihost_worker.__file__, coordinator, str(i),
+                         results[i], "cuda", "0", "bench"],
+                        stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL, env=env))
+            rcs = []
+            for proc in procs:
+                try:
+                    rcs.append(proc.wait(timeout=max(
+                        1.0, start + _MULTIHOST_LIMIT_S - time.perf_counter())))
+                except subprocess.TimeoutExpired:
+                    rcs.append(f"stopped after {_MULTIHOST_LIMIT_S:.0f} s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - start
+        outputs = [pathlib.Path(log).read_text() for log in logs]
+        for i in range(2):
+            print(f"-- {label} process {i}: exit {rcs[i]} --")
+            print(outputs[i], end="", flush=True)
+        if rcs != [0, 0]:
+            raise AssertionError(f"{label}: the two processes exited {rcs}")
+        for i, out in enumerate(outputs):
+            for line in (f"RESULT process_id={i} global=2 local=1 procs=2",
+                         f"PLACEMENTS process_id={i} count=2", f"REFUSED process_id={i} ",
+                         f"FLUSH process_id={i} placement=mesh{i} batched=2 fallbacks=0",
+                         f"GATHERS process_id={i} after_join=0"):
+                if line not in out:
+                    raise AssertionError(f"{label} process {i}: no line {line!r}")
+        ranks = [dict(np.load(f"{r}.npz")) for r in results]
+        rank_figures = [json.loads(pathlib.Path(f"{r}.json").read_text()) for r in results]
+    same = sorted(ranks[0]) == sorted(ranks[1]) and all(
+        np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0])
+    with _logical_devices(2):
+        mesh = parallel.create_mesh()
+    one, one_figures = torch_multihost_worker.run(mesh, "cuda", "bench")
+    gap = max(float(np.max(np.abs(ranks[0][k] - v))) / max(1.0, float(np.max(np.abs(v))))
+              for k, v in one.items())
+    # The unsharded train from the same inits, on the card alone.
+    _, data, model, optimizer = _bench_gp(vz)
+    inits = model.param_collection().batch_random_init_unconstrained(
+        torch.Generator(device=data.labels.device).manual_seed(0), rank_figures[0]["restarts"])
+    whole = optimizer(graphs_lib.BoundLoss(model.neg_log_likelihood, data), inits, best_n=1)
+    alone = model.precompute(whole.params, data)
+    coll = model.param_collection()
+    unsharded_nll = float(model.neg_log_likelihood(coll.unconstrain(alone.params), data)[0])
+    nll = float(ranks[0]["nll"][0])
+    nll_err = abs(nll - unsharded_nll) / max(1.0, abs(unsharded_nll))
+    for i, f in enumerate(rank_figures):
+        print(f"{label} process {i}: joined in {f['init_s']:.2f} s; train "
+              f"{f['train_ms']:.1f} ms, {torch_multihost_worker.POOLS}-pool sweep "
+              f"{f['sweep_ms']:.1f} ms, step {f['step_ms']:.1f} ms; its gathers "
+              f"{f['gather_ms']:.1f} ms; launches {f['launches']}")
+    print(f"{label}: the two processes' arrays bit for bit equal: {same}; against one process "
+          f"over a 2-entry logical mesh of the card max rel gap {gap:.3e} (tol "
+          f"{_MULTIHOST_TOL}); trained NLL {nll:.6f} against the unsharded train's "
+          f"{unsharded_nll:.6f} (rel {nll_err:.2e}, tol {_MESH_TOL}); the pair's wall "
+          f"{wall:.1f} s; one process {sum(one_figures[k] for k in _MULTIHOST_PARTS):.1f} ms")
+    if not same:
+        raise AssertionError(f"{label}: the two processes' results differ")
+    if not gap <= _MULTIHOST_TOL:
+        raise AssertionError(f"{label}: the two processes differ from the one-process mesh")
+    if not nll_err <= _MESH_TOL:
+        raise AssertionError(f"{label}: the trained NLL differs from the unsharded train's")
+    paths = {f"multihost_rank{i}": f["launches"] for i, f in enumerate(rank_figures)}
+    paths["multihost_one_process"] = one_figures["launches"]
+    for name, modes in paths.items():
+        _require_modes(modes, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                               ("matern52_ard_bwd", "gram")), f"{label} {name}")
+    for f in rank_figures + [one_figures]:
+        f["wall_ms"] = sum(f[k] for k in _MULTIHOST_PARTS)
+    return paths, dict(ranks=rank_figures, one_process=one_figures, bit_equal=same,
+                       one_process_gap=gap, nll=nll, unsharded_nll=unsharded_nll,
+                       nll_err=nll_err, pair_wall_s=wall)
+
+
+def run_lanes_phase(kernels, lib):
+    """Phase 20: the lane table and the multi-host seam (see the module
+    docstring). Returns ({path: launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch import pyvizier as vz
+
+    phase_start = time.perf_counter()
+    paths, figures = {}, {}
+    paths["lanes"], figures["lanes"] = _lanes_on_the_card(kernels, vz)
+    multihost_paths, figures["multihost"] = _multihost_on_the_card(kernels, vz)
+    paths.update(multihost_paths)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"lanes and multihost: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -5383,7 +5713,7 @@ def run_mesh_phase(kernels, lib):
 # the main process prints when it has finished, and its paths and figures to a
 # JSON file. A worker that fails fails the run.
 _WORKER_PHASES = {
-    "regret": ("regret",),
+    "regret": ("regret", "lanes"),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
     "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh"),
 }
@@ -5431,6 +5761,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_tooling_phase(kernels, lib)
     if phase == "mesh":
         return run_mesh_phase(kernels, lib)
+    if phase == "lanes":
+        return run_lanes_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -5623,12 +5955,13 @@ def main() -> int:
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
     slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
                    **done["benchmarks"]["paths"], **done["tooling"]["paths"],
-                   **done["mesh"]["paths"]}
+                   **done["mesh"]["paths"], **done["lanes"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
     print(json.dumps({"tooling": done["tooling"]["figures"]}, default=float))
     print(json.dumps({"mesh": done["mesh"]["figures"]}, default=float))
+    print(json.dumps({"lanes": done["lanes"]["figures"]}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -5697,6 +6030,9 @@ def main() -> int:
             "launches_mesh_phase": sum(
                 sum(done["mesh"]["paths"][path][name].values())
                 for path in done["mesh"]["paths"]),
+            "launches_lanes_phase": sum(
+                sum(done["lanes"]["paths"][path][name].values())
+                for path in done["lanes"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -217,9 +217,10 @@ def test_every_vizier_torch_read_in_the_port_is_declared(port_suite):
     declared = set(registry.env_switch_names())
     assert seen <= declared
     assert declared <= seen  # no stale declaration either
-    # The 74 switches before prewarm, its two, and the mesh's three (the
-    # device count, the shard size and the designers' opt-out).
-    assert len(declared) == 79
+    # The 74 switches before prewarm, its two, the mesh's three (the
+    # device count, the shard size and the designers' opt-out) and the
+    # multi-host seam's three (coordinator, process count, process id).
+    assert len(declared) == 82
 
 
 def test_an_undeclared_switch_raises_and_a_constant_is_not_a_switch(monkeypatch):

@@ -1924,3 +1924,106 @@ def test_a_flush_split_over_a_logical_four_entry_mesh(cuda_device, monkeypatch):
     finally:
         off.close()
         split.close()
+
+
+# -- the lane table and the multi-host seam (chip_smoke.py's phase 20, small) ------
+
+
+def test_three_lanes_flush_in_priority_order_on_the_card(cuda_device):
+    """live (0), batchwork (1, cap 150 ms) and speculative (2, cap 250 ms)
+    buckets queued at once: live first, with the speculative slot that
+    joined its bucket riding it, then batchwork, then speculative."""
+    import threading
+
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.parallel import batch_executor
+
+    lanes = [batch_executor.LaneSpec("live", 0),
+             batch_executor.LaneSpec("batchwork", 1, True, 150.0),
+             batch_executor.LaneSpec("speculative", 2, True, 250.0)]
+    executor = batch_executor.BatchExecutor(max_batch_size=4, max_wait_ms=100.0, lanes=lanes)
+    jobs = [("live", 1), ("live", 1), ("speculative", 1), ("batchwork", 2), ("batchwork", 2),
+            ("speculative", 3), ("speculative", 3)]
+    designers = _mesh_designers(range(len(jobs)), graphed=True)
+    flushes, execute = [], executor._execute
+
+    def recording_execute(key, slots, reason, placement=None):
+        flushes.append(([s.lane for s in slots], reason))
+        return execute(key, slots, reason, placement)
+
+    executor._execute = recording_execute
+    out = [None] * len(jobs)
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, executor.suggest(
+        designers[i], jobs[i][1], lane=jobs[i][0]))) for i in range(len(jobs))]
+    failures = graphs.STATS["failures"]
+    tk.reset_launch_counts()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        executor.close()
+    assert not any(t.is_alive() for t in threads)
+    for (_, count), suggestions in zip(jobs, out):
+        assert suggestions is not None and len(suggestions) == count
+        for s in suggestions:
+            assert all(0.0 <= v <= 1.0 for v in s.parameters.as_dict().values())
+    # A study whose host-side prepare is still running when its bucket
+    # flushes is served by a later flush of its lane: each lane's first
+    # flush comes in lane order.
+    rank = {"live": 0, "batchwork": 1, "speculative": 2}
+    order = [min(slot_lanes, key=rank.get) for slot_lanes, _ in flushes]
+    assert order[0] == "live" and order.index("batchwork") < order.index("speculative"), flushes
+    assert sorted(flushes[0][0]) == ["live", "live", "speculative"]
+    assert graphs.STATS["failures"] == failures
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0
+
+
+def test_two_gloo_processes_on_the_card_agree_bit_for_bit(cuda_device, tmp_path, monkeypatch):
+    """Two processes, the card each one's one local device, join one gloo
+    group: the sharded train, pool sweep and step over their global mesh of
+    2 entries give the same floats in both, within 1e-6 of one process over
+    a 2-entry logical mesh of the card; a placement across them is refused,
+    and a flush on each one's own placement runs batched."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import torch_multihost_worker
+
+    from vizier_tpu_torch import parallel
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(tests), tests]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(tests, "torch_multihost_worker.py"), coordinator, str(i),
+         str(tmp_path / f"rank{i}"), "cuda", "0", "tiny"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for i in range(2)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, out
+        assert f"RESULT process_id={i} global=2 local=1 procs=2" in out, out
+        assert f"PLACEMENTS process_id={i} count=2" in out, out
+        assert f"REFUSED process_id={i}" in out, out
+        assert f"FLUSH process_id={i} placement=mesh{i} batched=2 fallbacks=0" in out, out
+        assert f"GATHERS process_id={i} after_join=0" in out, out
+    ranks = [dict(np.load(tmp_path / f"rank{i}.npz")) for i in range(2)]
+    _logical_mesh(monkeypatch, 2)
+    want, _ = torch_multihost_worker.run(parallel.create_mesh(), "cuda")
+    for name, value in want.items():
+        np.testing.assert_array_equal(ranks[0][name], ranks[1][name], err_msg=name)
+        gap = float(np.max(np.abs(ranks[0][name] - value))) / max(1.0, float(np.max(np.abs(value))))
+        assert gap <= 1e-6, (name, gap)

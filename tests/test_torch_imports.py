@@ -494,8 +494,9 @@ def test_the_numerics_facade_has_the_jax_facades_names():
             assert ours.__name__ == theirs.__name__
 
 
+# The parallel plane, and the two-process worker the card's tests run.
 _MESH_MODULES = ["vizier_tpu_torch.parallel", "vizier_tpu_torch.parallel.mesh",
-                 "vizier_tpu_torch.parallel.batch_executor"]
+                 "vizier_tpu_torch.parallel.batch_executor", "torch_multihost_worker"]
 
 
 @pytest.fixture(scope="module")
@@ -505,6 +506,7 @@ def mesh_imports():
     or blocked modules its import loaded."""
     code = f"""
 import importlib, json, sys
+sys.path.insert(0, "tests")
 for blocked in ("grpc", "google.protobuf"):
     sys.modules[blocked] = None
 out = {{}}
@@ -533,14 +535,15 @@ def test_the_parallel_package_exports_the_jax_packages_names_but_the_multi_host_
         return {n for n in vars(module) if not n.startswith("_") and n.isidentifier()}
 
     missing = public(jparallel) - public(tparallel)
-    # The multi-host coordinator seam (and the jax modules the JAX package
-    # imports by name) are the next slice's or not the port's.
-    assert missing <= {"initialize_multihost", "jax", "jnp", "NamedSharding", "P", "Array",
+    # The jax modules the JAX package imports by name are not the port's;
+    # the multi-host coordinator seam is (initialize_multihost).
+    assert missing <= {"jax", "jnp", "NamedSharding", "P", "Array",
                        "functools", "acquisitions", "gp_lib", "kernels", "lbfgs_lib",
                        "vectorized_lib", "batch_executor", "mesh"}, missing
     for name in ("create_mesh", "replicated", "batch_sharded", "train_gp_sharded",
                  "maximize_score_fn_sharded", "maximize_acquisition_sharded",
                  "suggest_step_sharded", "BatchExecutor", "BatchSlotError", "BucketKey",
                  "DevicePlacement", "MeshConfig", "build_placements", "multihost_mesh",
-                 "DEVICE_AXIS", "Mesh"):
+                 "DEVICE_AXIS", "Mesh", "initialize_multihost", "ProcessDevice",
+                 "global_devices"):
         assert hasattr(tparallel, name), name

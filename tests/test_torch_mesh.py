@@ -6,6 +6,7 @@ placements' shard-granularity padding, the process-local carving and
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -17,8 +18,14 @@ import torch_mesh_devices
 from vizier_tpu import parallel as jparallel
 from vizier_tpu.parallel import mesh as jmesh
 from vizier_tpu_torch import parallel as tparallel
+from vizier_tpu_torch import pyvizier as vz
+from vizier_tpu_torch.algorithms import core as core_lib
+from vizier_tpu_torch.designers import gp_bandit
+from vizier_tpu_torch.designers import gp_ucb_pe
+from vizier_tpu_torch.optimizers import lbfgs as tlbfgs
 from vizier_tpu_torch.parallel import mesh as tmesh
 from vizier_tpu_torch.parallel.batch_executor import BatchExecutor
+from vizier_tpu_torch.serving.stats import ServingStats
 
 
 class _FakeDevice:
@@ -33,12 +40,16 @@ def test_mesh_config_defaults_equal_the_jax_packages():
 
 def test_mesh_config_from_env_reads_the_ports_switches(monkeypatch):
     assert tmesh.MeshConfig.from_env() == tmesh.MeshConfig()
-    values = {"MESH": "1", "MESH_DEVICES": "4", "MESH_SHARD_DEVICES": "2"}
+    values = {"MESH": "1", "MESH_DEVICES": "4", "MESH_SHARD_DEVICES": "2",
+              "MESH_COORDINATOR": "127.0.0.1:1234", "MESH_PROCESSES": "2",
+              "MESH_PROCESS_ID": "1"}
     for name, value in values.items():
         monkeypatch.setenv(f"VIZIER_{name}", value)
         monkeypatch.setenv(f"VIZIER_TORCH_{name}", value)
     port, reference = tmesh.MeshConfig.from_env(), jmesh.MeshConfig.from_env()
     assert (port.enabled, port.num_devices, port.shard_devices) == (True, 4, 2)
+    assert (port.coordinator_address, port.num_processes, port.process_id) == (
+        "127.0.0.1:1234", 2, 1)
     assert dataclasses.asdict(port) == dataclasses.asdict(reference)
     monkeypatch.setenv("VIZIER_TORCH_MESH_SHARD_DEVICES", "0")
     assert tmesh.MeshConfig.from_env().shard_devices == 1
@@ -89,13 +100,175 @@ def test_build_placements_over_eight_devices_as_the_jax_package(monkeypatch):
         assert [p.label() for p in port] == [p.label() for p in reference]
 
 
-def test_a_coordinator_is_the_one_refusal_left():
-    config = tmesh.MeshConfig(enabled=True, coordinator_address="localhost:1234",
-                              num_processes=2, process_id=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
+@pytest.mark.parametrize("spec", [
+    dict(num_processes=2, process_id=None),  # torch: rank parameter missing
+    dict(num_processes=None, process_id=0),  # torch: world size missing
+    dict(num_processes=2, process_id=2),  # not a rank of 2 processes
+    dict(num_processes=1, process_id=0, address="no-port-here"),  # torch: port missing
+])
+def test_a_failed_explicit_init_raises(spec):
+    """An explicit coordinator whose init fails raises, from
+    ``initialize_multihost`` and from a coordinator in the mesh config, as
+    the JAX package's explicit branch does; nothing is left initialized."""
+    import torch.distributed as dist
+
+    spec = dict(spec)
+    address = spec.pop("address", "127.0.0.1:1")
+    with pytest.raises(ValueError):
+        tparallel.initialize_multihost(coordinator_address=address, device="cpu", **spec)
+    config = tmesh.MeshConfig(
+        enabled=True, coordinator_address=address, num_processes=spec["num_processes"] or 0,
+        process_id=-1 if spec["process_id"] is None else spec["process_id"])
+    with pytest.raises(ValueError):
         tmesh.build_placements(config, "cpu")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError):
         BatchExecutor(mesh=config, device="cpu")
+    assert not dist.is_initialized()
+
+
+def test_a_join_gathers_the_counts_once_and_a_group_gone_is_forgotten(monkeypatch):
+    """A one-process gloo group joined in this process: the global list is
+    built from the join's counts (a later join, list or placement gathers
+    nothing), a device type the join did not count is refused, and once the
+    group is destroyed the list is the host's again."""
+    import socket
+
+    import torch.distributed as dist
+
+    entries = {"cpu": [torch.device("cpu")] * 2, "cuda": [torch.device("cuda", 0)]}
+    monkeypatch.setattr(tmesh, "local_devices", lambda device="cuda": list(entries[device]))
+    monkeypatch.setattr(tparallel, "local_devices", tmesh.local_devices)
+    monkeypatch.setattr(tmesh, "_JOINED", None)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    mesh = tparallel.initialize_multihost(
+        coordinator_address=address, num_processes=1, process_id=0, device="cpu")
+    try:
+        calls, real_gather = [], dist.all_gather_object
+        monkeypatch.setattr(dist, "all_gather_object",
+                            lambda *a, **k: calls.append(a) or real_gather(*a, **k))
+        assert mesh.devices == (tmesh.ProcessDevice(0, 0, 0, torch.device("cpu")),
+                                tmesh.ProcessDevice(0, 1, 1, torch.device("cpu")))
+        again = tparallel.initialize_multihost(
+            coordinator_address=address, num_processes=1, process_id=0, device="cpu")
+        assert again == mesh
+        placements = tmesh.build_placements(
+            tmesh.MeshConfig(enabled=True, shard_devices=2), "cpu")
+        assert [p.torch_devices for p in placements] == [(torch.device("cpu"),) * 2]
+        assert calls == []
+        with pytest.raises(ValueError, match="joined with cpu devices, not cuda"):
+            tmesh.global_devices("cuda")
+    finally:
+        dist.destroy_process_group()
+    assert tmesh.global_devices("cpu") == entries["cpu"]
+
+
+def _two_process_devices(monkeypatch, n_local: int = 2):
+    """This process as process 0 of two, each with ``n_local`` CPU entries."""
+    entries = [tmesh.ProcessDevice(p, i, p * n_local + i, torch.device("cpu") if p == 0 else None)
+               for p in range(2) for i in range(n_local)]
+    monkeypatch.setattr(tmesh, "global_devices", lambda device="cuda": list(entries))
+    return entries
+
+
+@pytest.mark.parametrize("shards", [3, 4])
+def test_an_executor_refuses_a_placement_that_spans_processes(monkeypatch, shards):
+    """Carving 2 + 2 devices into groups of 3 or 4 puts another process's
+    device in a placement: the executor refuses it when it is built (one
+    process cannot make another enter its flush), the placements themselves
+    are still the JAX package's carve."""
+    entries = _two_process_devices(monkeypatch)
+    config = tmesh.MeshConfig(enabled=True, shard_devices=shards)
+    placements = tmesh.build_placements(config, "cpu")
+    reference = jmesh._carve_device_groups(entries, shards)
+    assert [[d.id for d in p.devices] for p in placements] == [[d.id for d in g] for g in reference]
+    assert any(p.spans_processes for p in placements)
+    with pytest.raises(ValueError, match="spans processes"):
+        BatchExecutor(mesh=config, device="cpu")
+
+
+def test_an_executor_assigns_buckets_only_to_its_own_processs_placements(monkeypatch):
+    """The carve holds both processes' placements; the executor keeps only
+    its own, so every bucket goes there and it starts no placement worker."""
+    _two_process_devices(monkeypatch)
+    config = tmesh.MeshConfig(enabled=True, shard_devices=2)
+    assert [p.label() for p in tmesh.build_placements(config, "cpu")] == ["mesh0", "mesh1"]
+    ex = BatchExecutor(mesh=config, device="cpu")
+    try:
+        placements = ex.placements()
+        assert [(p.label(), p.is_local, p.spans_processes) for p in placements] == [
+            ("mesh0", True, False)]
+        assert placements[0].torch_devices == (torch.device("cpu"),) * 2
+        assert [ex._placement_for(("bucket", i)).label() for i in range(4)] == ["mesh0"] * 4
+        assert ex.placement_flush_counts() == {"mesh0": 0}
+        assert not ex._uses_workers()
+    finally:
+        ex.close()
+
+
+def _studies(designer_cls, seeds):
+    kw = dict(ard_optimizer=tlbfgs.AdamOptimizer(maxiter=5, device="cpu"), ard_restarts=2,
+              max_acquisition_evaluations=100, device="cpu")
+    problem = vz.ProblemStatement()
+    for d in range(2):
+        problem.search_space.root.add_float_param(f"x{d}", 0.0, 1.0)
+    problem.metric_information.append(
+        vz.MetricInformation(name="obj", goal=vz.ObjectiveMetricGoal.MAXIMIZE))
+    designers = []
+    for seed in seeds:
+        d = designer_cls(problem, rng_seed=seed, **kw)
+        rng = np.random.default_rng(seed)
+        trials = []
+        for i in range(5):
+            t = vz.Trial(parameters={"x0": float(rng.uniform()), "x1": float(rng.uniform())},
+                         id=i + 1)
+            t.complete(vz.Measurement(metrics={"obj": float(rng.uniform())}))
+            trials.append(t)
+        d.update(core_lib.CompletedTrials(trials))
+        designers.append(d)
+    return designers
+
+
+@pytest.mark.parametrize("designer_cls", [gp_bandit.VizierGPBandit,
+                                          gp_ucb_pe.VizierGPUCBPEBandit])
+def test_a_flush_on_the_local_placement_of_two_processes_runs_batched(monkeypatch,
+                                                                       designer_cls):
+    """Process 0 of two, 2 CPU entries each: the executor's own placement
+    holds ``ProcessDevice`` entries, and a flush of two studies there runs
+    batched, split over its two devices, each slot equal to its study
+    alone, with no fallback."""
+    _two_process_devices(monkeypatch)
+    seeds = (41, 42)
+    alone = [[s.parameters.as_dict() for s in d.suggest(1)]
+             for d in _studies(designer_cls, seeds)]
+    stats = ServingStats()
+    ex = BatchExecutor(max_batch_size=2, max_wait_ms=60_000, stats=stats, device="cpu",
+                       mesh=tmesh.MeshConfig(enabled=True, shard_devices=2))
+    slots = []
+    real_execute = ex._execute
+
+    def execute(key, queued, reason, placement):
+        real_execute(key, queued, reason, placement)
+        slots.extend(queued)
+
+    ex._execute = execute
+    designers = _studies(designer_cls, seeds)
+    results = [None, None]
+    try:
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, ex.suggest(designers[i], 1))) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        ex.close()
+    assert [slot.action for slot in slots] == ["batched", "batched"]
+    snap = stats.snapshot()
+    assert snap["batch_fallbacks"] == 0 and snap["batched_suggests"] == 2
+    assert ex.placement_flush_counts() == {"mesh0": 1}
+    assert [[s.parameters.as_dict() for s in r] for r in results] == alone
 
 
 def test_local_devices_lists_the_real_devices_and_never_falls_back():

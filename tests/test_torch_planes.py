@@ -7,7 +7,7 @@
   same weights come out of ``_fair_order`` / ``_order_due`` in the same
   order, and ``_take_due`` / ``_next_deadline`` defer a speculative bucket
   behind live slots and flush it at its starvation cap, step for step as
-  the JAX executor does;
+  the JAX executor does, with the two-lane table and with three lanes;
 - the SLO engine: the same metric sequence gives equal statuses, burn rates,
   gauges and breach dump keys;
 - the flight recorder: the same calls give equal events, times aside;
@@ -164,10 +164,7 @@ def test_admission_env_switches_mirror_the_jax_names(monkeypatch):
 
 
 def _slots(mod, tenants, lane="live", now=0.0, start=0):
-    # The JAX executor names a slot's lane; the port's slot has the
-    # speculative flag of its two-lane scheme.
-    kind = {"lane": lane} if mod is jexecutor else {"speculative": lane == "speculative"}
-    return [mod._Slot(start + i, None, 1, now, None, tenant=t, **kind)
+    return [mod._Slot(start + i, None, 1, now, None, lane=lane, tenant=t)
             for i, t in enumerate(tenants)]
 
 
@@ -230,6 +227,55 @@ def _lane_run(mod):
         step(t)
     ex.close()
     return trace
+
+
+def _three_lane_run(mod):
+    """A batchwork lane between live and speculative: it defers to live slots
+    up to its own cap, and the speculative lane defers to both."""
+    clock = _Clock(0.0)
+    lanes = [mod.LaneSpec("live", 0), mod.LaneSpec("batchwork", 1, True, 150.0),
+             mod.LaneSpec("speculative", 2, True, 250.0)]
+    ex = mod.BatchExecutor(max_batch_size=2, max_wait_ms=100.0, time_fn=clock, lanes=lanes)
+    trace = []
+
+    def step(t):
+        clock.now = t
+        depth = ex.queue_depth()
+        due = ex._take_due()
+        trace.append((t, depth, ex.live_pending(),
+                      [(key, [s.designer for s in slots], reason) for key, slots, reason in due],
+                      ex._next_deadline()))
+
+    ex._queues["spec"] = _slots(mod, [None] * 3, lane="speculative", now=0.0)
+    ex._queues["bulk"] = _slots(mod, [None], lane="batchwork", now=0.0, start=10)
+    ex._queues["live"] = _slots(mod, [None], now=0.05, start=20)
+    for t in (0.1, 0.16, 0.2, 0.27, 0.4):
+        step(t)
+    ex._queues["live"] = _slots(mod, [None], now=1.0, start=30)
+    ex._queues["bulk"] = _slots(mod, [None], lane="batchwork", now=1.0, start=40)
+    ex._queues["spec"] = _slots(mod, [None], lane="speculative", now=1.0, start=50)
+    for t in (1.101, 1.12, 1.16):
+        ex._queues["live"] = ex._queues.get("live") or _slots(mod, [None], now=t, start=60)
+        step(t)
+    ex._queues["mixed"] = _slots(mod, [None], lane="speculative", now=2.0, start=70) + _slots(
+        mod, [None], lane="batchwork", now=2.0, start=71)
+    ex._queues["live"] = _slots(mod, [None], now=2.0, start=80)
+    for t in (2.11, 2.22, 2.5):
+        step(t)
+    ex.close()
+    return trace
+
+
+def test_three_lane_rules_equal_the_jax_executors():
+    ours = _three_lane_run(batch_executor)
+    assert ours == _three_lane_run(jexecutor)
+    flushes = [(t, [(key, reason) for key, _, reason in due]) for t, _, _, due, _ in ours]
+    assert ours[0][1] == {"live": 1, "batchwork": 1, "speculative": 3}
+    # Live first; batchwork once no live slot is queued; speculative last.
+    order = [key for _, due in flushes for key, _ in due]
+    assert order.index("live") < order.index("bulk") < order.index("spec")
+    # A batchwork slot makes the speculative slot's bucket a batchwork one.
+    assert ("mixed", "full") in [f for _, due in flushes for f in due]
 
 
 def test_lane_rules_equal_the_jax_executors():

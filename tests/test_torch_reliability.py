@@ -394,10 +394,11 @@ def test_config_turnover_and_invalidation_drop_the_breaker_and_designer():
 
 
 def test_planes_the_port_does_not_have_are_refused(monkeypatch):
-    # The mesh is ported: only its multi-host coordinator is refused.
+    # The mesh and its multi-host seam are ported: a coordinator without its
+    # process count and rank is an explicit init that fails, and raises.
     from vizier_tpu_torch.parallel.mesh import MeshConfig
 
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="rendezvous"):
         runtime_lib.ServingRuntime(
             mesh=MeshConfig(enabled=True, coordinator_address="localhost:1234"), device="cpu")
     rt = runtime_lib.ServingRuntime(mesh=MeshConfig(enabled=True), device="cpu")

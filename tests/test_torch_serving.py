@@ -242,19 +242,20 @@ def test_close_drains_pending():
 
 
 def test_planes_that_are_not_ported_raise():
-    # The mesh is ported; its multi-host coordinator seam is the one plane
-    # left, refused by the executor and by a batching runtime.
+    # Every plane is ported, the multi-host coordinator seam too: a
+    # coordinator without its process count and rank is an explicit init
+    # that fails, and raises from the executor and from a batching runtime.
     from vizier_tpu_torch.parallel.mesh import MeshConfig
 
     coordinator = MeshConfig(enabled=True, coordinator_address="localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="rendezvous"):
         BatchExecutor(mesh=coordinator, device="cpu")
     BatchExecutor(mesh=MeshConfig(enabled=True), device="cpu").close()
     # Prewarm and the compile cache are ported: both configs build.
     assert serving_config.ServingConfig(batching_prewarm=True).batching_prewarm
     assert serving_config.ServingConfig(
         compilation_cache_dir="/tmp/cache").compilation_cache_dir == "/tmp/cache"
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    with pytest.raises(ValueError, match="rendezvous"):
         serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=True),
                                        mesh=coordinator, device="cpu")
     # The ported planes build: an executor with fair-share admission, and a

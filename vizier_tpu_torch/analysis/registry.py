@@ -232,6 +232,13 @@ SWITCHES: Tuple[EnvSwitch, ...] = (
             "Devices the mesh plane may use (0 = all; capped at the host's count).", "0"),
     _switch("VIZIER_TORCH_MESH_SHARD_DEVICES", "int", "MeshConfig",
             "Devices per placement; > 1 splits each flush's study axis over them.", "1"),
+    _switch("VIZIER_TORCH_MESH_COORDINATOR", "str", "MeshConfig",
+            "torch.distributed (gloo) coordinator address host:port for a multi-host "
+            "mesh ('' = single host)."),
+    _switch("VIZIER_TORCH_MESH_PROCESSES", "int", "MeshConfig",
+            "Process count of the multi-host mesh (its world size).", "0"),
+    _switch("VIZIER_TORCH_MESH_PROCESS_ID", "int", "MeshConfig",
+            "This process's rank in the multi-host mesh (-1 = unset).", "-1"),
     _switch("VIZIER_TORCH_DISABLE_MESH", "flag", "VizierGPBandit",
             "Opt out of the GP designers' auto-mesh over several devices.", "0"),
     # -- loadgen traffic engine (loadgen.models.ScenarioConfig) ------------

@@ -966,7 +966,10 @@ def _stacked_chunks(items: Sequence[dict], names: Sequence[str], pad_to: Optiona
     as (inputs, device) chunks: one on the designer's device, or one per
     device of a mesh ``placement`` (``batch_executor.place_batch``)."""
     inputs = {n: batch_executor.stack_pytrees([it[n] for it in items], pad_to) for n in names}
-    devices = placement.devices if placement is not None else (items[0]["designer"].device,)
+    if placement is None:
+        devices = (items[0]["designer"].device,)
+    else:
+        devices = placement.torch_devices
     return list(zip(batch_executor.place_batch(inputs, placement), devices))
 
 

@@ -29,13 +29,17 @@ every slot back to its own sequential ``suggest``, one after another, and
 counts it (``batch_fallbacks``); a slot whose decoded suggestions hold non-finite
 parameters gets a typed ``TRANSIENT:`` error (``batch_slot_errors``).
 
-Two lanes: slots submitted with ``speculative=True`` (the serving tier's
-background pre-compute, ``serving.speculative``) ride a live flush that is
-forming anyway, but a bucket holding only speculative slots is deferrable:
-it never becomes due while a live slot is queued in any bucket, up to
-:data:`SPECULATIVE_STARVATION_CAP_SECS`; due live batches run before due
-speculative ones. ``queue_depth()`` / ``live_pending()`` expose per-lane
-occupancy, the speculative engine's admission gate.
+Priority lanes (N-lane): every slot rides a named :class:`LaneSpec` lane.
+The default table has two, ``live`` (priority 0) and ``speculative``
+(priority 1, deferrable): slots submitted with ``speculative=True`` (the
+serving tier's background pre-compute, ``serving.speculative``) ride a live
+flush that is forming anyway, but a bucket holding only deferrable-lane
+slots waits for the idle window: it never becomes due while a slot of a
+lower priority number is queued in any bucket, up to its lane's
+``starvation_cap_ms``, and due batches run in lane-priority order. Another
+QoS class is one more ``LaneSpec`` (``lanes=``, ``suggest(..., lane=)``).
+``queue_depth()`` / ``live_pending()`` expose per-lane occupancy, the
+speculative engine's admission gate.
 
 Weighted fair share (with an admission controller attached,
 ``VIZIER_TORCH_ADMISSION=1``): inside the live lane, slots carry the tenant
@@ -67,7 +71,10 @@ the loadgen soak's GP suggest p50 on an H100. With two or more, each
 placement has one worker thread (``vizier-mesh-worker-<i>``) that runs every
 launch of its buckets (flushes, lone slots, fallbacks, prewarm steps), so a
 capture on a device never overlaps another thread's launches there; the
-scheduler then only forms flushes.
+scheduler then only forms flushes. On a mesh that spans processes
+(``parallel.initialize_multihost``) the executor assigns buckets only to the
+placements of its own process's devices, and refuses a placement that spans
+processes when it is built: one process cannot make another enter its flush.
 """
 
 from __future__ import annotations
@@ -96,10 +103,36 @@ class BatchSlotError(errors_lib.TransientError):
     """A batched slot produced an invalid result (isolated to its study)."""
 
 
-# How long a speculative-only bucket defers to queued live slots before it
-# flushes anyway ("spec_starved"): it bounds the wait of a live request
-# coalesced onto an in-flight speculative compute.
-SPECULATIVE_STARVATION_CAP_SECS = 0.25
+@dataclasses.dataclass(frozen=True)
+class LaneSpec:
+    """One QoS lane of the executor's N-lane scheduler.
+
+    ``priority`` orders execution (lower number first). A ``deferrable``
+    lane's buckets wait for the idle window (they become due only while no
+    slot of a strictly lower priority number is queued anywhere) except after
+    ``starvation_cap_ms``, the bounded-starvation escape (0: the ordinary
+    flush window applies even while deferring).
+    """
+
+    name: str
+    priority: int
+    deferrable: bool = False
+    starvation_cap_ms: float = 0.0
+
+
+LANE_LIVE = "live"
+LANE_SPECULATIVE = "speculative"
+
+
+def default_lanes(speculative_max_wait_ms: float) -> Tuple[LaneSpec, ...]:
+    """The two-lane table: live traffic and the deferrable speculative
+    pre-compute lane, whose starvation cap bounds how long a live request
+    coalesced onto an in-flight speculative compute waits."""
+    return (
+        LaneSpec(LANE_LIVE, priority=0),
+        LaneSpec(LANE_SPECULATIVE, priority=1, deferrable=True,
+                 starvation_cap_ms=speculative_max_wait_ms),
+    )
 
 
 # -- pytrees ----------------------------------------------------------------
@@ -224,11 +257,11 @@ class _Slot:
 
     __slots__ = (
         "designer", "program", "count", "enqueued_at", "event", "error",
-        "item", "output", "action", "span", "speculative", "tenant",
+        "item", "output", "action", "span", "lane", "tenant",
     )
 
     def __init__(self, designer, program, count: int, now: float, span,
-                 speculative: bool = False, tenant: Optional[str] = None):
+                 lane: str = LANE_LIVE, tenant: Optional[str] = None):
         self.designer = designer
         self.program = program
         self.count = count
@@ -239,13 +272,17 @@ class _Slot:
         self.output: Any = None
         self.action: str = "alone"
         self.span = span
-        # Speculative lane: the slot may ride a live flush that is forming
-        # anyway, but a bucket holding only speculative slots defers to
-        # queued live traffic.
-        self.speculative = speculative
+        # QoS lane (LaneSpec.name): a deferrable-lane slot may ride a flush
+        # of a lower priority number that is forming anyway, but a bucket
+        # holding only deferrable slots defers to queued priority traffic.
+        self.lane = lane
         # Fair-share identity (admission on only): who this computation
         # bills to inside the live lane's deficit round robin.
         self.tenant = tenant
+
+    @property
+    def speculative(self) -> bool:
+        return self.lane == LANE_SPECULATIVE
 
 
 class BatchExecutor:
@@ -266,7 +303,9 @@ class BatchExecutor:
         stats: Optional[Any] = None,  # serving.stats.ServingStats
         metrics: Optional[metrics_lib.MetricsRegistry] = None,
         time_fn: Callable[[], float] = time.monotonic,
+        speculative_max_wait_ms: float = 250.0,
         mesh: Optional[Any] = None,  # parallel.mesh.MeshConfig
+        lanes: Optional[Sequence[LaneSpec]] = None,
         admission: Optional[Any] = None,  # serving.admission.AdmissionController
         device: Any = "cuda",
     ):
@@ -276,6 +315,12 @@ class BatchExecutor:
             raise ValueError(f"max_batch_size must be >= 1, got {max_batch_size}")
         self.max_batch_size = max_batch_size
         self.max_wait_secs = max(max_wait_ms, 0.0) / 1000.0
+        # The N-lane QoS table by lane name; a slot's unknown lane name
+        # follows the live lane's rules. ``speculative_max_wait_ms`` is the
+        # default table's speculative starvation cap.
+        lane_table = tuple(lanes) if lanes else default_lanes(speculative_max_wait_ms)
+        self._lanes: Dict[str, LaneSpec] = {lane.name: lane for lane in lane_table}
+        self._live_lane = min(self._lanes.values(), key=lambda lane: lane.priority)
         # Weighted fair share across tenants: with a controller attached,
         # live-lane selection is deficit round robin by tenant; None keeps
         # every bucket FIFO.
@@ -300,7 +345,9 @@ class BatchExecutor:
         self._closed = False
         # -- mesh execution plane (parallel.mesh, VIZIER_TORCH_MESH=1) -------
         # Placements are built only when the config enables the mesh; None
-        # keeps every mesh branch below dead.
+        # keeps every mesh branch below dead. On a mesh of several processes
+        # only this process's own placements are kept: buckets go to them
+        # alone.
         self._placements: Optional[List[Any]] = None
         # Per-placement dispatch queues and workers, used with two or more
         # placements: entries are ("flush", key, slots, reason) or ("task",
@@ -319,7 +366,17 @@ class BatchExecutor:
         if mesh is not None and getattr(mesh, "enabled", False):
             from vizier_tpu_torch.parallel import mesh as mesh_lib
 
-            self._placements = mesh_lib.build_placements(mesh, device)
+            placements = mesh_lib.build_placements(mesh, device)
+            for placement in placements:
+                if placement.spans_processes:
+                    # One process cannot make another enter its flush.
+                    raise ValueError(
+                        f"Placement {placement.describe()} spans processes; a batch "
+                        f"executor runs only placements of its own process's devices "
+                        f"(make shard_devices divide each process's device count).")
+            self._placements = [p for p in placements if p.is_local]
+            if not self._placements:
+                raise ValueError("No placement holds a device of this process.")
             for placement in self._placements:
                 self._dispatch_queues[placement.index] = collections.deque()
                 self._placement_flushes[placement.label()] = 0
@@ -346,13 +403,15 @@ class BatchExecutor:
         count: Optional[int] = None,
         *,
         speculative: bool = False,
+        lane: Optional[str] = None,
     ) -> List[Any]:
         """Routes one study's suggest through the batching engine.
 
         Unbatchable paths (no program covers the designer's state) run
         inline on the caller's thread, as with batching off. ``speculative``
-        puts the slot on the deferrable lane: a bucket of speculative slots
-        never flushes while live slots are queued (see :meth:`_take_due`).
+        (or an explicit ``lane`` name) marks the slot's QoS lane: a
+        deferrable lane's bucket never flushes while slots of a lower
+        priority number are queued (see :meth:`_take_due`).
         """
         count = count or 1
         resolved = compute_registry.resolve(designer, count)
@@ -366,7 +425,7 @@ class BatchExecutor:
             tenant = admission_lib.current_tenant()
         slot = _Slot(
             designer, program, count, self._time(), tracing_lib.get_tracer().current_span(),
-            speculative=speculative, tenant=tenant,
+            lane=lane or (LANE_SPECULATIVE if speculative else LANE_LIVE), tenant=tenant,
         )
         # Joining a non-empty bucket: this slot will (very likely) ride a
         # batched flush, so prepare it HERE, on the caller's thread, while
@@ -434,7 +493,8 @@ class BatchExecutor:
         return self._placements is not None
 
     def placements(self) -> List[Any]:
-        """The device placements (empty when the mesh plane is off)."""
+        """This process's device placements (empty when the mesh plane is
+        off)."""
         return list(self._placements or [])
 
     def placement_flush_counts(self) -> Dict[str, int]:
@@ -465,22 +525,27 @@ class BatchExecutor:
                     load[assigned] += 1
                 index = min(load, key=lambda i: (load[i], i))
                 self._bucket_placement[key] = index
-        return self._placements[index]
+        return next(p for p in self._placements if p.index == index)
 
     def _uses_workers(self) -> bool:
-        """Two or more placements: each runs its buckets on its own worker."""
+        """Two or more placements of this process: each runs its buckets on
+        its own worker."""
         return self._placements is not None and len(self._placements) > 1
 
     def queue_depth(self) -> Dict[str, int]:
-        """Queued slots by lane — the speculative admission gate's view of
-        whether live traffic is saturating the flush buckets."""
+        """Queued slots by lane name, every lane of the table listed (a slot
+        of an unknown lane counts as live) — the speculative admission
+        gate's view of whether live traffic is saturating the buckets."""
+        out = {name: 0 for name in self._lanes}
         with self._cond:
-            queued = [slot.speculative for slots in self._queues.values() for slot in slots]
-        return {"live": queued.count(False), "speculative": queued.count(True)}
+            for slots in self._queues.values():
+                for slot in slots:
+                    out[slot.lane if slot.lane in out else self._live_lane.name] += 1
+        return out
 
     def live_pending(self) -> int:
         """Queued live (non-speculative) slots across all buckets."""
-        return self.queue_depth()["live"]
+        return self.queue_depth()[LANE_LIVE]
 
     # -- scheduling ---------------------------------------------------------
 
@@ -501,14 +566,18 @@ class BatchExecutor:
             for worker in self._workers:
                 worker.start()
 
-    @staticmethod
-    def _deferrable(slots: List[_Slot]) -> bool:
-        """A bucket of speculative slots only; one live slot makes the
-        bucket live (the speculative ones ride its flush)."""
-        return all(s.speculative for s in slots)
+    def _lane_for(self, slot: _Slot) -> LaneSpec:
+        return self._lanes.get(slot.lane, self._live_lane)
 
-    def _live_queued(self) -> bool:
-        return any(not s.speculative for slots in self._queues.values() for s in slots)
+    def _bucket_lane(self, slots: List[_Slot]) -> LaneSpec:
+        """A bucket's effective lane: the lowest priority number among its
+        slots (a deferrable slot rides a priority flush that is forming
+        anyway)."""
+        return min((self._lane_for(s) for s in slots), key=lambda lane: lane.priority)
+
+    def _min_queued_priority(self) -> int:
+        return min((self._lane_for(s).priority for slots in self._queues.values() for s in slots),
+                   default=0)
 
     def _fair_order(self, slots: List[_Slot]) -> List[_Slot]:
         """Deficit round robin across tenants, FIFO within a tenant.
@@ -580,35 +649,35 @@ class BatchExecutor:
     def _take_due(self) -> List[Tuple[BucketKey, List[_Slot], str]]:
         """Pops every due (key, slots, reason) batch. Caller holds the lock.
 
-        Lane rules: a live bucket flushes on the ordinary full/timeout
-        rules. A speculative-only bucket defers while any live slot is
-        queued anywhere, flushing only once the queues are clear of live
-        work, or after :data:`SPECULATIVE_STARVATION_CAP_SECS`
-        ("spec_starved"). Due live batches come back before due speculative
-        ones; within a lane, batches are ordered by the weighted fair-share
-        credit when admission is on.
+        Lane rules: a bucket whose effective lane is not deferrable flushes
+        on the ordinary full/timeout rules. A deferrable-lane bucket defers
+        while any slot of a strictly lower priority number is queued
+        anywhere, flushing only once the queues are clear of priority work,
+        or after the lane's ``starvation_cap_ms`` ("spec_starved"). Due
+        batches come back in ascending lane priority, drains at priority 0;
+        one priority's batches are ordered by the weighted fair-share credit
+        when admission is on.
         """
         now = self._time()
-        # Index 0: live (and drained) batches; index 1: speculative ones.
-        due_by_lane: Tuple[List, List] = ([], [])
-        deferred: List[Tuple[BucketKey, List[_Slot]]] = []
-        live_queued = self._live_queued()
+        due_by_priority: Dict[int, List[Tuple[BucketKey, List[_Slot], str]]] = {}
+        deferred: List[Tuple[BucketKey, List[_Slot], LaneSpec]] = []
+        min_queued_priority = self._min_queued_priority()
         for key, slots in self._queues.items():
             if not slots:
                 continue
             if self._closed:
-                due_by_lane[0].append((key, slots[:], "drain"))
+                due_by_priority.setdefault(0, []).append((key, slots[:], "drain"))
                 slots.clear()
                 continue
-            deferrable = self._deferrable(slots)
-            if deferrable and live_queued:
-                deferred.append((key, slots))
+            lane = self._bucket_lane(slots)
+            if lane.deferrable and min_queued_priority < lane.priority:
+                deferred.append((key, slots, lane))
                 continue
-            bucket_due = due_by_lane[int(deferrable)]
+            bucket_due = due_by_priority.setdefault(lane.priority, [])
             if len(slots) >= self.max_batch_size:
                 ordered = (
                     self._fair_order(slots)
-                    if self._admission is not None and not deferrable
+                    if self._admission is not None and not lane.deferrable
                     else slots
                 )
                 while len(ordered) >= self.max_batch_size:
@@ -620,28 +689,32 @@ class BatchExecutor:
             if slots and now - min(s.enqueued_at for s in slots) >= self.max_wait_secs:
                 bucket_due.append((key, slots[:], "timeout"))
                 slots.clear()
-        for key, slots in deferred:
-            if now - slots[0].enqueued_at < SPECULATIVE_STARVATION_CAP_SECS:
+        for key, slots, lane in deferred:
+            if now - slots[0].enqueued_at < max(lane.starvation_cap_ms, 0.0) / 1000.0:
                 continue
             # A deferred bucket may have grown past the batch size: flush in
             # max-size chunks so the batch shape stays the bucket's.
-            bucket_due = due_by_lane[1]
+            bucket_due = due_by_priority.setdefault(lane.priority, [])
             while len(slots) > self.max_batch_size:
                 bucket_due.append((key, slots[: self.max_batch_size], "full"))
                 del slots[: self.max_batch_size]
             bucket_due.append((key, slots[:], "spec_starved"))
             slots.clear()
-        return self._order_due(due_by_lane[0]) + self._order_due(due_by_lane[1])
+        out: List[Tuple[BucketKey, List[_Slot], str]] = []
+        for priority in sorted(due_by_priority):
+            out.extend(self._order_due(due_by_priority[priority]))
+        return out
 
     def _next_deadline(self) -> Optional[float]:
         """Seconds until the next queued bucket becomes due (lock held)."""
-        live_queued = self._live_queued()
+        min_queued_priority = self._min_queued_priority()
         deadline = None
         for slots in self._queues.values():
             if not slots:
                 continue
-            if live_queued and self._deferrable(slots):
-                window = SPECULATIVE_STARVATION_CAP_SECS
+            lane = self._bucket_lane(slots)
+            if lane.deferrable and min_queued_priority < lane.priority:
+                window = max(lane.starvation_cap_ms, 0.0) / 1000.0
             else:
                 window = self.max_wait_secs
             due_at = min(s.enqueued_at for s in slots) + window
@@ -668,8 +741,8 @@ class BatchExecutor:
             for key, slots, reason in due:
                 if not self._uses_workers():
                     # No mesh, or one placement: the scheduler runs the flush.
-                    self._execute(key, slots, reason, self._placements[0]
-                                  if self._placements is not None else None)
+                    self._execute(key, slots, reason,
+                                  self._placements[0] if self._placements else None)
                     continue
                 # Several placements: the scheduler only forms flushes; the
                 # bucket's placement worker runs it.

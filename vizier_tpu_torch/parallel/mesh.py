@@ -24,15 +24,26 @@ Everything is opt-in: ``VIZIER_TORCH_MESH=0`` (the default) builds no
 placement and the executor keeps its one scheduler thread. A device is a
 real ``torch.device``: a ``num_devices`` above the host's count is capped,
 as in the JAX package, and nothing stands in for a device that is not
-there. The JAX package's multi-host coordinator seam is the next slice: a
-non-empty ``coordinator_address`` raises.
+there.
+
+The multi-host coordinator seam (:func:`multihost_mesh`): with a coordinator
+address (``VIZIER_TORCH_MESH_COORDINATOR``) the process joins a
+``torch.distributed`` group (``parallel.initialize_multihost``, gloo) and the
+device list spans every process's devices (:func:`global_devices`): each
+entry is a :class:`ProcessDevice`, which names its process and, in the
+process that holds it, its ``torch.device``. The placements are carved from
+that list as on one host. An executor assigns buckets only to the placements
+of its own process's devices and refuses a placement that spans processes.
+The device counts are gathered once, at the join
+(:func:`gather_device_counts`); building the list, the placements or an
+executor afterwards needs no communication.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 from vizier_tpu_torch.analysis import registry as _registry
 
@@ -53,8 +64,9 @@ class MeshConfig:
     # running different buckets; > 1 also splits each flush's study axis
     # over the placement's devices.
     shard_devices: int = 1
-    # The JAX package's multi-host coordinator seam, kept as fields; the
-    # port serves one host and refuses a coordinator (:func:`multihost_mesh`).
+    # Multi-host coordinator seam (:func:`multihost_mesh`): when set, the
+    # process joins a torch.distributed group before building placements,
+    # so several processes' devices are one mesh. Empty = single host.
     coordinator_address: str = ""
     num_processes: int = 0
     process_id: int = -1
@@ -65,6 +77,9 @@ class MeshConfig:
             enabled=_registry.env_on("VIZIER_TORCH_MESH"),
             num_devices=_registry.env_int("VIZIER_TORCH_MESH_DEVICES", 0),
             shard_devices=max(1, _registry.env_int("VIZIER_TORCH_MESH_SHARD_DEVICES", 1)),
+            coordinator_address=_registry.env_str("VIZIER_TORCH_MESH_COORDINATOR"),
+            num_processes=_registry.env_int("VIZIER_TORCH_MESH_PROCESSES", 0),
+            process_id=_registry.env_int("VIZIER_TORCH_MESH_PROCESS_ID", -1),
         )
 
 
@@ -80,6 +95,84 @@ def local_devices(device: Any = "cuda") -> List[Any]:
     if dev.type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessDevice:
+    """One entry of a device list that spans processes.
+
+    ``id`` is the entry's place in the global list (process-major), and
+    ``device`` the real ``torch.device`` in the process that holds it (None in
+    every other process). ``process_index`` is what the carve groups by.
+    """
+
+    process_index: int
+    local_index: int
+    id: int
+    device: Optional[Any] = None
+
+
+def device_of(entry: Any) -> Optional[Any]:
+    """The ``torch.device`` of a device-list entry in this process: the entry
+    itself, a :class:`ProcessDevice`'s device, or None when another process
+    holds it."""
+    return entry.device if isinstance(entry, ProcessDevice) else entry
+
+
+def _distributed_initialized() -> bool:
+    """Whether this process's ``torch.distributed`` group is up. Read from
+    ``torch.distributed`` alone: no device is touched."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+# What this process's join gathered (:func:`gather_device_counts`): the
+# group, the device type counted and every process's count of it. None
+# until a join; a group that is gone or replaced makes it stale.
+_JOINED: Optional[Tuple[Any, str, Tuple[int, ...]]] = None
+
+
+def gather_device_counts(device: Any = "cuda") -> None:
+    """Gathers every process's count of ``device``'s type over the group
+    (one ``all_gather_object``: every process of the group calls this
+    together, from ``parallel.initialize_multihost``) and keeps it for
+    :func:`global_devices`. Counts cannot change after the join, so a
+    process gathers them once per group; a later call returns at once."""
+    import torch.distributed as dist
+
+    global _JOINED
+    if _JOINED is not None and _JOINED[0] is dist.group.WORLD:
+        return  # joined already: a second gather would wait for every peer
+    local = local_devices(device)
+    counts: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, len(local))
+    _JOINED = (dist.group.WORLD, local[0].type, tuple(counts))
+
+
+def global_devices(device: Any = "cuda") -> List[Any]:
+    """Every process's devices of ``device``'s type, in process order.
+
+    Until this process has joined a group (:func:`gather_device_counts`,
+    through ``parallel.initialize_multihost``): :func:`local_devices`. After
+    it: one :class:`ProcessDevice` per device of every process, built from
+    the counts the join gathered, with no communication.
+    """
+    import torch.distributed as dist
+
+    local = local_devices(device)
+    joined = _JOINED
+    if joined is None or not _distributed_initialized() or joined[0] is not dist.group.WORLD:
+        return local
+    _, kind, counts = joined
+    if local[0].type != kind:
+        raise ValueError(f"The group was joined with {kind} devices, not {local[0].type}.")
+    rank = dist.get_rank()
+    out: List[Any] = []
+    for process, count in enumerate(counts):
+        for i in range(count):
+            out.append(ProcessDevice(process, i, len(out), local[i] if process == rank else None))
+    return out
 
 
 class DevicePlacement:
@@ -100,9 +193,24 @@ class DevicePlacement:
     def num_devices(self) -> int:
         return len(self.devices)
 
+    @property
+    def torch_devices(self) -> Tuple[Any, ...]:
+        """The placement's devices as ``torch.device``s (a
+        :class:`ProcessDevice` unwrapped), what every launch is given."""
+        return tuple(device_of(d) for d in self.devices)
+
     def label(self) -> str:
         """Low-cardinality metrics/tracing label (one per placement)."""
         return f"mesh{self.index}"
+
+    @property
+    def is_local(self) -> bool:
+        """Whether this process holds every device of the placement."""
+        return all(d is not None for d in self.torch_devices)
+
+    @property
+    def spans_processes(self) -> bool:
+        return len({getattr(d, "process_index", 0) for d in self.devices}) > 1
 
     def describe(self) -> str:
         ids = ",".join(str(getattr(d, "id", d)) for d in self.devices)
@@ -124,7 +232,7 @@ class DevicePlacement:
         return [
             batch_executor.tree_map(
                 lambda a, k=k, dev=dev: _to(a[k * step : (k + 1) * step], dev), tree)
-            for k, dev in enumerate(self.devices)
+            for k, dev in enumerate(self.torch_devices)
         ]
 
     # -- shard-granularity padding -----------------------------------------
@@ -165,15 +273,24 @@ def _to(leaf: Any, device: Any) -> Any:
 
 
 def multihost_mesh(config: MeshConfig, device: Any = "cuda") -> List[Any]:
-    """The device list the placements tile: the host's own
-    (:func:`local_devices`). A coordinator address names the JAX package's
-    multi-host seam, which the port does not serve yet: it raises."""
+    """The multi-host coordinator seam: the device list the placements tile.
+
+    Single host (no coordinator, no group): the host's own devices. With
+    ``coordinator_address`` set (``VIZIER_TORCH_MESH_COORDINATOR``) the
+    process first joins the group through ``parallel.initialize_multihost``
+    (the same explicit wiring), and the list spans every process's devices
+    (:func:`global_devices`), as it does whenever the process has joined.
+    """
     if config.coordinator_address:
-        raise NotImplementedError(
-            "A multi-host mesh (coordinator_address) is the next slice of the "
-            "port (the JAX package's initialize_multihost seam); this mesh serves "
-            "one host.")
-    return local_devices(device)
+        from vizier_tpu_torch import parallel as parallel_lib
+
+        parallel_lib.initialize_multihost(
+            coordinator_address=config.coordinator_address,
+            num_processes=config.num_processes or None,
+            process_id=config.process_id if config.process_id >= 0 else None,
+            device=device,
+        )
+    return global_devices(device)
 
 
 def _carve_device_groups(devices: Sequence[Any], s: int) -> List[List[Any]]:
@@ -205,7 +322,8 @@ def _carve_device_groups(devices: Sequence[Any], s: int) -> List[List[Any]]:
 
 
 def build_placements(config: MeshConfig, device: Any = "cuda") -> List[DevicePlacement]:
-    """Carves the host's devices of ``device``'s type into placements.
+    """Carves the devices of ``device``'s type (every process's, on a
+    multi-host mesh) into placements.
 
     ``num_devices`` caps how many devices take part; ``shard_devices`` groups
     them into equal placements (:func:`_carve_device_groups`); a trailing
