@@ -357,15 +357,32 @@ Phases (any failure raises and exits non-zero):
    (``local_devices`` patched for that part alone), and the trained NLL
    within 1e-3 of the unsharded train's. Either process failing or passing
    its own 300 s fails the phase.
-21. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+21. duck, last in the ``regret`` worker: an out-of-tree designer through the
+   duck-typed program seam (``compute/registry.py`` ``DuckTypedProgram``).
+   The script's ``_OutOfTreeDesigner`` is registered nowhere: it wraps the
+   port's ``VizierGPUCBPEBandit`` and forwards the four ``batch_*`` hooks
+   (and ``suggest``, ``update``) to the inner designer's. Four studies of
+   serving-exact's layout (480 + 2i trials x 20 floats, the DEFAULT's
+   75 000-evaluation sweep), each behind one such designer, send
+   ``suggest(5)`` at once through the loadgen's runtime transport into one
+   ``ServingRuntime``'s ``BatchExecutor`` (4 slots): each resolves to
+   ``DuckTypedProgram``; one flush of occupancy 4 through the wrapper's
+   ``batch_execute``, its wall and K1/K2 launches by mode printed; 0 slot
+   errors, fallbacks and capture failures; suggestions finite and in bounds.
+   The same studies (seeds, trials) through the registered ``UCBPEProgram``
+   on a fresh executor, submitted in the duck flush's slot order: the same
+   bucket keys and the same padded batch, and suggestions equal float for
+   float. The runtime's ``suggest_latency_histogram()`` must count the four
+   requests at both hops.
+22. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
    service-reliability, service-planes, fleet, loadgen, testing,
-   benchmarks, tooling, mesh and lanes steps' included, by mode; K2's
+   benchmarks, tooling, mesh, lanes and duck steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-20 run in three worker
+The phases are host-bound, so phases 7-9 and 14-21 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -5702,6 +5719,293 @@ def run_lanes_phase(kernels, lib):
     return paths, figures
 
 
+# -- phase 21: an out-of-tree designer through the duck-typed program seam ------
+
+# serving-exact's layout (480 + 2i trials x 20 floats, the full sweep), four
+# studies served at once through the loadgen's runtime transport.
+_DUCK_STUDIES = 4
+_DUCK_STUDY = "owners/duck/studies/s"
+# The transport's runtime: batching on, four slots (so the flush is due the
+# moment the fourth study arrives), a window wide enough for all four.
+_DUCK_SWITCHES = {"VIZIER_TORCH_BATCHING": "1", "VIZIER_TORCH_BATCH_MAX_SIZE": str(_DUCK_STUDIES),
+                  "VIZIER_TORCH_BATCH_MAX_WAIT_MS": "5000"}
+
+
+class _OutOfTreeDesigner:
+    """A designer the port does not know: not registered, no
+    ``compute_program``. It wraps the port's GP-UCB-PE and forwards the four
+    ``batch_*`` hooks to the inner designer's, so the executor batches it
+    through ``DuckTypedProgram``; ``suggest`` and ``update`` forward too (the
+    service's cached policy feeds a designer its trials)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.keys, self.executes = [], []
+
+    def update(self, completed, active):
+        self.inner.update(completed, active)
+
+    def suggest(self, count=None):
+        return self.inner.suggest(count)
+
+    def batch_bucket_key(self, count=None):
+        key = self.inner.batch_bucket_key(count)
+        self.keys.append(key)
+        return key
+
+    def batch_prepare(self, count=None):
+        return self.inner.batch_prepare(count)
+
+    def batch_execute(self, items, pad_to=None):
+        self.executes.append((len(items), pad_to))
+        return self.inner.batch_execute(items, pad_to=pad_to)
+
+    def batch_finalize(self, item, output):
+        return self.inner.batch_finalize(item, output)
+
+
+class _OutOfTreeFactory:
+    """The runtime transport's policy factory: each study's designer is an
+    ``_OutOfTreeDesigner`` around ``VizierGPUCBPEBandit(rng_seed=i)`` on the
+    card, served by ``CachedDesignerStatePolicy`` through the runtime's
+    designer cache and executor, as the service serves its own designers."""
+
+    def __init__(self):
+        self.runtime = None
+        self.designers = {}
+
+    def bind_runtime(self, runtime) -> None:
+        self.runtime = runtime
+
+    def __call__(self, problem, algorithm, supporter, study_name):
+        from vizier_tpu_torch.serving import policy as serving_policy
+
+        def build(p):
+            designer = _OutOfTreeDesigner(_duck_inner(p, study_name))
+            self.designers[study_name] = designer
+            return designer
+
+        return serving_policy.CachedDesignerStatePolicy(
+            supporter, build, self.runtime, study_name, use_seeding=True)
+
+
+def _duck_inner(problem, study_name: str):
+    from vizier_tpu_torch.designers import gp_ucb_pe
+
+    return gp_ucb_pe.VizierGPUCBPEBandit(
+        problem, rng_seed=int(study_name.rsplit("-", 1)[1]), device="cuda")
+
+
+def _duck_ordered_flush(executor, designers, count: int):
+    """Submits ``designers`` to ``executor`` in this order, each once the one
+    before it is queued; returns their suggestions."""
+    out, errors, threads = [None] * len(designers), [], []
+
+    def run(i):
+        try:
+            out[i] = executor.suggest(designers[i], count)
+        except Exception as e:  # raised below, on this thread
+            errors.append(e)
+
+    for i in range(len(designers)):
+        threads.append(threading.Thread(target=run, args=(i,)))
+        threads[-1].start()
+        deadline = time.time() + 60
+        while (i + 1 < len(designers) and sum(executor.pending_counts().values()) <= i
+               and time.time() < deadline):
+            time.sleep(0.002)
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"duck (reference): {errors or 'a request did not return'}")
+    return out
+
+
+def _duck_serve(target, clients, kernels, label: str):
+    """Every client's ``suggest(_COUNT)`` at once through the runtime
+    transport: (trials per client, wall seconds, launches by mode)."""
+    def serve():
+        out, errors = [None] * len(clients), []
+
+        def run(i):
+            try:
+                out[i] = clients[i].get_suggestions(_COUNT)
+            except Exception as e:  # raised below, on this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(clients))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"{label}: {errors or 'a request did not return'}")
+        return out
+
+    return _path_launches(kernels, serve)
+
+
+def run_duck_phase(kernels, lib):
+    """Phase 21: out-of-tree designers through the duck-typed program seam
+    (see the module docstring). Returns ({path: launches by mode}, figures)."""
+    del lib
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from vizier_tpu_torch import pyvizier as vz
+    from vizier_tpu_torch.compute import registry as compute_registry
+    from vizier_tpu_torch.designers import gp_ucb_pe
+    from vizier_tpu_torch.loadgen import driver
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.pyvizier import study_config as study_config_lib
+    from vizier_tpu_torch.reliability import ReliabilityConfig
+    from vizier_tpu_torch.serving import stats as stats_lib
+
+    label = "duck"
+    phase_start = time.perf_counter()
+    names = [f"{_DUCK_STUDY}-{i}" for i in range(_DUCK_STUDIES)]
+    configs = [_serving_config(study_config_lib, vz, "DEFAULT") for _ in names]
+    # Every device program of the registered UCB-PE program: (its studies in
+    # slot order, pad_to, wall). Both flushes below reach it, the duck-typed
+    # one through the wrapper's batch_execute.
+    program = compute_registry.get(gp_ucb_pe.UCBPEProgram.kind)
+    device_program, device_programs = program.device_program, []
+
+    def recording(items, pad_to=None, placement=None):
+        start = time.perf_counter()
+        out = device_program(items, pad_to=pad_to, placement=placement)
+        torch.cuda.synchronize()
+        device_programs.append(([it["designer"] for it in items], pad_to,
+                                time.perf_counter() - start))
+        return out
+
+    # The program each out-of-tree designer resolves to when the executor
+    # takes its request.
+    resolve, resolutions = compute_registry.resolve, {}
+
+    def recording_resolve(designer, count=None):
+        out = resolve(designer, count)
+        if isinstance(designer, _OutOfTreeDesigner) and out is not None:
+            resolutions.setdefault(id(designer), type(out[0]).__name__)
+        return out
+
+    factory = _OutOfTreeFactory()
+    reliability = ReliabilityConfig()
+    program.device_program = recording
+    try:
+        # The out-of-tree designers through the runtime transport.
+        with mock.patch.dict(os.environ, _DUCK_SWITCHES):
+            target = driver._RuntimeTarget(None, reliability, factory, "cuda")
+        failures = graphs.STATS["failures"]
+        try:
+            clients = []
+            for i, (name, config) in enumerate(zip(names, configs)):
+                client = target.open_study(SimpleNamespace(name=name, seed=i), config,
+                                           reliability, None)
+                for trial in _serving_trials(vz, i, _SERVE_TRIALS["exact"] + 2 * i):
+                    made = client.create_trial(vz.Trial(parameters=trial.parameters))
+                    client.complete_trial(made.id, trial.final_measurement)
+                clients.append(client)
+            completed = [[t for t in target.list_trials(name, reliability)
+                          if t.status == vz.TrialStatus.COMPLETED] for name in names]
+            with mock.patch.object(compute_registry, "resolve", recording_resolve):
+                duck_trials, wall, by_mode = _duck_serve(target, clients, kernels, label)
+            stats = target.runtime.snapshot()
+            histogram = target.runtime.suggest_latency_histogram()
+            latency_counts = {hop: histogram.count(hop=hop) for hop in ("service", "pythia")}
+        finally:
+            target.runtime.shutdown()
+        duck_failures = graphs.STATS["failures"] - failures
+        ducks = [factory.designers[name] for name in names]
+        resolved = [resolutions.get(id(d)) for d in ducks]
+        flush = [(len(ds), pad, w * 1e3) for ds, pad, w in device_programs]
+        counters = {k: stats[k] for k in ("batch_flushes", "batched_suggests",
+                                          "batch_fallbacks", "batch_slot_errors", "fallbacks")}
+        print(f"{label}: {_DUCK_STUDIES} studies of {_DIM} floats, {_SERVE_TRIALS['exact']} + 2i "
+              f"trials, suggest({_COUNT}) each through the runtime transport; each resolves to "
+              f"{resolved}")
+        print(f"{label} flush: {counters}, occupancy "
+              f"{counters['batched_suggests'] / max(counters['batch_flushes'], 1):.1f}, device "
+              f"programs (studies, pad_to, ms) {flush}, wrapper executes "
+              f"{[d.executes for d in ducks]}, requests {wall * 1e3:.1f} ms, capture failures "
+              f"{duck_failures}, launches {by_mode}")
+        if resolved != ["DuckTypedProgram"] * _DUCK_STUDIES:
+            raise AssertionError(f"{label}: the out-of-tree designers resolved to {resolved}")
+        if (counters["batch_flushes"] != 1 or counters["batched_suggests"] != _DUCK_STUDIES
+                or counters["batch_fallbacks"] or counters["batch_slot_errors"]
+                or counters["fallbacks"] or duck_failures or len(flush) != 1
+                or flush[0][:2] != (_DUCK_STUDIES, _DUCK_STUDIES)
+                or sum(len(d.executes) for d in ducks) != 1):
+            raise AssertionError(f"{label}: not one duck-typed flush of occupancy "
+                                 f"{_DUCK_STUDIES} without fallback, slot error or capture "
+                                 f"failure")
+        _check_round(duck_trials, _COUNT, label)
+        _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                 ("matern52_ard_bwd", "gram")), label)
+
+        # The same studies, seeds and trials through the registered program
+        # on a fresh executor, submitted in the duck flush's slot order.
+        inners = {id(d.inner): i for i, d in enumerate(ducks)}
+        order = [inners[id(d)] for d in device_programs[0][0]]
+        plain = []
+        for i in order:
+            designer = _duck_inner(configs[i].to_problem(), names[i])
+            designer.update(vz.CompletedTrials(completed[i]), vz.ActiveTrials())
+            plain.append(designer)
+        plain_resolved = [compute_registry.resolve(d, _COUNT) for d in plain]
+        plain_stats = stats_lib.ServingStats()
+        executor = batch_executor.BatchExecutor(max_batch_size=_DUCK_STUDIES,
+                                                max_wait_ms=30_000.0, stats=plain_stats)
+        del device_programs[:]
+        failures = graphs.STATS["failures"]
+        try:
+            plain_out, plain_wall, plain_by_mode = _path_launches(
+                kernels, lambda: _duck_ordered_flush(executor, plain, _COUNT))
+        finally:
+            executor.close()
+        plain_failures = graphs.STATS["failures"] - failures
+    finally:
+        del program.device_program
+
+    plain_flush = [(len(ds), pad, w * 1e3) for ds, pad, w in device_programs]
+    plain_counters = {k: plain_stats.get(k) for k in counters if k != "fallbacks"}
+    same_keys = [key == ducks[i].keys[-1] for i, (_, key) in zip(order, plain_resolved)]
+    print(f"{label} registered: {[type(p).__name__ for p, _ in plain_resolved]} on a fresh "
+          f"executor in the flush's slot order {order}: bucket keys equal {same_keys}, stats "
+          f"{plain_counters}, device programs {plain_flush}, {plain_wall * 1e3:.1f} ms, capture "
+          f"failures {plain_failures}, launches {plain_by_mode}")
+    if (any(type(p).__name__ != "UCBPEProgram" for p, _ in plain_resolved)
+            or not all(same_keys) or plain_failures
+            or plain_counters != dict(batch_flushes=1, batched_suggests=_DUCK_STUDIES,
+                                      batch_fallbacks=0, batch_slot_errors=0)
+            or [f[:2] for f in plain_flush] != [f[:2] for f in flush]
+            or [ds for ds, _, _ in device_programs] != [plain]):
+        raise AssertionError(f"{label}: the registered flush is not the same bucket and padded "
+                             f"batch in one flush")
+    equal = [[t.parameters.as_dict() for t in duck_trials[i]]
+             == [s.parameters.as_dict() for s in plain_out[j]] for j, i in enumerate(order)]
+    print(f"{label}: suggestions equal float for float to the registered flush's: {equal}; "
+          f"suggest latency histogram counts {latency_counts} for {len(clients)} requests; "
+          f"{_card_line()}")
+    if not all(equal):
+        raise AssertionError(f"{label}: the duck-typed flush's suggestions differ from the "
+                             f"registered program's")
+    if latency_counts != {"service": len(clients), "pythia": len(clients)}:
+        raise AssertionError(f"{label}: the suggest latency histogram counted {latency_counts} "
+                             f"for {len(clients)} requests")
+    paths = {"duck": by_mode, "duck_registered": plain_by_mode}
+    figures = dict(
+        resolved=resolved, stats=counters, flush_ms=flush[0][2], pad_to=flush[0][1],
+        requests_ms=wall * 1e3, registered_flush_ms=plain_flush[0][2],
+        registered_ms=plain_wall * 1e3, order=order, equal=equal,
+        latency_counts=latency_counts, capture_failures=duck_failures + plain_failures,
+        launches=by_mode, registered_launches=plain_by_mode)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -5713,7 +6017,7 @@ def run_lanes_phase(kernels, lib):
 # the main process prints when it has finished, and its paths and figures to a
 # JSON file. A worker that fails fails the run.
 _WORKER_PHASES = {
-    "regret": ("regret", "lanes"),
+    "regret": ("regret", "lanes", "duck"),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
     "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh"),
 }
@@ -5763,6 +6067,8 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_mesh_phase(kernels, lib)
     if phase == "lanes":
         return run_lanes_phase(kernels, lib)
+    if phase == "duck":
+        return run_duck_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -5955,13 +6261,15 @@ def main() -> int:
     print(json.dumps({"fleet": done["fleet"]["figures"]}))
     slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
                    **done["benchmarks"]["paths"], **done["tooling"]["paths"],
-                   **done["mesh"]["paths"], **done["lanes"]["paths"]}
+                   **done["mesh"]["paths"], **done["lanes"]["paths"],
+                   **done["duck"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
     print(json.dumps({"tooling": done["tooling"]["figures"]}, default=float))
     print(json.dumps({"mesh": done["mesh"]["figures"]}, default=float))
     print(json.dumps({"lanes": done["lanes"]["figures"]}, default=float))
+    print(json.dumps({"duck": done["duck"]["figures"]}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -6033,6 +6341,9 @@ def main() -> int:
             "launches_lanes_phase": sum(
                 sum(done["lanes"]["paths"][path][name].values())
                 for path in done["lanes"]["paths"]),
+            "launches_duck_phase": sum(
+                sum(done["duck"]["paths"][path][name].values())
+                for path in done["duck"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -264,6 +264,24 @@ def test_the_port_switch_defaults_equal_the_jax_packages():
             assert (switch.kind, switch.default) == (theirs.kind, theirs.default), switch.name
 
 
+@pytest.mark.parametrize("value", [None, "0", "1", "false", "False", "", "yes"])
+def test_env_set_reads_an_opt_out_flag_as_the_jax_package_does(value, monkeypatch):
+    flags = [(s.name, "VIZIER_" + s.name[len(registry.PREFIX):]) for s in registry.SWITCHES
+             if s.kind == "flag"]
+    flags = [(ours, theirs) for ours, theirs in flags if theirs in jregistry.BY_NAME]
+    assert ("VIZIER_TORCH_DISABLE_MESH", "VIZIER_DISABLE_MESH") in flags
+    for ours, theirs in flags:
+        for name in (ours, theirs):
+            if value is None:
+                monkeypatch.delenv(name, raising=False)
+            else:
+                monkeypatch.setenv(name, value)
+        assert registry.env_set(ours) == jregistry.env_set(theirs), (ours, value)
+        assert registry.env_set(ours) == (value not in (None, "0", "false", "False", ""))
+    with pytest.raises(KeyError, match="Undeclared"):
+        registry.env_set("VIZIER_TORCH_NOT_A_SWITCH")
+
+
 def test_the_switch_doc_is_the_registrys_rendering():
     doc = (_ROOT / registry.DOC).read_text()
     assert doc == registry.render_doc()

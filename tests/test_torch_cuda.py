@@ -2027,3 +2027,79 @@ def test_two_gloo_processes_on_the_card_agree_bit_for_bit(cuda_device, tmp_path,
         np.testing.assert_array_equal(ranks[0][name], ranks[1][name], err_msg=name)
         gap = float(np.max(np.abs(ranks[0][name] - value))) / max(1.0, float(np.max(np.abs(value))))
         assert gap <= 1e-6, (name, gap)
+
+
+class _ForwardingDesigner:
+    """An out-of-tree designer: not registered, no ``compute_program``; its
+    four ``batch_*`` hooks forward to the wrapped GP designer's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def suggest(self, count=None):
+        return self.inner.suggest(count)
+
+    def batch_bucket_key(self, count=None):
+        return self.inner.batch_bucket_key(count)
+
+    def batch_prepare(self, count=None):
+        return self.inner.batch_prepare(count)
+
+    def batch_execute(self, items, pad_to=None):
+        return self.inner.batch_execute(items, pad_to=pad_to)
+
+    def batch_finalize(self, item, output):
+        return self.inner.batch_finalize(item, output)
+
+
+def _ordered_flush(designers, count):
+    """One flush of ``designers`` in this order through a fresh executor
+    (each submitted once the one before is queued): (suggestions, stats)."""
+    import threading
+    import time
+
+    from vizier_tpu_torch.parallel import batch_executor
+    from vizier_tpu_torch.serving import stats as stats_lib
+
+    stats = stats_lib.ServingStats()
+    executor = batch_executor.BatchExecutor(max_batch_size=len(designers), max_wait_ms=30_000,
+                                            stats=stats)
+    out = [None] * len(designers)
+    threads = []
+    try:
+        for i in range(len(designers)):
+            threads.append(threading.Thread(
+                target=lambda i=i: out.__setitem__(i, executor.suggest(designers[i], count))))
+            threads[-1].start()
+            deadline = time.time() + 60
+            while (i + 1 < len(designers) and sum(executor.pending_counts().values()) <= i
+                   and time.time() < deadline):
+                time.sleep(0.002)
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        executor.close()
+    assert not any(t.is_alive() for t in threads)
+    return out, stats.snapshot()
+
+
+def test_a_duck_typed_flush_on_the_card_equals_the_registered_one(cuda_device):
+    """Two GP-UCB-PE studies behind a forwarding wrapper resolve to the
+    duck-typed program and flush together on the card; the same studies
+    through the registered program give the same floats."""
+    from vizier_tpu_torch.compute import registry
+
+    ducks = [_ForwardingDesigner(d) for d in _mesh_designers(range(2))]
+    assert [type(registry.resolve(d, 2)[0]).__name__ for d in ducks] == ["DuckTypedProgram"] * 2
+    tk.reset_launch_counts()
+    got, stats = _ordered_flush(ducks, 2)
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["gram"] > 0
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_bwd"]["gram"] > 0
+    assert (stats["batch_flushes"], stats["batched_suggests"], stats["batch_fallbacks"],
+            stats["batch_slot_errors"]) == (1, 2, 0, 0)
+    plain = _mesh_designers(range(2))
+    assert [type(registry.resolve(d, 2)[0]).__name__ for d in plain] == ["UCBPEProgram"] * 2
+    want, want_stats = _ordered_flush(plain, 2)
+    assert want_stats["batched_suggests"] == 2
+    for g, w in zip(got, want):
+        assert [s.parameters.as_dict() for s in g] == [s.parameters.as_dict() for s in w]

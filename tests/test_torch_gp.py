@@ -244,3 +244,86 @@ def test_posterior_cholesky_refactors_in_float64_what_float32_cannot():
     assert bool(torch.isfinite(chol).all())
     torch.testing.assert_close(chol[0], torch.linalg.cholesky(gram[0].double()).float())
     assert torch.equal(chol[1], plain[1])
+
+
+def test_ensemble_size_matches_and_counts_members_per_study():
+    jmodel, jdata, tmodel, tdata, _ = _setup(n=12, n_pad=16)
+    inits = jmodel.param_collection().batch_random_init_unconstrained(jax.random.PRNGKey(3), 4)
+    jstates = jax.vmap(lambda p: jmodel.precompute(p, jdata))(inits)
+    tstates = tmodel.precompute(
+        interop.gp_params_from_numpy({k: np.asarray(v) for k, v in inits.items()}, "cpu"), tdata
+    )
+    assert tgp.EnsemblePredictive(tstates).ensemble_size == jgp.EnsemblePredictive(jstates).ensemble_size == 4
+    # Two studies of two members each, stacked along the batch axis.
+    assert tgp.EnsemblePredictive(tstates, studies=2).ensemble_size == 2
+
+
+def test_parameter_collection_spec_finds_each_parameter_by_name():
+    jcoll = jgp.VizierGaussianProcess(num_continuous=3, num_categorical=2).param_collection()
+    tcoll = tgp.VizierGaussianProcess(num_continuous=3, num_categorical=2, device="cpu").param_collection()
+    assert [s.name for s in tcoll.specs] == [s.name for s in jcoll.specs]
+    for s in jcoll.specs:
+        got = tcoll.spec(s.name)
+        assert got.name == s.name and got is next(t for t in tcoll.specs if t.name == s.name)
+        assert tuple(got.shape) == tuple(s.shape)
+    with pytest.raises(KeyError):
+        tcoll.spec("no_such_parameter")
+    with pytest.raises(KeyError):
+        jcoll.spec("no_such_parameter")
+
+
+def _padded_pair(seed, shape, target, dtype=np.float32, fill=0.0):
+    """The same numpy array padded by both packages; the port's as tensors."""
+    values = np.random.default_rng(seed).normal(size=shape).astype(dtype)
+    jpad = jtypes.PaddedArray.from_array(values, target, fill_value=fill)
+    tpad = ttypes.PaddedArray.from_array(values, target, fill_value=fill)
+    return values, jpad, tpad, tpad.to(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("shape, target", [((5, 3), (8, 4)), ((7,), (16,)), ((2, 3, 1), (4, 3, 2))])
+def test_padded_array_helpers_match_the_jax_package(shape, target):
+    values, jpad, hpad, tpad = _padded_pair(0, shape, target, fill=np.nan)
+    for got in (hpad, tpad):
+        assert got.shape == jpad.shape and got.ndim == jpad.ndim
+        assert str(got.dtype).split(".")[-1] == str(jpad.dtype)
+        assert [int(n) for n in got.true_shape()] == [int(n) for n in jpad.true_shape()]
+        assert [int(got.num_valid(a)) for a in range(len(shape))] == list(shape)
+        np.testing.assert_array_equal(np.asarray(got.joint_valid_mask()),
+                                      np.asarray(jpad.joint_valid_mask()))
+        np.testing.assert_array_equal(np.asarray(got.unpad()), jpad.unpad())
+        np.testing.assert_array_equal(np.asarray(got.unpad()), values)
+        refilled, jrefilled = got.replace_fill_value(-7.0), jpad.replace_fill_value(-7.0)
+        assert refilled.fill_value == jrefilled.fill_value == -7.0
+        np.testing.assert_array_equal(np.asarray(refilled.padded_array),
+                                      np.asarray(jrefilled.padded_array))
+        bigger = tuple(t + 2 for t in target)
+        repadded, jrepadded = got.pad_to(bigger), jpad.pad_to(bigger)
+        assert repadded.shape == jrepadded.shape == bigger
+        np.testing.assert_array_equal(np.asarray(repadded.padded_array),
+                                      np.asarray(jrepadded.padded_array))
+        for m, jm in zip(repadded.is_missing, jrepadded.is_missing):
+            np.testing.assert_array_equal(np.asarray(m), np.asarray(jm))
+    # On tensors every result stays a tensor on the tensor's device.
+    assert all(isinstance(n, torch.Tensor) and n.dtype == torch.int32 for n in tpad.true_shape())
+    for out in (tpad.joint_valid_mask(), tpad.unpad(), tpad.replace_fill_value(1.0).padded_array,
+                tpad.pad_to(tuple(t + 1 for t in target)).padded_array):
+        assert isinstance(out, torch.Tensor) and out.device == tpad.padded_array.device
+    with pytest.raises(ValueError):
+        tpad.pad_to(tuple(1 for _ in target))
+    with pytest.raises(ValueError):
+        hpad.pad_to(tuple(1 for _ in target))
+
+
+def test_as_padded_wraps_without_padding_in_both_packages():
+    values = np.arange(6, dtype=np.float32).reshape(2, 3)
+    jpad = jtypes.PaddedArray.as_padded(values, fill_value=-1.0)
+    for got in (ttypes.PaddedArray.as_padded(values, fill_value=-1.0),
+                ttypes.PaddedArray.as_padded(torch.from_numpy(values), fill_value=-1.0)):
+        assert got.shape == jpad.shape and got.fill_value == jpad.fill_value
+        np.testing.assert_array_equal(np.asarray(got.padded_array), np.asarray(jpad.padded_array))
+        for m, jm in zip(got.is_missing, jpad.is_missing):
+            np.testing.assert_array_equal(np.asarray(m), np.asarray(jm))
+        assert bool(np.all(np.asarray(got.joint_valid_mask())))
+    tensor = ttypes.PaddedArray.as_padded(torch.from_numpy(values))
+    assert isinstance(tensor.padded_array, torch.Tensor)
+    assert all(isinstance(m, torch.Tensor) and m.dtype == torch.bool for m in tensor.is_missing)

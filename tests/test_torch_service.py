@@ -479,6 +479,25 @@ def test_a_failing_designer_degrades_to_the_same_stamped_fallback_bytes():
     assert suggestions[0].metadata.ns("reliability")["fallback_reason"] == "circuit_open"
 
 
+def test_the_vizier_servicer_reports_its_pythias_serving_stats_as_the_jax_one_does():
+    """``VizierServicer.serving_stats`` is the connected in-process Pythia's
+    snapshot, and {} with no in-process Pythia, in both packages."""
+    snaps = []
+    for pkg in (JAX, PORT):
+        assert pkg.vizier_service.VizierServicer().serving_stats() == {}
+        servicer = _servicer(pkg, _FailingFactory(pkg))
+        request = _pythia_request(pkg, _config(pkg.vz, "RANDOM_SEARCH"), "owners/o/studies/stats")
+        servicer._pythia.Suggest(request)
+        snap = servicer.serving_stats()
+        assert snap == servicer._pythia.serving_stats()
+        snaps.append(snap)
+        _close(servicer)
+    assert snaps[1].keys() == snaps[0].keys()
+    for key in ("designer_failures", "fallbacks", "breaker_short_circuits", "open_breakers"):
+        assert snaps[1][key] == snaps[0][key], key
+    assert snaps[1]["fallbacks"] > 0
+
+
 def test_an_expired_wire_deadline_is_refused_before_dispatch_by_both():
     errors = []
     for pkg in (JAX, PORT):

@@ -277,6 +277,34 @@ def test_planes_that_are_not_ported_raise():
     rt.shutdown()
 
 
+def test_the_suggest_latency_histogram_counts_what_the_jax_runtimes_counts():
+    """The same observations into both runtimes: the accessor returns the
+    histogram they land in, with the same series, counts, sums and p50."""
+    from vizier_tpu.serving import runtime as jserving_runtime
+
+    runtimes = [jserving_runtime.ServingRuntime(jserving_config.ServingConfig(batching=False)),
+                serving_runtime.ServingRuntime(serving_config.ServingConfig(batching=False))]
+    rng = np.random.default_rng(0)
+    observations = [(hop, float(s)) for hop, s in zip(
+        rng.choice(["service", "pythia"], size=40), rng.exponential(0.05, size=40))]
+    try:
+        for rt in runtimes:
+            for hop, seconds in observations:
+                rt.observe_suggest_latency(hop, seconds, trace_id=f"t{seconds:.6f}")
+        jhist, thist = (rt.suggest_latency_histogram() for rt in runtimes)
+        assert thist is runtimes[1]._suggest_latency
+        assert thist.name == jhist.name == "vizier_suggest_latency_seconds"
+        assert thist.series_data() == jhist.series_data()
+        for hop in ("service", "pythia"):
+            want = sum(h == hop for h, _ in observations)
+            assert thist.count(hop=hop) == jhist.count(hop=hop) == want
+            assert thist.sum(hop=hop) == jhist.sum(hop=hop)
+            assert thist.percentile(50, hop=hop) == jhist.percentile(50, hop=hop)
+    finally:
+        for rt in runtimes:
+            rt.shutdown()
+
+
 # -- config and stats against the JAX package ------------------------------------
 
 

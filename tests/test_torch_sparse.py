@@ -246,6 +246,18 @@ def test_ensemble_predictive_matches():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
 
 
+def test_sparse_ensemble_size_matches():
+    jsparse, tsparse = _models()
+    jsdata, tsdata = _sdata()
+    inits = jsparse.param_collection().batch_random_init_unconstrained(jax.random.PRNGKey(4), 5)
+    jstates = jax.vmap(lambda q: jsparse.precompute(q, jsdata))(inits)
+    tstates = tsparse.precompute(
+        interop.gp_params_from_numpy({k: np.asarray(v) for k, v in inits.items()}, "cpu"), tsdata
+    )
+    assert tsg.SparseEnsemblePredictive(tstates).ensemble_size == 5
+    assert jsg.SparseEnsemblePredictive(jstates).ensemble_size == 5
+
+
 def test_sample_draws_around_the_posterior():
     _, tsparse = _models()
     _, tsdata = _sdata()

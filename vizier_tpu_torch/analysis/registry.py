@@ -312,6 +312,12 @@ def env_on(name: str, default: Optional[str] = None) -> bool:
     return os.environ.get(name, base) not in ("0", "false", "False", "")
 
 
+def env_set(name: str) -> bool:
+    """True when the switch is set to a truthy value (unset -> False): the read
+    of opt-out flags such as ``VIZIER_TORCH_DISABLE_MESH``."""
+    return env_on(name, default="0")
+
+
 def env_int(name: str, default: int) -> int:
     _require(name)
     try:

@@ -656,6 +656,41 @@ class VizierGPBandit(core_lib.Designer, core_lib.Predictor):
         program, _ = compute_registry.resolve(self, count)
         return program.run_alone(self, count)
 
+    # -- cross-study batch protocol (the compute IR) -------------------------
+    # The registered programs at the bottom of this module do the work; these
+    # hooks keep the duck-typed surface for callers that talk to the designer
+    # directly (a wrapper forwarding to ``inner.batch_*``, tests).
+
+    def _active_batch_program(self) -> compute_ir.DesignerProgram:
+        """The registered program the current surrogate mode routes to."""
+        sparse = self._surrogate_mode == surrogate_config_lib.MODE_SPARSE
+        return compute_registry.get(
+            GPBanditSparseProgram.kind if sparse else GPBanditProgram.kind)
+
+    def batch_bucket_key(self, count: Optional[int] = None) -> Optional[compute_ir.BucketKey]:
+        """Shape-bucket identity for cross-study batching, or None on the
+        paths the programs do not cover (seeding, multi-objective, priors,
+        joint qEI, ...): those run the sequential suggest."""
+        resolved = compute_registry.resolve(self, count)
+        return resolved[1] if resolved is not None else None
+
+    def batch_prepare(self, count: Optional[int] = None) -> dict:
+        """Host-side half of a batched suggest (the program's ``prepare``)."""
+        return self._active_batch_program().prepare(self, count or 1)
+
+    @classmethod
+    def batch_execute(cls, items: Sequence[dict], pad_to: Optional[int] = None,
+                      placement=None) -> List[dict]:
+        """Device half, dispatched to the bucket's registered program (slot
+        0's item says which: the bucket key guarantees agreement)."""
+        kind = GPBanditSparseProgram.kind if items[0].get("sparse") else GPBanditProgram.kind
+        return compute_registry.get(kind).device_program(items, pad_to=pad_to, placement=placement)
+
+    def batch_finalize(self, item: dict, output: dict) -> List[trial_.TrialSuggestion]:
+        """Host-side demux (the program's ``finalize``)."""
+        kind = GPBanditSparseProgram.kind if output.get("sparse") else GPBanditProgram.kind
+        return compute_registry.get(kind).finalize(self, item, output)
+
     def _train_exact(self, data: gp_lib.GPData) -> gp_lib.GPState:
         """The single-objective exact train outside a program (on the mesh
         when there is one), with its warm seed, counted as warm or cold,

@@ -1000,6 +1000,25 @@ class VizierGPUCBPEBandit(gp_bandit.VizierGPBandit):
             return self._suggest_over_cached_fit(count)
         return self._suggest_multiobjective(count)
 
+    # -- cross-study batch protocol: the UCB-PE programs' kinds; the bucket
+    # key and prepare hooks are the GP bandit's, routed through
+    # ``_active_batch_program``.
+
+    def _active_batch_program(self) -> compute_ir.DesignerProgram:
+        sparse = self._surrogate_mode == surrogate_config_lib.MODE_SPARSE
+        return compute_registry.get(UCBPESparseProgram.kind if sparse else UCBPEProgram.kind)
+
+    @classmethod
+    def batch_execute(cls, items: Sequence[dict], pad_to: Optional[int] = None,
+                      placement=None) -> List[dict]:
+        """Device half, dispatched to the bucket's registered program."""
+        kind = UCBPESparseProgram.kind if items[0].get("sparse") else UCBPEProgram.kind
+        return compute_registry.get(kind).device_program(items, pad_to=pad_to, placement=placement)
+
+    def batch_finalize(self, item: dict, output: dict) -> List[trial_.TrialSuggestion]:
+        kind = UCBPESparseProgram.kind if output.get("sparse") else UCBPEProgram.kind
+        return compute_registry.get(kind).finalize(self, item, output)
+
     def _two_phase(self, count: int) -> bool:
         """Whether a batch runs as a full-budget first pick and the rest."""
         return self.acquisition_budget_policy == "first_pick_full" and count > 1

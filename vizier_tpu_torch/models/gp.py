@@ -372,6 +372,11 @@ class EnsemblePredictive:
     states: GPState
     studies: Optional[int] = None
 
+    @property
+    def ensemble_size(self) -> int:
+        """Members per study."""
+        return self.states.linv.shape[0] // (self.studies or 1)
+
     def predict(self, query: kernels.MixedFeatures) -> Tuple[Tensor, Tensor]:
         means, stddevs = self.states.predict(query)
         axis = 0

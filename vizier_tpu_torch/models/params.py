@@ -107,6 +107,12 @@ class ParameterCollection:
 
     specs: Tuple[ParameterSpec, ...]
 
+    def spec(self, name: str) -> ParameterSpec:
+        for s in self.specs:
+            if s.name == name:
+                return s
+        raise KeyError(name)
+
     def batch_random_init_unconstrained(
         self, generator: torch.Generator, batch: int
     ) -> Params:

@@ -20,8 +20,9 @@ caller asks for the CPU, and the servicer raises at construction when CUDA
 is asked for and no GPU is present. ``connect_to_vizier`` is the fleet's
 late binding: a shared compute tier builds its Pythia first and binds it to
 a Vizier service afterwards (``distributed/replica_manager.py``,
-``distributed/pythia_server_main.py``). The JAX servicer's compile prewarm
-is not ported.
+``distributed/pythia_server_main.py``). :meth:`PythiaServicer.prewarm` is
+the JAX servicer's compile prewarm: it walks a study shape's padding buckets
+through the registered programs before the first request.
 """
 
 from __future__ import annotations

@@ -99,6 +99,11 @@ class VizierServicer:
         runtime = getattr(self._pythia, "serving_runtime", None)
         return runtime.stats if runtime is not None else None
 
+    def serving_stats(self) -> dict:
+        """Delegates to the in-process Pythia servicer's counters ({} if remote)."""
+        snapshot = getattr(self._pythia, "serving_stats", None)
+        return snapshot() if snapshot is not None else {}
+
     def record_client_retry(self, amount: int = 1) -> None:
         """Client-side retry accounting (no-op without in-process Pythia).
 

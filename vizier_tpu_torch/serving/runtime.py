@@ -630,6 +630,10 @@ class ServingRuntime:
                 labels["tenant"] = tenant
             self._suggest_latency.observe(seconds, trace_id=trace_id, **labels)
 
+    def suggest_latency_histogram(self) -> metrics_lib.Histogram:
+        """``vizier_suggest_latency_seconds``: one series per hop (and tenant)."""
+        return self._suggest_latency
+
     def slo_report(self) -> Dict[str, Any]:
         """Evaluates the armed SLOs now and returns the JSON-ready report
         (``{"armed": False}`` when the SLO engine is off)."""
