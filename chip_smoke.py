@@ -374,15 +374,40 @@ Phases (any failure raises and exits non-zero):
    bucket keys and the same padded batch, and suggestions equal float for
    float. The runtime's ``suggest_latency_histogram()`` must count the four
    requests at both hops.
-22. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+22. profile, last in the ``loadgen`` worker: the repository's tools on the
+   port (``vizier_tpu_torch/tools/``) at their own full width. (a)
+   ``profile_e2e``: the DEFAULT on bench.py's study (1000 trials x 20 floats,
+   the 75 000-evaluation sweep), ``update(all)``, one first ``suggest(25)``
+   not counted, then ``update(one fresh trial)`` + ``suggest(25)`` timed
+   (``_PROFILE_REPEATS``, cut from the tool's 2) with the port's tracer on:
+   the stage table with host ms and CUDA-event ms, and K1/K2 launches by
+   mode; the stages' host times sum to no more than the total, the train
+   and acquisition phases' event times within their stages' host times, 25
+   suggestions finite and in bounds, 0 capture failures. (b) The spans of
+   (a) dumped with ``dump_jsonl`` and read by ``tools.obs_report`` as a table
+   and as ``--json``: the train and acquisition phases (``jax.gp_ucb_pe.*``)
+   counted once per suggest of (a), all exact. (c) ``warm_start_ab``: the
+   cold and warm ARD + sweep latency arms at 1000 x 20-D, 75 000
+   evaluations, batch 25 (2 repeats, cut from 5) and the regret parity at
+   the tool's 45 trials, batch 5, 2 000 evaluations (seeds 1-3, cut from
+   1-5); its report line, every number finite.
+23. ab, last in the ``serving`` worker: ``surrogate_ab --designer ucb_pe``,
+   the sparse surrogate against the exact DEFAULT: latency at 1000 x 20-D,
+   75 000 evaluations, ``suggest(5)``, 128 inducing points (exact repeats 1,
+   sparse 2: cut from 2 and 5), regret parity at the tool's sizes (seeds 1-3,
+   cut from 1-5), and the off switch (``VIZIER_TORCH_SPARSE_UCB_PE=0``)
+   bit-identical to the exact path, which must hold; the report line, every
+   number finite.
+24. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
    service-reliability, service-planes, fleet, loadgen, testing,
-   benchmarks, tooling, mesh, lanes and duck steps' included, by mode; K2's
+   benchmarks, tooling, mesh, lanes, duck, profile and ab steps' included,
+   by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-21 run in three worker
+The phases are host-bound, so phases 7-9 and 14-23 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
 the main process's phases 4-6 and 10-13. Phase 15 measures a serving
@@ -6006,6 +6031,154 @@ def run_duck_phase(kernels, lib):
     return paths, figures
 
 
+# -- profile and ab: the repository's tools on the port ----------------------------
+
+# The tools' own full widths (bench.py's study: 1000 trials x 20 floats, the
+# 75 000-evaluation sweep, 128 inducing points). Only depth is cut: repeats
+# and parity seeds, each printed by its phase.
+_PROFILE_REPEATS = 1  # profile_e2e --repeats, cut from 2
+_WARM_START_ARGS = ["--repeats", "2", "--parity-seeds", "1", "2", "3"]  # cut from 5 and 1-5
+_SURROGATE_ARGS = ["--designer", "ucb_pe", "--exact-repeats", "1", "--sparse-repeats", "2",
+                   "--parity-seeds", "1", "2", "3"]  # cut from 2, 5 and 1-5
+
+
+def _finite_tree(tree) -> bool:
+    """Whether every number in a report is finite."""
+    if isinstance(tree, dict):
+        return all(_finite_tree(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_tree(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def run_profile_phase(kernels, lib):
+    """Phase 22: the stage profile, the span report over it and the
+    warm-start A/B (see the module docstring). Returns ({path: launches by
+    mode}, figures)."""
+    del lib
+    import io
+
+    from vizier_tpu_torch.observability import config as obs_config
+    from vizier_tpu_torch.observability import device_timing
+    from vizier_tpu_torch.observability import tracing
+    from vizier_tpu_torch.optimizers import graphs
+    from vizier_tpu_torch.tools import obs_report, profile_e2e, warm_start_ab
+
+    label = "profile"
+    phase_start = time.perf_counter()
+    print(f"{label}: cuts (depth only; trials, dimensions, evaluations uncut): profile_e2e "
+          f"--repeats {_PROFILE_REPEATS} (from 2); warm_start_ab {' '.join(_WARM_START_ARGS)} "
+          f"(from --repeats 5, seeds 1-5)")
+    device_timing.set_config(obs_config.ObservabilityConfig())
+    tracer = tracing.Tracer()
+    previous = tracing.set_tracer(tracer)
+    failures = graphs.STATS["failures"]
+    try:
+        (report, suggestions), wall, by_mode = _path_launches(
+            kernels, lambda: profile_e2e.profile_suggest(
+                trials=_NUM_TRIALS, evals=75_000, batch=25, repeats=_PROFILE_REPEATS, dim=_DIM,
+                device="cuda"))
+    finally:
+        tracing.set_tracer(previous)
+    profile_failures = graphs.STATS["failures"] - failures
+    print(json.dumps({"profile_e2e": report}))
+    print(f"{label} (a): {report['suggests']} suggest({report['config']['batch']}) in "
+          f"{wall:.1f} s, capture failures {profile_failures}, launches {by_mode}; "
+          f"{_card_line()}")
+    (row,) = report["repeats"]
+    stages = row["stages_ms"]
+    top = sum(stages[k] for k in profile_e2e.TOP_LEVEL)
+    if top > row["total_ms"]:
+        raise AssertionError(f"{label}: the stages sum to {top:.1f} ms, past the total "
+                             f"{row['total_ms']:.1f} ms")
+    if set(row["events"]) != {"gp_ucb_pe.train_gp", "gp_ucb_pe.acquisition"}:
+        raise AssertionError(f"{label}: device phases {sorted(row['events'])}")
+    for name, event in row["events"].items():
+        if not (event["event_ms"] is not None and 0 < event["event_ms"] <= stages[event["stage"]]):
+            raise AssertionError(f"{label}: {name}'s event time {event['event_ms']} ms is not "
+                                 f"within its stage's host time {stages[event['stage']]:.1f} ms")
+    if len(suggestions) != 25 or profile_failures:
+        raise AssertionError(f"{label}: {len(suggestions)} suggestions, {profile_failures} "
+                             f"capture failures")
+    _check_suggestions(suggestions, label)
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), label)
+
+    # (b) The span report over (a)'s spans, as a table and as --json.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spans_") as tmp:
+        spans = os.path.join(tmp, "spans.jsonl")
+        written = tracer.dump_jsonl(spans)
+        print(f"{label} (b): {written} spans; python -m vizier_tpu_torch.tools.obs_report:")
+        obs_report.main([spans])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            obs_report.main([spans, "--json"])
+    spans_report = json.loads(out.getvalue())
+    print(json.dumps({"obs_report": spans_report}))
+    counts = {r["phase"]: r["count"] for r in spans_report["phases"]}
+    phases = {name: counts.get(f"jax.{name}") for name in row["events"]}
+    if (phases != {name: report["suggests"] for name in row["events"]}
+            or spans_report["surrogate_activity"] != {
+                "mode": "exact", "exact": 2 * report["suggests"], "sparse": 0}):
+        raise AssertionError(f"{label}: the span report counts {phases}, "
+                             f"{spans_report['surrogate_activity']} for {report['suggests']} "
+                             f"suggests")
+
+    # (c) The warm-start A/B.
+    args = warm_start_ab.parser().parse_args(_WARM_START_ARGS + ["--device", "cuda"])
+    warm, warm_wall, warm_by_mode = _path_launches(kernels, lambda: warm_start_ab.run(args))
+    warm_start_ab.write_report(warm, None)
+    print(f"{label} (c): warm_start_ab {warm_wall:.1f} s, launches {warm_by_mode}; "
+          f"{_card_line()}")
+    latency, parity = warm["latency"], warm["parity"]
+    if (len(latency["cold_suggest_ms"]) != 2 or len(latency["warm_suggest_ms"]) != 2
+            or len(parity["warm_final_regrets"]) != 3 or not _finite_tree(warm)
+            or latency["config"]["num_trials"] != _NUM_TRIALS):
+        raise AssertionError(f"{label}: the warm-start report is incomplete or not finite")
+    _require_modes(warm_by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                                  ("matern52_ard_bwd", "gram")), f"{label} warm start")
+    paths = {"profile_e2e": by_mode, "warm_start_ab": warm_by_mode}
+    figures = dict(
+        profile=report, span_report=dict(phases=counts, activity=spans_report[
+            "surrogate_activity"]), profile_wall_s=wall, warm_start=warm,
+        warm_start_wall_s=warm_wall, capture_failures=profile_failures)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
+def run_ab_phase(kernels, lib):
+    """Phase 23: the sparse surrogate against the exact DEFAULT (see the
+    module docstring). Returns ({path: launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch.tools import surrogate_ab
+
+    label = "ab"
+    phase_start = time.perf_counter()
+    print(f"{label}: cuts (depth only; trials, dimensions, evaluations and inducing points "
+          f"uncut): surrogate_ab {' '.join(_SURROGATE_ARGS)} (from --exact-repeats 2, "
+          f"--sparse-repeats 5, seeds 1-5)")
+    args = surrogate_ab.parser().parse_args(_SURROGATE_ARGS + ["--device", "cuda"])
+    ab, wall, by_mode = _path_launches(kernels, lambda: surrogate_ab.run(args))
+    surrogate_ab.write_report(ab, None)
+    print(f"{label}: surrogate_ab --designer ucb_pe {wall:.1f} s, launches {by_mode}; "
+          f"{_card_line()}")
+    latency, parity = ab["latency"], ab["parity"]
+    if (len(latency["exact_suggest_ms"]) != 1 or len(latency["sparse_suggest_ms"]) != 2
+            or len(parity["sparse_final_regrets"]) != 3 or not _finite_tree(ab)
+            or (latency["config"]["num_trials"], latency["config"]["num_inducing"])
+            != (_NUM_TRIALS, 128)):
+        raise AssertionError(f"{label}: the surrogate report is incomplete or not finite")
+    if ab["off_switch"] != {"off_bit_identical": True}:
+        raise AssertionError(f"{label}: VIZIER_TORCH_SPARSE_UCB_PE=0 is not bit-identical to "
+                             f"the exact path")
+    _require_modes(by_mode, (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+                             ("matern52_ard_bwd", "gram")), label)
+    figures = dict(surrogate_ab=ab, wall_s=time.perf_counter() - phase_start)
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return {"surrogate_ab_ucb_pe": by_mode}, figures
+
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -6018,8 +6191,8 @@ def run_duck_phase(kernels, lib):
 # JSON file. A worker that fails fails the run.
 _WORKER_PHASES = {
     "regret": ("regret", "lanes", "duck"),
-    "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet"),
-    "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh"),
+    "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet", "ab"),
+    "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh", "profile"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -6069,6 +6242,10 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_lanes_phase(kernels, lib)
     if phase == "duck":
         return run_duck_phase(kernels, lib)
+    if phase == "profile":
+        return run_profile_phase(kernels, lib)
+    if phase == "ab":
+        return run_ab_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -6262,7 +6439,8 @@ def main() -> int:
     slice_paths = {**done["loadgen"]["paths"], **done["testing"]["paths"],
                    **done["benchmarks"]["paths"], **done["tooling"]["paths"],
                    **done["mesh"]["paths"], **done["lanes"]["paths"],
-                   **done["duck"]["paths"]}
+                   **done["duck"]["paths"], **done["profile"]["paths"],
+                   **done["ab"]["paths"]}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
@@ -6270,6 +6448,8 @@ def main() -> int:
     print(json.dumps({"mesh": done["mesh"]["figures"]}, default=float))
     print(json.dumps({"lanes": done["lanes"]["figures"]}, default=float))
     print(json.dumps({"duck": done["duck"]["figures"]}, default=float))
+    print(json.dumps({"profile": done["profile"]["figures"]}, default=float))
+    print(json.dumps({"ab": done["ab"]["figures"]}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -6344,6 +6524,12 @@ def main() -> int:
             "launches_duck_phase": sum(
                 sum(done["duck"]["paths"][path][name].values())
                 for path in done["duck"]["paths"]),
+            "launches_profile_phase": sum(
+                sum(done["profile"]["paths"][path][name].values())
+                for path in done["profile"]["paths"]),
+            "launches_ab_phase": sum(
+                sum(done["ab"]["paths"][path][name].values())
+                for path in done["ab"]["paths"]),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

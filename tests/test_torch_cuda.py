@@ -2103,3 +2103,40 @@ def test_a_duck_typed_flush_on_the_card_equals_the_registered_one(cuda_device):
     assert want_stats["batched_suggests"] == 2
     for g, w in zip(got, want):
         assert [s.parameters.as_dict() for s in g] == [s.parameters.as_dict() for s in w]
+
+
+def test_the_stage_profile_on_the_card_times_its_phases_and_the_span_report_reads_them(
+        cuda_device, tmp_path, capsys):
+    """``tools.profile_e2e`` at a small size on the card: the train and
+    acquisition phases carry CUDA-event times within their stages' host
+    times, and ``tools.obs_report`` reads the spans the run dumped."""
+    import json
+
+    from vizier_tpu_torch.observability import tracing
+    from vizier_tpu_torch.tools import obs_report, profile_e2e
+
+    tracer = tracing.Tracer()
+    previous = tracing.set_tracer(tracer)
+    try:
+        tk.reset_launch_counts()
+        report, suggestions = profile_e2e.profile_suggest(
+            trials=60, evals=1_000, batch=3, repeats=1, dim=4, device="cuda")
+        path = tmp_path / "spans.jsonl"
+        tracer.dump_jsonl(str(path))
+    finally:
+        tracing.set_tracer(previous)
+    assert tk.LAUNCHES_BY_MODE["matern52_ard_fwd"]["cross"] > 0
+    assert len(suggestions) == 3
+    (row,) = report["repeats"]
+    assert set(row["events"]) == {"gp_ucb_pe.train_gp", "gp_ucb_pe.acquisition"}
+    for event in row["events"].values():
+        assert event["mode"] == "execute"
+        assert 0 < event["event_ms"] <= row["stages_ms"][event["stage"]]
+    assert sum(row["stages_ms"][k] for k in profile_e2e.TOP_LEVEL) <= row["total_ms"]
+    assert report["device"].startswith("cuda: ")
+    capsys.readouterr()
+    obs_report.main([str(path), "--json"])
+    spans = json.loads(capsys.readouterr().out)
+    phases = {r["phase"]: r["count"] for r in spans["phases"]}
+    assert phases["jax.gp_ucb_pe.train_gp"] == phases["jax.gp_ucb_pe.acquisition"] == 2
+    assert spans["surrogate_activity"] == {"mode": "exact", "exact": 4, "sparse": 0}

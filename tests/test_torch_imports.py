@@ -547,3 +547,37 @@ def test_the_parallel_package_exports_the_jax_packages_names_but_the_multi_host_
                  "DEVICE_AXIS", "Mesh", "initialize_multihost", "ProcessDevice",
                  "global_devices"):
         assert hasattr(tparallel, name), name
+
+
+_TOOLS_MODULES = [
+    "vizier_tpu_torch.tools", "vizier_tpu_torch.tools.obs_report",
+    "vizier_tpu_torch.tools.profile_e2e", "vizier_tpu_torch.tools.warm_start_ab",
+    "vizier_tpu_torch.tools.surrogate_ab",
+]
+
+
+@pytest.fixture(scope="module")
+def tools_imports():
+    """Per module of ``vizier_tpu_torch/tools/``, in one fresh interpreter
+    with ``grpc``, ``protobuf``, matplotlib and ``__graft_entry__`` blocked:
+    the JAX-side, blocked or entry-point modules its import loaded."""
+    code = f"""
+import importlib, json, sys
+for blocked in ("grpc", "google.protobuf", "matplotlib", "__graft_entry__"):
+    sys.modules[blocked] = None
+out = {{}}
+for name in {_TOOLS_MODULES!r}:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    added = set(m for m in sys.modules if sys.modules[m] is not None) - before
+    out[name] = sorted(m for m in added if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "vizier_tpu", "grpc", "matplotlib", "__graft_entry__")
+        or m.startswith("google.protobuf"))
+print(json.dumps(out))
+"""
+    return json.loads(_fresh(code))
+
+
+@pytest.mark.parametrize("module", _TOOLS_MODULES)
+def test_the_tools_load_no_jax_entry_point_or_optional_package(tools_imports, module):
+    assert tools_imports[module] == []

@@ -66,6 +66,9 @@ class DesignerProgram(abc.ABC):
     #: ``device_timing.device_phase`` name a batched flush is timed under
     #: (``vizier_jax_phase_seconds{phase}``, the JAX package's histogram).
     device_phase: str = ""
+    #: Which surrogate family the device body trains ("exact" | "sparse");
+    #: ``tools.obs_report`` builds its phase classification from this.
+    surrogate_family: str = "exact"
     #: Name of the batch axis ``device_program`` may split over a mesh
     #: placement ("" = unshardable: the executor never passes a
     #: ``placement``). Every in-tree program stacks its items along a leading

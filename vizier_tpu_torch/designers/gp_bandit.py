@@ -1146,6 +1146,7 @@ class GPBanditSparseProgram(GPBanditProgram):
 
     kind = "gp_bandit_sparse"
     device_phase = "sparse_gp.suggest_batched"
+    surrogate_family = "sparse"
     shardable_batch_axis = "study"
     sparse = True
 

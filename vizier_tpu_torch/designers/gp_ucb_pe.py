@@ -1504,6 +1504,7 @@ class UCBPESparseProgram(UCBPEProgram):
 
     kind = "gp_ucb_pe_sparse"
     device_phase = "sparse_gp.ucb_pe_suggest_batched"
+    surrogate_family = "sparse"
     shardable_batch_axis = "study"
     sparse = True
 

@@ -1,0 +1,19 @@
+"""The repository's tools on the port, each runnable as
+``python -m vizier_tpu_torch.tools.<name>``.
+
+The counterparts of the JAX package's scripts under ``tools/``, with the
+same module names, public functions, flags and report keys:
+
+- ``obs_report``: the span report (per-phase latency, one trace's tree,
+  program kinds, devices, speculation, SLO burn rates, the soak and the
+  merged fleet view);
+- ``profile_e2e``: the DEFAULT's ``update`` + ``suggest`` split into stages,
+  host time beside CUDA-event time;
+- ``warm_start_ab``: warm-started against cold ARD, latency and regret;
+- ``surrogate_ab``: the sparse surrogate against the exact GP, latency,
+  regret and the off switch's bit identity.
+
+The tools that measure run on the card (``--device cuda``, the default) or,
+at small sizes, on the CPU (``--device cpu``). None writes a file unless
+given ``--out``.
+"""

@@ -1,0 +1,655 @@
+"""Renders a per-phase latency breakdown from a JSON-lines span file.
+
+The port's counterpart of the JAX package's ``tools/obs_report.py``: the same
+sections, flags and ``--json`` report, read through the port's own program
+registry (``compute/registry.py``) and fleet merge
+(``observability/fleet.py``). The input is what the port's
+``Tracer.dump_jsonl()`` (or the ``VIZIER_TORCH_OBSERVABILITY_SPAN_LOG`` sink)
+writes, one span per line, the JAX package's format: either package's span
+files read here. The report groups spans by name and prints count,
+p50/p95/p99/max wall time, and total time: the "where does a suggest spend
+its time" table.
+
+Usage:
+    python -m vizier_tpu_torch.tools.obs_report SPANS.jsonl              # per-phase table
+    python -m vizier_tpu_torch.tools.obs_report SPANS.jsonl --trace ID   # one trace's tree
+    python -m vizier_tpu_torch.tools.obs_report SPANS.jsonl --json       # machine-readable
+    python -m vizier_tpu_torch.tools.obs_report --slo METRICS.json       # SLO burn rates
+    python -m vizier_tpu_torch.tools.obs_report --fleet DUMP_DIR         # merged fleet view
+    python -m vizier_tpu_torch.tools.obs_report --soak SOAK_REPORT.json  # soak verdicts
+
+``--slo`` reads a ``MetricsRegistry.snapshot()`` JSON dump and renders the
+``vizier_slo_*`` gauge families (burn rates per window, breached SLOs,
+per-placement mesh utilization). ``--fleet`` reads a dump directory of
+per-replica ``<replica>-{spans.jsonl,metrics.json,recorder.json}`` files
+(``replica_main --obs-dump-dir`` / ``ReplicaManager.dump_observability``)
+and prints the merged cross-replica traces + failover timeline. ``--soak``
+reads the report ``python -m vizier_tpu_torch.loadgen.soak`` writes
+(``loadgen/report.py``). Each composes with ``--json`` (the report gains
+``slo``/``fleet``/``soak`` sections).
+
+Percentiles here are exact (computed from the raw span durations, not
+histogram buckets: the spans ARE the samples).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+from typing import Dict, List, Optional
+
+from vizier_tpu_torch.compute import registry as compute_registry
+from vizier_tpu_torch.observability import fleet as fleet_lib
+
+
+def load_spans(path: str) -> List[dict]:
+    """Parses a JSON-lines span file; skips blank/corrupt lines loudly."""
+    spans: List[dict] = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                span = json.loads(line)
+            except json.JSONDecodeError as e:
+                print(f"[obs_report] skipping line {lineno}: {e}", file=sys.stderr)
+                continue
+            if isinstance(span, dict) and "name" in span:
+                spans.append(span)
+    return spans
+
+
+def _percentile(sorted_values: List[float], q: float) -> float:
+    """Linear-interpolated percentile of pre-sorted values (q in [0,100])."""
+    if not sorted_values:
+        return 0.0
+    if len(sorted_values) == 1:
+        return sorted_values[0]
+    rank = (q / 100.0) * (len(sorted_values) - 1)
+    lo = int(rank)
+    hi = min(lo + 1, len(sorted_values) - 1)
+    frac = rank - lo
+    return sorted_values[lo] * (1 - frac) + sorted_values[hi] * frac
+
+
+def phase_breakdown(spans: List[dict]) -> List[dict]:
+    """Per-span-name latency stats, sorted by total time descending."""
+    by_name: Dict[str, List[float]] = {}
+    occupancy: Dict[str, List[float]] = {}
+    for span in spans:
+        duration = span.get("duration_secs")
+        if duration is None:
+            continue
+        by_name.setdefault(span["name"], []).append(float(duration))
+        # Cross-study batching occupancy: batch_executor.flush spans carry
+        # how many real studies shared the dispatch; member suggest spans
+        # carry batch_occupancy. Either way it rolls into a mean per phase.
+        attrs = span.get("attributes") or {}
+        occ = attrs.get("occupancy", attrs.get("batch_occupancy"))
+        if isinstance(occ, (int, float)):
+            occupancy.setdefault(span["name"], []).append(float(occ))
+    out = []
+    for name, durations in by_name.items():
+        durations.sort()
+        row = {
+            "phase": name,
+            "count": len(durations),
+            "p50_ms": _percentile(durations, 50) * 1e3,
+            "p95_ms": _percentile(durations, 95) * 1e3,
+            "p99_ms": _percentile(durations, 99) * 1e3,
+            "max_ms": durations[-1] * 1e3,
+            "total_ms": sum(durations) * 1e3,
+        }
+        occ_samples = occupancy.get(name)
+        if occ_samples:
+            row["mean_occupancy"] = sum(occ_samples) / len(occ_samples)
+        out.append(row)
+    out.sort(key=lambda row: row["total_ms"], reverse=True)
+    return out
+
+
+# Device-phase span prefixes per surrogate path, from the compute-IR program
+# registry (each registered DesignerProgram declares its device_phase and
+# surrogate_family): a new program's phases classify correctly the moment it
+# registers, no report edit. The static prefixes are the documented form for
+# a registry with no programs; a failed import of the port raises.
+_FALLBACK_SPARSE_PHASES = ("jax.sparse_gp.", "sparse_gp.")
+_FALLBACK_EXACT_PHASES = (
+    "jax.gp_bandit.", "jax.gp_ucb_pe.", "gp_bandit.", "gp_ucb_pe.",
+)
+
+
+def _phase_families():
+    """(sparse prefixes, exact prefixes, {device_phase: program kind}) from
+    the program registry; the batched device phases map back to the kind
+    that emitted them, for the per-program-kind breakdown."""
+    sparse, exact, kind_by_phase = set(), set(), {}
+    for program in compute_registry.programs():
+        family = sparse if program.surrogate_family == "sparse" else exact
+        prefix = program.device_phase.split(".")[0] + "."
+        family.update((prefix, "jax." + prefix))
+        kind_by_phase[program.device_phase] = program.kind
+        kind_by_phase["jax." + program.device_phase] = program.kind
+    if sparse or exact:
+        return tuple(sorted(sparse)), tuple(sorted(exact)), kind_by_phase
+    return _FALLBACK_SPARSE_PHASES, _FALLBACK_EXACT_PHASES, kind_by_phase
+
+
+def surrogate_activity(spans: List[dict]) -> dict:
+    """Which surrogate path(s) produced this span file's device phases.
+
+    Counts device-phase spans by family so every report says whether its
+    numbers came from the exact O(n³) path, the sparse inducing-point
+    path, or a mix (auto-switched studies mid-file).
+    """
+    sparse_phases, exact_phases, _ = _phase_families()
+    counts = {"exact": 0, "sparse": 0}
+    for span in spans:
+        name = span.get("name", "")
+        if any(name.startswith(p) for p in sparse_phases):
+            counts["sparse"] += 1
+        elif any(name.startswith(p) for p in exact_phases):
+            counts["exact"] += 1
+    if counts["sparse"] and counts["exact"]:
+        mode = "mixed"
+    elif counts["sparse"]:
+        mode = "sparse"
+    elif counts["exact"]:
+        mode = "exact"
+    else:
+        mode = "none"
+    return {"mode": mode, **counts}
+
+
+def program_kind_activity(spans: List[dict]) -> Dict[str, dict]:
+    """Per-program-kind flush breakdown, keyed by registered kind.
+
+    Maps batched device-phase spans back to the DesignerProgram that
+    emitted them via the registry, so the report answers "which program
+    kinds carried this workload, and how much device time each took".
+    """
+    _, _, kind_by_phase = _phase_families()
+    out: Dict[str, dict] = {}
+    for span in spans:
+        kind = kind_by_phase.get(span.get("name", ""))
+        if kind is None:
+            continue
+        duration = float(span.get("duration_secs") or 0.0)
+        row = out.setdefault(kind, {"flushes": 0, "total_ms": 0.0})
+        row["flushes"] += 1
+        row["total_ms"] += duration * 1e3
+    for row in out.values():
+        row["total_ms"] = round(row["total_ms"], 2)
+    return out
+
+
+def device_activity(spans: List[dict]) -> Dict[str, dict]:
+    """Per-device (mesh placement) flush breakdown.
+
+    Mesh-mode flush spans (``batch_executor.flush``) carry a ``device``
+    attribute naming the placement that executed them; this rolls those up
+    into flush count, busy time, and mean occupancy per placement — the
+    "is the mesh actually balanced" view. Empty when the span file came
+    from a single-device run (the mesh off stamps no device attribute).
+    """
+    out: Dict[str, dict] = {}
+    occ: Dict[str, List[float]] = {}
+    for span in spans:
+        if span.get("name") != "batch_executor.flush":
+            continue
+        attrs = span.get("attributes") or {}
+        device = attrs.get("device")
+        if device is None:
+            continue
+        row = out.setdefault(device, {"flushes": 0, "busy_ms": 0.0})
+        row["flushes"] += 1
+        row["busy_ms"] += float(span.get("duration_secs") or 0.0) * 1e3
+        occupancy = attrs.get("occupancy")
+        if isinstance(occupancy, (int, float)):
+            occ.setdefault(device, []).append(float(occupancy))
+    for device, row in out.items():
+        row["busy_ms"] = round(row["busy_ms"], 2)
+        samples = occ.get(device)
+        if samples:
+            row["mean_occupancy"] = round(sum(samples) / len(samples), 2)
+    return out
+
+
+def speculative_activity(spans: List[dict]) -> dict:
+    """Hit/miss/stale serving outcomes plus pre-compute counts.
+
+    Serve outcomes ride ``speculative.*`` events on the request-path spans
+    (pythia.suggest and children); the background jobs are their own
+    ``speculative.precompute`` spans with an ``outcome`` attribute. A file
+    with no speculative activity reports all-zero (the default,
+    speculation off).
+    """
+    counts = {"hit": 0, "miss": 0, "stale": 0, "precomputes": 0, "stored": 0}
+    for span in spans:
+        if span.get("name") == "speculative.precompute":
+            counts["precomputes"] += 1
+            if (span.get("attributes") or {}).get("outcome") == "stored":
+                counts["stored"] += 1
+        for event in span.get("events") or []:
+            name = event.get("name", "")
+            if name.startswith("speculative."):
+                outcome = name.split(".", 1)[1]
+                if outcome in ("hit", "miss", "stale"):
+                    counts[outcome] += 1
+    served = counts["hit"] + counts["miss"] + counts["stale"]
+    counts["hit_rate"] = round(counts["hit"] / served, 4) if served else 0.0
+    return counts
+
+
+_LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def _parse_label_str(label_str: str) -> Dict[str, str]:
+    """``{slo="x",window="60s"}`` -> {"slo": "x", "window": "60s"}."""
+    return {
+        key: value.replace('\\"', '"').replace("\\\\", "\\")
+        for key, value in _LABEL_RE.findall(label_str)
+    }
+
+
+def slo_activity(metrics_snapshot: dict) -> dict:
+    """The SLO engine's export surface, from a registry snapshot dump.
+
+    Parses the ``vizier_slo_*`` gauge families (what ``SloEngine``
+    exports) into burn rates / windowed values per (slo, window), the
+    breached set, and the per-placement mesh-utilization shares. A dump
+    from an unarmed process reports ``{"armed": False}``.
+    """
+    out = {
+        "armed": False,
+        "burn_rates": {},
+        "values": {},
+        "breached": [],
+        "mesh_utilization": {},
+        "evaluations": 0,
+    }
+    if not isinstance(metrics_snapshot, dict):
+        return out
+
+    def _series(name):
+        family = metrics_snapshot.get(name)
+        return family.get("series", {}) if isinstance(family, dict) else {}
+
+    for label_str, value in _series("vizier_slo_burn_rate").items():
+        labels = _parse_label_str(label_str)
+        out["armed"] = True
+        out["burn_rates"].setdefault(labels.get("slo", "?"), {})[
+            labels.get("window", "?")
+        ] = value
+    for label_str, value in _series("vizier_slo_value").items():
+        labels = _parse_label_str(label_str)
+        out["armed"] = True
+        out["values"].setdefault(labels.get("slo", "?"), {})[
+            labels.get("window", "?")
+        ] = value
+    for label_str, value in _series("vizier_slo_breached").items():
+        out["armed"] = True
+        if value:
+            out["breached"].append(_parse_label_str(label_str).get("slo", "?"))
+    for label_str, value in _series("vizier_slo_mesh_utilization").items():
+        out["mesh_utilization"][
+            _parse_label_str(label_str).get("device", "?")
+        ] = value
+    for _label_str, value in _series("vizier_slo_evaluations").items():
+        out["armed"] = True
+        out["evaluations"] += int(value)
+    out["breached"].sort()
+    return out
+
+
+def load_metrics(path: str) -> dict:
+    """Parses a ``MetricsRegistry.snapshot()`` JSON dump ({} on garbage)."""
+    try:
+        with open(path) as f:
+            loaded = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"[obs_report] cannot read metrics dump {path}: {e}", file=sys.stderr)
+        return {}
+    return loaded if isinstance(loaded, dict) else {}
+
+
+def soak_activity(report: dict) -> dict:
+    """Condenses a soak report (``loadgen/report.py``) for the report.
+
+    Traffic shape, the per-kind outcome table, SLO verdicts, and the
+    assertion list: the "did the full-stack soak hold" view.
+    """
+    out: dict = {
+        "ok": bool(report.get("ok")),
+        "traffic": {},
+        "by_kind": {},
+        "slo_breaching": [],
+        "events": [],
+        "assertions": [],
+    }
+    traffic = report.get("traffic") or {}
+    out["traffic"] = {
+        "studies": traffic.get("studies", 0),
+        "driven_trials": traffic.get("driven_trials", 0),
+        "wall_s": traffic.get("wall_s", 0.0),
+        "trials_per_s": traffic.get("achieved_trials_per_s", 0.0),
+        "studies_by_kind": traffic.get("studies_by_kind", {}),
+        "studies_by_tenant": traffic.get("studies_by_tenant", {}),
+        "trial_budget": traffic.get("trial_budget", {}),
+    }
+    outcomes = (report.get("outcomes") or {}).get("by_kind") or {}
+    for kind, row in sorted(outcomes.items()):
+        latency = row.get("latency") or {}
+        out["by_kind"][kind] = {
+            "studies": row.get("studies", 0),
+            "suggests": row.get("suggests", 0),
+            "errors": row.get("errors", 0),
+            "fallback_rate": row.get("fallback_rate", 0.0),
+            "hit_rate": row.get("hit_rate", 0.0),
+            "p50_ms": latency.get("p50_ms", 0.0),
+            "p99_ms": latency.get("p99_ms", 0.0),
+        }
+    # Per-tenant table (report v2): the fairness view next to the
+    # per-kind one — sheds/degraded serves are the admission plane's.
+    out["by_tenant"] = {}
+    tenants = (report.get("outcomes") or {}).get("by_tenant") or {}
+    for tenant, row in sorted(tenants.items()):
+        latency = row.get("latency") or {}
+        out["by_tenant"][tenant] = {
+            "studies": row.get("studies", 0),
+            "suggests": row.get("suggests", 0),
+            "errors": row.get("errors", 0),
+            "sheds": row.get("sheds", 0),
+            "degraded": row.get("degraded", 0),
+            "p50_ms": latency.get("p50_ms", 0.0),
+            "p99_ms": latency.get("p99_ms", 0.0),
+        }
+    admission = report.get("admission") or {}
+    out["admission"] = {
+        "armed": bool(admission.get("armed")),
+        "shed_rate": admission.get("shed_rate", 0.0),
+        "sheds": admission.get("sheds", 0),
+        "degraded_serves": admission.get("degraded_serves", 0),
+        "state": (admission.get("snapshot") or {}).get("state"),
+    }
+    slo = report.get("slo") or {}
+    out["slo_breaching"] = sorted(slo.get("breaching", []))
+    out["slo_armed"] = bool(slo.get("armed"))
+    failover = report.get("failover") or {}
+    out["events"] = [
+        e.get("kind") for e in failover.get("events_fired", [])
+    ]
+    out["failovers"] = failover.get("failovers", 0)
+    out["lost_studies"] = failover.get("lost_studies", [])
+    parity = report.get("parity") or {}
+    out["parity_ranksum_p"] = parity.get("ranksum_p")
+    bit = report.get("bit_identity") or {}
+    out["bit_identical"] = bit.get("identical")
+    out["assertions"] = [
+        {"name": a.get("name"), "ok": bool(a.get("ok"))}
+        for a in report.get("assertions", [])
+    ]
+    return out
+
+
+def load_soak(path: str) -> dict:
+    """Parses a SOAK_REPORT.json ({} on garbage)."""
+    try:
+        with open(path) as f:
+            loaded = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"[obs_report] cannot read soak report {path}: {e}", file=sys.stderr)
+        return {}
+    return loaded if isinstance(loaded, dict) else {}
+
+
+def render_soak(soak: dict) -> str:
+    traffic = soak.get("traffic", {})
+    lines = [
+        f"soak: {'PASS' if soak.get('ok') else 'FAIL'} — "
+        f"{traffic.get('studies', 0)} studies / "
+        f"{traffic.get('driven_trials', 0)} trials in "
+        f"{traffic.get('wall_s', 0)}s "
+        f"({traffic.get('trials_per_s', 0)} trials/s)"
+    ]
+    mix = traffic.get("studies_by_kind") or {}
+    if mix:
+        lines.append(
+            "  traffic: "
+            + ", ".join(f"{kind}: {n}" for kind, n in sorted(mix.items()))
+        )
+    by_kind = soak.get("by_kind") or {}
+    if by_kind:
+        header = (
+            f"  {'kind':<20} {'studies':>7} {'suggests':>8} {'err':>4} "
+            f"{'fb rate':>8} {'hit rate':>8} {'p50 ms':>9} {'p99 ms':>9}"
+        )
+        lines.append(header)
+        for kind, row in sorted(by_kind.items()):
+            lines.append(
+                f"  {kind:<20} {row['studies']:>7d} {row['suggests']:>8d} "
+                f"{row['errors']:>4d} {row['fallback_rate']:>8.3f} "
+                f"{row['hit_rate']:>8.3f} {row['p50_ms']:>9.2f} "
+                f"{row['p99_ms']:>9.2f}"
+            )
+    by_tenant = soak.get("by_tenant") or {}
+    if by_tenant:
+        lines.append(
+            f"  {'tenant':<20} {'studies':>7} {'suggests':>8} {'err':>4} "
+            f"{'sheds':>6} {'degr':>5} {'p50 ms':>9} {'p99 ms':>9}"
+        )
+        for tenant, row in sorted(by_tenant.items()):
+            lines.append(
+                f"  {tenant:<20} {row['studies']:>7d} {row['suggests']:>8d} "
+                f"{row['errors']:>4d} {row['sheds']:>6d} "
+                f"{row['degraded']:>5d} {row['p50_ms']:>9.2f} "
+                f"{row['p99_ms']:>9.2f}"
+            )
+    admission = soak.get("admission") or {}
+    if admission.get("armed"):
+        lines.append(
+            f"  admission: state {admission.get('state')}, shed rate "
+            f"{admission.get('shed_rate', 0.0)} "
+            f"({admission.get('sheds', 0)} sheds, "
+            f"{admission.get('degraded_serves', 0)} degraded serves)"
+        )
+    if soak.get("slo_armed"):
+        breaching = soak.get("slo_breaching") or []
+        lines.append(
+            f"  slo: breached {', '.join(breaching) if breaching else 'none'}"
+        )
+    if soak.get("events"):
+        lines.append(
+            f"  events: {', '.join(soak['events'])} "
+            f"(failovers {soak.get('failovers', 0)}, lost studies "
+            f"{soak.get('lost_studies', [])})"
+        )
+    verdicts = ", ".join(
+        f"{a['name']}={'ok' if a['ok'] else 'FAIL'}"
+        for a in soak.get("assertions", [])
+    )
+    if verdicts:
+        lines.append(f"  assertions: {verdicts}")
+    return "\n".join(lines)
+
+
+def fleet_section(dump_dir: str) -> dict:
+    """The merged fleet report for a dump directory."""
+    return fleet_lib.fleet_report(dump_dir)
+
+
+def render_slo(slo: dict) -> str:
+    if not slo.get("armed"):
+        return "slo: not armed (no vizier_slo_* series in the dump)"
+    lines = [
+        f"slo: {len(slo['burn_rates'])} objectives, "
+        f"{slo['evaluations']} evaluations, "
+        f"breached: {', '.join(slo['breached']) or 'none'}"
+    ]
+    for name in sorted(slo["burn_rates"]):
+        windows = slo["burn_rates"][name]
+        values = slo.get("values", {}).get(name, {})
+        per_window = ", ".join(
+            f"{window}: burn {burn:.2f}"
+            + (f" (value {values[window]:.4g})" if window in values else "")
+            for window, burn in sorted(windows.items())
+        )
+        flag = " [BREACHED]" if name in slo["breached"] else ""
+        lines.append(f"  {name:<28} {per_window}{flag}")
+    if slo["mesh_utilization"]:
+        shares = ", ".join(
+            f"{device}: {share:.0%}"
+            for device, share in sorted(slo["mesh_utilization"].items())
+        )
+        lines.append(f"  mesh utilization: {shares}")
+    return "\n".join(lines)
+
+
+def render_table(rows: List[dict]) -> str:
+    with_occ = any("mean_occupancy" in row for row in rows)
+    header = f"{'phase':<34} {'count':>6} {'p50 ms':>9} {'p95 ms':>9} {'p99 ms':>9} {'max ms':>9} {'total ms':>10}"
+    if with_occ:
+        header += f" {'occ':>6}"
+    lines = [header, "-" * len(header)]
+    for row in rows:
+        line = (
+            f"{row['phase']:<34} {row['count']:>6d} {row['p50_ms']:>9.2f} "
+            f"{row['p95_ms']:>9.2f} {row['p99_ms']:>9.2f} {row['max_ms']:>9.2f} "
+            f"{row['total_ms']:>10.2f}"
+        )
+        if with_occ:
+            occ = row.get("mean_occupancy")
+            line += f" {occ:>6.2f}" if occ is not None else f" {'-':>6}"
+        lines.append(line)
+    return "\n".join(lines)
+
+
+def render_trace(spans: List[dict], trace_id: str) -> str:
+    """One trace as an indented parent→child tree, time-ordered."""
+    trace = [s for s in spans if s.get("trace_id") == trace_id]
+    if not trace:
+        return f"No spans for trace {trace_id!r}."
+    trace.sort(key=lambda s: s.get("start_time", 0.0))
+    children: Dict[Optional[str], List[dict]] = {}
+    ids = {s["span_id"] for s in trace}
+    for span in trace:
+        parent = span.get("parent_id")
+        # A parent outside the file (ring buffer rolled) renders as a root.
+        children.setdefault(parent if parent in ids else None, []).append(span)
+
+    lines: List[str] = [f"trace {trace_id}"]
+
+    def walk(parent_key: Optional[str], depth: int) -> None:
+        for span in children.get(parent_key, []):
+            duration = span.get("duration_secs") or 0.0
+            status = "" if span.get("status", "ok") == "ok" else " [ERROR]"
+            events = span.get("events") or []
+            event_note = (
+                " events=" + ",".join(e["name"] for e in events) if events else ""
+            )
+            lines.append(
+                f"{'  ' * (depth + 1)}{span['name']} "
+                f"({duration * 1e3:.2f} ms){status}{event_note}"
+            )
+            walk(span["span_id"], depth + 1)
+
+    walk(None, 0)
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument(
+        "path", nargs="?", help="JSON-lines span file (optional with --fleet/--slo)"
+    )
+    parser.add_argument("--trace", help="Render one trace_id as a tree")
+    parser.add_argument(
+        "--json", action="store_true", help="Emit the breakdown as JSON"
+    )
+    parser.add_argument(
+        "--slo",
+        metavar="METRICS_JSON",
+        help="MetricsRegistry.snapshot() dump: render the vizier_slo_* "
+        "burn rates / breached set",
+    )
+    parser.add_argument(
+        "--fleet",
+        metavar="DUMP_DIR",
+        help="per-replica dump directory: merged cross-replica traces + "
+        "failover timeline",
+    )
+    parser.add_argument(
+        "--soak",
+        metavar="SOAK_REPORT_JSON",
+        help="the soak's report (python -m vizier_tpu_torch.loadgen.soak): "
+        "traffic shape, per-kind outcome table, SLO verdicts, assertion list",
+    )
+    args = parser.parse_args(argv)
+    if not args.path and not (args.slo or args.fleet or args.soak):
+        parser.error("need a span file, --slo, --fleet, or --soak")
+
+    slo = slo_activity(load_metrics(args.slo)) if args.slo else None
+    fleet = fleet_section(args.fleet) if args.fleet else None
+    soak = soak_activity(load_soak(args.soak)) if args.soak else None
+
+    spans = load_spans(args.path) if args.path else []
+    if args.trace:
+        print(render_trace(spans, args.trace))
+        return
+    rows = phase_breakdown(spans)
+    activity = surrogate_activity(spans)
+    speculative = speculative_activity(spans)
+    programs = program_kind_activity(spans)
+    devices = device_activity(spans)
+    if args.json:
+        print(
+            json.dumps(
+                {
+                    "spans": len(spans),
+                    "surrogate_activity": activity,
+                    "speculative_activity": speculative,
+                    "program_kind_activity": programs,
+                    "device_activity": devices,
+                    "slo": slo,
+                    "fleet": fleet,
+                    "soak": soak,
+                    "phases": rows,
+                },
+                indent=2,
+            )
+        )
+        return
+    if args.path:
+        print(f"{len(spans)} spans")
+        print(
+            f"surrogate mode: {activity['mode']} "
+            f"(exact device phases: {activity['exact']}, "
+            f"sparse: {activity['sparse']})"
+        )
+        if programs:
+            summary = ", ".join(
+                f"{kind}: {row['flushes']} flushes / {row['total_ms']:.0f} ms"
+                for kind, row in sorted(programs.items())
+            )
+            print(f"program kinds: {summary}")
+        print(
+            f"speculative: hit {speculative['hit']} / miss "
+            f"{speculative['miss']} / stale {speculative['stale']} "
+            f"(hit rate {speculative['hit_rate']:.0%}, precomputes "
+            f"{speculative['precomputes']}, stored {speculative['stored']})"
+        )
+    if slo is not None:
+        print(render_slo(slo))
+    if soak is not None:
+        print(render_soak(soak))
+    if fleet is not None:
+        print(fleet_lib.render_fleet_report(fleet))
+    if args.path:
+        print(render_table(rows))
+
+
+if __name__ == "__main__":
+    main()
