@@ -374,7 +374,7 @@ Phases (any failure raises and exits non-zero):
    bucket keys and the same padded batch, and suggestions equal float for
    float. The runtime's ``suggest_latency_histogram()`` must count the four
    requests at both hops.
-22. profile, last in the ``loadgen`` worker: the repository's tools on the
+22. profile, last in the ``regret`` worker: the repository's tools on the
    port (``vizier_tpu_torch/tools/``) at their own full width. (a)
    ``profile_e2e``: the DEFAULT on bench.py's study (1000 trials x 20 floats,
    the 75 000-evaluation sweep), ``update(all)``, one first ``suggest(25)``
@@ -398,19 +398,45 @@ Phases (any failure raises and exits non-zero):
    cut from 1-5), and the off switch (``VIZIER_TORCH_SPARSE_UCB_PE=0``)
    bit-identical to the exact path, which must hold; the report line, every
    number finite.
-24. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
+24. serving-ab, last in the ``loadgen`` worker: the serving A/B tools on
+   the port, each through its ``run`` on ``--device cuda`` with its report
+   line and K1/K2 launches by mode printed, every number finite and the
+   tool's own acceptance held. (a) ``batching_ab`` at its defaults (8
+   studies of one bucket, one client thread each, 6 measured rounds of
+   ``suggest(1)`` -> complete, 4-D, 2 000 evaluations): batching on (one
+   ``BatchExecutor``) against off (each thread's ``designer.suggest``), 48
+   suggestions an arm, no fallback or slot error, >= 2x the throughput. (b)
+   ``speculative_ab --transport runtime`` (the servicers need protobuf): the
+   DEFAULT's complete -> suggest loop through the loadgen's runtime
+   transport with the speculative engine off and on (seeds 1-2, 12 trials:
+   cut from 5 and 25): hit p50 < 10 ms, hit rate >= 80%, the trajectories
+   bit-identical. (c) ``overload_ab --transport runtime --no-crossover-study``
+   (the 28-study hot-tenant scenario, the DEFAULT's full sweep; the study
+   the scenario stretches across the sparse threshold kept at 3 trials: cut
+   from 63): a
+   closed-loop warmup, admission ON and OFF, the parity cohort's reference
+   and gated-off arms; all six assertions at ``_OVERLOAD_BUDGET_MS``, the
+   card's light-tenant p99 budget.
+25. regret-ab, in the main process after phase 13: ``noise_robustness``
+   (the DEFAULT on shifted 4-D Sphere under each of the 10 noise models,
+   4 000 evaluations, batch 5; seed 1, 20 trials: cut from seeds 1-3 and 60)
+   and ``budget_policy_ab`` (first_pick_full, per_batch and per_pick on
+   Sphere20, Rastrigin20 and Branin2, 25 000 evaluations, batch 10; seed 1,
+   20 trials: cut from seeds 1-5 and 150): each report complete and finite,
+   every regret at or above its optimum, K1/K2 launched.
+26. Prints one ``{"kernels": [...]}`` line (``launches``: the lockstep regret
    run's; every path's, the gp-surface, algorithms, algorithm-extras,
    service-reliability, service-planes, fleet, loadgen, testing,
-   benchmarks, tooling, mesh, lanes, duck, profile and ab steps' included,
-   by mode; K2's
+   benchmarks, tooling, mesh, lanes, duck, profile, ab, serving-ab and
+   regret-ab steps' included, by mode; K2's
    ``feature_gradient`` at the L-BFGS-B layout: the feature kernel alone,
    with the parameters, its library form and bounds), the card line again,
    and as the last line ``{"ok": true, "device": {...}}``.
 
-The phases are host-bound, so phases 7-9 and 14-23 run in three worker
+The phases are host-bound, so phases 7-9 and 14-24 run in three worker
 processes on the same card (``_WORKER_PHASES``: this script with ``--worker``), started
 once phases 2-3 have checked and timed the kernels on an idle card, beside
-the main process's phases 4-6 and 10-13. Phase 15 measures a serving
+the main process's phases 4-6, 10-13 and 25. Phase 15 measures a serving
 plane's latency and speculative hits, which other processes' launches on
 the card and the host distort, so its worker starts alone and the others,
 and the main process's phases, start when phase 15 has ended. The main process prints each
@@ -6179,6 +6205,135 @@ def run_ab_phase(kernels, lib):
     return {"surrogate_ab_ucb_pe": by_mode}, figures
 
 
+# -- serving-ab and regret-ab: the serving and regret A/B tools on the port -----
+
+# The tools' own widths (dimensions, evaluations, studies); only depth is cut,
+# each cut printed by its phase. batching_ab and overload_ab run at their
+# defaults. speculative_ab runs through the runtime transport: the card's
+# machine has no protobuf for the servicers.
+_SPECULATIVE_ARGS = ["--seeds", "2", "--trials", "12", "--transport", "runtime"]  # from 5, 25
+_NOISE_ARGS = ["--seeds", "1", "--trials", "20"]  # from 1 2 3, 60
+_BUDGET_ARGS = ["--seeds", "1", "--trials", "20"]  # from 1-5, 150
+# overload_ab's light-tenant p99 budget on the card (its default, 1 000 ms,
+# was set between the arms where one GP compute takes ~80 ms). Set once from
+# a calibration run of the whole script on an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W): light p99 ON 7 619.8 ms, OFF 15 829.1 ms; the
+# budget is their geometric mean, 10 983 ms, rounded. Never retuned after a
+# failing run.
+_OVERLOAD_BUDGET_MS = 11000.0
+# The crossover study's 63 sequential trials, which the admission A/B does not
+# use (its GP stays exact), cut to the scenario's 3: at the DEFAULT's full
+# sweep they took 300 s of the warmup arm alone and run again in the OFF,
+# reference and gated-off arms (measured on one H100).
+_OVERLOAD_ARGS = ["--transport", "runtime", "--no-crossover-study",
+                  "--budget-ms", repr(_OVERLOAD_BUDGET_MS)]
+_GP_MODES = (("matern52_ard_fwd", "gram"), ("matern52_ard_fwd", "cross"),
+             ("matern52_ard_bwd", "gram"))
+
+
+def _run_tool(kernels, module, argv, label: str):
+    """One port tool's ``run`` on the card, its report line printed: (report,
+    wall s, launches by mode)."""
+    args = module.parser().parse_args(argv + ["--device", "cuda"])
+    report, wall, by_mode = _path_launches(kernels, lambda: module.run(args))
+    module.write_report(report, None)
+    print(f"{label}: {module.__name__.rsplit('.', 1)[1]} {' '.join(argv)} {wall:.1f} s, "
+          f"launches {by_mode}; {_card_line()}")
+    if not _finite_tree(report):
+        raise AssertionError(f"{label}: the report has a number that is not finite")
+    return report, wall, by_mode
+
+
+def run_serving_ab_phase(kernels, lib):
+    """Phase 24: the batching, speculative and overload A/Bs (see the module
+    docstring). Returns ({path: launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch.tools import batching_ab, overload_ab, speculative_ab
+
+    label = "serving-ab"
+    phase_start = time.perf_counter()
+    print(f"{label}: cuts (depth only; dimensions, evaluations and studies uncut): "
+          f"speculative_ab {' '.join(_SPECULATIVE_ARGS)} (from --seeds 5, --trials 25); "
+          f"batching_ab at its defaults; overload_ab --no-crossover-study (the crossover "
+          f"study's trials 63 -> 3), its light-p99 budget {_OVERLOAD_BUDGET_MS:.0f} ms on "
+          f"the card")
+    paths, figures = {}, {}
+
+    # (a) Batching on against off: 8 studies, one client thread each.
+    batching, wall, by_mode = _run_tool(kernels, batching_ab, [], f"{label} (a)")
+    verdict = batching["verdict"]
+    on, off = batching["batching_on"], batching["batching_off"]
+    if ((on["suggestions"], off["suggestions"]) != (8 * 6, 8 * 6)
+            or off["batch_stats"]["batch_flushes"] or on["batch_stats"]["batch_fallbacks"]
+            or on["batch_stats"]["batch_slot_errors"]):
+        raise AssertionError(f"{label}: the batching report is incomplete: {batching}")
+    if not verdict["meets_2x_at_8_studies"]:
+        raise AssertionError(f"{label}: batching on is {verdict['throughput_speedup']}x the "
+                             f"throughput of batching off at 8 studies, not >= 2x")
+    _require_modes(by_mode, _GP_MODES, f"{label} batching_ab")
+    paths["batching_ab"], figures["batching_ab"] = by_mode, dict(report=batching, wall_s=wall)
+
+    # (b) Speculation on against off, through the runtime transport.
+    spec, wall, by_mode = _run_tool(kernels, speculative_ab, _SPECULATIVE_ARGS, f"{label} (b)")
+    if len(spec["per_seed"]["speculative"]) != 2 or not all(spec["acceptance"].values()):
+        raise AssertionError(f"{label}: speculative_ab's acceptance {spec['acceptance']}, hit "
+                             f"p50 {spec['speculative_hit_p50_ms']} ms, hit rate "
+                             f"{spec['hit_rate']}, bit-identical "
+                             f"{spec['bit_identical_trajectories']}")
+    _require_modes(by_mode, _GP_MODES, f"{label} speculative_ab")
+    paths["speculative_ab_runtime"] = by_mode
+    figures["speculative_ab"] = dict(report=spec, wall_s=wall)
+
+    # (c) Admission on against off under the hot tenant's flood.
+    overload, wall, by_mode = _run_tool(kernels, overload_ab, _OVERLOAD_ARGS, f"{label} (c)")
+    for a in overload["assertions"]:
+        print(f"{label} (c):   [{'ok' if a['ok'] else 'FAIL'}] {a['name']}: {a['detail']}")
+    failed = [a["name"] for a in overload["assertions"] if not a["ok"]]
+    if failed or not overload["ok"]:
+        raise AssertionError(f"{label}: overload_ab failed {failed} at a "
+                             f"{_OVERLOAD_BUDGET_MS:.0f} ms budget")
+    _require_modes(by_mode, _GP_MODES, f"{label} overload_ab")
+    paths["overload_ab_runtime"] = by_mode
+    figures["overload_ab"] = dict(report=overload, wall_s=wall)
+    figures["wall_s"] = time.perf_counter() - phase_start
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return paths, figures
+
+
+def run_regret_ab_phase(kernels, lib):
+    """Phase 25: the DEFAULT's regret under label noise and under its three
+    acquisition-budget policies (see the module docstring). Returns ({path:
+    launches by mode}, figures)."""
+    del lib
+    from vizier_tpu_torch.benchmarks.experimenters import wrappers
+    from vizier_tpu_torch.tools import budget_policy_ab, noise_robustness
+
+    label = "regret-ab"
+    phase_start = time.perf_counter()
+    print(f"{label}: cuts (depth only; dimensions and evaluations uncut): noise_robustness "
+          f"{' '.join(_NOISE_ARGS)} (from --seeds 1 2 3, --trials 60); budget_policy_ab "
+          f"{' '.join(_BUDGET_ARGS)} (from --seeds 1-5, --trials 150)")
+    noise, noise_wall, noise_by_mode = _run_tool(
+        kernels, noise_robustness, _NOISE_ARGS, f"{label} (a)")
+    if (list(noise["results"]) != list(wrappers.NOISE_TYPES)
+            or any(len(r["per_seed_true_regret"]) != 1 for r in noise["results"].values())):
+        raise AssertionError(f"{label}: the noise report is incomplete: {noise}")
+    _require_modes(noise_by_mode, _GP_MODES, f"{label} noise_robustness")
+    budget, budget_wall, budget_by_mode = _run_tool(
+        kernels, budget_policy_ab, _BUDGET_ARGS, f"{label} (b)")
+    runs = budget["per_run"]
+    if (len(runs) != len(budget_policy_ab.CONFIGS) * len(budget_policy_ab.POLICIES)
+            or any(len(v) != 1 or v[0] < -1e-6 for v in runs.values())):
+        raise AssertionError(f"{label}: the budget report is incomplete or below an "
+                             f"optimum: {runs}")
+    _require_modes(budget_by_mode, _GP_MODES, f"{label} budget_policy_ab")
+    figures = dict(noise_robustness=dict(report=noise, wall_s=noise_wall),
+                   budget_policy_ab=dict(report=budget, wall_s=budget_wall),
+                   wall_s=time.perf_counter() - phase_start)
+    print(f"{label}: phase {figures['wall_s']:.1f} s; {_card_line()}")
+    return {"noise_robustness": noise_by_mode, "budget_policy_ab": budget_by_mode}, figures
+
+
 # -- worker processes ----------------------------------------------------------
 
 # The phases are host-bound (PERF.md §5): the card idles while one Python
@@ -6190,9 +6345,9 @@ def run_ab_phase(kernels, lib):
 # the main process prints when it has finished, and its paths and figures to a
 # JSON file. A worker that fails fails the run.
 _WORKER_PHASES = {
-    "regret": ("regret", "lanes", "duck"),
+    "regret": ("regret", "lanes", "duck", "profile"),
     "serving": ("serving_exact", "serving_sparse", "gp_surface", "fleet", "ab"),
-    "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh", "profile"),
+    "loadgen": ("loadgen", "testing", "benchmarks", "tooling", "mesh", "serving_ab"),
 }
 # Seconds from the phases' start after which a worker still running is
 # stopped and the run fails, inside the script's 1 200 s limit.
@@ -6220,7 +6375,7 @@ def _phase_modules() -> dict:
 
 def _run_worker_phase(phase: str, kernels, lib, mods):
     """(launches by mode, figures) of one of ``_WORKER_PHASES``' phases."""
-    if phase.startswith("serving_"):
+    if phase in ("serving_exact", "serving_sparse"):
         return run_serving_phase(phase.split("_", 1)[1], mods, kernels)
     if phase == "regret":
         return run_regret_phase(kernels, lib)
@@ -6246,6 +6401,10 @@ def _run_worker_phase(phase: str, kernels, lib, mods):
         return run_profile_phase(kernels, lib)
     if phase == "ab":
         return run_ab_phase(kernels, lib)
+    if phase == "serving_ab":
+        return run_serving_ab_phase(kernels, lib)
+    if phase == "regret_ab":
+        return run_regret_ab_phase(kernels, lib)
     raise ValueError(f"unknown phase {phase!r}")
 
 
@@ -6419,6 +6578,8 @@ def main() -> int:
             planes_paths, planes_figures = run_service_planes_phase(kernels, lib, mods)
             _mark(start, "service-planes phase done")
             print(json.dumps({"service_planes": planes_figures}))
+            regret_ab_paths, regret_ab_figures = run_regret_ab_phase(kernels, lib)
+            _mark(start, "regret-ab phase done")
             done = _join_workers(workers, start)
         finally:
             _stop_workers(workers)
@@ -6440,7 +6601,7 @@ def main() -> int:
                    **done["benchmarks"]["paths"], **done["tooling"]["paths"],
                    **done["mesh"]["paths"], **done["lanes"]["paths"],
                    **done["duck"]["paths"], **done["profile"]["paths"],
-                   **done["ab"]["paths"]}
+                   **done["ab"]["paths"], **done["serving_ab"]["paths"], **regret_ab_paths}
     print(json.dumps({"loadgen": done["loadgen"]["figures"]}))
     print(json.dumps({"testing": done["testing"]["figures"]}))
     print(json.dumps({"benchmarks": done["benchmarks"]["figures"]}))
@@ -6450,6 +6611,8 @@ def main() -> int:
     print(json.dumps({"duck": done["duck"]["figures"]}, default=float))
     print(json.dumps({"profile": done["profile"]["figures"]}, default=float))
     print(json.dumps({"ab": done["ab"]["figures"]}, default=float))
+    print(json.dumps({"serving_ab": done["serving_ab"]["figures"]}, default=float))
+    print(json.dumps({"regret_ab": regret_ab_figures}, default=float))
 
     # One JSON row per kernel, at the shape that carries most of its launches
     # on this slice's main path, the regret phase's lockstep flushes (K1: the
@@ -6530,6 +6693,11 @@ def main() -> int:
             "launches_ab_phase": sum(
                 sum(done["ab"]["paths"][path][name].values())
                 for path in done["ab"]["paths"]),
+            "launches_serving_ab_phase": sum(
+                sum(done["serving_ab"]["paths"][path][name].values())
+                for path in done["serving_ab"]["paths"]),
+            "launches_regret_ab_phase": sum(
+                sum(modes[name].values()) for modes in regret_ab_paths.values()),
             "by_shape": by_shape,
             "tiles_at_cross_shapes": {
                 shape: {"chosen": row["chosen"], **{

@@ -2140,3 +2140,84 @@ def test_the_stage_profile_on_the_card_times_its_phases_and_the_span_report_read
     phases = {r["phase"]: r["count"] for r in spans["phases"]}
     assert phases["jax.gp_ucb_pe.train_gp"] == phases["jax.gp_ucb_pe.acquisition"] == 2
     assert spans["surrogate_activity"] == {"mode": "exact", "exact": 4, "sparse": 0}
+
+
+def test_batching_abs_off_arm_with_eight_threads_equals_the_studies_one_at_a_time(cuda_device):
+    """``tools.batching_ab``'s batching-off arm on the card: 8 client threads
+    each run their own study's ``designer.suggest(1)`` -> complete cycles at
+    once, with no executor between them. Each study's suggestions equal those
+    of the same study run alone, one study after another."""
+    import threading
+
+    from vizier_tpu_torch.optimizers import lbfgs
+    from vizier_tpu_torch.tools import batching_ab
+
+    problem = batching_ab._problem(4)
+    studies, rounds = 8, 2
+
+    def pool():
+        out = []
+        for s in range(studies):
+            kwargs = dict(max_acquisition_evaluations=2000, ard_restarts=4,
+                          ard_optimizer=lbfgs.AdamOptimizer(maxiter=30, device="cuda"))
+            st = batching_ab._Study(problem, s + 1, kwargs, "cuda")
+            st.feed(9)
+            out.append(st)
+        return out
+
+    def cycles(st, picks):
+        for _ in range(rounds):
+            (suggestion,) = st.designer.suggest(1)
+            picks.append(suggestion.parameters.as_dict())
+            st.complete_suggestion(suggestion)
+
+    concurrent = [[] for _ in range(studies)]
+    threads = [threading.Thread(target=cycles, args=(st, concurrent[i]))
+               for i, st in enumerate(pool())]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    alone = [[] for _ in range(studies)]
+    for i, st in enumerate(pool()):
+        cycles(st, alone[i])
+    assert all(len(picks) == rounds for picks in concurrent)
+    assert concurrent == alone
+
+
+def test_threads_making_their_first_linalg_calls_at_once_on_the_card_all_succeed(cuda_device):
+    """torch.linalg's CUDA library loads on the first linalg call through a
+    wrapper that refuses a second entry, so threads whose first calls meet
+    raced on it (``batching_ab``'s batching-off arm: "lazy wrapper should be
+    called at most once"). ``device.resolve`` loads it once: in a fresh
+    process, 8 threads released together each make their first Cholesky and
+    triangular solve."""
+    import pathlib
+    import subprocess
+    import sys
+
+    code = """
+import threading, torch
+from vizier_tpu_torch import device as device_lib
+device_lib.resolve("cuda")
+barrier, errors = threading.Barrier(8), []
+def first_calls(i):
+    x = torch.eye(4, device="cuda") * (2.0 + i)
+    barrier.wait()
+    try:
+        chol, _ = torch.linalg.cholesky_ex(x)
+        torch.linalg.solve_triangular(chol, x, upper=False)
+    except RuntimeError as e:
+        errors.append(str(e))
+threads = [threading.Thread(target=first_calls, args=(i,)) for i in range(8)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=120)
+torch.cuda.synchronize()
+print(sum(t.is_alive() for t in threads), len(errors), errors[:1])
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=pathlib.Path(__file__).parents[1],
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "0 0 []"

@@ -552,7 +552,9 @@ def test_the_parallel_package_exports_the_jax_packages_names_but_the_multi_host_
 _TOOLS_MODULES = [
     "vizier_tpu_torch.tools", "vizier_tpu_torch.tools.obs_report",
     "vizier_tpu_torch.tools.profile_e2e", "vizier_tpu_torch.tools.warm_start_ab",
-    "vizier_tpu_torch.tools.surrogate_ab",
+    "vizier_tpu_torch.tools.surrogate_ab", "vizier_tpu_torch.tools.batching_ab",
+    "vizier_tpu_torch.tools.speculative_ab", "vizier_tpu_torch.tools.overload_ab",
+    "vizier_tpu_torch.tools.noise_robustness", "vizier_tpu_torch.tools.budget_policy_ab",
 ]
 
 
@@ -581,3 +583,37 @@ print(json.dumps(out))
 @pytest.mark.parametrize("module", _TOOLS_MODULES)
 def test_the_tools_load_no_jax_entry_point_or_optional_package(tools_imports, module):
     assert tools_imports[module] == []
+
+
+def test_the_serving_tools_run_without_grpc_or_protobuf_on_the_runtime_transport():
+    """The card's serving A/B phase: with grpc and protobuf blocked,
+    ``speculative_ab`` and ``overload_ab`` run through the runtime transport
+    (tiny sizes on the CPU; the hot-tenant scenario's GP computes trimmed),
+    ``batching_ab`` runs its classic arm, and neither module is loaded."""
+    code = """
+import contextlib, io, json, sys
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+import torch
+torch.set_num_threads(1)
+from vizier_tpu_torch.loadgen import models
+from vizier_tpu_torch.tools import batching_ab, overload_ab, speculative_ab
+hot = models.hot_tenant_config
+models.hot_tenant_config = lambda **kw: hot(**{"acquisition_evals": 50, "ard_restarts": 2,
+                                               "ard_maxiter": 3, **kw})
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    speculative_ab.main(["--trials", "6", "--seeds", "1", "--warmup", "2", "--dim", "2",
+                         "--acquisition-evals", "50", "--transport", "runtime", "--device", "cpu"])
+    batching_ab.main(["--studies", "2", "--rounds", "1", "--warmup-rounds", "0", "--dim", "2",
+                      "--max-evals", "50", "--ard-maxiter", "3", "--ard-restarts", "2",
+                      "--device", "cpu"])
+    overload = overload_ab.run(overload_ab.parser().parse_args(
+        ["--studies", "4", "--transport", "runtime", "--device", "cpu"]))
+spec, batching = (json.loads(line) for line in out.getvalue().splitlines())
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] == "grpc" or m.startswith("google.protobuf")))
+print(json.dumps([loaded, spec["bit_identical_trajectories"], batching["batching_on"]["suggestions"],
+                  overload["arms"]["admission_on"]["lost_studies"], overload["bit_identity"]["identical"]]))
+"""
+    assert json.loads(_fresh(code)) == [[], "1/1", 2, [], True]

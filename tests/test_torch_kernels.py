@@ -461,3 +461,41 @@ def test_chip_smoke_rebuilds_each_recorded_launch_layout(name):
     for m in masks[:2]:
         if m is not None:
             assert bool(m.any(dim=-1).all()) and not bool(m.all())
+
+
+def test_concurrent_first_launches_build_the_kernel_library_once(monkeypatch):
+    """Threads whose first launches meet call ``native.library()`` at once:
+    one runs the build at a time (nvcc writes one partial file per process)."""
+    import threading
+    import time
+    import types
+
+    from vizier_tpu_torch.ops import native
+
+    inside, most = [0], [0]
+    lock = threading.Lock()
+
+    def build(source, build_dir):
+        del source, build_dir
+        with lock:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        time.sleep(0.05)
+        with lock:
+            inside[0] -= 1
+        return types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
+            "matern52_bwd_num_blocks", "matern52_occupancy", "matern52_force_tile",
+            "matern52_ard_fwd", "matern52_ard_bwd")})
+
+    monkeypatch.setattr(native, "build", build)
+    native.library.cache_clear()
+    try:
+        threads = [threading.Thread(target=native.library) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert most[0] == 1
+    finally:
+        native.library.cache_clear()

@@ -34,6 +34,11 @@ _MAPPED: Dict[str, str] = {
     "tools/profile_e2e.py": "vizier_tpu_torch.tools.profile_e2e",
     "tools/warm_start_ab.py": "vizier_tpu_torch.tools.warm_start_ab",
     "tools/surrogate_ab.py": "vizier_tpu_torch.tools.surrogate_ab",
+    "tools/batching_ab.py": "vizier_tpu_torch.tools.batching_ab",
+    "tools/speculative_ab.py": "vizier_tpu_torch.tools.speculative_ab",
+    "tools/overload_ab.py": "vizier_tpu_torch.tools.overload_ab",
+    "tools/noise_robustness.py": "vizier_tpu_torch.tools.noise_robustness",
+    "tools/budget_policy_ab.py": "vizier_tpu_torch.tools.budget_policy_ab",
     "tools/soak.py": "vizier_tpu_torch.loadgen.soak",
     "tools/check_analysis.py": "vizier_tpu_torch.analysis.__main__",
     "regret_suite.py": "vizier_tpu_torch.benchmarks.regret",
@@ -53,11 +58,6 @@ _REDESIGNED: Dict[Tuple[str, str], Tuple[str, str]] = {
 # Script -> (ROADMAP item, reason), in the order ROADMAP's queue D ports them.
 _QUEUED: Dict[str, Tuple[str, str]] = {
     "bench.py": ("A1", "the port's benchmark cell, a benchmark PR of its own"),
-    "tools/batching_ab.py": ("D1", "the executor's batching on/off A/B"),
-    "tools/speculative_ab.py": ("D2", "the speculative plane's hit A/B"),
-    "tools/overload_ab.py": ("D3", "admission control under overload"),
-    "tools/noise_robustness.py": ("D4", "regret under label noise"),
-    "tools/budget_policy_ab.py": ("D5", "the acquisition budget policies' regret"),
     "tools/compute_tier_ab.py": ("D6", "the shared compute tier against per-replica Pythia"),
     "tools/chaos_ab.py": ("D7", "the fleet under injected faults"),
     "tools/service_throughput.py": (

@@ -699,17 +699,20 @@ class _RuntimeTarget:
     Pythia servicer's own order without protobuf (coalescing, speculative
     serve check, admission gate, breaker and deadline, the policy, the
     quasi-random fallback), with the service hop's latency observation and
-    recorder events. No replicas."""
+    recorder events. No replicas. ``runtime`` serves in place of one built
+    from the environment (a caller that arms its planes itself)."""
 
     supports_replicas = False
     replication_active = False
 
-    def __init__(self, scenario: models.Scenario, reliability, factory, device):
+    def __init__(self, scenario: Optional[models.Scenario], reliability, factory, device,
+                 runtime=None):
         from vizier_tpu_torch.serving import runtime as runtime_lib
 
         del scenario
         self._runtime_lib = runtime_lib
-        self.runtime = runtime_lib.ServingRuntime(reliability=reliability, device=device)
+        self.runtime = runtime or runtime_lib.ServingRuntime(
+            reliability=reliability, device=device)
         factory.bind_runtime(self.runtime)
         self._factory = factory
         self._studies: Dict[str, _RuntimeStudy] = {}

@@ -22,6 +22,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 _PACKAGE = pathlib.Path(__file__).resolve().parent.parent
@@ -99,10 +100,16 @@ def build_dir() -> pathlib.Path:
     return _build_dir
 
 
+# Threads whose first launches meet (concurrent suggests in a fresh process)
+# would run nvcc into the same partial file: one builds, the others load.
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
-    lib = build(_SOURCE, _build_dir)
+    with _BUILD_LOCK:
+        lib = build(_SOURCE, _build_dir)
     lib.matern52_bwd_num_blocks.argtypes = [_I] * 4
     lib.matern52_bwd_num_blocks.restype = _I
     # kernel (0 K1, 1 K2), B, N, M, symmetric; out: tile rows, cols, threads.
